@@ -1,0 +1,4 @@
+from sddmm_tpu_torch.utils.check import check_values, CheckResult
+from sddmm_tpu_torch.utils.timing import cuda_time_ms
+
+__all__ = ["check_values", "CheckResult", "cuda_time_ms"]

@@ -1,0 +1,98 @@
+"""Guards of the port: it never loads jax, never builds or runs a kernel
+without the CUDA toolchain, and never carries on silently on the CPU."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _python(code: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=str(ROOT), timeout=300)
+
+
+def test_import_does_not_load_jax():
+    res = _python(
+        "import sys\n"
+        "import sddmm_tpu_torch, sddmm_tpu_torch.ops, sddmm_tpu_torch.utils\n"
+        "import sddmm_tpu_torch.interop, sddmm_tpu_torch.reorder.autotune\n"
+        "import sddmm_tpu_torch.reorder.validate, sddmm_tpu_torch.data.io\n"
+        "assert 'jax' not in sys.modules, 'jax loaded'\n"
+        "assert 'sddmm_tpu' not in sys.modules, 'sddmm_tpu loaded'\n"
+        "print('clean')\n")
+    assert res.returncode == 0 and "clean" in res.stdout, res.stderr
+
+
+def test_no_jax_import_in_sources():
+    for path in (ROOT / "sddmm_tpu_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            assert not (s.startswith("import jax") or s.startswith("from jax")
+                        or s.startswith("from sddmm_tpu ")
+                        or s.startswith("from sddmm_tpu.")
+                        or s.startswith("import sddmm_tpu ")
+                        or s.startswith("import sddmm_tpu.")), (path, line)
+
+
+def test_kernel_load_raises_without_nvcc():
+    """Where there is no nvcc, loading the kernels raises RuntimeError: no
+    fallback to the plain versions."""
+    res = _python(
+        "import os\n"
+        "os.environ['PATH'] = '/nonexistent'\n"
+        "os.environ['CUDA_HOME'] = '/nonexistent'\n"
+        "from sddmm_tpu_torch import _kernels\n"
+        "try:\n"
+        "    _kernels.load()\n"
+        "except RuntimeError as e:\n"
+        "    print('raised:', e)\n")
+    assert res.returncode == 0 and "raised: nvcc not found" in res.stdout, (
+        res.stdout + res.stderr)
+
+
+def test_kernel_load_raises_here():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the kernels can be built")
+    from sddmm_tpu_torch import _kernels
+    if _kernels.lib_path().exists():
+        pytest.skip("a built kernel library is present")
+    with pytest.raises(RuntimeError):
+        _kernels.load()
+
+
+def test_library_name_tracks_sources():
+    from sddmm_tpu_torch import _kernels
+    p = _kernels.lib_path()
+    assert p.parent.name == "_build" and p.name.startswith("libsddmm_kernels_")
+    assert p == _kernels.lib_path()
+    assert {s.name for s in _kernels._sources()} == {"tile_dot.cu",
+                                                     "gather_dot.cu"}
+
+
+def test_cuda_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from sddmm_tpu_torch import HybridSDDMM
+    from sddmm_tpu_torch.data import generate
+    from sddmm_tpu_torch.reorder.autotune import from_params
+    csr = generate.block_clustered(8, 8, block_prob=0.3, seed=1)
+    packed = from_params(csr, 128, alpha=0.3, delta=0.05).packed
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HybridSDDMM(packed, device="cuda")
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=str(ROOT))
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
