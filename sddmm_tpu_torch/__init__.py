@@ -9,23 +9,28 @@ find:
   ``ops.reference`` are copies of the JAX package's host layers (numpy plus
   one C++ file), so that both packages build the identical packing.
 - ``ops.tile_dot`` is the port of the Pallas tile-dot kernel
-  (``csrc/tile_dot.cu``); ``ops.hybrid`` holds ``HybridSDDMM`` and the
-  residual gather-dot kernel (``csrc/gather_dot.cu``).
+  (``csrc/tile_dot.cu``, one instance per compute mode); ``ops.hybrid``
+  holds ``HybridSDDMM`` and the residual gather-dot kernel
+  (``csrc/gather_dot.cu``); ``ops.dense`` the dense class
+  (``DenseSDDMM``) on the tile kernel; ``ops.csr_sddmm`` the CSR baseline
+  on the gather-dot kernel.
 - ``_kernels`` builds ``csrc/*.cu`` with nvcc for ``sm_90a`` at first use
   and binds them with ctypes.
 - ``interop`` carries a ``PackedMatrix`` and the operands across from the
   JAX package, for the parity tests.
 
-The hybrid path runs the G=1 / C=1 / no-slab class of configurations; see
-ROADMAP.md for what comes next.
+Every committed ``results/tuned_configs.json`` configuration runs (any G
+and C, hub and hot-row slabs, the five compute modes, the dense class);
+see ROADMAP.md for what comes next.
 """
 
 from sddmm_tpu_torch import config as config
 from sddmm_tpu_torch.data.sparse import CSR, COO
 from sddmm_tpu_torch.ops.reference import sddmm_reference
+from sddmm_tpu_torch.ops.csr_sddmm import csr_sddmm
 from sddmm_tpu_torch.reorder.bsmr import BSMR
 from sddmm_tpu_torch.reorder.pack import PackedMatrix, pack
-from sddmm_tpu_torch.ops.hybrid import HybridSDDMM
+from sddmm_tpu_torch.ops.hybrid import sddmm_hybrid, HybridSDDMM
 
 __version__ = "0.1.0"
 
@@ -36,6 +41,8 @@ __all__ = [
     "PackedMatrix",
     "pack",
     "sddmm_reference",
+    "csr_sddmm",
+    "sddmm_hybrid",
     "HybridSDDMM",
     "config",
     "__version__",

@@ -1,10 +1,15 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one
-shared library with a plain C interface, under ``sddmm_tpu_torch/_build/``
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and links them into one shared
+library with a plain C interface, under ``sddmm_tpu_torch/_build/``
 (git-ignored).  The library's name carries a hash of the sources and flags,
 so an edited source is rebuilt and a stale build is never loaded.  It is
 bound with ctypes: pointers and the stream are passed as ``c_void_p``.
+
+Every C entry point launches one kernel instance.  ``launch`` calls it,
+raises on a launch error and adds one to ``launches[entry point]``: the
+count a run reads to show that a path went through the kernels.
 
 Any failure (no nvcc, a compile error, a load error) raises
 ``RuntimeError`` with the compiler's output; nothing here falls back to
@@ -13,6 +18,7 @@ the plain PyTorch versions.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -26,13 +32,16 @@ _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 #: nvcc's output of the build this process made (``-Xptxas -v``: registers,
 #: shared memory and spills per kernel); empty if the library was cached
 build_log = ""
+#: launches per kernel instance (C entry point name -> count); added to by
+#: ``launch`` only, so a CPU tensor's plain version never counts
+launches: collections.Counter = collections.Counter()
 
 
 def _sources() -> list:
@@ -61,26 +70,62 @@ def lib_path() -> Path:
     return _BUILD / f"libsddmm_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list) -> str:
+    """Run the commands at once; raise with their output if any fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {p.returncode}): "
+                               f"{' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 def _build(out: Path) -> str:
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {res.returncode}): {' '.join(cmd)}\n"
-            f"{res.stdout}{res.stderr}")
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
+    try:
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                    for src, obj in zip(_sources(), objs)])
+        log += _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                      *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
-    return res.stdout + res.stderr
+    return log
+
+
+def gather_dot_entry(adt, bdt) -> str:
+    """C entry point of the gather-dot instance for A and B stored in the
+    torch dtypes ``adt`` and ``bdt``."""
+    return (f"sddmm_gather_dot_{str(adt).removeprefix('torch.')}_"
+            f"{str(bdt).removeprefix('torch.')}")
+
+
+def _entry_points() -> dict:
+    """C entry point name -> ctypes argtypes, for every kernel instance:
+    the tile dot per compute mode, the gather-dot per (A, B) storage pair
+    of the modes."""
+    from sddmm_tpu_torch.ops.tile_dot import MODES, STORAGE
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    tile = [p, i64, i64, p, i64, i64, p, i64, i64, i64, i32, i32, i32, i32,
+            p]
+    gather = [p, i64, p, i64, i64, p, p, p, p, i64, i32, i32, p]
+    eps = {f"sddmm_tile_dot_{m}": tile for m in MODES}
+    eps.update({gather_dot_entry(*pair): gather for pair in STORAGE.values()})
+    return eps
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.sddmm_tile_dot_bf16x3.restype = i32
-    lib.sddmm_tile_dot_bf16x3.argtypes = [p, p, p, i64, i32, i32, i32, p]
-    lib.sddmm_gather_dot.restype = i32
-    lib.sddmm_gather_dot.argtypes = [p, p, p, p, p, i64, i32, p]
+    for name, argtypes in _entry_points().items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
 
 
 def load() -> ctypes.CDLL:
@@ -101,8 +146,12 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def check(rc: int, name: str) -> None:
-    """Raise if a kernel's C entry point reported a launch error."""
+def launch(name: str, *args) -> None:
+    """Call the C entry point ``name`` (one kernel instance) with ``args``
+    (ctypes-convertible, stream last); raise if it reports a launch error,
+    else count the launch."""
+    rc = getattr(load(), name)(*args)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with "
                            f"cudaError {rc}")
+    launches[name] += 1

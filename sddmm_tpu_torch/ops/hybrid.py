@@ -1,37 +1,46 @@
 """Hybrid dense-tile + sparse-residual SDDMM on the card.
 
 Counterpart of ``sddmm_tpu/ops/hybrid.py`` (``HybridSDDMM``,
-``_hybrid_packed_jit``, ``build_bt_phys``, ``to_csr_order``) for the
-configurations the port runs so far: gather-group size G = 1, one K chunk
-(C = 1), no hub slab, no hot-row slab, ``compute_dtype`` ``"tf32"`` (and
-``"float32"`` on CPU tensors, for the parity tests), ``a_layout`` ``"rows"``
-or ``"panels"``.  Everything else raises ``NotImplementedError`` naming the
-ROADMAP Queue 1 item that will bring it.
+``_hybrid_packed_jit``, ``device_bt_phys``, ``sddmm_hybrid``) for every
+packing the JAX package builds: any gather-group size G, any number C of K
+chunks, the hub slab and the hot-row slab, the five compute modes
+(``tile_dot.MODES``) and ``a_layout`` ``"rows"`` or ``"panels"``.  Device
+row clustering (``method="device"``) is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP item (``check_slice``).
 
 The packed flat vector has the JAX package's layout exactly:
-``[super ++ quad ++ pair ++ group segments ++ residual]``, each segment
-run-major ``(n_runs, R, b*128)``.  It is allocated once per call and each
-segment's tile dot writes straight into its view of it.  Per segment:
+``[super ++ quad ++ pair ++ group segments ++ hub ++ hot-row slab ++
+residual]``.  It is allocated once per call, and every tile dot writes
+straight into its view of it.  ``tile_calls`` yields those tile dots:
 
-- the run rows are every b-th row of the family's row array (or, under
-  ``a_layout="panels"``, the run's R/16 consecutive A panels, clamped to
-  the zero sentinel panel), gathered from A with torch indexing;
-- the b*128 B^T rows are gathered by group id;
-- ``tile_dot_bf16x3`` (the CUDA port of the Pallas tile dot) computes the
-  ``(n_runs, R, b*128)`` block.  In ``"tf32"`` mode every dense tile goes
-  through it, whether or not ``use_pallas`` is set: XLA's
-  ``Precision.HIGH`` is the same 3-pass bf16 product.
+- per dense (family, bucket) segment, the run rows (every b-th row of the
+  family's row array, or under ``a_layout="panels"`` the run's R/16
+  consecutive A panels, clamped to the zero sentinel panel) are gathered
+  from A once, and per K chunk c the ``b*128/G`` grouped B^T rows are
+  gathered by group id.  A gathered block ``(n, b*128/G, G*kc)`` is
+  row-major, so it *is* ``(n, b*128, kc)`` with lane ``lgrp*G + member``,
+  the packed lane order: no relayout, at any G;
+- the hub slab is ``a_pad[:m]`` against the contiguous ``bt_phys[c, :H/G]``
+  viewed as ``(H, kc)``, one tile dot with ``nT = 1``;
+- the hot-row slab is ``a_pad[rowslab_rows]`` against all group rows
+  ``bt_phys[c, :NG]`` viewed as ``(NG*G, kc)``; the slot of a hot entry is
+  ``hot_index*NG*G + rank``;
+- chunk c > 0 reads a column view of the same A block and adds into the
+  same output (``accumulate``).
 
-The residual is one exact fp32 dot per entry (``residual_gather_dot``, a
-CUDA kernel on the card).  Slots that are not nnz hold garbage, as in the
-reference; compare real slots only, or CSR order.  CSR order is one gather,
-``flat[inv_idx]``.
+Each tile dot runs the mode's instance of the CUDA tile kernel
+(``tile_dot.tile_dot``), whether or not ``use_pallas`` is set: XLA's
+``Precision.HIGH`` is the same 3-pass bf16 product as the Pallas kernel.
+The residual is one exact fp32 dot per entry over all chunks
+(``residual_gather_dot``, a CUDA kernel on the card).  Slots that are not
+nnz hold garbage, as in the reference; compare real slots only, or CSR
+order.  CSR order is one gather, ``flat[inv_idx]``.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -39,134 +48,158 @@ import torch
 
 from sddmm_tpu_torch import _kernels, config
 from sddmm_tpu_torch.data.sparse import CSR
-from sddmm_tpu_torch.ops.tile_dot import (full_fp32_matmul,
-                                          tile_dot_bf16x3,
-                                          tile_dot_bf16x3_plain)
+from sddmm_tpu_torch.ops.tile_dot import STORAGE, tile_dot
 from sddmm_tpu_torch.reorder.bsmr import BSMR
 from sddmm_tpu_torch.reorder.pack import GROUP_LANES, PackedMatrix, pack
 
 PANEL_ROWS = config.ROW_PANEL_SIZE  # 16-row panels (pack.py carve unit)
-COMPUTE_DTYPES = ("tf32", "float32")
+COMPUTE_DTYPES = tuple(STORAGE)
 _FAMILIES = ("super", "quad", "pair", "group")
+#: (A, B) storage pairs the gather-dot takes: those of the compute modes
+GATHER_STORAGE = tuple(dict.fromkeys(STORAGE.values()))
 
 
-def residual_gather_dot_plain(a_pad: torch.Tensor, bt_rows: torch.Tensor,
-                              rows: torch.Tensor,
-                              gids: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: index, then an fp32 row-wise dot."""
-    return (a_pad[rows.long()] * bt_rows[gids.long()]).sum(dim=-1)
-
-
-def residual_gather_dot(a_pad: torch.Tensor, bt_rows: torch.Tensor,
-                        rows: torch.Tensor, gids: torch.Tensor,
-                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``out[i] = a_pad[rows[i]] . bt_rows[gids[i]]`` in exact fp32.
-
-    a_pad (M+1, K) and bt_rows (NG+1, K) float32 contiguous; rows and gids
-    (nR,) int32.  CUDA tensors go through the gather-dot kernel
-    (``csrc/gather_dot.cu``) or raise; CPU tensors through
-    ``residual_gather_dot_plain``."""
-    if a_pad.dim() != 2 or bt_rows.dim() != 2 \
-            or a_pad.shape[1] != bt_rows.shape[1]:
+def _gather_shape(a_pad, bt_phys, member):
+    """(C, G, kc) of a gather-dot call, checked."""
+    if a_pad.dim() != 2 or bt_phys.dim() != 3:
+        raise ValueError(f"gather_dot: want a_pad (M+1, K) and bt_phys "
+                         f"(C, NG+1, G*kc), got {tuple(a_pad.shape)} and "
+                         f"{tuple(bt_phys.shape)}")
+    C, k = bt_phys.shape[0], a_pad.shape[1]
+    kc = k // C if C else 0
+    if kc < 1 or kc * C != k or bt_phys.shape[2] % kc:
         raise ValueError(f"gather_dot: a_pad {tuple(a_pad.shape)} and "
-                         f"bt_rows {tuple(bt_rows.shape)} disagree")
+                         f"bt_phys {tuple(bt_phys.shape)} disagree on K")
+    G = bt_phys.shape[2] // kc
+    if G > 1 and member is None:
+        raise ValueError(f"gather_dot: G={G} needs member")
+    return C, G, kc
+
+
+def residual_gather_dot_plain(a_pad: torch.Tensor, bt_phys: torch.Tensor,
+                              rows: torch.Tensor, gids: torch.Tensor,
+                              member: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Plain PyTorch version, the JAX residual's formula: per chunk, take
+    the group rows, select the member with a one-hot and take the fp32
+    row-wise dot.  A 2-D ``bt_phys`` is one chunk of G = 1."""
+    if bt_phys.dim() == 2:
+        bt_phys = bt_phys[None]
+    C, G, kc = _gather_shape(a_pad, bt_phys, member)
     n = rows.shape[0]
-    if rows.shape != (n,) or gids.shape != (n,):
-        raise ValueError("gather_dot: rows and gids must be (nR,)")
-    tensors = [("a_pad", a_pad, torch.float32),
-               ("bt_rows", bt_rows, torch.float32),
-               ("rows", rows, torch.int32), ("gids", gids, torch.int32)]
+    a_res = a_pad[rows.long()]
+    res = torch.zeros(n, dtype=torch.float32, device=a_pad.device)
+    if G > 1:
+        onehot = (member.long()[:, None]
+                  == torch.arange(G, device=a_pad.device)[None, :])
+    for c in range(C):
+        br = bt_phys[c][gids.long()]
+        if G > 1:
+            br = (br.reshape(n, G, kc).to(torch.float32)
+                  * onehot[:, :, None]).sum(dim=1)
+        a_r = a_res[:, c * kc:(c + 1) * kc]
+        res = res + (a_r.to(torch.float32)
+                     * br.to(torch.float32)).sum(dim=-1)
+    return res
+
+
+def residual_gather_dot(a_pad: torch.Tensor, bt_phys: torch.Tensor,
+                        rows: torch.Tensor, gids: torch.Tensor,
+                        member: Optional[torch.Tensor] = None,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out[i] = sum_c a_pad[rows[i], c*kc:(c+1)*kc] .
+    bt_phys[c, gids[i], member[i]*kc:(member[i]+1)*kc]`` in exact fp32.
+
+    a_pad (M+1, C*kc), last dimension contiguous; bt_phys (C, NG+1, G*kc)
+    contiguous (a 2-D (NG+1, K) is one chunk of G = 1); the two stored as
+    one of the ``GATHER_STORAGE`` pairs (fp32/fp32, fp32/bf16, fp16/fp16,
+    bf16/bf16).  rows, gids and member (nR,) int32 and in range
+    (the packing guarantees it); member None means G = 1.  CUDA tensors go
+    through the gather-dot kernel (``csrc/gather_dot.cu``) or raise; CPU
+    tensors through ``residual_gather_dot_plain``."""
+    if bt_phys.dim() == 2:
+        bt_phys = bt_phys[None]
+    C, G, kc = _gather_shape(a_pad, bt_phys, member)
+    n = rows.shape[0]
+    tensors = [("rows", rows, torch.int32), ("gids", gids, torch.int32)]
+    if member is not None:
+        tensors.append(("member", member, torch.int32))
     if out is not None:
         tensors.append(("out", out, torch.float32))
-        if out.shape != (n,):
-            raise ValueError(f"gather_dot: out {tuple(out.shape)} != ({n},)")
     for name, t, dt in tensors:
+        if t.shape != (n,):
+            raise ValueError(f"gather_dot: {name} {tuple(t.shape)} != ({n},)")
         if t.dtype != dt:
             raise TypeError(f"gather_dot: {name} is {t.dtype}, want {dt}")
-        if not t.is_contiguous():
-            raise ValueError(f"gather_dot: {name} is not contiguous")
+    if (a_pad.dtype, bt_phys.dtype) not in GATHER_STORAGE:
+        raise TypeError(f"gather_dot: a_pad/bt_phys are {a_pad.dtype}/"
+                        f"{bt_phys.dtype}, want one of {GATHER_STORAGE}")
+    for name, t in [("a_pad", a_pad), ("bt_phys", bt_phys)] + [
+            (name, t) for name, t, _ in tensors]:
         if t.device != a_pad.device:
             raise ValueError(f"gather_dot: {name} is on {t.device}, a_pad "
                              f"on {a_pad.device}")
+    if a_pad.stride(1) != 1 or not all(
+            t.is_contiguous() for _, t, _ in tensors) \
+            or not bt_phys.is_contiguous():
+        raise ValueError("gather_dot: a_pad's rows, bt_phys and the index "
+                         "and output vectors must be contiguous")
     if a_pad.device.type == "cpu":
-        res = residual_gather_dot_plain(a_pad, bt_rows, rows, gids)
+        res = residual_gather_dot_plain(a_pad, bt_phys, rows, gids, member)
         if out is None:
             return res
-        out.copy_(res)
-        return out
+        return out.copy_(res)
     if a_pad.device.type != "cuda":
         raise ValueError(f"gather_dot: unsupported device {a_pad.device}")
     if out is None:
         out = torch.empty((n,), dtype=torch.float32, device=a_pad.device)
     if n == 0:
         return out
-    lib = _kernels.load()
     with torch.cuda.device(a_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.sddmm_gather_dot(
-            ctypes.c_void_p(a_pad.data_ptr()),
-            ctypes.c_void_p(bt_rows.data_ptr()),
-            ctypes.c_void_p(rows.data_ptr()),
-            ctypes.c_void_p(gids.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), n, a_pad.shape[1],
-            ctypes.c_void_p(stream))
-    _kernels.check(rc, "residual_gather_dot")
-    residual_gather_dot.launches += 1
+        _kernels.launch(_kernels.gather_dot_entry(a_pad.dtype, bt_phys.dtype),
+                        a_pad.data_ptr(), a_pad.stride(0),
+                        bt_phys.data_ptr(), bt_phys.stride(0),
+                        bt_phys.stride(1), rows.data_ptr(), gids.data_ptr(),
+                        member.data_ptr() if member is not None else None,
+                        out.data_ptr(), n, C, kc, stream)
     return out
 
 
-#: kernel launches made by ``residual_gather_dot`` (CUDA path only)
-residual_gather_dot.launches = 0
-
-
-def build_bt_phys(bt_pad: np.ndarray, packed: PackedMatrix,
-                  k_chunks: int = 1) -> np.ndarray:
-    """Host-side grouped/chunked B^T layout: (C, NG+1, G*Kc), as the JAX
-    package's ``build_bt_phys``.
-
-    bt_pad: (N+1, K) with zero sentinel row.  Physical group row g of
-    chunk c holds [K-chunk c of col_order[g*G+0], ..., of col_order[g*G+
-    G-1]]; the sentinel group row NG is all zeros (col_order sentinels
-    point at bt_pad's zero row N).
-    """
-    G, NG = packed.group_size, packed.num_col_groups
-    n_sent = bt_pad.shape[0] - 1
+def device_bt_phys(bt_pad: torch.Tensor, col_order: torch.Tensor, g: int,
+                   ng: int, k_chunks: int = 1) -> torch.Tensor:
+    """Grouped/chunked B^T layout (C, NG+1, G*Kc) from the padded (N+1, K)
+    B^T on its device, as the JAX package's ``device_bt_phys``: physical
+    group row j of chunk c holds [K-chunk c of col_order[j*G+0], ..., of
+    col_order[j*G+G-1]]; the sentinel group row NG is zero.  ``col_order``
+    (NG*G,) int64 with its sentinels clamped to bt_pad's zero row N."""
     k = bt_pad.shape[1]
-    C = int(k_chunks)
-    kc = k // C
-    assert kc * C == k, f"K={k} not divisible by k_chunks={C}"
-    order = np.where(packed.col_order < n_sent, packed.col_order, n_sent)
-    arr = bt_pad[order]                              # (NG*G, K)
-    arr = arr.reshape(NG, G, C, kc).transpose(2, 0, 1, 3)
-    arr = np.ascontiguousarray(arr.reshape(C, NG, G * kc))
-    sent = np.zeros((C, 1, G * kc), dtype=arr.dtype)
-    return np.concatenate([arr, sent], axis=1)
+    kc = k // k_chunks
+    if kc * k_chunks != k:
+        raise ValueError(f"K={k} not divisible by k_chunks={k_chunks}")
+    arr = bt_pad[col_order]                              # (NG*G, K)
+    arr = arr.reshape(ng, g, k_chunks, kc).permute(2, 0, 1, 3)
+    arr = arr.reshape(k_chunks, ng, g * kc)
+    sent = torch.zeros((k_chunks, 1, g * kc), dtype=arr.dtype,
+                       device=arr.device)
+    return torch.cat([arr, sent], dim=1)
 
 
-def check_slice(packed: PackedMatrix, compute_dtype: str,
-                k_chunks: int) -> None:
-    """Raise NotImplementedError for a configuration the port does not run
-    yet, naming the ROADMAP Queue 1 item that brings it."""
-    todo = []
-    if packed.group_size != 1:
-        todo.append(f"gather groups G={packed.group_size} (ROADMAP Queue 1: "
-                    "'G>1 and C>1')")
-    if int(k_chunks) != 1:
-        todo.append(f"K chunks C={k_chunks} (ROADMAP Queue 1: "
-                    "'G>1 and C>1')")
-    if packed.hub_cols:
-        todo.append(f"hub slab H={packed.hub_cols} (ROADMAP Queue 1: "
-                    "'Hub and hot-row slabs')")
-    if packed.rowslab_rows is not None:
-        todo.append("hot-row slab (ROADMAP Queue 1: 'Hub and hot-row "
-                    "slabs')")
+def check_slice(compute_dtype: str, k_chunks: int,
+                method: str = "auto") -> None:
+    """Raise ValueError for an unknown compute mode or chunk count, and
+    NotImplementedError for what the port does not run yet, naming the
+    ROADMAP Queue 1 item that brings it."""
     if compute_dtype not in COMPUTE_DTYPES:
-        todo.append(f"compute_dtype {compute_dtype!r} (ROADMAP Queue 1: "
-                    "'Other compute modes')")
-    if todo:
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}; one of "
+                         f"{COMPUTE_DTYPES}")
+    if int(k_chunks) < 1:
+        raise ValueError(f"k_chunks={k_chunks} must be >= 1")
+    if method == "device":
         raise NotImplementedError(
-            "sddmm_tpu_torch.HybridSDDMM does not run " + "; ".join(todo)
-            + " yet")
+            "sddmm_tpu_torch does not run method='device' row clustering "
+            "yet (ROADMAP Queue 1: 'Device clustering'); use 'auto', "
+            "'greedy' or 'batched'")
 
 
 @dataclasses.dataclass
@@ -177,20 +210,22 @@ class _Segment:
     rows: int            # R, the run height
     lanes: int           # b*128
     a_idx: torch.Tensor  # (n_runs, R) A rows, or (n_runs, R/16) A panels
-    gids: torch.Tensor   # (n_runs, b*128) grouped-B^T rows
+    gids: torch.Tensor   # (n_runs, b*128/G) grouped-B^T rows
 
     @property
     def size(self) -> int:
         return self.n_runs * self.rows * self.lanes
 
 
-def _device(device) -> torch.device:
+def check_device(device) -> torch.device:
+    """``device`` as a torch.device: the CPU, or a CUDA card that is
+    there."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"HybridSDDMM(device={str(device)!r}): CUDA is not "
-                           "available (torch.cuda.is_available() is False)")
+        raise RuntimeError(f"device {str(device)!r}: CUDA is not available "
+                           "(torch.cuda.is_available() is False)")
     if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"HybridSDDMM: unsupported device {dev}")
+        raise ValueError(f"unsupported device {dev}")
     return dev
 
 
@@ -206,23 +241,18 @@ class HybridSDDMM:
     def __init__(self, packed: PackedMatrix, compute_dtype: str = "tf32",
                  k_chunks: int = 1, use_pallas: bool = False,
                  a_layout: str = "rows", device="cpu"):
-        check_slice(packed, compute_dtype, k_chunks)
+        check_slice(compute_dtype, k_chunks)
         if a_layout not in ("rows", "panels"):
             raise ValueError(f"unknown a_layout {a_layout!r}")
         if a_layout == "panels" and packed.cont_panel_off is None:
             raise ValueError("a_layout='panels' needs container topology "
                              "(packed.cont_panel_off)")
-        self.device = _device(device)
-        if self.device.type == "cuda" and compute_dtype != "tf32":
-            raise NotImplementedError(
-                f"compute_dtype {compute_dtype!r} on the card (ROADMAP "
-                "Queue 1: 'Other compute modes'); it runs on CPU tensors "
-                "only")
+        self.device = check_device(device)
         self.packed = packed
         self.compute_dtype = compute_dtype
         self.k_chunks = int(k_chunks)
-        # accepted for config compatibility: every tf32 dense tile goes
-        # through the tile-dot kernel either way
+        # accepted for config compatibility: every dense tile goes through
+        # the tile kernel either way
         self.use_pallas = bool(use_pallas)
         self.a_layout = a_layout
 
@@ -230,15 +260,16 @@ class HybridSDDMM:
             return torch.as_tensor(np.asarray(x), dtype=dtype,
                                    device=self.device)
 
+        G = packed.group_size
         if a_layout == "panels":
             # containers span consecutive panels (the DP carve), so run
             # i's A block is panels [pst[i], pst[i] + R/16), clamped to
             # the zero sentinel panel
             first_panel = packed.cont_panel_ids[packed.cont_panel_off[:-1]]
-            self._a_panel_gather = np.where(
-                packed.a_row_gather < packed.m, packed.a_row_gather,
-                packed.m)
-            sentinel_panel = len(self._a_panel_gather) // PANEL_ROWS
+            a_panel_gather = np.where(packed.a_row_gather < packed.m,
+                                      packed.a_row_gather, packed.m)
+            self._a_panel_gather = put(a_panel_gather)
+            sentinel_panel = len(a_panel_gather) // PANEL_ROWS
         self._segments = []
         offset = 0
         for fam in _FAMILIES:
@@ -259,18 +290,30 @@ class HybridSDDMM:
                     a_idx = rows_arr[start:start + n_runs * b:b]
                 run_off += n_runs
                 gids = gids_arr[start:start + n_runs * b].reshape(
-                    n_runs, b * GROUP_LANES)
+                    n_runs, b * GROUP_LANES // G)
                 seg = _Segment(offset, n_runs, R, b * GROUP_LANES,
                                put(a_idx), put(gids))
                 self._segments.append(seg)
                 offset += seg.size
+        self._hub_offset = offset
+        offset += packed.m * packed.hub_cols
+        self._rowslab_offset = offset
+        self._rowslab_rows = (put(packed.rowslab_rows)
+                              if packed.rowslab_rows is not None else None)
+        offset += packed.rowslab_nrows * packed.rowslab_width
         self._res_offset = offset
         self._res_rows = put(packed.res_rows, torch.int32)
         self._res_gids = put(packed.res_gids, torch.int32)
+        # at G = 1 every member is 0: the kernel skips the select
+        self._res_member = (put(packed.res_member, torch.int32) if G > 1
+                            else None)
         if offset + len(packed.res_rows) != packed.packed_size:
             raise ValueError(
-                f"packing layout mismatch: segments {offset} + residual "
-                f"{len(packed.res_rows)} != packed_size {packed.packed_size}")
+                f"packing layout mismatch: segments, slabs {offset} + "
+                f"residual {len(packed.res_rows)} != packed_size "
+                f"{packed.packed_size}")
+        self._col_order = put(np.where(packed.col_order < packed.n,
+                                       packed.col_order, packed.n))
         self._inv_idx = (put(packed.inv_idx)
                          if packed.inv_idx is not None else None)
         self._packed_rows = (put(packed.packed_rows)
@@ -291,96 +334,156 @@ class HybridSDDMM:
         """(F,) original col id per packed slot (sentinel = n)."""
         return self._packed_cols
 
-    def prepare_operands(self, a, b):
-        """numpy A (M, K) and B (K, N) -> the runner's operands on its
-        device: ``(a_pad, bt_phys)``, with ``a_pad`` the pair
-        ``(a_pad, a_panels)`` under ``a_layout="panels"``."""
-        a = np.asarray(a, dtype=np.float32)
-        bt = np.ascontiguousarray(np.asarray(b, dtype=np.float32).T)
-        a_pad = np.concatenate([a, np.zeros((1, a.shape[1]), a.dtype)])
-        bt_pad = np.concatenate([bt, np.zeros((1, bt.shape[1]), bt.dtype)])
-        bt_phys = build_bt_phys(bt_pad, self.packed, self.k_chunks)
+    @functools.cached_property
+    def is_identity_layout(self) -> bool:
+        """True when bt_phys[0] is exactly bt_pad (G=1, C=1, no column
+        clustering): only then may a caller pass a plain (N+1, K) B^T."""
+        p = self.packed
+        return (p.group_size == 1 and self.k_chunks == 1
+                and bool(np.array_equal(p.col_order,
+                                        np.arange(p.n, dtype=np.int64))))
 
-        def put(x):
-            return torch.as_tensor(np.ascontiguousarray(x),
-                                   device=self.device)
-
-        a_dev = put(a_pad)
+    def device_prepare(self, a_pad: torch.Tensor, bt_pad: torch.Tensor):
+        """Padded A (M+1, K) and B^T (N+1, K) already on the runner's
+        device -> the runner's operands ``(a_pad, bt_phys)``, in the mode's
+        storage dtypes (cast once here, not on every call); ``a_pad`` is
+        the pair ``(a_pad, a_panels)`` under ``a_layout="panels"``."""
+        adt, bdt = STORAGE[self.compute_dtype]
+        a_pad = a_pad.to(adt)
+        bt_pad = bt_pad.to(bdt)
+        a_ops = a_pad
         if self.a_layout == "panels":
             k = a_pad.shape[1]
-            ap = a_pad[self._a_panel_gather]
-            ap = np.concatenate([ap.reshape(-1, PANEL_ROWS, k),
-                                 np.zeros((1, PANEL_ROWS, k), a_pad.dtype)])
-            a_dev = (a_dev, put(ap))
-        return a_dev, put(bt_phys)
+            ap = a_pad[self._a_panel_gather].reshape(-1, PANEL_ROWS, k)
+            ap = torch.cat([ap, torch.zeros((1, PANEL_ROWS, k), dtype=adt,
+                                            device=ap.device)])
+            a_ops = (a_pad, ap)
+        if self.is_identity_layout:
+            return a_ops, bt_pad[None]
+        p = self.packed
+        return a_ops, device_bt_phys(bt_pad, self._col_order, p.group_size,
+                                     p.num_col_groups, self.k_chunks)
 
-    def __call__(self, a, b, order: str = "csr"):
+    def prepare_operands(self, a, b=None, bt=None):
+        """numpy A (M, K) and B (K, N), or B^T (N, K) as ``bt`` -> the
+        runner's operands on its device (see ``device_prepare``)."""
+        a = np.asarray(a, dtype=np.float32)
+        bt = (np.asarray(b, dtype=np.float32).T if bt is None
+              else np.asarray(bt, dtype=np.float32))
+
+        def pad(x):
+            x = torch.as_tensor(np.ascontiguousarray(x), device=self.device)
+            return torch.cat([x, x.new_zeros((1, x.shape[1]))])
+
+        return self.device_prepare(pad(a), pad(bt))
+
+    def __call__(self, a, b=None, bt=None, order: str = "csr"):
         """Host convenience: numpy in, CSR order out by default."""
-        a_ops, bt_phys = self.prepare_operands(a, b)
+        a_ops, bt_phys = self.prepare_operands(a, b=b, bt=bt)
         return self.run_padded(a_ops, bt_phys, order=order)
 
-    def _dot(self, a_run, bg, out, plain):
-        if self.compute_dtype == "tf32":
-            if plain:
-                return out.copy_(tile_dot_bf16x3_plain(a_run, bg))
-            return tile_dot_bf16x3(a_run, bg, out=out)
-        # "float32": exact fp32, on CPU tensors only (checked in __init__)
-        with full_fp32_matmul():
-            return torch.bmm(a_run, bg.transpose(1, 2), out=out)
-
     def _operands(self, a_ops, bt_phys: torch.Tensor):
-        """(a_pad, a_panels or None, bt_rows) from run_padded's operands."""
+        """(a_pad, a_panels or None, bt_phys, kc) from run_padded's
+        operands, in the mode's storage dtypes."""
         if isinstance(a_ops, (tuple, list)):
-            a_pad, a_panels = a_ops
+            # a rows-layout runner given panels operands ignores the
+            # relayout, as the JAX runner does
+            a_pad = a_ops[0]
+            a_panels = a_ops[1] if self.a_layout == "panels" else None
+        elif self.a_layout == "panels":
+            raise ValueError("a_layout='panels' operands must come from "
+                             "prepare_operands/device_prepare (need the "
+                             "panel-major A)")
         else:
             a_pad, a_panels = a_ops, None
-        if self.a_layout == "panels" and a_panels is None:
-            raise ValueError("a_layout='panels' operands must come from "
-                             "prepare_operands (need the panel-major A)")
-        if bt_phys.dim() == 3:
-            if bt_phys.shape[0] != 1:
-                raise NotImplementedError("K chunks C>1 (ROADMAP Queue 1: "
-                                          "'G>1 and C>1')")
-            bt_phys = bt_phys[0]
-        return a_pad, a_panels, bt_phys
+        if bt_phys.dim() == 2:
+            if not self.is_identity_layout:
+                raise ValueError(
+                    "2-D bt operand requires identity layout; use "
+                    "prepare_operands/device_prepare for grouped packing")
+            bt_phys = bt_phys[None]
+        p = self.packed
+        k, C = a_pad.shape[1], bt_phys.shape[0]
+        kc = k // C if C else 0
+        if (bt_phys.dim() != 3 or kc < 1 or kc * C != k
+                or bt_phys.shape[1:] != (p.num_col_groups + 1,
+                                         p.group_size * kc)):
+            raise ValueError(f"bt_phys {tuple(bt_phys.shape)} does not fit "
+                             f"a_pad {tuple(a_pad.shape)} and this packing "
+                             f"(NG={p.num_col_groups}, G={p.group_size})")
+        adt, bdt = STORAGE[self.compute_dtype]
+        a_pad, bt_phys = a_pad.to(adt), bt_phys.to(bdt)
+        if a_panels is not None:
+            a_panels = a_panels.to(adt)
+        return a_pad, a_panels, bt_phys, kc
 
-    def dense_inputs(self, a_ops, bt_phys: torch.Tensor):
-        """Yield ``(segment, a_run, bg)`` for every dense segment in packed
-        order: the gathered A block (n, R, K) and B^T rows (n, b*128, K)
-        of its tile dot.  One segment's gathers are live at a time."""
-        a_pad, a_panels, bt_rows = self._operands(a_ops, bt_phys)
-        k = a_pad.shape[1]
+    def tile_calls(self, a_ops, bt_phys: torch.Tensor, flat: torch.Tensor):
+        """Yield ``(a, b, out, accumulate)`` for every tile dot of one call,
+        in packed order: ``out`` is a view of the flat output ``flat``, and
+        chunk c > 0 adds into it.  The A and B^T gathers of the dense
+        segments run here (torch indexing); one segment's gathers are live
+        at a time."""
+        a_pad, a_panels, bt_phys, kc = self._operands(a_ops, bt_phys)
+        C, k = bt_phys.shape[0], a_pad.shape[1]
+        p = self.packed
+        G = p.group_size
+
+        def chunks(a_blk, b_of_chunk, out):
+            for c in range(C):
+                yield (a_blk[:, :, c * kc:(c + 1) * kc], b_of_chunk(c), out,
+                       c > 0)
+
         for seg in self._segments:
             if a_panels is not None:
                 a_run = a_panels[seg.a_idx].reshape(seg.n_runs, seg.rows, k)
             else:
                 a_run = a_pad[seg.a_idx]
-            yield seg, a_run, bt_rows[seg.gids]
+            out = flat[seg.offset:seg.offset + seg.size].view(
+                seg.n_runs, seg.rows, seg.lanes)
+            yield from chunks(
+                a_run, lambda c, s=seg: bt_phys[c][s.gids].view(
+                    s.n_runs, s.lanes, kc), out)
+        if p.hub_cols:
+            H = p.hub_cols
+            out = flat[self._hub_offset:self._hub_offset + p.m * H].view(
+                1, p.m, H)
+            yield from chunks(a_pad[None, :p.m], lambda c: bt_phys[
+                c, :H // G].reshape(1, H, kc), out)
+        if self._rowslab_rows is not None:
+            S = p.rowslab_width
+            n_hot = p.rowslab_nrows
+            out = flat[self._rowslab_offset:
+                       self._rowslab_offset + n_hot * S].view(1, n_hot, S)
+            a_hot = a_pad[self._rowslab_rows][None]
+            yield from chunks(a_hot, lambda c: bt_phys[
+                c, :p.num_col_groups].reshape(1, S, kc), out)
 
-    def residual_inputs(self, a_ops, bt_phys: torch.Tensor):
-        """``(a_pad, bt_rows, rows, gids)``, the residual gather-dot's
-        arguments."""
-        a_pad, _, bt_rows = self._operands(a_ops, bt_phys)
-        return a_pad, bt_rows, self._res_rows, self._res_gids
+    def residual_call(self, a_ops, bt_phys: torch.Tensor):
+        """``(a_pad, bt_phys, rows, gids, member)``, the residual
+        gather-dot's arguments."""
+        a_pad, _, bt_phys, _ = self._operands(a_ops, bt_phys)
+        return (a_pad, bt_phys, self._res_rows, self._res_gids,
+                self._res_member)
 
     def run_padded(self, a_ops, bt_phys: torch.Tensor,
                    order: str = "packed",
                    plain: bool = False) -> torch.Tensor:
         """Compute from operands already in the runner's layout
-        (``prepare_operands``).  ``order`` is ``"packed"`` or ``"csr"``.
+        (``prepare_operands``/``device_prepare``; a plain (N+1, K) B^T is
+        accepted under the identity layout).  ``order`` is ``"packed"`` or
+        ``"csr"``.
 
         ``plain=True`` runs the plain PyTorch versions of the kernels on
         any device: the reference the kernels are timed against on the
         card.  It is only ever chosen explicitly."""
         if order not in ("packed", "csr"):
             raise ValueError(f"unknown order {order!r}")
-        residual = self.residual_inputs(a_ops, bt_phys)
+        residual = self.residual_call(a_ops, bt_phys)
         flat = torch.empty(self.packed.packed_size, dtype=torch.float32,
                            device=residual[0].device)
-        for seg, a_run, bg in self.dense_inputs(a_ops, bt_phys):
-            view = flat[seg.offset:seg.offset + seg.size].view(
-                seg.n_runs, seg.rows, seg.lanes)
-            self._dot(a_run, bg, view, plain)
+        for a, b, out, accumulate in self.tile_calls(a_ops, bt_phys, flat):
+            tile_dot(a, b, self.compute_dtype, out=out, accumulate=accumulate,
+                     plain=plain)
         res = flat[self._res_offset:]
         if plain:
             res.copy_(residual_gather_dot_plain(*residual))
@@ -403,6 +506,15 @@ class HybridSDDMM:
                  delta: float = config.DEFAULT_DELTA,
                  compute_dtype: str = "tf32", method: str = "auto",
                  device="cpu") -> "HybridSDDMM":
+        check_slice(compute_dtype, 1, method)
         bsmr = BSMR(alpha, delta, csr, method=method)
         return HybridSDDMM(pack(csr, bsmr), compute_dtype=compute_dtype,
                            device=device)
+
+
+def sddmm_hybrid(a, b, packed: PackedMatrix, compute_dtype: str = "tf32",
+                 device="cpu") -> np.ndarray:
+    """One-shot host convenience wrapper (numpy in, numpy out, CSR
+    order)."""
+    runner = HybridSDDMM(packed, compute_dtype=compute_dtype, device=device)
+    return runner(a, b).cpu().numpy()

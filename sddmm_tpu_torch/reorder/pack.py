@@ -911,7 +911,7 @@ def pack(csr: CSR, bsmr: BSMR, k_hint: int = 0,
 
     # Hot-row dense slab: pick the R rows carrying the most residual
     # entries; their residual entries move to the slab (slot =
-    # hot_index * S + rank - H), everything else stays per-entry.
+    # hot_index * S + rank), everything else stays per-entry.
     R_hot = (int(len(hot_row_ids)) if hot_row_ids is not None
              else int(hot_rows))
     S_width = NG * G

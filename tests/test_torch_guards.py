@@ -76,6 +76,23 @@ def test_library_name_tracks_sources():
                                                      "gather_dot.cu"}
 
 
+def test_build_runs_commands_together_and_raises():
+    """The build starts one nvcc per source at once and raises with the
+    compiler's output if any fails; every kernel instance has a binding."""
+    from sddmm_tpu_torch import _kernels
+    assert _kernels._run([["echo", "one"], ["echo", "two"]]) == "one\ntwo\n"
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _kernels._run([["echo", "fine"], ["false"]])
+    from sddmm_tpu_torch.ops.tile_dot import MODES
+    eps = _kernels._entry_points()
+    assert {f"sddmm_tile_dot_{m}" for m in MODES} < set(eps)
+    # the gather-dot has one instance per storage pair of the modes
+    assert {e for e in eps if e.startswith("sddmm_gather_dot_")} == {
+        "sddmm_gather_dot_float32_float32", "sddmm_gather_dot_float32_bfloat16",
+        "sddmm_gather_dot_float16_float16",
+        "sddmm_gather_dot_bfloat16_bfloat16"}
+
+
 def test_cuda_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")

@@ -1,9 +1,9 @@
-"""The port's hybrid SDDMM slice against the JAX package's, on one packing.
+"""The port's hybrid SDDMM against the JAX package's, on one packing.
 
 The packing is built once in the JAX package and carried across with
 ``interop.packed_from_reference``; both runners get the same numpy A and B.
-The JAX side runs its Pallas tile dot in interpret mode, as the JAX
-package's own tests do on the CPU."""
+At G=1 in "tf32" the JAX side runs its Pallas tile dot in interpret mode, as
+the JAX package's own tests do on the CPU."""
 
 import functools
 
@@ -15,7 +15,10 @@ import torch
 from sddmm_tpu.data import generate as jgen
 from sddmm_tpu.ops import pallas_tiles
 from sddmm_tpu.ops.hybrid import HybridSDDMM as JaxHybrid
+from sddmm_tpu.ops.hybrid import build_bt_phys as j_build_bt_phys
+from sddmm_tpu.ops.hybrid import sddmm_hybrid as j_sddmm_hybrid
 from sddmm_tpu.reorder.autotune import from_params as j_from_params
+from sddmm_tpu_torch import _kernels, sddmm_hybrid
 from sddmm_tpu_torch.data.sparse import CSR as TCSR
 from sddmm_tpu_torch.interop import operands_from_numpy, packed_from_reference
 from sddmm_tpu_torch.ops import hybrid as hy
@@ -23,10 +26,20 @@ from sddmm_tpu_torch.ops.reference import sddmm_reference
 from sddmm_tpu_torch.utils.check import check_values
 
 K = 128
-# Port vs JAX on real slots: the same bf16x3 (or exact fp32) products,
-# summed in another order.
+# Port vs JAX on real slots where both compute the same products (the
+# Pallas bf16x3 in interpret mode, or the same bf16 planes in "mixed",
+# "float16" and "bfloat16"), summed in another order.
 PARITY_REL = 1e-5
+# "tf32" where the JAX side does not reach Pallas (G>1, the slabs): its CPU
+# backend computes Precision.HIGH in full fp32, while the port keeps the
+# bf16x3 split.  Per product the split drops al.bl and the rounding of each
+# lo, each at most 2^-18 relative, and U[0,2) sums have no cancellation:
+# the bound is 3 * 2^-18 (measured at most 2.1e-6).
+SPLIT_REL = 3 * 2.0 ** -18
 CLUSTERED16 = dict(alpha=0.2, delta=0.05, b_cost_scale=2.0)  # k128 config
+MODES = ("tf32", "float32", "mixed", "float16", "bfloat16")
+# modes that pass the reference's contract (ops/hybrid.py docstring)
+CONTRACT_MODES = ("tf32", "float32", "mixed")
 
 
 @pytest.fixture(scope="module")
@@ -64,20 +77,37 @@ def cases():
     return {name: _case(name) for name in ("quick1024", "conftest")}
 
 
-def _jax_packed(packed, a, b, compute_dtype, a_layout):
+def _jax_packed(packed, a, b, compute_dtype, a_layout, k_chunks=1):
     r = JaxHybrid(packed, compute_dtype=compute_dtype, a_layout=a_layout,
-                  use_pallas=compute_dtype == "tf32")
+                  use_pallas=compute_dtype == "tf32", k_chunks=k_chunks)
     a_ops, bt = r.prepare_operands(a, b=b)
     return np.asarray(r.run_padded(a_ops, bt, order="packed"))
 
 
-def _port(packed, a, b, compute_dtype, a_layout):
+def _port(packed, a, b, compute_dtype, a_layout, k_chunks=1):
     r = hy.HybridSDDMM(packed_from_reference(packed),
                        compute_dtype=compute_dtype, a_layout=a_layout,
-                       use_pallas=True)
+                       use_pallas=True, k_chunks=k_chunks)
     ops = operands_from_numpy(r, a, b)
     flat = r.run_padded(*ops, order="packed")
     return r, flat, r.run_padded(*ops, order="csr")
+
+
+def _assert_matches_jax(csr, packed, a, b, mode, a_layout, k_chunks, tol,
+                        contract):
+    """Real slots against the JAX runner within ``tol``; CSR order is the
+    real slots; the reference's contract where the mode passes it."""
+    want = _jax_packed(packed, a, b, mode, a_layout, k_chunks)
+    _, flat, csr_vals = _port(packed, a, b, mode, a_layout, k_chunks)
+    assert flat.shape == (packed.packed_size,) and flat.dtype == torch.float32
+    real = packed.inv_idx                    # the packed slot of each nnz
+    got = flat.numpy()[real]
+    rel = np.abs(got - want[real]) / np.abs(want[real])
+    assert rel.max() <= tol, rel.max()
+    assert np.array_equal(csr_vals.numpy(), got)
+    if contract:
+        res = check_values(sddmm_reference(a, b, csr), csr_vals.numpy())
+        assert res.passed and res.num_errors == 0, str(res)
 
 
 @pytest.mark.parametrize("compute_dtype", ["tf32", "float32"])
@@ -99,22 +129,24 @@ def test_slice_matches_jax(name, a_layout, compute_dtype, cases,
 
 
 def test_dense_tiles_go_through_tile_dot(cases, monkeypatch):
-    """Every dense segment of a tf32 call reaches tile_dot_bf16x3 (the
-    kernel's wrapper), once per (family, bucket) segment."""
+    """Every dense segment of a tf32 call reaches tile_dot (the kernel's
+    wrapper), once per (family, bucket) segment, never as a plain call."""
     _, packed, a, b = cases["quick1024"]
     calls = []
-    real = hy.tile_dot_bf16x3
+    real = hy.tile_dot
 
-    def spy(a_run, bg, out=None):
-        calls.append(tuple(a_run.shape))
-        return real(a_run, bg, out=out)
+    def spy(a_run, bg, mode, out=None, accumulate=False, plain=False):
+        calls.append((tuple(a_run.shape), mode, plain))
+        return real(a_run, bg, mode, out=out, accumulate=accumulate,
+                    plain=plain)
 
-    monkeypatch.setattr(hy, "tile_dot_bf16x3", spy)
+    monkeypatch.setattr(hy, "tile_dot", spy)
     r = hy.HybridSDDMM(packed_from_reference(packed), a_layout="panels")
     r.run_padded(*operands_from_numpy(r, a, b))
     n_segments = sum(len(getattr(packed, f + "_buckets"))
                      for f in ("super", "quad", "pair", "group"))
     assert len(calls) == n_segments > 0
+    assert all(mode == "tf32" and not plain for _, mode, plain in calls)
 
 
 def test_plain_flag_gives_same_values(cases):
@@ -143,43 +175,216 @@ def test_packed_from_reference_copies(cases):
     assert p.super_buckets == packed.super_buckets
 
 
-def test_residual_gather_dot_matches_jax_formula():
+def test_packed_from_reference_carries_slabs_and_members():
+    _, t, _, _ = _config_case("G2C2+slabs")
+    q = packed_from_reference(t.packed)
+    assert q.group_size == 2 and q.hub_cols == t.packed.hub_cols > 0
+    for f in ("res_member", "rowslab_rows", "rowslab_rank", "rowslab_csr"):
+        x, y = getattr(t.packed, f), getattr(q, f)
+        assert y is not x and np.array_equal(x, y), f
+    assert q.res_member.max() == 1
+
+
+@pytest.mark.parametrize("G,C", [(1, 1), (2, 1), (4, 2)])
+def test_residual_gather_dot_matches_jax_formula(G, C):
+    """The gather-dot's CPU path against the JAX residual's formula
+    (take, one-hot member select, fp32 row sums over the chunks)."""
+    jnp = jax.numpy
     rng = np.random.default_rng(3)
+    kc = 96 // C
     a = rng.uniform(0, 2, (65, 96)).astype(np.float32)
-    bt = rng.uniform(0, 2, (81, 96)).astype(np.float32)
+    bt = rng.uniform(0, 2, (C, 81, G * kc)).astype(np.float32)
     rows = rng.integers(0, 65, 500).astype(np.int32)
     gids = rng.integers(0, 81, 500).astype(np.int32)
-    want = np.asarray(jax.numpy.sum(jax.numpy.asarray(a)[rows]
-                                    * jax.numpy.asarray(bt)[gids], axis=-1))
-    got = hy.residual_gather_dot(*map(torch.from_numpy, (a, bt, rows, gids)))
+    member = rng.integers(0, G, 500).astype(np.int32)
+    onehot = jnp.asarray(member)[:, None] == jnp.arange(G)[None, :]
+    want = 0
+    for c in range(C):
+        br = jnp.asarray(bt[c])[gids].reshape(500, G, kc)
+        br = jnp.sum(br * onehot[:, :, None], axis=1)
+        want = want + jnp.sum(jnp.asarray(a)[rows, c * kc:(c + 1) * kc]
+                              * br, axis=-1)
+    want = np.asarray(want)
+    args = [torch.from_numpy(x) for x in (a, bt, rows, gids)] + [
+        torch.from_numpy(member) if G > 1 else None]
+    got = hy.residual_gather_dot(*args)
     assert np.abs(got.numpy() - want).max() / np.abs(want).min() <= 1e-6
-    before = hy.residual_gather_dot.launches
+    before = dict(_kernels.launches)
     out = torch.empty(500)
-    hy.residual_gather_dot(*map(torch.from_numpy, (a, bt, rows, gids)),
-                           out=out)
-    assert torch.equal(out, got) and hy.residual_gather_dot.launches == before
+    hy.residual_gather_dot(*args, out=out)
+    assert torch.equal(out, got) and dict(_kernels.launches) == before
     with pytest.raises(TypeError):
-        hy.residual_gather_dot(*map(torch.from_numpy,
-                                    (a, bt, rows.astype(np.int64), gids)))
+        hy.residual_gather_dot(args[0], args[1], args[2].long(), *args[3:])
+    if G > 1:
+        with pytest.raises(ValueError, match="member"):
+            hy.residual_gather_dot(*args[:4])
 
 
-@pytest.mark.parametrize("kw", [dict(group_size=2), dict(hub_cols=128),
-                                dict(hot_rows=64, hot_rows_pre=True)],
-                         ids=["G2", "hub", "rowslab"])
-def test_out_of_slice_configs_raise(kw):
-    csr = jgen.powerlaw_graph(512, avg_degree=12, seed=4)
+def _powerlaw():
+    return jgen.powerlaw_graph(512, avg_degree=12, seed=4)
+
+
+def _clustered():                    # tests/conftest.py clustered_csr
+    return jgen.block_clustered(24, 20, block_prob=0.15, block_density=0.8,
+                                noise_density=0.002, seed=7)
+
+
+#: packings beyond G=1, C=1 without slabs: (matrix, from_params keywords)
+CONFIGS = {
+    "G2": (_clustered, dict(group_size=2)),
+    "G4": (_clustered, dict(group_size=4, merge_superpanels=False)),
+    "hub": (_powerlaw, dict(hub_cols=128)),
+    "rowslab": (_powerlaw, dict(hot_rows=64, hot_rows_pre=True)),
+    "hub+rowslab": (_powerlaw, dict(hub_cols=128, hot_rows=64,
+                                    hot_rows_pre=True)),
+    "C2": (_clustered, dict(k_chunks=2)),
+    "G2C2+slabs": (_powerlaw, dict(group_size=2, k_chunks=2, hub_cols=128,
+                                   hot_rows=64, hot_rows_pre=True)),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _config_case(name):
+    gen, kw = CONFIGS[name]
+    csr = gen()
     t = j_from_params(csr, K, alpha=0.3, delta=0.05, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hy.HybridSDDMM(packed_from_reference(t.packed))
+    a = jgen.make_dense(csr.m, K, seed=1)
+    b = jgen.make_dense(K, csr.n, seed=2)
+    return csr, t, a, b
 
 
-@pytest.mark.parametrize("kw", [dict(k_chunks=2),
-                                dict(compute_dtype="mixed"),
-                                dict(compute_dtype="bfloat16")])
-def test_out_of_slice_options_raise(kw, cases):
-    _, packed, _, _ = cases["conftest"]
+@pytest.mark.parametrize("a_layout", ["rows", "panels"])
+@pytest.mark.parametrize("name", ["G2", "G4", "hub", "rowslab",
+                                  "hub+rowslab", "C2"])
+def test_configs_match_jax(name, a_layout, pallas_interpret):
+    """G>1, C>1 and both slabs in "tf32" against the JAX runner, which
+    computes them without Pallas (SPLIT_REL)."""
+    csr, t, a, b = _config_case(name)
+    p = t.packed
+    assert (p.group_size > 1 or t.k_chunks > 1 or p.hub_cols
+            or p.rowslab_rows is not None), "the case must leave G=1, C=1"
+    _assert_matches_jax(csr, p, a, b, "tf32", a_layout, t.k_chunks,
+                        SPLIT_REL, contract=True)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", ["conftest", "G2C2+slabs"])
+def test_modes_match_jax(name, mode, cases, pallas_interpret):
+    if name == "conftest":
+        csr, packed, a, b = cases[name]
+        k_chunks = 1
+    else:
+        csr, t, a, b = _config_case(name)
+        packed, k_chunks = t.packed, t.k_chunks
+    tol = (SPLIT_REL if mode == "tf32" and name != "conftest"
+           else PARITY_REL)
+    _assert_matches_jax(csr, packed, a, b, mode, "panels", k_chunks, tol,
+                        contract=mode in CONTRACT_MODES)
+
+
+def test_hot_row_slab_slots():
+    """A hot entry's slot is rowslab_base + hot_index * NG*G + rank (not
+    rank - H): its value there is its own dot product."""
+    csr, t, a, b = _config_case("hub+rowslab")
+    p = t.packed
+    r = hy.HybridSDDMM(packed_from_reference(p))
+    flat = r.run_padded(*operands_from_numpy(r, a, b)).numpy()
+    hot_index = {row: i for i, row in enumerate(p.rowslab_rows)
+                 if row < p.m}
+    base = p.packed_size - p.nnz_res - p.rowslab_nrows * p.rowslab_width
+    slots = base + np.array([hot_index[r_] for r_ in p.rowslab_erows]) \
+        * p.rowslab_width + p.rowslab_rank
+    want = sddmm_reference(a, b, csr)[p.rowslab_csr]
+    assert len(slots) > 0 and p.hub_cols > 0
+    np.testing.assert_allclose(flat[slots], want, rtol=SPLIT_REL)
+
+
+@pytest.mark.parametrize("G,C", [(1, 1), (2, 1), (4, 2)])
+def test_device_prepare_matches_build_bt_phys(G, C):
+    """The port's device_bt_phys (torch ops) builds the JAX package's
+    host layout bit for bit."""
+    csr = _clustered()
+    t = j_from_params(csr, K, alpha=0.3, delta=0.05, group_size=G,
+                      k_chunks=C)
+    b = jgen.make_dense(K, csr.n, seed=2)
+    bt_pad = np.concatenate([b.T, np.zeros((1, K), np.float32)])
+    want = j_build_bt_phys(bt_pad, t.packed, C)
+    r = hy.HybridSDDMM(packed_from_reference(t.packed), k_chunks=C)
+    a = jgen.make_dense(csr.m, K, seed=1)
+    _, got = r.prepare_operands(a, b=b)
+    assert got.shape == want.shape and np.array_equal(got.numpy(), want)
+    _, got_bt = r.prepare_operands(a, bt=np.ascontiguousarray(b.T))
+    assert torch.equal(got, got_bt)
+
+
+@pytest.mark.parametrize("mode", ["mixed", "float16", "bfloat16"])
+def test_operands_in_storage_dtypes(mode, cases):
+    """prepare_operands casts once, into the JAX package's _STORAGE."""
+    _, packed, a, b = cases["conftest"]
+    r = hy.HybridSDDMM(packed_from_reference(packed), compute_dtype=mode,
+                       a_layout="panels")
+    (a_pad, a_panels), bt = r.prepare_operands(a, b=b)
+    jr = JaxHybrid(packed, compute_dtype=mode, a_layout="panels")
+    (ja, jp), jbt = jr.prepare_operands(a, b=b)
+    for t_, j_ in ((a_pad, ja), (a_panels, jp), (bt, jbt)):
+        assert str(t_.dtype).split(".")[-1] == str(j_.dtype)
+        assert np.array_equal(t_.float().numpy(),
+                              np.asarray(j_).astype(np.float32))
+
+
+def test_two_d_bt_needs_identity_layout():
+    """A 2-D (N+1, K) B^T is taken only under the identity layout, as in
+    the JAX runner; otherwise it raises instead of computing wrong dots.
+    The hub packing reorders its columns (hub-first ranks) at G=1, C=1."""
+    csr, t, a, b = _config_case("hub")
+    r = hy.HybridSDDMM(packed_from_reference(t.packed))
+    assert not r.is_identity_layout
+    a_pad, _ = operands_from_numpy(r, a, b)
+    bt_pad = torch.from_numpy(np.concatenate(
+        [b.T, np.zeros((1, K), np.float32)]))
+    with pytest.raises(ValueError, match="identity layout"):
+        r.run_padded(a_pad, bt_pad)
+
+    ident = jgen.random_sparse(200, 160, density=0.05, seed=3)
+    ti = j_from_params(ident, K, alpha=0.3, delta=0.05)
+    ri = hy.HybridSDDMM(packed_from_reference(ti.packed))
+    assert ri.is_identity_layout
+    ai = jgen.make_dense(ident.m, K, seed=1)
+    bi = jgen.make_dense(K, ident.n, seed=2)
+    a_pad, bt_phys = ri.prepare_operands(ai, b=bi)
+    assert torch.equal(ri.run_padded(a_pad, bt_phys[0], order="csr"),
+                       ri.run_padded(a_pad, bt_phys, order="csr"))
+
+
+def test_rows_runner_ignores_panels(cases):
+    """A rows-layout runner given a panels runner's (a_pad, a_panels) pair
+    uses a_pad and ignores the panels, as the JAX runner does."""
+    _, packed, a, b = cases["conftest"]
+    p = packed_from_reference(packed)
+    panels_ops = hy.HybridSDDMM(p, a_layout="panels").prepare_operands(
+        a, b=b)
+    rows = hy.HybridSDDMM(p, a_layout="rows")
+    assert torch.equal(rows.run_padded(*panels_ops, order="csr"),
+                       rows(a, b=b))
+
+
+def test_unported_clustering_raises():
+    """check_slice still raises for what stays unported, naming its ROADMAP
+    item; an unknown mode is a ValueError."""
+    csr = _powerlaw()
+    tcsr = TCSR(csr.shape, csr.row_ptr, csr.col_idx, csr.values)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hy.HybridSDDMM(packed_from_reference(packed), **kw)
+        hy.HybridSDDMM.from_csr(tcsr, 0.3, 0.05, method="device")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        hy.check_slice("tf16", 1)
+
+
+def test_sddmm_hybrid_matches_jax(cases, pallas_interpret):
+    csr, packed, a, b = cases["conftest"]
+    want = j_sddmm_hybrid(a, b, packed)
+    got = sddmm_hybrid(a, b, packed_from_reference(packed))
+    assert isinstance(got, np.ndarray) and got.shape == (csr.nnz,)
+    assert np.max(np.abs(got - want) / np.abs(want)) <= SPLIT_REL
 
 
 def test_panels_layout_needs_panel_operands(cases):
