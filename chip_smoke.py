@@ -16,9 +16,13 @@ its time:
    "tf32" and "float32" also against an fp64 product under the contract;
    then "float32" against fp64 within about one fp32 rounding, and below
    "tf32" on the same U[0,2) tiles and on ``split_probe`` tiles, where
-   "tf32" must miss 3 * 2^-18 of each product;
+   "tf32" must miss 3 * 2^-18 of each product; every instance also at
+   K = 8 and 24 (zero-padded to the kernel's 16-step) and a C=2 chunk at
+   K = 24;
 4. the residual gather-dot kernel against its plain version at G in
    (1, 2, 4), C in (1, 2) and each storage pair of the compute modes;
+   the CSR SpMM kernel against its plain version on random patterns with
+   empty rows and one very long row, at K in (8, 64, 128);
 5. the main path at full bench scale: every K=128 cell of ``bench.py``'s
    suite (clustered16, clustered128, powerlaw with its hub and hot-row
    slabs, banded, and dlmc through ``DenseSDDMM``) plus clustered16 at K=32
@@ -38,7 +42,19 @@ its time:
    it on this card;
 8. the five compute modes on banded K=128: "float32", "tf32" and "mixed"
    must pass the contract; "float16" and "bfloat16" fail it by design, so
-   they are held to their plain versions and their max rel is printed.
+   they are held to their plain versions and their max rel is printed;
+9. the models, the serving path of the two attention families at full
+   width in "float32", through the user's entry points: graph attention
+   on clustered16 (16384 nodes, F = D = 128, packed by the layer's own
+   default) and block-sparse attention in the shape of Longformer-base
+   (``allenai/longformer-base-4096``: 4096 positions, window 256 each
+   side, 1 global token, hidden 768, 12 heads of 64), plus the port's
+   ``entry``.  The launch counters are zeroed just before the forwards and
+   read just after: the tile kernel's "float32" instance, the SpMM kernel
+   and, where a packing has a residual, the gather-dot must have
+   launched.  Each output is checked against an fp64 reference under the
+   contract and against the same forward with every kernel's plain
+   version; both forwards, and the SpMM at the models' shapes, are timed.
 
 It then prints one JSON line with the kernels' record and, last, one JSON
 line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -68,6 +84,24 @@ F32_EXACT_REL = 1e-6
 # "tf32" on split_probe operands drops 3 * 2^-18 of every product: an error
 # below this means the probe no longer separates the two instances
 PROBE_TF32_MIN = 1e-5
+# SpMM kernel vs plain: the same fp32 products summed in another order (the
+# kernel row by row, index_add_ with atomics), as max abs err / the sum of
+# the terms' magnitudes.  A sum of n terms errs by up to (n-1) * 2^-24 of
+# that, and by about sqrt(n) * 2^-24 in practice: 3.8e-6 for the
+# 4096-entry rows of a global token
+SPMM_REL_TOL = 1e-5
+SPMM_K = (8, 64, 128)
+# the models phase: graph attention's cell and width, and Longformer-base
+GRAPH_CELL = "clustered16"
+GRAPH_WIDTH = 128
+LONGFORMER = dict(seq_len=4096, window=256, num_global=1, hidden=768,
+                  heads=12, head_dim=64)
+# a model's kernel path vs its plain path, as max abs diff / max |plain|:
+# the scores differ by the tile sums' order, the aggregation by the SpMM's
+# (an output near 0 has no relative error to speak of)
+MODEL_PLAIN_TOL = 1e-5
+MODEL_ITERS = 10        # timed forwards with the kernels, after 2 warm-ups
+MODEL_PLAIN_ITERS = 3   # and with the plain versions, after 1
 
 
 def fail(msg: str) -> None:
@@ -197,6 +231,17 @@ def check_tile_dot(torch, td, rng):
         # the second K chunk: column views, added into the same output
         one(mode, a[:, :, 64:], b[:, :, 64:], out=out, accumulate=True)
         n_shapes += 3
+        # K off the kernel's 16-step: tile_dot zero-pads copies of A and B
+        for Kd in (8, 24):
+            one(mode, u02((nT, 37, Kd), adt), u02((nT, 150, Kd), bdt),
+                contract=contract)
+            n_shapes += 1
+        # a C=2 chunk of kc = 12 at K = 24, added into a strided output
+        a, b = u02((nT, 37, 24), adt), u02((nT, 150, 24), bdt)
+        out = torch.zeros((nT, 37, 151), device=DEVICE)[:, :, :150]
+        one(mode, a[:, :, :12], b[:, :, :12], out=out, contract=contract)
+        one(mode, a[:, :, 12:], b[:, :, 12:], out=out, accumulate=True)
+        n_shapes += 2
     return worst, n_shapes
 
 
@@ -271,6 +316,233 @@ def check_gather_dot(torch, hy, rng):
                     fail(f"gather_dot G={G} C={C} {adt}/{bdt}: max rel "
                          f"{rel:.3e} vs plain > {GATHER_REL_TOL}")
     return worst_rel, worst_abs
+
+
+def check_spmm(torch, sp, rng):
+    """The SpMM kernel against its plain version on random CSR patterns:
+    every 7th row empty, row 3 with 200,000 entries, sorted rows at K=64
+    and 128, unsorted (sorted by the wrapper) at K=8.  Returns the worst
+    (max abs err / sum |terms|, max abs err)."""
+    import numpy as np
+    worst_rel = worst_abs = 0.0
+    m, n = 20000, 30000
+    for K in SPMM_K:
+        deg = rng.integers(0, 40, m)
+        deg[::7] = 0
+        deg[3] = 200000
+        rows = np.repeat(np.arange(m), deg)
+        if K == 8:
+            rows = rng.permutation(rows)
+        nnz = len(rows)
+        r = torch.tensor(rows, device=DEVICE)
+        c = torch.tensor(rng.integers(0, n, nnz), dtype=torch.int32,
+                         device=DEVICE)
+        v = torch.tensor(rng.standard_normal(nnz), dtype=torch.float32,
+                         device=DEVICE)
+        d = torch.tensor(rng.standard_normal((n, K)), dtype=torch.float32,
+                         device=DEVICE)
+        got = sp.csr_spmm_torch(v, r, c, d, m)
+        want = sp.csr_spmm_plain(v, r, c, d, m)
+        scale = sp.csr_spmm_plain(v.abs(), r, c, d.abs(), m)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        rel = float((err / scale.clamp_min(1e-30)).max())
+        worst_rel = max(worst_rel, rel)
+        worst_abs = max(worst_abs, float(err.max()))
+        if bool(got[torch.tensor(deg == 0, device=DEVICE)].any()):
+            fail(f"csr_spmm K={K}: an empty row is not exact zeros")
+        if not rel <= SPMM_REL_TOL:
+            fail(f"csr_spmm K={K} ({nnz} entries): max abs err / sum |terms|"
+                 f" {rel:.3e} vs plain > {SPMM_REL_TOL}")
+    return worst_rel, worst_abs
+
+
+def graph_reference(torch, x, params, adj, chunk=1 << 18):
+    """Graph attention in fp64, edge by edge: the scores gathered in
+    chunks, a row softmax, an index_add_ aggregation."""
+    import numpy as np
+    x = x.double()
+    q, k, v = (x @ w.double() for w in params)
+    rows = torch.as_tensor(adj.row_indices(), device=x.device)
+    cols = torch.as_tensor(adj.col_idx, dtype=torch.int64, device=x.device)
+    scores = torch.empty(adj.nnz, dtype=torch.float64, device=x.device)
+    for s in range(0, adj.nnz, chunk):
+        e = slice(s, s + chunk)
+        scores[e] = (q[rows[e]] * k[cols[e]]).sum(dim=1)
+    scores /= np.sqrt(q.shape[1])
+    row_max = torch.full((adj.m,), -torch.inf, dtype=torch.float64,
+                         device=x.device).scatter_reduce(0, rows, scores,
+                                                         "amax")
+    ex = torch.exp(scores - row_max[rows])
+    denom = torch.zeros(adj.m, dtype=torch.float64,
+                        device=x.device).index_add_(0, rows, ex)
+    attn = ex / denom[rows]
+    out = torch.zeros((adj.m, v.shape[1]), dtype=torch.float64,
+                      device=x.device)
+    for s in range(0, adj.nnz, chunk):
+        e = slice(s, s + chunk)
+        out.index_add_(0, rows[e], v[cols[e]] * attn[e, None])
+    return out
+
+
+def check_model(torch, label, model, x, golden_fn):
+    """One model's forward with the kernels against its fp64 reference
+    (under the contract) and against the same forward with every kernel's
+    plain version.  Returns the check result and the max rel vs plain."""
+    from sddmm_tpu_torch.utils.check import check_values
+    with torch.inference_mode():
+        got = model(x)
+        plain = model(x, plain=True)
+        torch.cuda.synchronize()
+        golden = golden_fn()
+    if tuple(got.shape) != tuple(golden.shape) or not bool(
+            torch.isfinite(got).all()):
+        fail(f"{label}: output {tuple(got.shape)} (want "
+             f"{tuple(golden.shape)}) or non-finite values")
+    res = check_values(golden.cpu().numpy(), got.cpu().numpy())
+    vs_plain = check_values(plain.cpu().numpy(), got.cpu().numpy())
+    rel_plain = float((got - plain).abs().max() / plain.abs().max())
+    say(f"[models] {label} vs fp64 reference: {res}; vs plain versions: "
+        f"{vs_plain}, max abs diff / max |plain| {rel_plain:.3e}")
+    if not res.passed or res.num_errors:
+        fail(f"{label}: {res.num_errors} values outside the contract")
+    if vs_plain.num_errors or not rel_plain <= MODEL_PLAIN_TOL:
+        fail(f"{label}: max abs diff / max |plain| {rel_plain:.3e} vs its "
+             f"plain versions > {MODEL_PLAIN_TOL}")
+    return res, rel_plain
+
+
+def time_model(torch, label, model, x, card):
+    """The forward's median time with the kernels and with the plain
+    versions (CUDA events): (ms, plain ms)."""
+    from sddmm_tpu_torch.utils.timing import cuda_time_ms
+    with torch.inference_mode():
+        tk = cuda_time_ms(lambda: model(x), MODEL_ITERS, warmup=2)
+        tp = cuda_time_ms(lambda: model(x, plain=True), MODEL_PLAIN_ITERS,
+                          warmup=1)
+    say(f"[time] {label} forward: kernels median {tk['median_ms']:.4f} ms "
+        f"(min {tk['min_ms']:.4f}, max {tk['max_ms']:.4f}, n {tk['n']}), "
+        f"plain versions median {tp['median_ms']:.4f} ms (n {tp['n']}) on "
+        f"{card}")
+    return tk["median_ms"], tp["median_ms"]
+
+
+def time_spmm(torch, sp, label, agg, d, card):
+    """The SpMM kernel against its plain version at one model's shapes
+    (its aggregation's CSR, random positive weights, V of width ``d``):
+    (max abs err, ms, plain ms)."""
+    from sddmm_tpu_torch import _kernels
+    from sddmm_tpu_torch.utils.timing import cuda_time_ms
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    nnz = agg.cols.shape[0]
+    w = torch.rand(nnz, generator=g, device=DEVICE)
+    v = torch.rand((agg.num_rows, d), generator=g, device=DEVICE)
+
+    def kernel():
+        return sp.csr_spmm_torch(w, agg.rows, agg.cols, v, agg.num_rows,
+                                 row_ptr=agg.row_ptr)
+
+    def plain():
+        return sp.csr_spmm_plain(w, agg.rows, agg.cols, v, agg.num_rows)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = max_rel(got[want > 0], want[want > 0])  # = err / sum |terms|
+    if not rel <= SPMM_REL_TOL:
+        fail(f"{label} csr_spmm at the model's shapes: max rel {rel:.3e} "
+             "vs plain")
+    del got, want
+    tk = cuda_time_ms(kernel, 20)
+    tp = cuda_time_ms(plain, 5)
+    say(f"[time] {label} {_kernels.SPMM_ENTRY} ({nnz} entries, K={d}, max "
+        f"rel vs plain {rel:.3e}): kernel {tk['median_ms']:.4f} ms, plain "
+        f"{tp['median_ms']:.4f} ms on {card}")
+    return err, tk["median_ms"], tp["median_ms"]
+
+
+def run_models(torch, sp, card, adj):
+    """Phase 9 on the clustered16 adjacency ``adj``: returns the launch
+    counts of the models' forwards, and the SpMM's (max abs err, ms, plain
+    ms) at the models' shapes, summed over the two models."""
+    from sddmm_tpu_torch import _kernels
+    from sddmm_tpu_torch.data import generate
+    from sddmm_tpu_torch.entry import entry
+    from sddmm_tpu_torch.models import (BlockSparseAttention,
+                                        GraphAttentionLayer,
+                                        dense_reference_attention,
+                                        make_attention_mask)
+    lf = LONGFORMER
+    models = {}
+    t0 = time.perf_counter()
+    graph = GraphAttentionLayer(adj, GRAPH_WIDTH, GRAPH_WIDTH, device=DEVICE)
+    models["graph attention"] = (graph, time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    mask = make_attention_mask(lf["seq_len"], window=lf["window"],
+                               num_global=lf["num_global"])
+    block = BlockSparseAttention(mask, lf["hidden"], lf["heads"],
+                                 lf["head_dim"], device=DEVICE)
+    models["block-sparse attention"] = (block, time.perf_counter() - t0)
+    fn, (x_entry,) = entry(DEVICE)
+    models["entry"] = (fn.layer, None)
+    for label, (model, secs) in models.items():
+        p = model.runner.packed
+        say(f"[pack] {label}: {p.m}x{p.n} nnz {p.nnz} packed "
+            f"{p.packed_size} slots, super/quad/pair/group {p.num_super}/"
+            f"{p.num_quads}/{p.num_pairs}/{p.num_groups}, hub {p.hub_cols}, "
+            f"hot rows {p.rowslab_nrows}, residual {p.nnz_res}"
+            + (f": {secs:.1f} s to pack" if secs is not None else ""))
+    graph.init(torch.Generator().manual_seed(0))
+    block.init(torch.Generator().manual_seed(1))
+    x_graph = torch.as_tensor(generate.make_dense(adj.m, GRAPH_WIDTH,
+                                                  seed=1), device=DEVICE)
+    x_block = torch.as_tensor(generate.make_dense(lf["seq_len"],
+                                                  lf["hidden"], seed=3),
+                              device=DEVICE)
+    runs = {"graph attention": lambda: graph(x_graph),
+            "block-sparse attention": lambda: block(x_block),
+            "entry": lambda: fn(x_entry)}
+
+    # this slice's main path: the counts zeroed just before, read just after
+    _kernels.launches.clear()
+    per_model = {}
+    with torch.inference_mode():
+        for label, run in runs.items():
+            before = dict(_kernels.launches)
+            run()
+            per_model[label] = {n: c - before.get(n, 0)
+                                for n, c in _kernels.launches.items()
+                                if c > before.get(n, 0)}
+    torch.cuda.synchronize()
+    counts = dict(_kernels.launches)
+    say(f"[models] launches during the models' forwards: {counts}")
+    for label, got in per_model.items():
+        say(f"[models] {label} launches: {got}")
+        need = ["sddmm_tile_dot_float32", _kernels.SPMM_ENTRY]
+        if models[label][0].runner.packed.nnz_res:
+            need.append("sddmm_gather_dot_float32_float32")
+        for kname in need:
+            if not got.get(kname):
+                fail(f"{label}: {kname} was not launched")
+
+    check_model(torch, "graph attention (clustered16, F=D=128)", graph,
+                x_graph, lambda: graph_reference(torch, x_graph,
+                                                 graph.params(), adj))
+    check_model(torch, "block-sparse attention (Longformer-base shape)",
+                block, x_block, lambda: dense_reference_attention(
+                    block.params(), x_block, mask))
+    check_model(torch, "entry (128 nodes, F=D=32)", fn.layer, x_entry,
+                lambda: graph_reference(torch, x_entry, fn.layer.params(),
+                                        fn.layer.adj))
+    time_model(torch, "graph attention", graph, x_graph, card)
+    time_model(torch, "block-sparse attention", block, x_block, card)
+    times = [time_spmm(torch, sp, "graph attention", graph._agg, GRAPH_WIDTH,
+                       card),
+             time_spmm(torch, sp, "block-sparse attention", block._agg,
+                       lf["head_dim"], card)]
+    return counts, {_kernels.SPMM_ENTRY: (max(t[0] for t in times),
+                                          sum(t[1] for t in times),
+                                          sum(t[2] for t in times))}
 
 
 def gather_name(runner):
@@ -386,6 +658,7 @@ def main() -> None:
 
     from sddmm_tpu_torch import _kernels
     from sddmm_tpu_torch.ops import hybrid as hy
+    from sddmm_tpu_torch.ops import spmm as sp
     from sddmm_tpu_torch.ops import tile_dot as td
     from sddmm_tpu_torch.ops.csr_sddmm import csr_sddmm_torch
     from sddmm_tpu_torch.ops.dense import DenseSDDMM
@@ -411,7 +684,8 @@ def main() -> None:
         for mode, (rel, ab) in worst.items():
             say(f"[tile_dot] {mode}: {n_shapes // len(worst)} shapes (R in "
                 "16..128 and 37, L in 128/150/384, K 32/128/256, nT=37; "
-                "slab shapes; strided unaligned out; C=2 accumulate): max "
+                "slab shapes; strided unaligned out; C=2 accumulate; K 8 "
+                "and 24, and C=2 at K=24): max "
                 f"rel vs plain {rel:.3e} (tol {TILE_REL_TOL}), max abs "
                 f"{ab:.3e}"
                 + ("; fp64 contract ok" if mode in ("tf32", "float32")
@@ -427,6 +701,12 @@ def main() -> None:
         say(f"[gather_dot] 65536 entries, G in (1, 2, 4), C in (1, 2), "
             f"storage {', '.join(gather_pair_names())}: max rel vs plain "
             f"{rel2:.3e} (tol {GATHER_REL_TOL}), max abs {abs2:.3e}")
+    with Phase("SpMM kernel vs plain"):
+        rel3, abs3 = check_spmm(torch, sp, rng)
+        say(f"[spmm] 20000 rows (every 7th empty, row 3 with 200000 "
+            f"entries), K in {SPMM_K}, K=8 unsorted: max abs err / sum "
+            f"|terms| vs plain {rel3:.3e} (tol {SPMM_REL_TOL}), max abs "
+            f"{abs3:.3e}; empty rows exact zeros")
 
     # every kernel instance's record; "launches" is from the named path
     rec = {f"sddmm_tile_dot_{m}": {"max_abs_err": worst[m][1], "ms": 0.0,
@@ -435,6 +715,8 @@ def main() -> None:
     for pair in hy.GATHER_STORAGE:
         rec[_kernels.gather_dot_entry(*pair)] = {
             "max_abs_err": abs2, "ms": 0.0, "plain_ms": 0.0}
+    rec[_kernels.SPMM_ENTRY] = {"max_abs_err": abs3, "ms": 0.0,
+                                "plain_ms": 0.0}
 
     # -- 5. the main path at full scale --
     configs = json.loads((ROOT / "results" / "tuned_configs.json")
@@ -617,23 +899,41 @@ def main() -> None:
                 add_times(rec, kernel_pass(torch, td, runner, ops, 20,
                                            f"banded@K128[{mode}]", card))
 
+    # -- 9. the models: the serving path of the two attention families --
+    with Phase("models"):
+        model_launches, spmm_times = run_models(torch, sp, card,
+                                                csrs[GRAPH_CELL])
+    add_times(rec, spmm_times)
+
     if "jax" in sys.modules:
         fail("jax was imported")
+    # each kernel's launches on its path: the SpMM and the "float32" tile
+    # instance on the models' forwards, "tf32" and the fp32 gather-dot on
+    # the 8 cells, the other instances in the compute modes phase
+    paths = {"sddmm_tile_dot_tf32": ("main path (8 cells)", main_launches),
+             "sddmm_gather_dot_float32_float32": ("main path (8 cells)",
+                                                  main_launches),
+             "sddmm_tile_dot_float32": ("models (graph attention, "
+                                        "Longformer-shaped block-sparse "
+                                        "attention, entry)", model_launches),
+             _kernels.SPMM_ENTRY: ("models (graph attention, "
+                                   "Longformer-shaped block-sparse "
+                                   "attention, entry)", model_launches)}
     record = []
     for kname, r in rec.items():
-        tile = kname.startswith("sddmm_tile_dot_")
-        main = kname in ("sddmm_tile_dot_tf32",
-                         "sddmm_gather_dot_float32_float32")
+        if kname.startswith("sddmm_tile_dot_"):
+            source, replaces = ("tile_dot.cu",
+                                "sddmm_tpu/ops/pallas_tiles.py:72")
+        elif kname == _kernels.SPMM_ENTRY:
+            source, replaces = "spmm.cu", "sddmm_tpu/ops/spmm.py:23"
+        else:
+            source, replaces = "gather_dot.cu", "sddmm_tpu/ops/hybrid.py:306"
+        path, counts = paths.get(kname, ("compute modes on banded@K128",
+                                         mode_launches))
         record.append({
             "name": kname, "route": "cuda",
-            "source": ("sddmm_tpu_torch/csrc/tile_dot.cu" if tile
-                       else "sddmm_tpu_torch/csrc/gather_dot.cu"),
-            "replaces": ("sddmm_tpu/ops/pallas_tiles.py:72" if tile
-                         else "sddmm_tpu/ops/hybrid.py:306"),
-            "launches": (main_launches.get(kname, 0) if main
-                         else mode_launches.get(kname, 0)),
-            "path": ("main path (8 cells)" if main
-                     else "compute modes on banded@K128"),
+            "source": f"sddmm_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": counts.get(kname, 0), "path": path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"]})
     record.append({

@@ -13,15 +13,21 @@ find:
   holds ``HybridSDDMM`` and the residual gather-dot kernel
   (``csrc/gather_dot.cu``); ``ops.dense`` the dense class
   (``DenseSDDMM``) on the tile kernel; ``ops.csr_sddmm`` the CSR baseline
-  on the gather-dot kernel.
+  on the gather-dot kernel; ``ops.spmm`` the CSR SpMM (``csrc/spmm.cu``);
+  ``ops.batch`` the batched SDDMM over the runners.
+- ``models`` holds the serving path of the two attention models
+  (``GraphAttentionLayer``, ``BlockSparseAttention``); ``entry`` the
+  flagship forward, as ``__graft_entry__.entry``.
 - ``_kernels`` builds ``csrc/*.cu`` with nvcc for ``sm_90a`` at first use
   and binds them with ctypes.
-- ``interop`` carries a ``PackedMatrix`` and the operands across from the
-  JAX package, for the parity tests.
+- ``interop`` carries a ``PackedMatrix``, the operands and the models'
+  weights across from the JAX package, for the parity tests.
 
 Every committed ``results/tuned_configs.json`` configuration runs (any G
-and C, hub and hot-row slabs, the five compute modes, the dense class);
-see ROADMAP.md for what comes next.
+and C, hub and hot-row slabs, the five compute modes, the dense class, any
+K).  Nothing has a backward pass yet: a forward under grad mode on an
+operand that requires grad raises ``NotImplementedError``.  See ROADMAP.md
+for what comes next.
 """
 
 from sddmm_tpu_torch import config as config

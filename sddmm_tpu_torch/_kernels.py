@@ -100,6 +100,10 @@ def _build(out: Path) -> str:
     return log
 
 
+#: C entry point of the CSR SpMM kernel (``csrc/spmm.cu``), fp32 only
+SPMM_ENTRY = "sddmm_csr_spmm_float32"
+
+
 def gather_dot_entry(adt, bdt) -> str:
     """C entry point of the gather-dot instance for A and B stored in the
     torch dtypes ``adt`` and ``bdt``."""
@@ -110,14 +114,16 @@ def gather_dot_entry(adt, bdt) -> str:
 def _entry_points() -> dict:
     """C entry point name -> ctypes argtypes, for every kernel instance:
     the tile dot per compute mode, the gather-dot per (A, B) storage pair
-    of the modes."""
+    of the modes, and the CSR SpMM."""
     from sddmm_tpu_torch.ops.tile_dot import MODES, STORAGE
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     tile = [p, i64, i64, p, i64, i64, p, i64, i64, i64, i32, i32, i32, i32,
             p]
     gather = [p, i64, p, i64, i64, p, p, p, p, i64, i32, i32, p]
+    spmm = [p, p, p, p, i64, p, i64, i32, p]
     eps = {f"sddmm_tile_dot_{m}": tile for m in MODES}
     eps.update({gather_dot_entry(*pair): gather for pair in STORAGE.values()})
+    eps[SPMM_ENTRY] = spmm
     return eps
 
 

@@ -1,10 +1,10 @@
 """Carry state across from the JAX package.
 
-This system has no weights: its state is the ``PackedMatrix`` and the dense
-operands.  With these helpers a test packs once in ``sddmm_tpu`` and runs
-both packages' runners on the identical layout and inputs.  Nothing here
-imports ``sddmm_tpu`` (that would load jax): the JAX package's objects
-are read by duck typing.
+The SDDMM's state is the ``PackedMatrix`` and the dense operands; the
+attention models add their weights.  With these helpers a test packs once
+in ``sddmm_tpu`` (or initialises a JAX model) and runs both packages on the
+identical layout, weights and inputs.  Nothing here imports ``sddmm_tpu``
+(that would load jax): the JAX package's objects are read by duck typing.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from sddmm_tpu_torch.reorder.pack import PackedMatrix
 
@@ -47,3 +48,36 @@ def operands_from_numpy(runner, a, b):
         raise ValueError(f"A x B is {(a.shape[0], b.shape[1])}, the packing "
                          f"is {(runner.packed.m, runner.packed.n)}")
     return runner.prepare_operands(a, b)
+
+
+def _load_weights(p, module, params_cls):
+    """Copy the fields of ``params_cls`` (``w_q``, ...) from the JAX
+    package's NamedTuple ``p``, read as fp32 numpy, into ``module``; a
+    missing field or a shape that differs from the module's raises."""
+    names = params_cls._fields
+    missing = [n for n in names if not hasattr(p, n)]
+    if missing:
+        raise ValueError(f"{type(p).__name__} has no weight {missing}")
+    ws = [np.array(getattr(p, n), dtype=np.float32) for n in names]
+    for name, w, mine in zip(names, ws, module.params()):
+        if w.shape != tuple(mine.shape):
+            raise ValueError(f"weight {name} {w.shape} != the module's "
+                             f"{tuple(mine.shape)}")
+    module.load_params(params_cls(*map(torch.from_numpy, ws)))
+    return module
+
+
+def graph_attention_params_from_reference(p, layer):
+    """Load the JAX package's ``GraphAttentionParams`` (w_q, w_k, w_v, each
+    (F, D)) into the port's ``GraphAttentionLayer`` ``layer``; returns it."""
+    from sddmm_tpu_torch.models.graph_attention import GraphAttentionParams
+    return _load_weights(p, layer, GraphAttentionParams)
+
+
+def block_sparse_params_from_reference(p, model):
+    """Load the JAX package's ``BlockSparseAttentionParams`` (w_q, w_k, w_v
+    (H, F, D) and w_o (H*D, F)) into the port's ``BlockSparseAttention``
+    ``model``; returns it."""
+    from sddmm_tpu_torch.models.block_sparse_attention import (
+        BlockSparseAttentionParams)
+    return _load_weights(p, model, BlockSparseAttentionParams)

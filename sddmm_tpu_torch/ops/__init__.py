@@ -5,6 +5,9 @@ from sddmm_tpu_torch.ops.hybrid import (HybridSDDMM, residual_gather_dot,
                                         sddmm_hybrid)
 from sddmm_tpu_torch.ops.csr_sddmm import csr_sddmm, csr_sddmm_torch
 from sddmm_tpu_torch.ops.dense import DenseSDDMM, dense_masked_sddmm
+from sddmm_tpu_torch.ops.spmm import csr_spmm, csr_spmm_torch
+from sddmm_tpu_torch.ops.batch import (BatchedHybridSDDMM, batched_csr_sddmm,
+                                       batched_transpose)
 
 __all__ = [
     "sddmm_reference",
@@ -18,4 +21,9 @@ __all__ = [
     "csr_sddmm_torch",
     "DenseSDDMM",
     "dense_masked_sddmm",
+    "csr_spmm",
+    "csr_spmm_torch",
+    "BatchedHybridSDDMM",
+    "batched_csr_sddmm",
+    "batched_transpose",
 ]

@@ -20,7 +20,7 @@ import torch
 
 from sddmm_tpu_torch.data.sparse import CSR
 from sddmm_tpu_torch.ops.hybrid import (GATHER_STORAGE, check_device,
-                                        residual_gather_dot,
+                                        check_no_grad, residual_gather_dot,
                                         residual_gather_dot_plain)
 
 
@@ -34,6 +34,7 @@ def csr_sddmm_torch(a: torch.Tensor, bt: torch.Tensor, rows: torch.Tensor,
     package's ``astype(float32)`` does.  CUDA tensors go through the
     gather-dot kernel (or raise); CPU tensors through its plain version,
     unblocked."""
+    check_no_grad("csr_sddmm_torch", a, bt)
     if (a.dtype, bt.dtype) not in GATHER_STORAGE:
         a, bt = a.to(torch.float32), bt.to(torch.float32)
     return residual_gather_dot(a, bt, rows, cols)

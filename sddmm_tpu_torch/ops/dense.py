@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from sddmm_tpu_torch.data.sparse import CSR
-from sddmm_tpu_torch.ops.hybrid import COMPUTE_DTYPES, check_device
+from sddmm_tpu_torch.ops.hybrid import (COMPUTE_DTYPES, check_device,
+                                        check_no_grad)
 from sddmm_tpu_torch.ops.tile_dot import STORAGE, tile_dot
 
 #: M*N from which the CSR gather takes a (row, col) index, not a flat one
@@ -37,7 +38,7 @@ class DenseSDDMM:
 
     Interface-compatible with ``HybridSDDMM``: ``prepare_operands`` ->
     ``run_padded(order="packed"|"csr")``; ``"packed"`` is the (M, N)
-    product.  K must be a multiple of 16 (the tile kernel's step)."""
+    product.  Any K (the tile kernel's wrapper pads K to its step)."""
 
     def __init__(self, m: int, n: int, compute_dtype: str = "tf32",
                  csr: Optional[CSR] = None, device="cpu"):
@@ -113,6 +114,7 @@ class DenseSDDMM:
         reference it is timed against on the card)."""
         if order not in ("packed", "csr"):
             raise ValueError(f"unknown order {order!r}")
+        check_no_grad("DenseSDDMM.run_padded", a_dev, bt_dev)
         full = torch.empty((self.m, self.n), dtype=torch.float32,
                            device=a_dev.device)
         for a, b, out, accumulate in self.tile_calls(a_dev, bt_dev, full):

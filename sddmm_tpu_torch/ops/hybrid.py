@@ -202,6 +202,25 @@ def check_slice(compute_dtype: str, k_chunks: int,
             "'greedy' or 'batched'")
 
 
+#: the ROADMAP item that brings backward passes to the hand kernels
+AUTOGRAD_ITEM = "ROADMAP Queue 1: 'Autograd for the hybrid op'"
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise NotImplementedError if autograd would need a gradient through
+    ``name``: grad mode is on and one of ``tensors`` (None and non-tensors
+    are skipped) requires grad.  The hand kernels write through ctypes, so
+    their results carry no ``grad_fn``; the plain versions on the CPU raise
+    too, so both devices behave alike.  Serving runs under
+    ``torch.inference_mode()`` (or ``torch.no_grad()``)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: sddmm_tpu_torch has no backward pass yet ({AUTOGRAD_ITEM}"
+            "); run under torch.inference_mode() or torch.no_grad(), or "
+            "detach the operands")
+
+
 @dataclasses.dataclass
 class _Segment:
     """One (family, bucket) segment of the packed flat vector."""
@@ -478,6 +497,8 @@ class HybridSDDMM:
         card.  It is only ever chosen explicitly."""
         if order not in ("packed", "csr"):
             raise ValueError(f"unknown order {order!r}")
+        check_no_grad("HybridSDDMM.run_padded", bt_phys, *(
+            a_ops if isinstance(a_ops, (tuple, list)) else (a_ops,)))
         residual = self.residual_call(a_ops, bt_phys)
         flat = torch.empty(self.packed.packed_size, dtype=torch.float32,
                            device=residual[0].device)

@@ -26,8 +26,11 @@ one instance per mode) for CUDA tensors, and takes ``tile_dot_plain`` for
 CPU tensors.  It takes strided operands: A and B rows at any 16-byte row
 stride (so a K chunk is a column view, and C chunks are C calls with
 ``accumulate``), and an output view with any strides, e.g. a slab of a flat
-vector.  ``tile_dot_plain`` is the same math in PyTorch ops, the CPU path
-and the kernels' reference on the card.
+vector.  It takes any K: the kernel steps K by 16, so for K not a multiple
+of 16 ``tile_dot`` zero-pads a copy of A and of B along K first (zero
+planes add exact zeros, and the copies' rows are 16-byte aligned).
+``tile_dot_plain`` is the same math in PyTorch ops on the unpadded
+operands, the CPU path and the kernels' reference on the card.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ MODES = {
 #: mode -> (A storage dtype, B storage dtype), as the JAX package's _STORAGE
 STORAGE = {mode: spec[:2] for mode, spec in MODES.items()}
 _ALIGN = 16  # bytes: the kernel stages A and B rows with 16-byte loads
+K_STEP = 16  # the kernel's k step: K is padded up to a multiple of it
 _MAX_GRID_YZ = 65535 * 64  # rows (R) or columns (L) the grid can cover
 
 
@@ -123,9 +127,8 @@ def _check(a, b, mode, out, accumulate):
         raise ValueError(f"tile_dot: a {tuple(a.shape)} and b "
                          f"{tuple(b.shape)} disagree on nT or K")
     L = b.shape[1]
-    if R < 1 or L < 1 or K % 16 or K < 16:
-        raise ValueError(f"tile_dot: R={R} and L={L} must be >= 1, K={K} a "
-                         "positive multiple of 16")
+    if R < 1 or L < 1 or K < 1:
+        raise ValueError(f"tile_dot: R={R}, L={L} and K={K} must be >= 1")
     if R > _MAX_GRID_YZ or L > _MAX_GRID_YZ:
         raise ValueError(f"tile_dot: R={R} or L={L} exceeds the grid's "
                          f"{_MAX_GRID_YZ}")
@@ -148,7 +151,9 @@ def _check(a, b, mode, out, accumulate):
         if t.shape[2] > 1 and t.stride(2) != 1:
             raise ValueError(f"tile_dot: {name}'s last dimension is not "
                              "contiguous")
-    for name, t in (("a", a), ("b", b)):
+    # operands of a K that is not a multiple of K_STEP are copied (padded)
+    # before a launch, so only the others must have aligned rows
+    for name, t in (("a", a), ("b", b)) if K % K_STEP == 0 else ():
         size = t.element_size()
         if (t.data_ptr() % _ALIGN
                 or (t.shape[1] > 1 and t.stride(1) * size % _ALIGN)
@@ -159,14 +164,22 @@ def _check(a, b, mode, out, accumulate):
     return nT, R, L, K
 
 
+def pad_k(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x (.., K) zero-padded along K up to the next
+    multiple of ``K_STEP``: the kernel's operand for a K off its step."""
+    return torch.nn.functional.pad(x, (0, -x.shape[-1] % K_STEP))
+
+
 def tile_dot(a: torch.Tensor, b: torch.Tensor, mode: str = "tf32",
              out: torch.Tensor = None, accumulate: bool = False,
              plain: bool = False) -> torch.Tensor:
     """Batched tile dot ``(nT, R, K) x (nT, L, K) -> (nT, R, L)`` fp32 in
     compute mode ``mode``; a and b in the mode's ``STORAGE`` dtypes, on one
-    device, last dimension contiguous, rows 16-byte aligned; R, L >= 1 and
-    K a multiple of 16.  ``out`` (optional, any strides with a contiguous
-    last dimension) is written in place, or added to with ``accumulate``.
+    device, last dimension contiguous; R, L, K >= 1, and rows 16-byte
+    aligned where K is a multiple of 16 (other K are zero-padded to one,
+    into aligned copies, before the launch).  ``out`` (optional, any
+    strides with a contiguous last dimension) is written in place, or
+    added to with ``accumulate``.
     CUDA tensors go through the mode's kernel instance (or raise); CPU
     tensors, or any with ``plain=True`` (only ever chosen explicitly, as
     the reference a kernel is timed against), through
@@ -185,6 +198,9 @@ def tile_dot(a: torch.Tensor, b: torch.Tensor, mode: str = "tf32",
         out = torch.empty((nT, R, L), dtype=torch.float32, device=a.device)
     if nT == 0:
         return out
+    if K % K_STEP:
+        a, b = pad_k(a), pad_k(b)
+        K = a.shape[2]
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         _kernels.launch(f"sddmm_tile_dot_{mode}",

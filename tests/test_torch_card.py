@@ -12,7 +12,10 @@ import torch
 
 from sddmm_tpu_torch import _kernels
 from sddmm_tpu_torch.data import generate
+from sddmm_tpu_torch.models import GraphAttentionLayer
+from sddmm_tpu_torch.ops import batch as bt
 from sddmm_tpu_torch.ops import hybrid as hy
+from sddmm_tpu_torch.ops import spmm as sp
 from sddmm_tpu_torch.ops import tile_dot as td
 from sddmm_tpu_torch.ops.csr_sddmm import csr_sddmm
 from sddmm_tpu_torch.ops.dense import DenseSDDMM
@@ -30,6 +33,15 @@ GATHER_REL = 1e-6
 # "float32" vs the fp64 product, max abs err / min |exact| on positive data:
 # about one fp32 rounding ("tf32" errs by up to 3 * 2^-18 per product)
 F32_EXACT = 1e-6
+# SpMM kernel vs plain: the same fp32 products summed in another order, as
+# max abs err / the sum of the terms' magnitudes.  A sum of n terms errs by
+# up to (n-1) * 2^-24 of that, and by about sqrt(n) * 2^-24 in practice:
+# 3.8e-6 for the 4096-entry rows of a global token
+SPMM_REL = 1e-5
+# a model's kernel path vs its plain path, as max abs diff / max |plain|:
+# the scores differ by the tile sums' order, the aggregation by the SpMM's
+# (an output near 0 has no relative error to speak of)
+MODEL_PLAIN = 1e-5
 
 
 @pytest.fixture
@@ -177,6 +189,116 @@ def test_slabs_on_card(cuda_device):
     torch.cuda.synchronize()
     res = check_values(sddmm_reference(a, b, csr), got.cpu().numpy())
     assert res.passed and res.num_errors == 0, str(res)
+
+
+@pytest.mark.parametrize("mode", ["tf32", "float32"])
+@pytest.mark.parametrize("K", [8, 24])
+def test_tile_dot_any_k(K, mode, cuda_device):
+    """K off the kernel's 16-step: tile_dot zero-pads copies of A and B
+    before the launch; also a C=2 chunk of kc = K/2 accumulated into a
+    strided output."""
+    rng = np.random.default_rng(K)
+    a = _u02(rng, (37, 37, K), cuda_device)
+    b = _u02(rng, (37, 150, K), cuda_device)
+    n = _kernels.launches[f"sddmm_tile_dot_{mode}"]
+    got = td.tile_dot(a, b, mode)
+    assert _kernels.launches[f"sddmm_tile_dot_{mode}"] == n + 1
+    out = torch.zeros((37, 37, 151), device=cuda_device)[:, :, :150]
+    h = K // 2
+    td.tile_dot(a[:, :, :h], b[:, :, :h], mode, out=out)
+    td.tile_dot(a[:, :, h:], b[:, :, h:], mode, out=out, accumulate=True)
+    want = td.tile_dot_plain(a, b, mode)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= TILE_REL
+    assert _rel(out, want) <= TILE_REL
+    if mode == "float32":
+        # at K < 16 the exact values span a wide range, so each is held to
+        # its own relative error, not to the smallest one
+        exact = torch.bmm(a.double(), b.double().transpose(1, 2))
+        assert _rel(got.double(), exact) <= F32_EXACT
+
+
+@pytest.mark.parametrize("K", [8, 64, 128])
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+def test_spmm_kernel_matches_plain(order, K, cuda_device):
+    """The SpMM kernel against its plain version: every 5th row empty
+    (exact zeros), row 2 with 50,000 entries, rows sorted or not."""
+    rng = np.random.default_rng(K)
+    m, n = 3000, 4000
+    deg = rng.integers(0, 30, m)
+    deg[::5] = 0
+    deg[2] = 50000
+    rows = np.repeat(np.arange(m), deg)
+    if order == "unsorted":
+        rows = rng.permutation(rows)
+    r = torch.tensor(rows, device=cuda_device)
+    c = torch.tensor(rng.integers(0, n, len(rows)), dtype=torch.int32,
+                     device=cuda_device)
+    v = torch.tensor(rng.standard_normal(len(rows)), dtype=torch.float32,
+                     device=cuda_device)
+    d = torch.tensor(rng.standard_normal((n, K)), dtype=torch.float32,
+                     device=cuda_device)
+    before = _kernels.launches[_kernels.SPMM_ENTRY]
+    got = sp.csr_spmm_torch(v, r, c, d, m)
+    assert _kernels.launches[_kernels.SPMM_ENTRY] == before + 1
+    want = sp.csr_spmm_plain(v, r, c, d, m)
+    scale = sp.csr_spmm_plain(v.abs(), r, c, d.abs(), m)
+    torch.cuda.synchronize()
+    assert ((got - want).abs() / scale.clamp_min(1e-30)).max() <= SPMM_REL
+    assert not got[torch.tensor(deg == 0, device=cuda_device)].any()
+
+
+def test_graph_attention_kernel_path_matches_plain(cuda_device):
+    """The graph layer's kernel path against its plain path, and against
+    dense softmax attention in fp64, at a small size; the float32 tile
+    instance, the gather-dot and the SpMM all launch."""
+    adj = generate.powerlaw_graph(2000, avg_degree=12, seed=8)
+    layer = GraphAttentionLayer(adj, 64, 64, device=cuda_device)
+    p = layer.init(torch.Generator().manual_seed(0))
+    x = torch.as_tensor(generate.make_dense(adj.m, 64, seed=1),
+                        device=cuda_device)
+    before = dict(_kernels.launches)
+    with torch.inference_mode():
+        got = layer(x)
+        plain = layer(x, plain=True)
+    torch.cuda.synchronize()
+    used = ["sddmm_tile_dot_float32", _kernels.SPMM_ENTRY] + (
+        ["sddmm_gather_dot_float32_float32"]
+        if layer.runner.packed.nnz_res else [])
+    for name in used:
+        assert _kernels.launches[name] > before.get(name, 0), name
+    assert ((got - plain).abs().max() / plain.abs().max()).item() \
+        <= MODEL_PLAIN
+    q, k, v = (x.double() @ w.double() for w in p)
+    mask = torch.zeros((adj.m, adj.m), dtype=torch.bool, device=cuda_device)
+    mask[torch.as_tensor(adj.row_indices(), device=cuda_device),
+         torch.as_tensor(adj.col_idx, dtype=torch.int64,
+                         device=cuda_device)] = True
+    s = (q @ k.T / 8.0).masked_fill(~mask, -torch.inf)
+    want = torch.nan_to_num(torch.softmax(s, dim=1)) @ v
+    res = check_values(want.cpu().numpy(), got.cpu().numpy())
+    assert res.passed and res.num_errors == 0, str(res)
+    with pytest.raises(NotImplementedError, match="Autograd"):
+        layer(x)
+
+
+def test_batched_hybrid_and_overlap_report_on_card(cuda_device):
+    """The batch is a loop over the runner on the card: each element equals
+    its own call; batch_overlap_report times both with CUDA events."""
+    csr = _quick_clustered()
+    t = from_params(csr, 64, alpha=0.3, delta=0.05, group_size=2)
+    r = hy.HybridSDDMM(t.packed, compute_dtype="float32", device=cuda_device)
+    rng = np.random.default_rng(3)
+    a = rng.uniform(0, 2, (3, csr.m, 64)).astype(np.float32)
+    b = rng.uniform(0, 2, (3, 64, csr.n)).astype(np.float32)
+    got = bt.BatchedHybridSDDMM(r)(a, b)
+    for i in range(3):
+        flat = r.run_padded(*r.prepare_operands(a[i], b=b[i])).cpu().numpy()
+        assert np.array_equal(got[i][t.packed.inv_idx],
+                              flat[t.packed.inv_idx])
+    rep = bt.batch_overlap_report(r, a, b, iterations=5)
+    assert rep["batch_size"] == 3 and rep["batch_ms"] > 0
+    assert rep["serial_ms"] > 0 and rep["overlap_efficiency"] > 0
 
 
 @pytest.mark.parametrize("mode", ["tf32", "float32", "mixed"])

@@ -23,6 +23,11 @@ PARITY_REL = 1e-5
 # the bf16x3 split: at most 3 * 2^-18 relative per product on U[0,2) data
 # (see test_torch_hybrid.SPLIT_REL).
 SPLIT_REL = 3 * 2.0 ** -18
+# The same, for a value that is one product or a few (K < 16): no sum
+# averages the split's errors, so the worst case holds.  Each bf16 rounding
+# errs by at most 2^-8 relative, so al.bl and the two rounding errors of
+# the lo planes are each at most 2^-16 of a.b.
+SPLIT_REL_FEW = 3 * 2.0 ** -16
 
 
 @pytest.fixture(scope="module")
@@ -50,6 +55,24 @@ def test_dense_matches_jax(mode, order, case):
     if order == "csr" and mode in ("tf32", "float32", "mixed"):
         res = check_values(sddmm_reference(a, b, tcsr), got.numpy())
         assert res.passed and res.num_errors == 0, str(res)
+
+
+@pytest.mark.parametrize("mode", ["tf32", "float32"])
+@pytest.mark.parametrize("k", [1, 4, 8, 24])
+def test_dense_any_k_matches_jax(k, mode, case):
+    """K off the tile kernel's 16-step (tile_dot zero-pads it before a
+    launch) against the JAX dense class, which takes any K."""
+    csr, tcsr, _, _ = case
+    a = jgen.make_dense(csr.m, k, seed=1)
+    b = jgen.make_dense(k, csr.n, seed=2)
+    jr = JaxDense.from_csr(csr, compute_dtype=mode)
+    want = np.asarray(jr.run_padded(*jr.prepare_operands(a, b=b),
+                                    order="csr"))
+    got = dn.DenseSDDMM.from_csr(tcsr, compute_dtype=mode)(a, b=b).numpy()
+    tol = SPLIT_REL_FEW if mode == "tf32" else PARITY_REL
+    assert np.max(np.abs(got - want) / np.abs(want)) <= tol
+    res = check_values(sddmm_reference(a, b, tcsr), got)
+    assert res.passed and res.num_errors == 0, str(res)
 
 
 @pytest.mark.parametrize("mode", ["tf32", "bfloat16"])

@@ -73,7 +73,8 @@ def test_library_name_tracks_sources():
     assert p.parent.name == "_build" and p.name.startswith("libsddmm_kernels_")
     assert p == _kernels.lib_path()
     assert {s.name for s in _kernels._sources()} == {"tile_dot.cu",
-                                                     "gather_dot.cu"}
+                                                     "gather_dot.cu",
+                                                     "spmm.cu"}
 
 
 def test_build_runs_commands_together_and_raises():
@@ -91,6 +92,7 @@ def test_build_runs_commands_together_and_raises():
         "sddmm_gather_dot_float32_float32", "sddmm_gather_dot_float32_bfloat16",
         "sddmm_gather_dot_float16_float16",
         "sddmm_gather_dot_bfloat16_bfloat16"}
+    assert _kernels.SPMM_ENTRY in eps
 
 
 def test_cuda_device_raises_without_cuda():

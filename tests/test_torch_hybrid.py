@@ -282,6 +282,29 @@ def test_modes_match_jax(name, mode, cases, pallas_interpret):
                         contract=mode in CONTRACT_MODES)
 
 
+@pytest.mark.parametrize("mode", ["tf32", "float32"])
+@pytest.mark.parametrize("name,k,C", [
+    ("clustered", 1, 1), ("clustered", 4, 1), ("clustered", 8, 1),
+    ("clustered", 24, 1), ("clustered", 24, 2), ("slabs", 24, 1)])
+def test_any_k_matches_jax(name, k, C, mode, pallas_interpret):
+    """K (and kc = K/C) off the tile kernel's 16-step, which tile_dot pads
+    with zeros before a launch: every segment, chunk and slab against the
+    JAX runner, which takes any K."""
+    csr = _clustered() if name == "clustered" else _powerlaw()
+    kw = (dict(hub_cols=128, hot_rows=64, hot_rows_pre=True)
+          if name == "slabs" else {})
+    t = j_from_params(csr, k, alpha=0.3, delta=0.05, k_chunks=C, **kw)
+    p = t.packed
+    assert t.k_chunks == C and (p.nnz_res > 0 if name == "clustered" else
+                                p.hub_cols and p.rowslab_rows is not None)
+    a = jgen.make_dense(csr.m, k, seed=1)
+    b = jgen.make_dense(k, csr.n, seed=2)
+    # the JAX side reaches Pallas only for "tf32" segments at C = 1
+    tol = (PARITY_REL if mode == "float32" or (C == 1 and name == "clustered")
+           else SPLIT_REL)
+    _assert_matches_jax(csr, p, a, b, mode, "panels", C, tol, contract=True)
+
+
 def test_hot_row_slab_slots():
     """A hot entry's slot is rowslab_base + hot_index * NG*G + rank (not
     rank - H): its value there is its own dot product."""

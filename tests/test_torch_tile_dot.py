@@ -178,7 +178,8 @@ def test_tile_dot_rejects(case):
     elif case == "L":
         b = torch.ones(2, 0, 32)
     elif case == "K":
-        a, b = torch.ones(2, 16, 40), torch.ones(2, 128, 40)
+        # any K >= 1 is taken (padded to the kernel's step); K = 0 is not
+        a, b = torch.ones(2, 16, 0), torch.ones(2, 128, 0)
     elif case == "dtype":
         a, err = a.double(), TypeError
     elif case == "contig":
