@@ -31,15 +31,25 @@ its time:
    ``results/tuned_configs.json`` configs, run through the port's runners
    on the card into CSR order and checked against the fp64 golden model;
    the launch counters are zeroed just before this run and read just
-   after, per cell, and every kernel of the path must have launched;
+   after, per cell: each call must launch the tile kernel exactly once
+   (every segment, chunk and slab of the packing, or the dense product)
+   and the gather-dot exactly once where the packing has a residual;
 6. per cell, each kernel again at the main path's own shapes against its
-   plain version; then timing with CUDA events (median of 20 after warm-up
-   at K=128, of 5 at the other K): the call with the kernels, with the
-   plain versions, and into CSR order, and each kernel's launches of one
-   call beside its plain version;
+   plain version (the tile kernel's one launch against the per-segment
+   route of gathers and ``tile_dot_plain``); then timing with CUDA events
+   (median of 20 after warm-up at K=128, of 5 at the other K): the call
+   with the kernels, with the plain versions, and into CSR order, and each
+   kernel beside its plain version, beside one PyTorch call that computes
+   the same function (``torch.bmm`` in full fp32 on the per-segment
+   route's pre-gathered tiles, gathers not counted;
+   ``torch.sparse.sampled_addmm`` for the gather-dot), and beside its
+   bound: the bytes it must move (each input read once, each output
+   written once) over the card's 3.35 TB/s, or its operations over the
+   peak of their type (989 TFLOP/s for the tile kernel's bf16 products,
+   67 TFLOP/s for fp32 outside the tensor cores), whichever is larger;
 7. the CSR baseline (the gather-dot kernel with C = G = 1) on each K=128
-   cell: checked against the golden, timed, and the hybrid's speed-up over
-   it on this card;
+   cell: checked against the golden, timed beside ``sampled_addmm`` and
+   its bound, and the hybrid's speed-up over it on this card;
 8. the five compute modes on banded K=128: "float32", "tf32" and "mixed"
    must pass the contract; "float16" and "bfloat16" fail it by design, so
    they are held to their plain versions and their max rel is printed;
@@ -50,14 +60,19 @@ its time:
    (``allenai/longformer-base-4096``: 4096 positions, window 256 each
    side, 1 global token, hidden 768, 12 heads of 64), plus the port's
    ``entry``.  The launch counters are zeroed just before the forwards and
-   read just after: the tile kernel's "float32" instance, the SpMM kernel
-   and, where a packing has a residual, the gather-dot must have
-   launched.  Each output is checked against an fp64 reference under the
-   contract and against the same forward with every kernel's plain
-   version; both forwards, and the SpMM at the models' shapes, are timed.
+   read just after: each forward launches the tile kernel's "float32"
+   instance exactly once (the Longformer's 12 heads together) and the SpMM
+   kernel exactly once, and the gather-dot once per head where a packing
+   has a residual.  Each output is checked against an fp64 reference under
+   the contract and against the same forward with every kernel's plain
+   version; both forwards, and the SpMM at the models' shapes (beside
+   ``torch.sparse.mm`` on a CSR tensor and its bound), are timed.
 
-It then prints one JSON line with the kernels' record and, last, one JSON
-line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
+It then prints one JSON line with the kernels' record (per kernel: its
+launches on its path, max abs error against its plain version, and the
+summed times of the timed calls: kernel, plain version, PyTorch library
+call, and bound with what sets it) and, last, one JSON line
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 those lines.  Without a CUDA card, or outside the repo, it fails at once.
 """
 
@@ -102,6 +117,10 @@ LONGFORMER = dict(seq_len=4096, window=256, num_global=1, hidden=768,
 MODEL_PLAIN_TOL = 1e-5
 MODEL_ITERS = 10        # timed forwards with the kernels, after 2 warm-ups
 MODEL_PLAIN_ITERS = 3   # and with the plain versions, after 1
+# the card's published peaks (H100 SXM, NVIDIA's data sheet), for bounds
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12     # dense bf16 on the tensor cores
+FP32_FLOPS = 67e12      # fp32 outside the tensor cores
 
 
 def fail(msg: str) -> None:
@@ -427,10 +446,18 @@ def time_model(torch, label, model, x, card):
     return tk["median_ms"], tp["median_ms"]
 
 
+def bound_times(nbytes, flops, peak):
+    """A call's bound as {"bytes_ms", "ops_ms"}: its bytes over the card's
+    memory rate and its operations over ``peak``."""
+    return {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": flops / peak * 1e3}
+
+
 def time_spmm(torch, sp, label, agg, d, card):
     """The SpMM kernel against its plain version at one model's shapes
-    (its aggregation's CSR, random positive weights, V of width ``d``):
-    (max abs err, ms, plain ms)."""
+    (its aggregation's CSR and plan, random positive weights, V of width
+    ``d``), beside ``torch.sparse.mm`` on a CSR tensor: the record's
+    numbers."""
     from sddmm_tpu_torch import _kernels
     from sddmm_tpu_torch.utils.timing import cuda_time_ms
     g = torch.Generator(device=DEVICE).manual_seed(0)
@@ -440,25 +467,41 @@ def time_spmm(torch, sp, label, agg, d, card):
 
     def kernel():
         return sp.csr_spmm_torch(w, agg.rows, agg.cols, v, agg.num_rows,
-                                 row_ptr=agg.row_ptr)
+                                 row_ptr=agg.row_ptr, plan=agg.plan)
 
     def plain():
         return sp.csr_spmm_plain(w, agg.rows, agg.cols, v, agg.num_rows)
 
+    s_csr = torch.sparse_csr_tensor(agg.row_ptr, agg.cols.long(), w,
+                                    size=(agg.num_rows, agg.num_rows))
     got, want = kernel(), plain()
+    lib = torch.sparse.mm(s_csr, v)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     rel = max_rel(got[want > 0], want[want > 0])  # = err / sum |terms|
     if not rel <= SPMM_REL_TOL:
         fail(f"{label} csr_spmm at the model's shapes: max rel {rel:.3e} "
              "vs plain")
-    del got, want
+    if not max_rel(lib[want > 0], want[want > 0]) <= SPMM_REL_TOL:
+        fail(f"{label}: torch.sparse.mm does not compute the same function")
+    del got, want, lib
     tk = cuda_time_ms(kernel, 20)
     tp = cuda_time_ms(plain, 5)
+    tl = cuda_time_ms(lambda: torch.sparse.mm(s_csr, v), 20)
+    used = int(torch.unique(agg.cols).numel())
+    nbytes = (8 * (agg.num_rows + 1) + 8 * nnz + 4 * used * d
+              + 4 * agg.num_rows * d)
+    bnd = bound_times(nbytes, 2.0 * nnz * d, FP32_FLOPS)
+    gathered = 4.0 * nnz * d
     say(f"[time] {label} {_kernels.SPMM_ENTRY} ({nnz} entries, K={d}, max "
         f"rel vs plain {rel:.3e}): kernel {tk['median_ms']:.4f} ms, plain "
-        f"{tp['median_ms']:.4f} ms on {card}")
-    return err, tk["median_ms"], tp["median_ms"]
+        f"{tp['median_ms']:.4f} ms, torch.sparse.mm {tl['median_ms']:.4f} "
+        f"ms, bound {max(bnd.values()):.4f} ms ({nbytes / 1e6:.1f} MB read "
+        f"once + written once); gathered V rows {gathered / 1e9:.2f} GB = "
+        f"{gathered / tk['median_ms'] / 1e9:.2f} TB/s of L2/L1 reads on "
+        f"{card}")
+    return {"err": err, "ms": tk["median_ms"], "plain_ms": tp["median_ms"],
+            "library_ms": tl["median_ms"], **bnd}
 
 
 def run_models(torch, sp, card, adj):
@@ -518,12 +561,14 @@ def run_models(torch, sp, card, adj):
     say(f"[models] launches during the models' forwards: {counts}")
     for label, got in per_model.items():
         say(f"[models] {label} launches: {got}")
-        need = ["sddmm_tile_dot_float32", _kernels.SPMM_ENTRY]
-        if models[label][0].runner.packed.nnz_res:
-            need.append("sddmm_gather_dot_float32_float32")
-        for kname in need:
-            if not got.get(kname):
-                fail(f"{label}: {kname} was not launched")
+        model = models[label][0]
+        # one tile launch for all heads; the residual, one launch a head
+        want = {"sddmm_tile_dot_float32": 1, _kernels.SPMM_ENTRY: 1}
+        if model.runner.packed.nnz_res:
+            want["sddmm_gather_dot_float32_float32"] = getattr(
+                model, "num_heads", 1)
+        if got != want:
+            fail(f"{label}: launches {got}, want {want}")
 
     check_model(torch, "graph attention (clustered16, F=D=128)", graph,
                 x_graph, lambda: graph_reference(torch, x_graph,
@@ -536,13 +581,13 @@ def run_models(torch, sp, card, adj):
                                         fn.layer.adj))
     time_model(torch, "graph attention", graph, x_graph, card)
     time_model(torch, "block-sparse attention", block, x_block, card)
-    times = [time_spmm(torch, sp, "graph attention", graph._agg, GRAPH_WIDTH,
-                       card),
-             time_spmm(torch, sp, "block-sparse attention", block._agg,
-                       lf["head_dim"], card)]
-    return counts, {_kernels.SPMM_ENTRY: (max(t[0] for t in times),
-                                          sum(t[1] for t in times),
-                                          sum(t[2] for t in times))}
+    rec = {_kernels.SPMM_ENTRY: new_record(0.0)}
+    for label, agg, d in (("graph attention", graph._agg, GRAPH_WIDTH),
+                          ("block-sparse attention", block._agg,
+                           lf["head_dim"])):
+        add_times(rec, {_kernels.SPMM_ENTRY: time_spmm(torch, sp, label, agg,
+                                                       d, card)})
+    return counts, rec[_kernels.SPMM_ENTRY]
 
 
 def gather_name(runner):
@@ -557,9 +602,27 @@ def gather_pair_names():
             for a, b in GATHER_STORAGE]
 
 
+def tile_work(runner, ops):
+    """Bytes (operands and index arrays read once, output slots written
+    once) and bf16 tensor-core operations of one call's tile launch."""
+    from sddmm_tpu_torch.ops.tile_dot import MODES
+    table = runner.table
+    ent = table.entries.cpu()
+    cells = int((ent[:, 1] * ent[:, 4]).sum())
+    a, b = (runner.residual_call(*ops)[:2] if hasattr(runner, "packed")
+            else ops)
+    nbytes = (a.numel() * a.element_size() + b.numel() * b.element_size()
+              + 8 * ent.numel() + 4 * table.row_ids.numel()
+              + 4 * table.gids.numel() + 4 * cells)
+    flops = 2.0 * cells * a.shape[-1] * len(MODES[runner.compute_dtype][4])
+    return nbytes, flops
+
+
 def kernel_pass(torch, td, runner, ops, timing_iters, label, card):
     """Each kernel of one call at the main path's shapes against its plain
-    version, then timed beside it: {kernel: (max abs err, ms, plain ms)}."""
+    version, then timed beside it and beside one PyTorch library call:
+    {kernel: {"err", "ms", "plain_ms", "library_ms", "bytes_ms",
+    "ops_ms"}}."""
     from sddmm_tpu_torch.ops import hybrid as hy
     from sddmm_tpu_torch.utils.timing import cuda_time_ms
     mode = runner.compute_dtype
@@ -568,34 +631,39 @@ def kernel_pass(torch, td, runner, ops, timing_iters, label, card):
     size = ((runner.m, runner.n) if dense else (runner.packed.packed_size,))
     flat_k = torch.empty(size, device=DEVICE)
     flat_p = torch.empty(size, device=DEVICE)
-    calls_k = list(runner.tile_calls(*ops, flat_k))
-    calls_p = list(runner.tile_calls(*ops, flat_p))
-
-    def tiles(calls, plain):
-        for a, b, out, acc in calls:
-            td.tile_dot(a, b, mode, out=out, accumulate=acc, plain=plain)
-
-    tiles(calls_k, False)
-    tiles(calls_p, True)
+    runner.run_tiles(*ops, flat_k)
+    runner.run_tiles(*ops, flat_p, plain=True)
     torch.cuda.synchronize()
     n_tile = flat_k.numel() - (0 if dense else runner.packed.nnz_res)
     got, ref = flat_k.reshape(-1)[:n_tile], flat_p.reshape(-1)[:n_tile]
     rel = max_rel(got, ref)
     if not rel <= TILE_REL_TOL:
-        fail(f"{label} {tname} at the path's shapes: max rel {rel:.3e} vs "
-             "plain")
-    tk = cuda_time_ms(lambda: tiles(calls_k, False), timing_iters)
-    tp = cuda_time_ms(lambda: tiles(calls_p, True), timing_iters)
-    out = {tname: (float((got - ref).abs().max()), tk["median_ms"],
-                   tp["median_ms"])}
-    tile_bytes = sum(a.numel() * a.element_size()
-                     + b.numel() * b.element_size() + 4 * o.numel()
-                     for a, b, o, _ in calls_k)
-    say(f"[time] {label} {tname} ({len(calls_k)} launches of one call, "
-        f"max rel vs plain {rel:.3e}): kernel {tk['median_ms']:.4f} ms, "
-        f"plain {tp['median_ms']:.4f} ms on {card}; {tile_bytes / 1e6:.1f} "
-        f"MB moved at least = {tile_bytes / tk['median_ms'] / 1e6:.1f} GB/s")
-    del calls_k, calls_p
+        fail(f"{label} {tname} (one launch) at the path's shapes: max rel "
+             f"{rel:.3e} vs the per-segment plain route")
+    tk = cuda_time_ms(lambda: runner.run_tiles(*ops, flat_k), timing_iters)
+    tp = cuda_time_ms(lambda: runner.run_tiles(*ops, flat_p, plain=True),
+                      timing_iters)
+    # the yardstick: torch.bmm in full fp32 on the per-segment route's
+    # tiles, gathered beforehand (the gathers are not timed)
+    tiles = [(a.float().contiguous(), b.float().contiguous())
+             for a, b, _, _ in runner.tile_calls(*ops, flat_p)]
+    with td.full_fp32_matmul():
+        tl = cuda_time_ms(lambda: [torch.bmm(a, b.transpose(1, 2))
+                                   for a, b in tiles], timing_iters)
+    del tiles
+    nbytes, flops = tile_work(runner, ops)
+    bnd = bound_times(nbytes, flops, BF16_FLOPS)
+    out = {tname: {"err": float((got - ref).abs().max()),
+                   "ms": tk["median_ms"], "plain_ms": tp["median_ms"],
+                   "library_ms": tl["median_ms"], **bnd}}
+    say(f"[time] {label} {tname} (1 launch, {runner.table.n_entries} "
+        f"entries; max rel vs the per-segment plain route {rel:.3e}): "
+        f"kernel {tk['median_ms']:.4f} ms, plain {tp['median_ms']:.4f} ms, "
+        f"torch.bmm fp32 on gathered tiles {tl['median_ms']:.4f} ms; bound "
+        f"{max(bnd.values()):.4f} ms ({nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.1f} GFLOP bf16) = "
+        f"{100 * max(bnd.values()) / tk['median_ms']:.1f} % of it on {card}")
+    del flat_k, flat_p
     if dense or not runner.packed.nnz_res:
         return out
     gname = gather_name(runner)
@@ -610,23 +678,84 @@ def kernel_pass(torch, td, runner, ops, timing_iters, label, card):
                       timing_iters)
     tp = cuda_time_ms(lambda: hy.residual_gather_dot_plain(*residual),
                       timing_iters)
-    out[gname] = (float((res_out - ref).abs().max()), tk["median_ms"],
-                  tp["median_ms"])
-    say(f"[time] {label} {gname} ({res_out.numel()} entries, max rel vs "
-        f"plain {rel:.3e}): kernel {tk['median_ms']:.4f} ms, plain "
-        f"{tp['median_ms']:.4f} ms on {card}")
+    a_pad, bt_phys, rows, gids, member = residual
+    G = runner.packed.group_size
+    lanes = gids.long() * G + (member.long() if member is not None else 0)
+    lib_ms = None
+    if a_pad.dtype == bt_phys.dtype == torch.float32 and bt_phys.shape[0] == 1:
+        lib_ms = sampled_addmm_ms(torch, a_pad, bt_phys[0].reshape(
+            -1, a_pad.shape[1]), rows, lanes, timing_iters)
+    n, K = rows.numel(), a_pad.shape[1]
+    nbytes = (int(torch.unique(rows).numel()) * K * a_pad.element_size()
+              + int(torch.unique(lanes).numel()) * K
+              * bt_phys.element_size() + 12 * n + 4 * n)
+    bnd = bound_times(nbytes, 2.0 * n * K, FP32_FLOPS)
+    out[gname] = {"err": float((res_out - ref).abs().max()),
+                  "ms": tk["median_ms"], "plain_ms": tp["median_ms"],
+                  "library_ms": lib_ms, **bnd}
+    say(f"[time] {label} {gname} ({n} entries, max rel vs plain "
+        f"{rel:.3e}): kernel {tk['median_ms']:.4f} ms, plain "
+        f"{tp['median_ms']:.4f} ms, sampled_addmm "
+        + (f"{lib_ms:.4f} ms" if lib_ms is not None else "n/a")
+        + f", bound {max(bnd.values()):.4f} ms on {card}")
     return out
+
+
+def sampled_addmm_ms(torch, a, bt, rows, cols, iters):
+    """Median ms of ``torch.sparse.sampled_addmm`` in fp32 at the entries
+    (rows[i], cols[i]) of a x bt^T (the CSR built, and checked against
+    the fp64 dots of a few entries, beforehand)."""
+    from sddmm_tpu_torch.utils.timing import cuda_time_ms
+    order = torch.argsort(rows.long() * bt.shape[0] + cols.long())
+    r, c = rows.long()[order], cols.long()[order]
+    crow = torch.searchsorted(r, torch.arange(a.shape[0] + 1,
+                                              device=r.device))
+    s = torch.sparse_csr_tensor(crow, c, torch.zeros(r.numel(),
+                                                     device=r.device),
+                                size=(a.shape[0], bt.shape[0]))
+    mat2 = bt.T
+    got = torch.sparse.sampled_addmm(s, a, mat2, beta=0.0)
+    k = min(1000, r.numel())
+    want = (a[r[:k]].double() * bt[c[:k]].double()).sum(dim=1)
+    if not float(((got.values()[:k].double() - want).abs()
+                  / want.abs().clamp_min(1e-30)).max()) <= 1e-3:
+        fail("torch.sparse.sampled_addmm does not compute the same function")
+    return cuda_time_ms(lambda: torch.sparse.sampled_addmm(
+        s, a, mat2, beta=0.0), iters)["median_ms"]
 
 
 def add_times(rec, times, with_ms=True):
     """Fold kernel_pass's numbers into the record: every max abs error,
-    and the times only ``with_ms``."""
-    for kname, (err, ms, plain_ms) in times.items():
+    and the times and bounds only ``with_ms``; a library time that is
+    missing for one call leaves the sum null."""
+    for kname, t in times.items():
         r = rec[kname]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["max_abs_err"] = max(r["max_abs_err"], t["err"])
         if with_ms:
-            r["ms"] += ms
-            r["plain_ms"] += plain_ms
+            for key in ("ms", "plain_ms", "bytes_ms", "ops_ms"):
+                r[key] += t[key]
+            r["bound_ms"] += max(t["bytes_ms"], t["ops_ms"])
+            r["library_ms"] = (None if r["library_ms"] is None
+                               or t["library_ms"] is None
+                               else r["library_ms"] + t["library_ms"])
+
+
+def record_entry(name, source, replaces, launches, path, r):
+    """One kernel's entry of the JSON line: the measured numbers, the bound
+    with what sets it, and the share of the bound reached."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "path": path,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": ("bytes" if r["bytes_ms"] >= r["ops_ms"]
+                         else "operations"),
+            "share_of_bound": r["bound_ms"] / r["ms"] if r["ms"] else None,
+            "library_ms": r["library_ms"]}
+
+
+def new_record(err):
+    return {"max_abs_err": err, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0,
+            "ops_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
 
 
 def main() -> None:
@@ -709,14 +838,9 @@ def main() -> None:
             f"{abs3:.3e}; empty rows exact zeros")
 
     # every kernel instance's record; "launches" is from the named path
-    rec = {f"sddmm_tile_dot_{m}": {"max_abs_err": worst[m][1], "ms": 0.0,
-                                   "plain_ms": 0.0}
-           for m in td.MODES}
+    rec = {f"sddmm_tile_dot_{m}": new_record(worst[m][1]) for m in td.MODES}
     for pair in hy.GATHER_STORAGE:
-        rec[_kernels.gather_dot_entry(*pair)] = {
-            "max_abs_err": abs2, "ms": 0.0, "plain_ms": 0.0}
-    rec[_kernels.SPMM_ENTRY] = {"max_abs_err": abs3, "ms": 0.0,
-                                "plain_ms": 0.0}
+        rec[_kernels.gather_dot_entry(*pair)] = new_record(abs2)
 
     # -- 5. the main path at full scale --
     configs = json.loads((ROOT / "results" / "tuned_configs.json")
@@ -771,11 +895,12 @@ def main() -> None:
     for (name, k), counts in per_cell.items():
         say(f"[main] {name}@K{k} launches: {counts}")
         runner = cells[(name, k)][1]
-        if not counts.get("sddmm_tile_dot_tf32"):
-            fail(f"{name}@K{k}: the tile kernel was not launched")
-        if (hasattr(runner, "packed") and runner.packed.nnz_res
-                and not counts.get("sddmm_gather_dot_float32_float32")):
-            fail(f"{name}@K{k}: the gather-dot kernel was not launched")
+        # one tile launch a call; one gather-dot launch for a residual
+        want = {"sddmm_tile_dot_tf32": 1}
+        if hasattr(runner, "packed") and runner.packed.nnz_res:
+            want["sddmm_gather_dot_float32_float32"] = 1
+        if counts != want:
+            fail(f"{name}@K{k}: launches {counts}, want {want}")
     for kname in ("sddmm_tile_dot_tf32", "sddmm_gather_dot_float32_float32"):
         if not main_launches.get(kname):
             fail(f"{kname} was not launched by the main path")
@@ -841,7 +966,7 @@ def main() -> None:
         if csr_launches != len(base_in):
             fail(f"the CSR baseline launched the gather-dot kernel "
                  f"{csr_launches} times for {len(base_in)} cells")
-        base_rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+        base_rec = new_record(0.0)
         for name, args in base_in.items():
             res = check_values(goldens[(name, 128)],
                                base_out[name].cpu().numpy())
@@ -850,18 +975,25 @@ def main() -> None:
                 fail(f"{name}: CSR baseline has {res.num_errors} values "
                      "outside the contract")
             ref = hy.residual_gather_dot_plain(*args)
-            base_rec["max_abs_err"] = max(base_rec["max_abs_err"], float(
-                (base_out[name] - ref).abs().max()))
             tk = cuda_time_ms(lambda: csr_sddmm_torch(*args), 20)
             tp = cuda_time_ms(lambda: hy.residual_gather_dot_plain(*args), 20)
-            base_rec["ms"] += tk["median_ms"]
-            base_rec["plain_ms"] += tp["median_ms"]
+            a_t, bt_t, rows, cols = args
+            lib = sampled_addmm_ms(torch, a_t, bt_t, rows, cols, 20)
+            n, K = rows.numel(), a_t.shape[1]
+            nbytes = 4 * K * (int(torch.unique(rows).numel())
+                              + int(torch.unique(cols).numel())) + 12 * n
+            bnd = bound_times(nbytes, 2.0 * n * K, FP32_FLOPS)
+            add_times({"base": base_rec}, {"base": {
+                "err": float((base_out[name] - ref).abs().max()),
+                "ms": tk["median_ms"], "plain_ms": tp["median_ms"],
+                "library_ms": lib, **bnd}})
             tm = call_ms[(name, 128)]
             packed = tm["packed, kernels"]["median_ms"]
             in_csr = tm["CSR order, kernels"]["median_ms"]
             say(f"[time] {name}@K128 CSR baseline: kernel "
-                f"{tk['median_ms']:.4f} ms, plain {tp['median_ms']:.4f} ms; "
-                f"hybrid speed-up over it: packed "
+                f"{tk['median_ms']:.4f} ms, plain {tp['median_ms']:.4f} ms, "
+                f"sampled_addmm {lib:.4f} ms, bound "
+                f"{max(bnd.values()):.4f} ms; hybrid speed-up over it: packed "
                 f"{tk['median_ms'] / packed:.3f}x, CSR order "
                 f"{tk['median_ms'] / in_csr:.3f}x on {card}")
         del base_in, base_out
@@ -879,9 +1011,10 @@ def main() -> None:
             got = runner.run_padded(*ops, order="csr")
             torch.cuda.synchronize()
             counts = dict(_kernels.launches)
-            for kname in (f"sddmm_tile_dot_{mode}", gather_name(runner)):
-                if not counts.get(kname):
-                    fail(f"mode {mode}: {kname} was not launched")
+            want = {f"sddmm_tile_dot_{mode}": 1, gather_name(runner): 1}
+            if counts != want:
+                fail(f"mode {mode}: launches {counts}, want {want}")
+            for kname in want:
                 mode_launches.setdefault(kname, counts[kname])
             res = check_values(golden, got.cpu().numpy())
             plain = runner.run_padded(*ops, order="csr", plain=True)
@@ -901,9 +1034,10 @@ def main() -> None:
 
     # -- 9. the models: the serving path of the two attention families --
     with Phase("models"):
-        model_launches, spmm_times = run_models(torch, sp, card,
-                                                csrs[GRAPH_CELL])
-    add_times(rec, spmm_times)
+        model_launches, rec[_kernels.SPMM_ENTRY] = run_models(
+            torch, sp, card, csrs[GRAPH_CELL])
+    rec[_kernels.SPMM_ENTRY]["max_abs_err"] = max(
+        rec[_kernels.SPMM_ENTRY]["max_abs_err"], abs3)
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -930,18 +1064,14 @@ def main() -> None:
             source, replaces = "gather_dot.cu", "sddmm_tpu/ops/hybrid.py:306"
         path, counts = paths.get(kname, ("compute modes on banded@K128",
                                          mode_launches))
-        record.append({
-            "name": kname, "route": "cuda",
-            "source": f"sddmm_tpu_torch/csrc/{source}", "replaces": replaces,
-            "launches": counts.get(kname, 0), "path": path,
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"]})
-    record.append({
-        "name": "sddmm_gather_dot_float32_float32 (CSR baseline, C=G=1)",
-        "route": "cuda", "source": "sddmm_tpu_torch/csrc/gather_dot.cu",
-        "replaces": "sddmm_tpu/ops/csr_sddmm.py:25",
-        "launches": csr_launches, "path": "CSR baseline (K=128 cells)",
-        **base_rec})
+        record.append(record_entry(
+            kname, f"sddmm_tpu_torch/csrc/{source}", replaces,
+            counts.get(kname, 0), path, r))
+    record.append(record_entry(
+        "sddmm_gather_dot_float32_float32 (CSR baseline, C=G=1)",
+        "sddmm_tpu_torch/csrc/gather_dot.cu",
+        "sddmm_tpu/ops/csr_sddmm.py:25", csr_launches,
+        "CSR baseline (K=128 cells)", base_rec))
     for r in record:
         if not r["launches"]:
             fail(f"{r['name']} was not launched on its path")

@@ -1,0 +1,183 @@
+#!/usr/bin/env python3
+"""Device time by kernel of the PyTorch/CUDA port's calls, on one card.
+
+    python scripts/torch_profile.py [--root DIR] [--label NAME] [--calls 20]
+
+Imports ``sddmm_tpu_torch`` from the checkout at DIR (default: the one this
+script is in), so that one session on one card can measure two checkouts
+in turns, e.g. a parent commit unpacked with ``git archive`` beside the
+working tree: parent, change, change, parent.  It uses only entry points
+both have (``HybridSDDMM``, ``DenseSDDMM``, the two attention models,
+``csr_spmm_torch``).
+
+For each K=128 cell of ``chip_smoke.py`` (generated and packed as it does)
+one call in packed order, for the graph-attention and Longformer-shaped
+forwards, and for the SpMM alone at the models' shapes, it prints one JSON
+line: the host wall of a call (CUDA-synchronised, without the profiler),
+the device time of a call by kernel group from ``torch.profiler`` (the
+tile kernel, the gather-dot, the SpMM, cuBLAS, and every other kernel,
+which on the parent's packed-order call is the torch gathers that feed the
+tile kernel), the launches of a call per group, and the device busy share
+(device time over host wall).  Needs a CUDA card; imports nothing of JAX.
+"""
+
+import argparse
+import collections
+import importlib.util
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+CELLS = ("clustered16", "clustered128", "powerlaw", "banded", "dlmc")
+K = 128
+
+
+def group(name: str) -> str:
+    """The kernel group of a device event's name (cuBLAS names carry
+    "tilesize", so they are matched first)."""
+    if "gemm" in name or "cutlass" in name or "xmma" in name:
+        return "cublas"
+    if "tile_dot" in name or "tile_table" in name:
+        return "tile"
+    if "gather_dot" in name:
+        return "gather_dot"
+    if "spmm" in name:
+        return "spmm"
+    return "other"
+
+
+def profile(torch, fn, calls: int) -> dict:
+    """Host wall and device time by kernel group of one ``fn()``, averaged
+    over ``calls`` calls after 3 warm-ups."""
+    from torch.autograd import DeviceType
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / calls * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    # the profiler now and then records no device events at all: try again
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ms = collections.Counter()
+        launches = collections.Counter()
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            g = group(e.name)
+            ms[g] += e.time_range.elapsed_us() / 1e3 / calls
+            launches[g] += 1 / calls
+        if ms:
+            break
+    else:
+        raise RuntimeError("torch.profiler recorded no device time")
+    device_ms = sum(ms.values())
+    return {"host_ms": host_ms, "device_ms": device_ms,
+            "busy": device_ms / host_ms,
+            "by_group_ms": dict(ms), "launches": dict(launches),
+            "tile_plus_other_ms": ms["tile"] + ms["other"]}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=str(ROOT))
+    ap.add_argument("--label", default="")
+    ap.add_argument("--calls", type=int, default=20)
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("torch.cuda.is_available() is False: this script times the "
+                 "card")
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from sddmm_tpu_torch.data import generate
+    from sddmm_tpu_torch.models import (BlockSparseAttention,
+                                        GraphAttentionLayer,
+                                        make_attention_mask)
+    from sddmm_tpu_torch.ops import spmm as sp
+    from sddmm_tpu_torch.ops.dense import DenseSDDMM
+    from sddmm_tpu_torch.ops.hybrid import HybridSDDMM
+    import sddmm_tpu_torch
+
+    label = args.label or str(root)
+    card = torch.cuda.get_device_name(0)
+
+    def emit(name, rec):
+        print(json.dumps({"label": label, "package":
+                          str(Path(sddmm_tpu_torch.__file__).parent),
+                          "card": card, "cell": name, **rec}), flush=True)
+
+    configs = json.loads((ROOT / "results" / "tuned_configs.json")
+                         .read_text())[f"k{K}"]
+    gens = smoke.suite()
+    csrs = {}
+    with torch.inference_mode():
+        for name in CELLS:
+            csr = csrs[name] = gens[name]()
+            cfg = configs[name]
+            if cfg.get("dense"):
+                runner = DenseSDDMM.from_csr(
+                    csr, compute_dtype=cfg.get("dtype", "tf32"),
+                    device="cuda")
+            else:
+                t = smoke.tuned(csr, K, cfg)
+                runner = HybridSDDMM(t.packed,
+                                     compute_dtype=cfg.get("dtype", "tf32"),
+                                     k_chunks=t.k_chunks,
+                                     use_pallas=t.use_pallas,
+                                     a_layout=t.a_layout, device="cuda")
+            ops = runner.prepare_operands(
+                generate.make_dense(csr.m, K, seed=1),
+                b=generate.make_dense(K, csr.n, seed=2))
+            emit(f"{name}@K{K} packed", profile(
+                torch, lambda: runner.run_padded(*ops), args.calls))
+            del runner, ops
+
+        lf = smoke.LONGFORMER
+        adj = csrs[smoke.GRAPH_CELL]
+        graph = GraphAttentionLayer(adj, smoke.GRAPH_WIDTH, smoke.GRAPH_WIDTH,
+                                    device="cuda")
+        graph.init(torch.Generator().manual_seed(0))
+        mask = make_attention_mask(lf["seq_len"], window=lf["window"],
+                                   num_global=lf["num_global"])
+        block = BlockSparseAttention(mask, lf["hidden"], lf["heads"],
+                                     lf["head_dim"], device="cuda")
+        block.init(torch.Generator().manual_seed(1))
+        x_graph = torch.as_tensor(generate.make_dense(
+            adj.m, smoke.GRAPH_WIDTH, seed=1), device="cuda")
+        x_block = torch.as_tensor(generate.make_dense(
+            lf["seq_len"], lf["hidden"], seed=3), device="cuda")
+        emit("graph attention forward", profile(
+            torch, lambda: graph(x_graph), args.calls))
+        emit("Longformer forward", profile(
+            torch, lambda: block(x_block), args.calls))
+        for name, agg, d in (("graph", graph._agg, smoke.GRAPH_WIDTH),
+                             ("Longformer", block._agg, lf["head_dim"])):
+            g = torch.Generator(device="cuda").manual_seed(0)
+            w = torch.rand(agg.cols.shape[0], generator=g, device="cuda")
+            v = torch.rand((agg.num_rows, d), generator=g, device="cuda")
+            kw = {"plan": agg.plan} if hasattr(agg, "plan") else {}
+            emit(f"SpMM at the {name} shape", profile(
+                torch, lambda: sp.csr_spmm_torch(
+                    w, agg.rows, agg.cols, v, agg.num_rows,
+                    row_ptr=agg.row_ptr, **kw), args.calls))
+    if "jax" in sys.modules:
+        sys.exit("jax was imported")
+
+
+if __name__ == "__main__":
+    main()

@@ -117,10 +117,10 @@ def _entry_points() -> dict:
     of the modes, and the CSR SpMM."""
     from sddmm_tpu_torch.ops.tile_dot import MODES, STORAGE
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    tile = [p, i64, i64, p, i64, i64, p, i64, i64, i64, i32, i32, i32, i32,
-            p]
+    tile = [p, i64, i64, p, i64, i64, i64, p, i64, p, p, p, i64, i32, i32,
+            i32, i32, i32, p]
     gather = [p, i64, p, i64, i64, p, p, p, p, i64, i32, i32, p]
-    spmm = [p, p, p, p, i64, p, i64, i32, p]
+    spmm = [p, i64, p, p, i32, p, p, p, p, i64, p, i32, i32, p]
     eps = {f"sddmm_tile_dot_{m}": tile for m in MODES}
     eps.update({gather_dot_entry(*pair): gather for pair in STORAGE.values()})
     eps[SPMM_ENTRY] = spmm

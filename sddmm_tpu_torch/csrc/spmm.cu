@@ -9,77 +9,368 @@
 // Each product is rounded to fp32 and added in fp32 (no fused multiply-add),
 // as the plain version's multiply and index_add_ do.
 //
-// Design.  One warp per (row, 128-column slice): lane j holds columns
-// j, j+32, j+64 and j+96 of the slice in registers, walks the row's entries
-// in CSR order, reads each dense row's slice in place (coalesced, 128 bytes
-// per load instruction) and accumulates.  A row's sum is owned by one warp,
-// so there are no atomics and the result is deterministic; an empty row
-// writes zeros.  8 warps per block; grid (ceil(m/8), ceil(K/128)).
+// Design.  The kernel walks a plan built once on the host from the pattern
+// (ops/spmm.py::spmm_plan).  Neighbouring rows of attention and graph
+// patterns share most of their columns (a sliding window, a row cluster),
+// and each shared column is a dense row read again.  So the rows are taken
+// in groups of up to GR rows, 2 or 4 as the plan chose (consecutive in a
+// row order the caller may give, e.g. the SDDMM packing's row clustering),
+// and a group is one list of "items": each distinct column of the group
+// (ascending) with the entry of each of its rows there, or -1.  One warp
+// walks one group's items and reads each dense row once for the whole
+// group, where a walk per row reads it once per row.  Where a group's rows
+// share too little, the plan leaves them as groups of one row, which walk
+// their CSR entries (no items).  A block of 8 warps takes 8 groups.  A row
+// longer than SPMM_LONG_ROW entries is its own task: the block's 8 warps
+// walk 8 contiguous pieces of it, and the partial sums meet in shared
+// memory and are added in piece order 0..7 by one warp.
 //
-// What bounds it.  Each entry reads a K-wide dense row (4K bytes) for 2K
-// flops: it is bound by device memory or L2 bandwidth and by the latency of
-// the scattered row reads, never by arithmetic.  Rows of very unequal
-// length leave warps idle (one warp per row); balancing them, and fusing
-// the softmax that produces the values, are later work.
+// A warp walks 32 items (or entries) at a time: one load per lane brings
+// an item's column and entry ids, and the values are gathered, both ahead
+// of use (the next batch's values and the one after's items are in flight
+// while a batch is used), and __shfl_sync hands each to every lane.  The
+// lanes then issue the dense-row loads of 16 / GR items (8 entries on a
+// lone or long row) before they consume any, so that many row reads are in
+// flight per warp, and a lane's sums and loads in flight take the same
+// registers at either GR.  Each lane holds VEC consecutive columns (float4
+// at K > 64, float2 at K > 32), so a warp covers 32 * VEC columns of a row
+// per load, and grid.y covers K.
+//
+// Order of the sums.  A row's products are added in fp32 in the order of
+// its items (ascending column, the CSR order of a column-sorted pattern),
+// or for a long row per piece in entry order and then the 8 pieces in
+// order.  No atomics: the result is deterministic.  The order differs from
+// the plain version's index_add_: the sum of n fp32 terms moves by up to
+// about sqrt(n) * 2^-24 of the sum of their magnitudes, inside the 1e-5
+// the kernel is held to against its plain version.  An empty row writes
+// zeros.
+//
+// What bounds it.  Counted once, the inputs and the output are small (the
+// dense rows are 8-13 MB on the models), but every item reads a K-wide
+// dense row (4K bytes) for 2K flops per entry: the gathered row reads are
+// served by L2 and L1, so the kernel's rate is the L2 read rate it reaches
+// times the reads the row groups save.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr int kPerLane = 4;
-constexpr int kSlice = 32 * kPerLane;  // columns per warp
+constexpr int kAhead = 8;  // dense-row loads in flight per lane on entries
+constexpr unsigned kFull = 0xffffffffu;
 
+template <int VEC>
+struct Vec;
+template <>
+struct Vec<1> {
+  using T = float;
+};
+template <>
+struct Vec<2> {
+  using T = float2;
+};
+template <>
+struct Vec<4> {
+  using T = float4;
+};
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* p, float (&x)[VEC]) {
+  const typename Vec<VEC>::T v =
+      __ldg(reinterpret_cast<const typename Vec<VEC>::T*>(p));
+  const float* f = reinterpret_cast<const float*>(&v);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) x[i] = f[i];
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* p, const float (&x)[VEC]) {
+  typename Vec<VEC>::T v;
+  float* f = reinterpret_cast<float*>(&v);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) f[i] = x[i];
+  *reinterpret_cast<typename Vec<VEC>::T*>(p) = v;
+}
+
+// acc += sum over entries [e0, e1) of values[e] * dense[cols[e], k..k+VEC),
+// in entry order; every lane of the warp calls it with the same range
+template <int VEC>
+__device__ __forceinline__ void walk_entries(
+    long long e0, long long e1, const int* __restrict__ cols,
+    const float* __restrict__ values, const float* __restrict__ dense,
+    long long ldd, int k, bool active, int lane, float (&acc)[VEC]) {
+  int c = 0;
+  float v = 0.0f;
+  if (e0 + lane < e1) {
+    c = cols[e0 + lane];
+    v = values[e0 + lane];
+  }
+  for (long long base = e0; base < e1; base += 32) {
+    const int n = (int)min(32LL, e1 - base);
+    int c_next = 0;
+    float v_next = 0.0f;
+    if (base + 32 + lane < e1) {
+      c_next = cols[base + 32 + lane];
+      v_next = values[base + 32 + lane];
+    }
+    for (int j = 0; j < n; j += kAhead) {
+      float x[kAhead][VEC];
+      float w[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        const int cu = __shfl_sync(kFull, c, j + u);
+        w[u] = __shfl_sync(kFull, v, j + u);
+        if (active && j + u < n) {
+          load_vec<VEC>(dense + (long long)cu * ldd + k, x[u]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) x[u][i] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        if (j + u < n) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            acc[i] = __fadd_rn(acc[i], __fmul_rn(w[u], x[u][i]));
+        }
+      }
+    }
+    c = c_next;
+    v = v_next;
+  }
+}
+
+// One lane's item as stored (1 + GR int32): its column and the entry of
+// each group row
+template <int GR>
+struct RawItem {
+  int col;
+  int e[GR];
+};
+
+// One lane's item ready to use: its column, and per row of the group its
+// value, with bit r of mask set where row r has an entry there
+template <int GR>
+struct Item {
+  int col;
+  unsigned mask;
+  float v[GR];
+};
+
+template <int GR>
+__device__ __forceinline__ RawItem<GR> load_raw(
+    const int* __restrict__ items, long long i, bool ok) {
+  RawItem<GR> it;
+  it.col = 0;
+#pragma unroll
+  for (int r = 0; r < GR; ++r) it.e[r] = -1;
+  if (ok) {
+    const int* p = items + i * (1 + GR);
+    it.col = p[0];
+#pragma unroll
+    for (int r = 0; r < GR; ++r) it.e[r] = p[1 + r];
+  }
+  return it;
+}
+
+template <int GR>
+__device__ __forceinline__ Item<GR> gather_values(
+    const RawItem<GR>& raw, const float* __restrict__ values) {
+  Item<GR> it;
+  it.col = raw.col;
+  it.mask = 0;
+#pragma unroll
+  for (int r = 0; r < GR; ++r) {
+    it.v[r] = 0.0f;
+    if (raw.e[r] >= 0) {
+      it.v[r] = values[raw.e[r]];
+      it.mask |= 1u << r;
+    }
+  }
+  return it;
+}
+
+// acc[r] += the group's row r over items [i0, i1), each dense row read once.
+// The items are a two-deep pipeline: while a batch of 32 is used, the next
+// batch's values are gathered (its items came one batch earlier) and the
+// batch after that's items are loaded, so neither load waits on the other.
+template <int VEC, int GR>
+__device__ __forceinline__ void walk_items(
+    long long i0, long long i1, const int* __restrict__ items,
+    const float* __restrict__ values, const float* __restrict__ dense,
+    long long ldd, int k, bool active, int lane, float (&acc)[GR][VEC]) {
+  constexpr int kAheadItems = 16 / GR;
+  Item<GR> it = gather_values<GR>(
+      load_raw<GR>(items, i0 + lane, i0 + lane < i1), values);
+  RawItem<GR> raw_next =
+      load_raw<GR>(items, i0 + 32 + lane, i0 + 32 + lane < i1);
+  for (long long base = i0; base < i1; base += 32) {
+    const int n = (int)min(32LL, i1 - base);
+    const RawItem<GR> raw_after =
+        load_raw<GR>(items, base + 64 + lane, base + 64 + lane < i1);
+    const Item<GR> next = gather_values<GR>(raw_next, values);
+    for (int j = 0; j < n; j += kAheadItems) {
+      float x[kAheadItems][VEC];
+#pragma unroll
+      for (int u = 0; u < kAheadItems; ++u) {
+        const int cu = __shfl_sync(kFull, it.col, j + u);
+        if (active && j + u < n) {
+          load_vec<VEC>(dense + (long long)cu * ldd + k, x[u]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) x[u][i] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kAheadItems; ++u) {
+        const unsigned mask = __shfl_sync(kFull, it.mask, j + u);
+#pragma unroll
+        for (int r = 0; r < GR; ++r) {
+          const float w = __shfl_sync(kFull, it.v[r], j + u);
+          if (j + u < n && ((mask >> r) & 1u)) {
+#pragma unroll
+            for (int i = 0; i < VEC; ++i)
+              acc[r][i] = __fadd_rn(acc[r][i], __fmul_rn(w, x[u][i]));
+          }
+        }
+      }
+    }
+    it = next;
+    raw_next = raw_after;
+  }
+}
+
+template <int VEC, int GR>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_spmm_kernel(const long long* __restrict__ row_ptr,
+csr_spmm_kernel(const long long* __restrict__ tasks,
+                const long long* __restrict__ groups,
+                const int* __restrict__ items,
+                const long long* __restrict__ row_ptr,
                 const int* __restrict__ cols,
                 const float* __restrict__ values,
                 const float* __restrict__ dense, long long ldd,
-                float* __restrict__ out, long long m, int K) {
-  const long long r =
-      (long long)blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+                float* __restrict__ out, int K) {
+  __shared__ float part[kWarpsPerBlock][32 * VEC];
+  const long long first = tasks[2 * (long long)blockIdx.x];
+  const long long count = tasks[2 * (long long)blockIdx.x + 1];
+  const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (r >= m) return;
-  const int k0 = blockIdx.y * kSlice + lane;
-  float acc[kPerLane];
+  const int k = blockIdx.y * 32 * VEC + lane * VEC;
+  const bool active = k < K;
+  if (count > 0) {
+    // up to 8 row groups, one per warp
+    if (warp >= count) return;
+    const long long* g = groups + (2 + GR) * (first + warp);
+    float acc[GR][VEC];
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) acc[i] = 0.0f;
-  const long long end = row_ptr[r + 1];
-  for (long long e = row_ptr[r]; e < end; ++e) {
-    const float v = values[e];
-    const float* d = dense + (long long)cols[e] * ldd;
+    for (int r = 0; r < GR; ++r)
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      const int k = k0 + 32 * i;
-      if (k < K) acc[i] = __fadd_rn(acc[i], __fmul_rn(v, d[k]));
+      for (int i = 0; i < VEC; ++i) acc[r][i] = 0.0f;
+    if (g[3] < 0) {
+      // a group of one row walks its CSR entries: no items
+      walk_entries<VEC>(row_ptr[g[2]], row_ptr[g[2] + 1], cols, values,
+                        dense, ldd, k, active, lane, acc[0]);
+    } else {
+      walk_items<VEC, GR>(g[0], g[1], items, values, dense, ldd, k, active,
+                          lane, acc);
     }
-  }
-  float* o = out + r * (long long)K;
+    if (!active) return;
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) {
-    const int k = k0 + 32 * i;
-    if (k < K) o[k] = acc[i];
+    for (int r = 0; r < GR; ++r) {
+      const long long row = g[2 + r];
+      if (row >= 0) store_vec<VEC>(out + row * K + k, acc[r]);
+    }
+    return;
+  }
+  // one long row: warp w walks piece w, then the pieces add up in order
+  float acc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
+  const long long e0 = row_ptr[first], e1 = row_ptr[first + 1];
+  const long long piece = (e1 - e0 + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const long long p0 = min(e1, e0 + warp * piece);
+  walk_entries<VEC>(p0, min(e1, p0 + piece), cols, values, dense, ldd, k,
+                    active, lane, acc);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) part[warp][lane * VEC + i] = acc[i];
+  __syncthreads();
+  if (warp != 0 || !active) return;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    float s = part[0][lane * VEC + i];
+    for (int w = 1; w < kWarpsPerBlock; ++w)
+      s = __fadd_rn(s, part[w][lane * VEC + i]);
+    acc[i] = s;
+  }
+  store_vec<VEC>(out + first * K + k, acc);
+}
+
+template <int VEC, int GR>
+int launch(const long long* tasks, long long n_tasks,
+           const long long* groups, const int* items,
+           const long long* row_ptr, const int* cols, const float* values,
+           const float* dense, long long ldd, float* out, int K,
+           cudaStream_t stream) {
+  const long long slices = (K + 32 * VEC - 1) / (32 * VEC);
+  if (n_tasks > 2147483647LL || slices > 65535)
+    return (int)cudaErrorInvalidValue;
+  csr_spmm_kernel<VEC, GR><<<dim3((unsigned)n_tasks, (unsigned)slices),
+                         kWarpsPerBlock * 32, 0, stream>>>(
+      tasks, groups, items, row_ptr, cols, values, dense, ldd, out, K);
+  return (int)cudaGetLastError();
+}
+
+template <int GR>
+int launch_vec(int vec, const long long* tasks, long long n_tasks,
+               const long long* groups, const int* items,
+               const long long* row_ptr, const int* cols, const float* values,
+               const float* dense, long long ldd, float* out, int K,
+               cudaStream_t s) {
+  switch (vec) {
+    case 1:
+      return launch<1, GR>(tasks, n_tasks, groups, items, row_ptr, cols,
+                           values, dense, ldd, out, K, s);
+    case 2:
+      return launch<2, GR>(tasks, n_tasks, groups, items, row_ptr, cols,
+                           values, dense, ldd, out, K, s);
+    case 4:
+      return launch<4, GR>(tasks, n_tasks, groups, items, row_ptr, cols,
+                           values, dense, ldd, out, K, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
 // C interface (ctypes).  The wrapper (ops/spmm.py::csr_spmm_torch) has
-// checked shapes, dtypes and contiguity; the caller guarantees that row_ptr
-// is non-decreasing and that the column ids are in range.  Returns the
-// launch's cudaGetLastError() code.
-extern "C" int sddmm_csr_spmm_float32(const long long* row_ptr,
+// checked shapes, dtypes and contiguity and passes spmm_plan's arrays for
+// its group size group_rows (GR, 2 or 4): tasks (n_tasks, 2) int64 [first
+// group, group count 1..8] or [row, 0] for one long row; groups
+// (n_groups, 2 + GR) int64 [first item, end item, then its 1..GR rows, -1
+// past them; a group of one row has no items]; items (n_items, 1 + GR)
+// int32 [column, entry of each row or -1].  Together they cover every row
+// once.  It chose vec (1, 2 or 4) with K, ldd and the dense pointer
+// multiples of it; the caller guarantees that row_ptr is non-decreasing
+// and the column ids in range.  Returns the launch's cudaGetLastError()
+// code.
+extern "C" int sddmm_csr_spmm_float32(const long long* tasks,
+                                      long long n_tasks,
+                                      const long long* groups,
+                                      const int* items, int group_rows,
+                                      const long long* row_ptr,
                                       const int* cols, const float* values,
                                       const float* dense, long long ldd,
-                                      float* out, long long m, int K,
+                                      float* out, int K, int vec,
                                       void* stream) {
-  if (m <= 0 || K <= 0) return 0;
-  const long long blocks = (m + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const long long slices = (K + kSlice - 1) / kSlice;
-  if (blocks > 2147483647LL || slices > 65535) return (int)cudaErrorInvalidValue;
-  csr_spmm_kernel<<<dim3((unsigned)blocks, (unsigned)slices),
-                    kWarpsPerBlock * 32, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      row_ptr, cols, values, dense, ldd, out, m, K);
-  return (int)cudaGetLastError();
+  if (n_tasks <= 0 || K <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (group_rows == 2)
+    return launch_vec<2>(vec, tasks, n_tasks, groups, items, row_ptr, cols,
+                         values, dense, ldd, out, K, s);
+  if (group_rows == 4)
+    return launch_vec<4>(vec, tasks, n_tasks, groups, items, row_ptr, cols,
+                         values, dense, ldd, out, K, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -17,7 +17,7 @@ from sddmm_tpu_torch.data import generate
 from sddmm_tpu_torch.models.graph_attention import GraphAttentionLayer
 
 
-def entry(device="cpu"):
+def entry(device="cuda"):
     """(fn, args): the serving forward of graph attention on the entry
     graph (``block_clustered(8, 8, 0.25, seed=5)``, 128 nodes, F = D = 32),
     weights drawn from ``torch.Generator`` seed 0, x = ``make_dense(128, 32,

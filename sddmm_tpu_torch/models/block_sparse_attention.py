@@ -11,9 +11,10 @@ packing) and every head reuses the packing: the window packs into banded
 tiles, the global columns and rows into dense tiles or the residual.
 
 Forward pass: the heads' scores ``SDDMM(Q_h, K_h) * 1/sqrt(D)`` through
-``BatchedHybridSDDMM`` (each head through ``runner.device_prepare`` and the
-tile and gather-dot kernels), gathered into CSR order; one row softmax over
-all heads at once (head h's rows are ``h*L + row``); one SpMM launch that
+``BatchedHybridSDDMM`` (one tile-kernel launch for all heads, a
+gather-dot launch per head for the residual), gathered into CSR order; one
+row softmax over all heads at once (head h's rows are ``h*L + row``); one
+SpMM launch that
 aggregates every head's V (a block-diagonal CSR of H copies of the mask);
 then the output projection.  The JAX model does softmax and aggregation in
 the packed layout with sentinel segments; on the real slots this is the
@@ -105,14 +106,15 @@ def _stacked(mask: CSR, heads: int) -> CSR:
 
 class BlockSparseAttention(nn.Module):
     """Multi-head block-sparse self-attention over a fixed mask, on one
-    device (given explicitly; the packing's index arrays live there).
+    device (the card unless the caller asks for ``"cpu"``; the packing's
+    index arrays live there).
 
     The mask is packed once; every head reuses the packed layout."""
 
     def __init__(self, mask: CSR, feature_dim: int, num_heads: int,
                  head_dim: int, alpha: float = 0.3, delta: float = 0.3,
                  compute_dtype: str = "float32", a_layout: str = "rows",
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
         self.mask = mask
         self.feature_dim = feature_dim

@@ -32,7 +32,7 @@ from torch import nn
 
 from sddmm_tpu_torch.data.sparse import CSR
 from sddmm_tpu_torch.ops.hybrid import HybridSDDMM, check_no_grad
-from sddmm_tpu_torch.ops.spmm import csr_spmm_plain, csr_spmm_torch
+from sddmm_tpu_torch.ops.spmm import csr_spmm_plain, csr_spmm_torch, spmm_plan
 from sddmm_tpu_torch.ops.tile_dot import full_fp32_matmul
 
 
@@ -56,11 +56,24 @@ def segment_softmax(scores: torch.Tensor, rows: torch.Tensor,
     return exp / denom.clamp_min(1e-30)[rows]
 
 
+def packing_row_order(packed) -> np.ndarray:
+    """The rows in a packing's clustered order (its A-row slots, first
+    occurrence), then any row it leaves out: rows that share columns come
+    together, which is what the SpMM plan's row groups want."""
+    slots = np.asarray(packed.a_row_gather, dtype=np.int64)
+    slots = slots[slots < packed.m]
+    _, first = np.unique(slots, return_index=True)
+    slots = slots[np.sort(first)]
+    return np.concatenate([slots, np.setdiff1d(np.arange(packed.m), slots)])
+
+
 class CSRAggregation:
     """The CSR index of a pattern on one device, for a softmax and an SpMM
-    in CSR entry order: row ids, row pointers and column ids."""
+    in CSR entry order: row ids, row pointers, column ids and the SpMM
+    kernel's plan (``spmm_plan``, built once here, its row groups taken in
+    ``row_order``)."""
 
-    def __init__(self, csr: CSR, device):
+    def __init__(self, csr: CSR, device, row_order=None):
         self.num_rows = csr.m
         self.rows = torch.as_tensor(csr.row_indices(), dtype=torch.int64,
                                     device=device)
@@ -68,6 +81,8 @@ class CSRAggregation:
                                        device=device)
         self.cols = torch.as_tensor(csr.col_idx, dtype=torch.int32,
                                     device=device)
+        self.plan = spmm_plan(csr.row_ptr, csr.col_idx,
+                              row_order).to(device)
 
     def softmax_spmm(self, scores: torch.Tensor, v: torch.Tensor,
                      plain: bool = False) -> torch.Tensor:
@@ -78,17 +93,17 @@ class CSRAggregation:
             return csr_spmm_plain(attn, self.rows, self.cols, v,
                                   self.num_rows)
         return csr_spmm_torch(attn, self.rows, self.cols, v, self.num_rows,
-                              row_ptr=self.row_ptr)
+                              row_ptr=self.row_ptr, plan=self.plan)
 
 
 class GraphAttentionLayer(nn.Module):
     """Single-head sparse dot-product attention over a fixed graph, on one
-    device (given explicitly; the packing's index arrays live there, so the
-    module is not moved with ``.to``)."""
+    device (the card unless the caller asks for ``"cpu"``; the packing's
+    index arrays live there, so the module is not moved with ``.to``)."""
 
     def __init__(self, adj: CSR, feature_dim: int, head_dim: int,
                  alpha: float = 0.3, delta: float = 0.3,
-                 compute_dtype: str = "float32", device="cpu"):
+                 compute_dtype: str = "float32", device="cuda"):
         super().__init__()
         self.adj = adj
         self.feature_dim = feature_dim
@@ -97,7 +112,8 @@ class GraphAttentionLayer(nn.Module):
                                            compute_dtype=compute_dtype,
                                            device=device)
         self.device = self.runner.device
-        self._agg = CSRAggregation(adj, self.device)
+        self._agg = CSRAggregation(adj, self.device,
+                                   packing_row_order(self.runner.packed))
         shape = (feature_dim, head_dim)
         self.w_q = nn.Parameter(torch.zeros(shape, device=self.device))
         self.w_k = nn.Parameter(torch.zeros(shape, device=self.device))

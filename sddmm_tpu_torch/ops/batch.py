@@ -2,11 +2,12 @@
 
 Counterpart of ``sddmm_tpu/ops/batch.py`` (``batched_csr_sddmm``,
 ``BatchedHybridSDDMM``, ``batched_transpose``, ``batch_overlap_report``).
-The JAX package batches with ``jax.vmap`` over the single-instance paths;
-here the batch is a loop over the same ported runners and the gather-dot
-kernel, one call per batch element, stacked.  Folding the batch into the
-tile kernel's tile count (one launch per segment for the whole batch) is
-later performance work (ROADMAP Queue 2, K12).
+The JAX package batches with ``jax.vmap`` over the single-instance paths.
+Here ``BatchedHybridSDDMM`` passes the batch to the runner's
+``run_heads``: the tiles of every batch element are one tile-kernel launch
+with a head stride on A, B^T and the output (the vmapped batch, K12), and
+the residual one gather-dot launch per element.  ``batched_csr_sddmm`` is
+one gather-dot launch per element.
 """
 
 from __future__ import annotations
@@ -17,9 +18,11 @@ import torch
 from sddmm_tpu_torch.data.sparse import CSR
 from sddmm_tpu_torch.ops.csr_sddmm import csr_sddmm_torch
 from sddmm_tpu_torch.ops.hybrid import HybridSDDMM, check_device
+from sddmm_tpu_torch.ops.tile_dot import STORAGE
 
 
-def batched_csr_sddmm(a_batch, b_batch, s: CSR, device="cpu") -> np.ndarray:
+def batched_csr_sddmm(a_batch, b_batch, s: CSR, device="cuda"
+                      ) -> np.ndarray:
     """(B, M, K) x (B, K, N) -> (B, nnz) values at the shared pattern of S,
     in CSR entry order (numpy in, numpy out)."""
     dev = check_device(device)
@@ -43,9 +46,10 @@ class BatchedHybridSDDMM:
     """The hybrid path over a batch of (A, B) operand pairs sharing one
     sparsity pattern (the reference's batch mode semantics).
 
-    Every batch element goes through ``runner.device_prepare``, so any
-    packing (G > 1, C > 1, column clustering, ``a_layout="panels"``) builds
-    its own operand layout on the runner's device."""
+    Any packing (G > 1, C > 1, column clustering, ``a_layout="panels"``):
+    the batch's B^T goes through ``runner.device_bt`` in one set of torch
+    ops, and the runner's work table reads A rows (and panel rows) straight
+    from the padded A, so no per-element layout is built."""
 
     def __init__(self, runner: HybridSDDMM):
         self.runner = runner
@@ -54,17 +58,18 @@ class BatchedHybridSDDMM:
                    order: str = "packed", plain: bool = False
                    ) -> torch.Tensor:
         """Padded A (B, M+1, K) and B^T (B, N+1, K) on the runner's device
-        -> (B, packed_size), or (B, nnz) with ``order="csr"``.  ``plain``
-        as in ``HybridSDDMM.run_padded``."""
+        -> (B, packed_size), or (B, nnz) with ``order="csr"``: one
+        tile-kernel launch for the whole batch.  ``plain`` as in
+        ``HybridSDDMM.run_padded``."""
         if a_pad.dim() != 3 or bt_pad.dim() != 3 or (
                 a_pad.shape[0] != bt_pad.shape[0]):
             raise ValueError(f"want a_pad (B, M+1, K) and bt_pad (B, N+1, K),"
                              f" got {tuple(a_pad.shape)} and "
                              f"{tuple(bt_pad.shape)}")
         r = self.runner
-        return torch.stack([
-            r.run_padded(*r.device_prepare(a, bt), order=order, plain=plain)
-            for a, bt in zip(a_pad, bt_pad)])
+        adt, bdt = STORAGE[r.compute_dtype]
+        return r.run_heads(a_pad.to(adt), r.device_bt(bt_pad.to(bdt)),
+                           order=order, plain=plain)
 
     def __call__(self, a_batch, b_batch) -> np.ndarray:
         """numpy A (B, M, K) and B (B, K, N) -> (B, packed_size) numpy, the
@@ -89,9 +94,9 @@ def batch_overlap_report(runner: HybridSDDMM, a_batch, b_batch,
 
     Returns {batch_size, batch_ms, serial_ms, overlap_efficiency}, where
     serial_ms is batch_size times one element's call and overlap_efficiency
-    = serial_ms / batch_ms (1.0: batching is free; the batch here is a loop
-    of calls, so about 1.0 is expected until it is folded into the
-    kernel).  Times are CUDA-event medians (``utils.timing.cuda_time_ms``):
+    = serial_ms / batch_ms (1.0: batching is free; above 1.0 the one
+    tile-kernel launch of the batch does better than its calls one by
+    one).  Times are CUDA-event medians (``utils.timing.cuda_time_ms``):
     the runner must be on a CUDA device."""
     from sddmm_tpu_torch.utils.timing import cuda_time_ms
 

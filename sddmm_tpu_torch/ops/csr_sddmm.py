@@ -56,7 +56,7 @@ def csr_sddmm_blocked_plain(a: torch.Tensor, bt: torch.Tensor,
 
 
 def csr_sddmm(a, b, s: CSR, scale_by_values: bool = False,
-              max_gathered_mb: float = 512.0, device="cpu") -> np.ndarray:
+              max_gathered_mb: float = 512.0, device="cuda") -> np.ndarray:
     """Host-convenience wrapper: numpy in, numpy out, CSR entry order."""
     dev = check_device(device)
 

@@ -2,10 +2,11 @@
 through the tile kernel, then the nnz positions.
 
 Counterpart of ``sddmm_tpu/ops/dense.py`` (``DenseSDDMM``,
-``dense_masked_sddmm``, ``_dense_full_jit``).  The product is one tile dot
-with ``nT = 1`` in the runner's compute mode (``tile_dot.tile_dot``, the
-CUDA tile kernel on the card), so the dense class runs the same bf16-split
-arithmetic as the hybrid path's tiles.  Its (M, N) output is the native
+``dense_masked_sddmm``, ``_dense_full_jit``).  The product is one launch
+of the tile kernel in the runner's compute mode over a work table of the
+identity rows and lanes (``tile_dot.tile_table``, built once), so the
+dense class runs the same kernel and bf16-split arithmetic as the hybrid
+path's tiles.  Its (M, N) output is the native
 layout: the value of CSR entry (r, c) sits at slot r*N + c.  CSR order is
 one gather, by a flat index below M*N = 2^31 and a (row, col) index above.
 
@@ -25,7 +26,8 @@ import torch
 from sddmm_tpu_torch.data.sparse import CSR
 from sddmm_tpu_torch.ops.hybrid import (COMPUTE_DTYPES, check_device,
                                         check_no_grad)
-from sddmm_tpu_torch.ops.tile_dot import STORAGE, tile_dot
+from sddmm_tpu_torch.ops.tile_dot import (STORAGE, TileTable, table_blocks,
+                                          tile_dot, tile_table)
 
 #: M*N from which the CSR gather takes a (row, col) index, not a flat one
 #: (the JAX package's int32 limit, kept so both index the same way)
@@ -41,7 +43,7 @@ class DenseSDDMM:
     product.  Any K (the tile kernel's wrapper pads K to its step)."""
 
     def __init__(self, m: int, n: int, compute_dtype: str = "tf32",
-                 csr: Optional[CSR] = None, device="cpu"):
+                 csr: Optional[CSR] = None, device="cuda"):
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"unknown compute_dtype {compute_dtype!r}; one "
                              f"of {COMPUTE_DTYPES}")
@@ -50,10 +52,14 @@ class DenseSDDMM:
         self.device = check_device(device)
         self._csr = csr
         self._gather = None
+        #: the tile kernel's work table: rows 0..M-1 against lanes 0..N-1
+        self.table = TileTable.build(
+            table_blocks([0], [0], [0], self.m, self.n, self.n),
+            np.arange(self.m), np.arange(self.n), 1, self.device)
 
     @staticmethod
     def from_csr(csr: CSR, compute_dtype: str = "tf32",
-                 device="cpu") -> "DenseSDDMM":
+                 device="cuda") -> "DenseSDDMM":
         return DenseSDDMM(csr.m, csr.n, compute_dtype=compute_dtype,
                           csr=csr, device=device)
 
@@ -107,19 +113,31 @@ class DenseSDDMM:
         adt, bdt = STORAGE[self.compute_dtype]
         yield a_dev.to(adt)[None], bt_dev.to(bdt)[None], full[None], False
 
+    def run_tiles(self, a_dev: torch.Tensor, bt_dev: torch.Tensor,
+                  full: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """The product into ``full`` (M, N): one launch over the work
+        table, or with ``plain`` ``tile_calls``' plain version."""
+        if plain:
+            for a, b, out, accumulate in self.tile_calls(a_dev, bt_dev, full):
+                tile_dot(a, b, self.compute_dtype, out=out,
+                         accumulate=accumulate, plain=True)
+            return full
+        (a, b, _, _), = self.tile_calls(a_dev, bt_dev, full)
+        tile_table(a.contiguous(), b[None].contiguous(), self.table,
+                   self.compute_dtype, full.view(1, -1))
+        return full
+
     def run_padded(self, a_dev: torch.Tensor, bt_dev: torch.Tensor,
                    order: str = "packed", plain: bool = False) -> torch.Tensor:
-        """The (M, N) product, or with ``order="csr"`` its nnz values.
-        ``plain=True`` runs the tile kernel's plain PyTorch version (the
-        reference it is timed against on the card)."""
+        """The (M, N) product, or with ``order="csr"`` its nnz values: one
+        tile-kernel launch.  ``plain=True`` runs the tile kernel's plain
+        PyTorch version (the reference it is timed against on the card)."""
         if order not in ("packed", "csr"):
             raise ValueError(f"unknown order {order!r}")
         check_no_grad("DenseSDDMM.run_padded", a_dev, bt_dev)
         full = torch.empty((self.m, self.n), dtype=torch.float32,
                            device=a_dev.device)
-        for a, b, out, accumulate in self.tile_calls(a_dev, bt_dev, full):
-            tile_dot(a, b, self.compute_dtype, out=out, accumulate=accumulate,
-                     plain=plain)
+        self.run_tiles(a_dev, bt_dev, full, plain=plain)
         if order == "csr":
             return self.to_csr_order(full)
         return full
@@ -130,7 +148,7 @@ class DenseSDDMM:
 
 
 def dense_masked_sddmm(a, b, s: CSR, compute_dtype: str = "tf32",
-                       device="cpu") -> np.ndarray:
+                       device="cuda") -> np.ndarray:
     """(nnz,) values in CSR entry order via the full dense product and one
     gather (numpy in, numpy out)."""
     runner = DenseSDDMM.from_csr(s, compute_dtype=compute_dtype,

@@ -10,31 +10,33 @@ row clustering (``method="device"``) is not ported yet and raises
 
 The packed flat vector has the JAX package's layout exactly:
 ``[super ++ quad ++ pair ++ group segments ++ hub ++ hot-row slab ++
-residual]``.  It is allocated once per call, and every tile dot writes
-straight into its view of it.  ``tile_calls`` yields those tile dots:
+residual]``.  It is allocated once per call.  All its dense tiles are one
+launch of the tile kernel (``tile_dot.tile_table``) over a work table built
+once in ``__init__``, one entry per (at most) 64-row by 128-lane output
+block:
 
-- per dense (family, bucket) segment, the run rows (every b-th row of the
-  family's row array, or under ``a_layout="panels"`` the run's R/16
-  consecutive A panels, clamped to the zero sentinel panel) are gathered
-  from A once, and per K chunk c the ``b*128/G`` grouped B^T rows are
-  gathered by group id.  A gathered block ``(n, b*128/G, G*kc)`` is
-  row-major, so it *is* ``(n, b*128, kc)`` with lane ``lgrp*G + member``,
-  the packed lane order: no relayout, at any G;
-- the hub slab is ``a_pad[:m]`` against the contiguous ``bt_phys[c, :H/G]``
-  viewed as ``(H, kc)``, one tile dot with ``nT = 1``;
-- the hot-row slab is ``a_pad[rowslab_rows]`` against all group rows
-  ``bt_phys[c, :NG]`` viewed as ``(NG*G, kc)``; the slot of a hot entry is
-  ``hot_index*NG*G + rank``;
-- chunk c > 0 reads a column view of the same A block and adds into the
-  same output (``accumulate``).
+- per dense (family, bucket) segment and run, the run's R A rows (every
+  b-th row of the family's row array; under ``a_layout="panels"`` the rows
+  of the run's R/16 consecutive A panels, ``_a_panel_gather[16p + r]``, or
+  the zero row for the sentinel panel, so the per-call panel relayout is
+  not needed) against its b*128 lanes, lane ``l`` being member ``l % G``
+  of group row ``gids[l // G]``: the packed lane order, at any G;
+- the hub slab: ``a_pad[:m]`` against group rows ``0..H/G-1``;
+- the hot-row slab: the ``rowslab_rows`` against all NG group rows; the
+  slot of a hot entry is ``hot_index*NG*G + rank``;
+- the C chunks loop inside the kernel, each summed apart and added in the
+  order c = 0..C-1, as JAX's ``acc = acc + dot(c)``.
 
-Each tile dot runs the mode's instance of the CUDA tile kernel
-(``tile_dot.tile_dot``), whether or not ``use_pallas`` is set: XLA's
+The kernel runs whether or not ``use_pallas`` is set: XLA's
 ``Precision.HIGH`` is the same 3-pass bf16 product as the Pallas kernel.
-The residual is one exact fp32 dot per entry over all chunks
-(``residual_gather_dot``, a CUDA kernel on the card).  Slots that are not
-nnz hold garbage, as in the reference; compare real slots only, or CSR
-order.  CSR order is one gather, ``flat[inv_idx]``.
+A batch of heads over one packing (``run_heads``) is the same one launch
+with a head stride.  ``plain=True`` runs the per-segment route
+(``tile_calls``: torch gathers and ``tile_dot_plain`` per segment and
+chunk), the reference the kernel is held to.  The residual is one exact
+fp32 dot per entry over all chunks (``residual_gather_dot``, a CUDA kernel
+on the card).  Slots that are not nnz hold garbage, as in the reference;
+compare real slots only, or CSR order.  CSR order is one gather,
+``flat[inv_idx]``.
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ import torch
 
 from sddmm_tpu_torch import _kernels, config
 from sddmm_tpu_torch.data.sparse import CSR
-from sddmm_tpu_torch.ops.tile_dot import STORAGE, tile_dot
+from sddmm_tpu_torch.ops.tile_dot import (STORAGE, TileTable, table_blocks,
+                                          tile_dot, tile_table)
 from sddmm_tpu_torch.reorder.bsmr import BSMR
 from sddmm_tpu_torch.reorder.pack import GROUP_LANES, PackedMatrix, pack
 
@@ -168,21 +171,23 @@ def residual_gather_dot(a_pad: torch.Tensor, bt_phys: torch.Tensor,
 
 def device_bt_phys(bt_pad: torch.Tensor, col_order: torch.Tensor, g: int,
                    ng: int, k_chunks: int = 1) -> torch.Tensor:
-    """Grouped/chunked B^T layout (C, NG+1, G*Kc) from the padded (N+1, K)
-    B^T on its device, as the JAX package's ``device_bt_phys``: physical
-    group row j of chunk c holds [K-chunk c of col_order[j*G+0], ..., of
-    col_order[j*G+G-1]]; the sentinel group row NG is zero.  ``col_order``
-    (NG*G,) int64 with its sentinels clamped to bt_pad's zero row N."""
-    k = bt_pad.shape[1]
+    """Grouped/chunked B^T layout (..., C, NG+1, G*Kc) from the padded
+    (..., N+1, K) B^T on its device (any leading batch dimensions), as the
+    JAX package's ``device_bt_phys``: physical group row j of chunk c holds
+    [K-chunk c of col_order[j*G+0], ..., of col_order[j*G+G-1]]; the
+    sentinel group row NG is zero.  ``col_order`` (NG*G,) int64 with its
+    sentinels clamped to bt_pad's zero row N."""
+    k = bt_pad.shape[-1]
     kc = k // k_chunks
     if kc * k_chunks != k:
         raise ValueError(f"K={k} not divisible by k_chunks={k_chunks}")
-    arr = bt_pad[col_order]                              # (NG*G, K)
-    arr = arr.reshape(ng, g, k_chunks, kc).permute(2, 0, 1, 3)
-    arr = arr.reshape(k_chunks, ng, g * kc)
-    sent = torch.zeros((k_chunks, 1, g * kc), dtype=arr.dtype,
+    lead = bt_pad.shape[:-2]
+    arr = bt_pad.index_select(-2, col_order)             # (..., NG*G, K)
+    arr = arr.reshape(*lead, ng, g, k_chunks, kc).movedim(-2, -4)
+    arr = arr.reshape(*lead, k_chunks, ng, g * kc)
+    sent = torch.zeros((*lead, k_chunks, 1, g * kc), dtype=arr.dtype,
                        device=arr.device)
-    return torch.cat([arr, sent], dim=1)
+    return torch.cat([arr, sent], dim=-2)
 
 
 def check_slice(compute_dtype: str, k_chunks: int,
@@ -238,7 +243,8 @@ class _Segment:
 
 def check_device(device) -> torch.device:
     """``device`` as a torch.device: the CPU, or a CUDA card that is
-    there."""
+    there.  The port's entry points default to ``"cuda"``; without a card
+    that default raises here, and nothing falls back to the CPU."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {str(device)!r}: CUDA is not available "
@@ -251,15 +257,17 @@ def check_device(device) -> torch.device:
 class HybridSDDMM:
     """Reusable hybrid SDDMM for a fixed sparsity packing, on one device.
 
-    Holds the packed index arrays on ``device`` (given explicitly), so a
-    call only ships A and B.  Output layouts (``order``): ``"packed"``, the
-    flat vector of length ``packed.packed_size`` in which non-nnz slots hold
-    garbage; ``"csr"``, the values in CSR entry order of the input matrix.
+    Holds the packed index arrays and the tile kernel's work table on
+    ``device`` (the card unless the caller asks for ``"cpu"``, where every
+    kernel runs its plain PyTorch version), so a call only ships A and B.
+    Output layouts (``order``): ``"packed"``, the flat vector of length
+    ``packed.packed_size`` in which non-nnz slots hold garbage; ``"csr"``,
+    the values in CSR entry order of the input matrix.
     """
 
     def __init__(self, packed: PackedMatrix, compute_dtype: str = "tf32",
                  k_chunks: int = 1, use_pallas: bool = False,
-                 a_layout: str = "rows", device="cpu"):
+                 a_layout: str = "rows", device="cuda"):
         check_slice(compute_dtype, k_chunks)
         if a_layout not in ("rows", "panels"):
             raise ValueError(f"unknown a_layout {a_layout!r}")
@@ -290,6 +298,23 @@ class HybridSDDMM:
             self._a_panel_gather = put(a_panel_gather)
             sentinel_panel = len(a_panel_gather) // PANEL_ROWS
         self._segments = []
+        # the work table's parts: entries, A row ids, B^T group rows
+        ents, t_rows, t_gids = [], [], []
+        n_rows = n_gids = 0
+
+        def add_blocks(rows, gids, out_base, lanes):
+            """n blocks of rows (n, R) A row ids against gids (n, lanes/G),
+            written from out_base (n,), rows ``lanes`` apart."""
+            nonlocal n_rows, n_gids
+            n, R = rows.shape
+            ents.append(table_blocks(n_rows + np.arange(n) * R,
+                                     n_gids + np.arange(n) * gids.shape[1],
+                                     out_base, R, lanes, lanes))
+            t_rows.append(rows)
+            t_gids.append(gids)
+            n_rows += rows.size
+            n_gids += gids.size
+
         offset = 0
         for fam in _FAMILIES:
             rows_arr = getattr(packed, fam + "_rows")
@@ -313,13 +338,37 @@ class HybridSDDMM:
                 seg = _Segment(offset, n_runs, R, b * GROUP_LANES,
                                put(a_idx), put(gids))
                 self._segments.append(seg)
+                if a_layout == "panels":
+                    # panel p's row r is a_pad[a_panel_gather[16p + r]],
+                    # the sentinel panel's rows the zero row m
+                    pr = a_idx[:, :, None] * PANEL_ROWS + np.arange(
+                        PANEL_ROWS)
+                    rows = np.where(a_idx[:, :, None] < sentinel_panel,
+                                    a_panel_gather[np.minimum(
+                                        pr, len(a_panel_gather) - 1)],
+                                    packed.m).reshape(n_runs, R)
+                else:
+                    rows = a_idx
+                add_blocks(rows, gids,
+                           offset + np.arange(n_runs) * R * seg.lanes,
+                           seg.lanes)
                 offset += seg.size
         self._hub_offset = offset
+        if packed.hub_cols:
+            add_blocks(np.arange(packed.m)[None],
+                       np.arange(packed.hub_cols // G)[None], [offset],
+                       packed.hub_cols)
         offset += packed.m * packed.hub_cols
         self._rowslab_offset = offset
         self._rowslab_rows = (put(packed.rowslab_rows)
                               if packed.rowslab_rows is not None else None)
+        if packed.rowslab_rows is not None:
+            add_blocks(np.asarray(packed.rowslab_rows)[None],
+                       np.arange(packed.num_col_groups)[None], [offset],
+                       packed.rowslab_width)
         offset += packed.rowslab_nrows * packed.rowslab_width
+        #: the tile kernel's work table (``tile_dot.TileTable``)
+        self.table = TileTable.build(ents, t_rows, t_gids, G, self.device)
         self._res_offset = offset
         self._res_rows = put(packed.res_rows, torch.int32)
         self._res_gids = put(packed.res_gids, torch.int32)
@@ -362,26 +411,35 @@ class HybridSDDMM:
                 and bool(np.array_equal(p.col_order,
                                         np.arange(p.n, dtype=np.int64))))
 
+    def _a_panels(self, a_pad: torch.Tensor) -> torch.Tensor:
+        """The JAX package's panel-major A (P+1, 16, K) of a_pad (M+1, K),
+        with a zero sentinel panel: the per-segment route's operand."""
+        k = a_pad.shape[-1]
+        ap = a_pad[self._a_panel_gather].reshape(-1, PANEL_ROWS, k)
+        return torch.cat([ap, ap.new_zeros((1, PANEL_ROWS, k))])
+
+    def device_bt(self, bt_pad: torch.Tensor) -> torch.Tensor:
+        """Padded B^T (..., N+1, K) on the runner's device -> its grouped,
+        chunked layout (..., C, NG+1, G*kc) (a view under the identity
+        layout), in the dtype it came in."""
+        if self.is_identity_layout:
+            return bt_pad.unsqueeze(-3)
+        p = self.packed
+        return device_bt_phys(bt_pad, self._col_order, p.group_size,
+                              p.num_col_groups, self.k_chunks)
+
     def device_prepare(self, a_pad: torch.Tensor, bt_pad: torch.Tensor):
         """Padded A (M+1, K) and B^T (N+1, K) already on the runner's
         device -> the runner's operands ``(a_pad, bt_phys)``, in the mode's
         storage dtypes (cast once here, not on every call); ``a_pad`` is
-        the pair ``(a_pad, a_panels)`` under ``a_layout="panels"``."""
+        the pair ``(a_pad, a_panels)`` under ``a_layout="panels"`` (the
+        panels serve the per-segment route, ``plain=True``)."""
         adt, bdt = STORAGE[self.compute_dtype]
         a_pad = a_pad.to(adt)
-        bt_pad = bt_pad.to(bdt)
         a_ops = a_pad
         if self.a_layout == "panels":
-            k = a_pad.shape[1]
-            ap = a_pad[self._a_panel_gather].reshape(-1, PANEL_ROWS, k)
-            ap = torch.cat([ap, torch.zeros((1, PANEL_ROWS, k), dtype=adt,
-                                            device=ap.device)])
-            a_ops = (a_pad, ap)
-        if self.is_identity_layout:
-            return a_ops, bt_pad[None]
-        p = self.packed
-        return a_ops, device_bt_phys(bt_pad, self._col_order, p.group_size,
-                                     p.num_col_groups, self.k_chunks)
+            a_ops = (a_pad, self._a_panels(a_pad))
+        return a_ops, self.device_bt(bt_pad.to(bdt))
 
     def prepare_operands(self, a, b=None, bt=None):
         """numpy A (M, K) and B (K, N), or B^T (N, K) as ``bt`` -> the
@@ -401,9 +459,23 @@ class HybridSDDMM:
         a_ops, bt_phys = self.prepare_operands(a, b=b, bt=bt)
         return self.run_padded(a_ops, bt_phys, order=order)
 
+    def _check_bt(self, a_pad: torch.Tensor, bt_phys: torch.Tensor) -> int:
+        """kc, after checking that bt_phys (..., C, NG+1, G*kc) fits a_pad
+        (..., M+1, C*kc) and this packing."""
+        p = self.packed
+        k, C = a_pad.shape[-1], bt_phys.shape[-3] if bt_phys.dim() >= 3 else 0
+        kc = k // C if C else 0
+        if (bt_phys.dim() != a_pad.dim() + 1 or kc < 1 or kc * C != k
+                or bt_phys.shape[-2:] != (p.num_col_groups + 1,
+                                          p.group_size * kc)):
+            raise ValueError(f"bt_phys {tuple(bt_phys.shape)} does not fit "
+                             f"a_pad {tuple(a_pad.shape)} and this packing "
+                             f"(NG={p.num_col_groups}, G={p.group_size})")
+        return kc
+
     def _operands(self, a_ops, bt_phys: torch.Tensor):
         """(a_pad, a_panels or None, bt_phys, kc) from run_padded's
-        operands, in the mode's storage dtypes."""
+        operands, contiguous, in the mode's storage dtypes."""
         if isinstance(a_ops, (tuple, list)):
             # a rows-layout runner given panels operands ignores the
             # relayout, as the JAX runner does
@@ -421,28 +493,24 @@ class HybridSDDMM:
                     "2-D bt operand requires identity layout; use "
                     "prepare_operands/device_prepare for grouped packing")
             bt_phys = bt_phys[None]
-        p = self.packed
-        k, C = a_pad.shape[1], bt_phys.shape[0]
-        kc = k // C if C else 0
-        if (bt_phys.dim() != 3 or kc < 1 or kc * C != k
-                or bt_phys.shape[1:] != (p.num_col_groups + 1,
-                                         p.group_size * kc)):
-            raise ValueError(f"bt_phys {tuple(bt_phys.shape)} does not fit "
-                             f"a_pad {tuple(a_pad.shape)} and this packing "
-                             f"(NG={p.num_col_groups}, G={p.group_size})")
+        kc = self._check_bt(a_pad, bt_phys)
         adt, bdt = STORAGE[self.compute_dtype]
-        a_pad, bt_phys = a_pad.to(adt), bt_phys.to(bdt)
+        a_pad = a_pad.to(adt).contiguous()
+        bt_phys = bt_phys.to(bdt).contiguous()
         if a_panels is not None:
             a_panels = a_panels.to(adt)
         return a_pad, a_panels, bt_phys, kc
 
     def tile_calls(self, a_ops, bt_phys: torch.Tensor, flat: torch.Tensor):
-        """Yield ``(a, b, out, accumulate)`` for every tile dot of one call,
-        in packed order: ``out`` is a view of the flat output ``flat``, and
-        chunk c > 0 adds into it.  The A and B^T gathers of the dense
-        segments run here (torch indexing); one segment's gathers are live
-        at a time."""
+        """Yield ``(a, b, out, accumulate)`` for every tile dot of the
+        per-segment route of one call, in packed order: ``out`` is a view
+        of the flat output ``flat``, and chunk c > 0 adds into it.  The A
+        and B^T gathers of the dense segments run here (torch indexing);
+        one segment's gathers are live at a time."""
         a_pad, a_panels, bt_phys, kc = self._operands(a_ops, bt_phys)
+        yield from self._tile_calls(a_pad, a_panels, bt_phys, kc, flat)
+
+    def _tile_calls(self, a_pad, a_panels, bt_phys, kc, flat):
         C, k = bt_phys.shape[0], a_pad.shape[1]
         p = self.packed
         G = p.group_size
@@ -477,6 +545,32 @@ class HybridSDDMM:
             yield from chunks(a_hot, lambda c: bt_phys[
                 c, :p.num_col_groups].reshape(1, S, kc), out)
 
+    def run_tiles(self, a_ops, bt_phys: torch.Tensor, flat: torch.Tensor,
+                  plain: bool = False) -> torch.Tensor:
+        """The dense tiles (segments and slabs) of one call into ``flat``:
+        one tile-kernel launch over the work table, or with ``plain`` the
+        per-segment route's plain versions."""
+        a_pad, a_panels, bt_phys, _ = self._operands(a_ops, bt_phys)
+        self._tiles(a_pad[None], bt_phys[None], flat[None], plain,
+                    None if a_panels is None else [a_panels])
+        return flat
+
+    def _tiles(self, a_pad, bt_phys, flat, plain, a_panels=None):
+        """a_pad (H, M+1, K), bt_phys (H, C, NG+1, G*kc), flat (H, F)."""
+        if not plain:
+            tile_table(a_pad, bt_phys, self.table, self.compute_dtype, flat)
+            return
+        kc = a_pad.shape[-1] // bt_phys.shape[1]
+        for h in range(a_pad.shape[0]):
+            panels = None
+            if self.a_layout == "panels":
+                panels = (a_panels[h] if a_panels is not None
+                          else self._a_panels(a_pad[h]))
+            for a, b, out, accumulate in self._tile_calls(
+                    a_pad[h], panels, bt_phys[h], kc, flat[h]):
+                tile_dot(a, b, self.compute_dtype, out=out,
+                         accumulate=accumulate, plain=True)
+
     def residual_call(self, a_ops, bt_phys: torch.Tensor):
         """``(a_pad, bt_phys, rows, gids, member)``, the residual
         gather-dot's arguments."""
@@ -490,43 +584,76 @@ class HybridSDDMM:
         """Compute from operands already in the runner's layout
         (``prepare_operands``/``device_prepare``; a plain (N+1, K) B^T is
         accepted under the identity layout).  ``order`` is ``"packed"`` or
-        ``"csr"``.
+        ``"csr"``.  On the card a call is one tile-kernel launch and, where
+        the packing has a residual, one gather-dot launch.
 
         ``plain=True`` runs the plain PyTorch versions of the kernels on
-        any device: the reference the kernels are timed against on the
-        card.  It is only ever chosen explicitly."""
+        any device, the tiles by the per-segment route: the reference the
+        kernels are timed against on the card.  It is only ever chosen
+        explicitly."""
         if order not in ("packed", "csr"):
             raise ValueError(f"unknown order {order!r}")
         check_no_grad("HybridSDDMM.run_padded", bt_phys, *(
             a_ops if isinstance(a_ops, (tuple, list)) else (a_ops,)))
-        residual = self.residual_call(a_ops, bt_phys)
-        flat = torch.empty(self.packed.packed_size, dtype=torch.float32,
-                           device=residual[0].device)
-        for a, b, out, accumulate in self.tile_calls(a_ops, bt_phys, flat):
-            tile_dot(a, b, self.compute_dtype, out=out, accumulate=accumulate,
-                     plain=plain)
-        res = flat[self._res_offset:]
-        if plain:
-            res.copy_(residual_gather_dot_plain(*residual))
-        else:
-            residual_gather_dot(*residual, out=res)
+        a_pad, a_panels, bt_phys, _ = self._operands(a_ops, bt_phys)
+        return self._run(a_pad[None], bt_phys[None], order, plain,
+                         None if a_panels is None else [a_panels])[0]
+
+    def run_heads(self, a_pad: torch.Tensor, bt_phys: torch.Tensor,
+                  order: str = "packed", plain: bool = False
+                  ) -> torch.Tensor:
+        """A batch of H heads sharing this packing: padded A (H, M+1, K)
+        and grouped B^T (H, C, NG+1, G*kc) (``device_bt`` of a (H, N+1, K)
+        batch) on the runner's device -> (H, packed_size), or (H, nnz) with
+        ``order="csr"``.  The tiles of all heads are one tile-kernel launch
+        with a head stride (the vmapped batch of the JAX package); the
+        residual is one gather-dot launch per head.  ``plain`` as in
+        ``run_padded``."""
+        if order not in ("packed", "csr"):
+            raise ValueError(f"unknown order {order!r}")
+        check_no_grad("HybridSDDMM.run_heads", a_pad, bt_phys)
+        if a_pad.dim() != 3 or a_pad.shape[0] != bt_phys.shape[0]:
+            raise ValueError(f"want a_pad (H, M+1, K) and bt_phys (H, C, "
+                             f"NG+1, G*kc), got {tuple(a_pad.shape)} and "
+                             f"{tuple(bt_phys.shape)}")
+        self._check_bt(a_pad, bt_phys)
+        adt, bdt = STORAGE[self.compute_dtype]
+        return self._run(a_pad.to(adt).contiguous(),
+                         bt_phys.to(bdt).contiguous(), order, plain)
+
+    def _run(self, a_pad, bt_phys, order, plain, a_panels=None):
+        """a_pad (H, M+1, K), bt_phys (H, C, NG+1, G*kc), contiguous in
+        the storage dtypes -> (H, F) or (H, nnz)."""
+        heads = a_pad.shape[0]
+        flat = torch.empty((heads, self.packed.packed_size),
+                           dtype=torch.float32, device=a_pad.device)
+        self._tiles(a_pad, bt_phys, flat, plain, a_panels)
+        for h in range(heads):
+            args = (a_pad[h], bt_phys[h], self._res_rows, self._res_gids,
+                    self._res_member)
+            res = flat[h, self._res_offset:]
+            if plain:
+                res.copy_(residual_gather_dot_plain(*args))
+            else:
+                residual_gather_dot(*args, out=res)
         if order == "csr":
             return self.to_csr_order(flat)
         return flat
 
     def to_csr_order(self, flat: torch.Tensor) -> torch.Tensor:
-        """Packed-order flat vector -> CSR entry order: one gather."""
+        """Packed-order flat vector (..., F) -> CSR entry order: one
+        gather."""
         if self._inv_idx is None:
             raise ValueError("light packing (full_metadata=False) has no "
                              "CSR-order metadata; re-pack with full "
                              "metadata")
-        return flat[self._inv_idx]
+        return flat[..., self._inv_idx]
 
     @staticmethod
     def from_csr(csr: CSR, alpha: float = config.DEFAULT_ALPHA,
                  delta: float = config.DEFAULT_DELTA,
                  compute_dtype: str = "tf32", method: str = "auto",
-                 device="cpu") -> "HybridSDDMM":
+                 device="cuda") -> "HybridSDDMM":
         check_slice(compute_dtype, 1, method)
         bsmr = BSMR(alpha, delta, csr, method=method)
         return HybridSDDMM(pack(csr, bsmr), compute_dtype=compute_dtype,
@@ -534,7 +661,7 @@ class HybridSDDMM:
 
 
 def sddmm_hybrid(a, b, packed: PackedMatrix, compute_dtype: str = "tf32",
-                 device="cpu") -> np.ndarray:
+                 device="cuda") -> np.ndarray:
     """One-shot host convenience wrapper (numpy in, numpy out, CSR
     order)."""
     runner = HybridSDDMM(packed, compute_dtype=compute_dtype, device=device)

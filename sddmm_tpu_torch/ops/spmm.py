@@ -4,14 +4,21 @@ Counterpart of ``sddmm_tpu/ops/spmm.py`` (``csr_spmm_jax``, ``csr_spmm``):
 ``out[r] = sum_{i: rows[i] == r} values[i] * dense[cols[i]]``, with fp32
 products and sums.  The JAX package gathers the dense rows, scales them and
 segment-sums them into rows; here a CUDA tensor goes through the hand
-kernel ``csrc/spmm.cu`` (one warp per row, reading the dense rows in place,
-no atomics), and a CPU tensor through ``csr_spmm_plain`` (``index_add_``).
-Row ids outside ``[0, num_rows)`` are dropped on both paths, as
-``jax.ops.segment_sum`` drops them.
+kernel ``csrc/spmm.cu``, and a CPU tensor through ``csr_spmm_plain``
+(``index_add_``).  The kernel walks a plan built once on the host from the
+pattern (``spmm_plan``): groups of 2 or 4 rows that share
+columns, a warp each, reading each dense row their rows share once; and
+each row longer than ``SPMM_LONG_ROW`` entries split into 8 pieces across
+the warps of one block, whose partial sums are added in a fixed order
+(``spmm_pieces`` lists what each row adds, in the kernel's order;
+``csr_spmm_split_plain`` is that order in PyTorch ops).  No atomics: the
+result is deterministic.  Row ids outside ``[0, num_rows)`` are dropped on
+both paths, as ``jax.ops.segment_sum`` drops them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -20,6 +27,194 @@ import torch
 from sddmm_tpu_torch import _kernels
 from sddmm_tpu_torch.data.sparse import CSR
 from sddmm_tpu_torch.ops.hybrid import check_device, check_no_grad
+
+#: rows with more entries than this are split across the warps of a block
+SPMM_LONG_ROW = 1024
+#: warps per block of the kernel (csrc/spmm.cu kWarpsPerBlock): the row
+#: groups of a task, and the pieces of a long row
+SPMM_WARPS = 8
+#: the group sizes the kernel has instances for (csrc/spmm.cu GR): rows of
+#: a group, whose shared columns are read once
+SPMM_GROUPS = (2, 4)
+#: rows of the pattern's head whose sharing picks the group size
+SPMM_SAMPLE_ROWS = 8192
+#: a group is kept where its distinct columns are at most this share of its
+#: entries; otherwise its rows become groups of one row
+SPMM_SHARE = 0.75
+
+
+@dataclasses.dataclass
+class SpmmPlan:
+    """The SpMM kernel's plan of one pattern (``spmm_plan``) for groups of
+    up to ``group_rows`` (GR) rows: ``tasks`` (T, 2) int64, a block each,
+    ``[first group, count 1..8]`` or ``[row, 0]`` for one long row;
+    ``groups`` (G, 2 + GR) int64 ``[first item, end item, its 1..GR rows,
+    -1 past them]``; ``items`` (I, 1 + GR) int32, each a distinct column
+    of its group and the entry of each of the group's rows there (-1 where
+    the row has none), ascending by column within a group.  A group of one
+    row has no items: it walks its CSR entries.  numpy arrays, or tensors
+    after ``to``."""
+    tasks: object
+    groups: object
+    items: object
+    group_rows: int
+
+    def to(self, device) -> "SpmmPlan":
+        return SpmmPlan(*(torch.as_tensor(x, device=device).contiguous()
+                          for x in (self.tasks, self.groups, self.items)),
+                        self.group_rows)
+
+
+def _group_items(e_group, e_slot, e_col, occ, ent, gr):
+    """Items of entries tagged with their group and slot: the distinct
+    (group, column, occurrence) triples ascending, as (items (I, 1 + gr)
+    int32, the group of each item)."""
+    order = np.lexsort((occ, e_col, e_group))
+    g_s, c_s, o_s = e_group[order], e_col[order], occ[order]
+    new = (np.r_[True, (g_s[1:] != g_s[:-1]) | (c_s[1:] != c_s[:-1])
+                 | (o_s[1:] != o_s[:-1])] if len(order)
+           else np.zeros(0, dtype=bool))
+    item_of = np.cumsum(new) - 1
+    items = np.full((int(new.sum()), 1 + gr), -1, dtype=np.int32)
+    items[item_of, 0] = c_s
+    items[item_of, 1 + e_slot[order]] = ent[order]
+    return items, g_s[new]
+
+
+def spmm_plan(row_ptr, cols, row_order=None, group_rows=None) -> SpmmPlan:
+    """The plan of the CSR pattern ``(row_ptr, cols)``, in numpy.  Every
+    row longer than ``SPMM_LONG_ROW`` entries is a task of its own (first,
+    so that they start early).  The other rows, taken in ``row_order`` (a
+    permutation of the rows; default 0..m-1), go in groups of
+    ``group_rows`` consecutive rows; a group whose distinct columns are
+    more than ``SPMM_SHARE`` of its entries is split into groups of one
+    row.  8 groups a task.  A column that a row holds twice gets an item
+    per occurrence.
+
+    ``group_rows`` None picks one of ``SPMM_GROUPS`` from what the pattern
+    shows: the plan of its first ``SPMM_SAMPLE_ROWS`` short rows (in the
+    order) at each size, costed as items x (2 + GR), since a warp's work
+    per item grows with the rows it carries (on the card, GR = 4 took 1.3x
+    GR = 2's time on the graph model's aggregation for 0.75x its items)."""
+    row_ptr = np.asarray(row_ptr, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    m = len(row_ptr) - 1
+    order = (np.arange(m) if row_order is None
+             else np.asarray(row_order, dtype=np.int64))
+    if not np.array_equal(np.sort(order), np.arange(m)):
+        raise ValueError("spmm_plan: row_order is not a permutation of the "
+                         f"{m} rows")
+    lengths = np.diff(row_ptr)
+    is_long = lengths > SPMM_LONG_ROW
+    short = order[~is_long[order]]
+    if group_rows is None:
+        head = short[:SPMM_SAMPLE_ROWS]
+        group_rows = min(SPMM_GROUPS, key=lambda gr: len(_plan_groups(
+            row_ptr, cols, head, gr)[1]) * (2 + gr))
+    if group_rows not in SPMM_GROUPS:
+        raise ValueError(f"spmm_plan: group_rows={group_rows}, want one of "
+                         f"{SPMM_GROUPS}")
+    groups, items = _plan_groups(row_ptr, cols, short, group_rows)
+    long_rows = np.flatnonzero(is_long)
+    t0 = np.arange(0, len(groups), SPMM_WARPS)
+    tasks = np.concatenate([
+        np.stack([long_rows, np.zeros_like(long_rows)], axis=1),
+        np.stack([t0, np.minimum(SPMM_WARPS, len(groups) - t0)], axis=1)
+    ]).astype(np.int64).reshape(-1, 2)
+    return SpmmPlan(tasks, groups, items, group_rows)
+
+
+def _plan_groups(row_ptr, cols, short, gr):
+    """(groups (G, 2 + gr) int64, items (I, 1 + gr) int32) of the rows
+    ``short``, in that order, as ``spmm_plan`` lays them out."""
+    m = len(row_ptr) - 1
+    lengths = np.diff(row_ptr)
+    # candidate groups: gr consecutive rows of the order
+    cand_of_row = np.full(m, -1, dtype=np.int64)
+    slot_of_row = np.zeros(m, dtype=np.int64)
+    cand_of_row[short] = np.arange(len(short)) // gr
+    slot_of_row[short] = np.arange(len(short)) % gr
+    n_cand = -(-len(short) // gr)
+    row_of = np.repeat(np.arange(m), lengths)
+    ent = np.flatnonzero(cand_of_row[row_of] >= 0)
+    e_row, e_col = row_of[ent], cols[ent]
+    # the occurrence of a column within its row (0 unless repeated)
+    occ = np.zeros(len(ent), dtype=np.int64)
+    same = e_row[1:] == e_row[:-1]
+    if not np.all((e_col[1:] > e_col[:-1]) | ~same):
+        o = np.lexsort((ent, e_col, e_row))
+        r_s, c_s = e_row[o], e_col[o]
+        new = np.r_[True, (r_s[1:] != r_s[:-1]) | (c_s[1:] != c_s[:-1])]
+        idx = np.arange(len(o))
+        occ[o] = idx - np.maximum.accumulate(np.where(new, idx, 0))
+    e_cand = cand_of_row[e_row]
+    items, item_cand = _group_items(e_cand, slot_of_row[e_row], e_col, occ,
+                                    ent, gr)
+    keep = (np.bincount(item_cand, minlength=n_cand)
+            <= SPMM_SHARE * np.bincount(e_cand, minlength=n_cand))
+    # kept candidates stay groups; the rows of the others, groups of one
+    rows_of_cand = np.full((n_cand, gr), -1, dtype=np.int64)
+    rows_of_cand.reshape(-1)[:len(short)] = short
+    kept = np.flatnonzero(keep)
+    items = items[keep[item_cand]]
+    item_group = np.searchsorted(kept, item_cand[keep[item_cand]])
+    singles = rows_of_cand[~keep].reshape(-1)
+    singles = singles[singles >= 0]
+    n_groups = len(kept) + len(singles)
+    g_rows = np.full((n_groups, gr), -1, dtype=np.int64)
+    g_rows[:len(kept)] = rows_of_cand[kept]
+    g_rows[len(kept):, 0] = singles
+    bounds = np.searchsorted(item_group, np.arange(n_groups + 1))
+    groups = np.concatenate([bounds[:-1, None], bounds[1:, None], g_rows],
+                            axis=1).astype(np.int64)
+    return groups, items
+
+
+def spmm_pieces(plan: SpmmPlan, row_ptr) -> list:
+    """``[(row, entry ids)]``: what each row adds, piece by piece, in the
+    kernel's order (a group row's entries in item order, a lone row's in
+    CSR order; a long row's 8
+    pieces of ``ceil(n / SPMM_WARPS)`` entries, the last ones shorter or
+    empty)."""
+    row_ptr = np.asarray(row_ptr, dtype=np.int64)
+    groups, items = np.asarray(plan.groups), np.asarray(plan.items)
+    out = []
+    for first, count in np.asarray(plan.tasks):
+        if count == 0:
+            e0, e1 = row_ptr[first], row_ptr[first + 1]
+            piece = -(-(e1 - e0) // SPMM_WARPS)
+            for w in range(SPMM_WARPS):
+                p0 = min(e1, e0 + w * piece)
+                out.append((first, np.arange(p0, min(e1, p0 + piece))))
+            continue
+        for g in groups[first:first + count]:
+            if g[3] < 0:
+                out.append((g[2], np.arange(row_ptr[g[2]],
+                                            row_ptr[g[2] + 1])))
+                continue
+            for r, row in enumerate(g[2:]):
+                if row >= 0:
+                    e = items[g[0]:g[1], 1 + r]
+                    out.append((row, e[e >= 0].astype(np.int64)))
+    return out
+
+
+def csr_spmm_split_plain(values: torch.Tensor, cols: torch.Tensor,
+                         dense: torch.Tensor, row_ptr,
+                         plan: SpmmPlan) -> torch.Tensor:
+    """The kernel's plan in PyTorch ops: each piece of ``spmm_pieces``
+    summed apart, a row's pieces added in order; fp32 products and sums.
+    (m, K) for the (m+1,) ``row_ptr``."""
+    m = len(row_ptr) - 1
+    out = torch.zeros((m, dense.shape[1]), dtype=torch.float32,
+                      device=dense.device)
+    vals = values.to(torch.float32)
+    for row, e in spmm_pieces(plan, row_ptr):
+        e = torch.as_tensor(e, device=dense.device)
+        part = (dense[cols[e].long()].to(torch.float32)
+                * vals[e, None]).sum(dim=0)
+        out[row] = out[row] + part
+    return out
 
 
 def csr_spmm_plain(values: torch.Tensor, rows: torch.Tensor,
@@ -76,7 +271,8 @@ def _check(values, rows, cols, dense, num_rows, row_ptr):
 
 def csr_spmm_torch(values: torch.Tensor, rows: torch.Tensor,
                    cols: torch.Tensor, dense: torch.Tensor, num_rows: int,
-                   row_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   row_ptr: Optional[torch.Tensor] = None,
+                   plan: Optional[SpmmPlan] = None) -> torch.Tensor:
     """out[r] = sum over entries i with rows[i] == r of values[i] *
     dense[cols[i]]: values/rows/cols (nnz,), dense (N, K) -> (num_rows, K).
 
@@ -85,9 +281,11 @@ def csr_spmm_torch(values: torch.Tensor, rows: torch.Tensor,
     non-decreasing and match them; the kernel reads only ``row_ptr``).
     Without it, the row pointers are made here, after a stable sort of the
     entries by row when ``rows`` is not non-decreasing.  cols must be in
-    range.  CUDA tensors go through the kernel (dense fp32, values cast to
-    fp32 as JAX's astype does) or raise; CPU tensors through
-    ``csr_spmm_plain``."""
+    range.  ``plan``: ``spmm_plan(row_ptr, cols).to(device)``, when the
+    caller keeps one (else it is built here, which reads the row pointers
+    and columns back to the host).  CUDA tensors go through the kernel (dense
+    fp32, values cast to fp32 as JAX's astype does) or raise; CPU tensors
+    through ``csr_spmm_plain``."""
     check_no_grad("csr_spmm_torch", values, dense)
     _check(values, rows, cols, dense, num_rows, row_ptr)
     if dense.device.type == "cpu":
@@ -105,20 +303,41 @@ def csr_spmm_torch(values: torch.Tensor, rows: torch.Tensor,
     row_ptr = row_ptr.to(torch.int64).contiguous()
     cols = cols.to(torch.int32).contiguous()
     values = values.contiguous()
-    out = torch.empty((num_rows, dense.shape[1]), dtype=torch.float32,
+    K = dense.shape[1]
+    out = torch.empty((num_rows, K), dtype=torch.float32,
                       device=dense.device)
     if num_rows == 0:
         return out
+    if plan is None:
+        plan = spmm_plan(row_ptr.cpu().numpy(),
+                         cols.cpu().numpy()).to(dense.device)
+    gr = plan.group_rows
+    for name, t, dt, w in (("tasks", plan.tasks, torch.int64, 2),
+                           ("groups", plan.groups, torch.int64, 2 + gr),
+                           ("items", plan.items, torch.int32, 1 + gr)):
+        if (not isinstance(t, torch.Tensor) or t.dim() != 2
+                or t.shape[1] != w or t.dtype != dt
+                or t.device != dense.device or not t.is_contiguous()):
+            raise ValueError(f"csr_spmm: plan.{name} must be spmm_plan's, "
+                             "contiguous, on dense's device (SpmmPlan.to)")
+    # columns per lane: float4 or float2 loads where K, the row stride and
+    # the pointer allow them
+    vec = 4 if K > 64 else 2 if K > 32 else 1
+    while vec > 1 and (K % vec or dense.stride(0) % vec
+                       or dense.data_ptr() % (4 * vec)):
+        vec //= 2
     with torch.cuda.device(dense.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _kernels.launch(_kernels.SPMM_ENTRY, row_ptr.data_ptr(),
-                        cols.data_ptr(), values.data_ptr(), dense.data_ptr(),
-                        dense.stride(0), out.data_ptr(), num_rows,
-                        dense.shape[1], stream)
+        _kernels.launch(_kernels.SPMM_ENTRY, plan.tasks.data_ptr(),
+                        plan.tasks.shape[0], plan.groups.data_ptr(),
+                        plan.items.data_ptr(), gr, row_ptr.data_ptr(),
+                        cols.data_ptr(),
+                        values.data_ptr(), dense.data_ptr(), dense.stride(0),
+                        out.data_ptr(), K, vec, stream)
     return out
 
 
-def csr_spmm(s: CSR, dense, values=None, device="cpu") -> np.ndarray:
+def csr_spmm(s: CSR, dense, values=None, device="cuda") -> np.ndarray:
     """Host wrapper: S @ dense with S's stored values (or ``values``),
     numpy in, numpy out."""
     dev = check_device(device)

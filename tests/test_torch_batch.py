@@ -51,7 +51,7 @@ def test_batched_csr_sddmm_matches_jax(K):
     a, b = _batches(csr.m, csr.n, K, seed=K)
     want = j_batched_csr_sddmm(a, b, csr)
     tcsr = TCSR(csr.shape, csr.row_ptr, csr.col_idx, csr.values)
-    got = batched_csr_sddmm(a, b, tcsr)
+    got = batched_csr_sddmm(a, b, tcsr, device="cpu")
     assert isinstance(got, np.ndarray) and got.shape == (BATCH, csr.nnz)
     np.testing.assert_allclose(got, want, rtol=CSR_RTOL)
 
@@ -64,7 +64,7 @@ def test_batched_hybrid_matches_jax(name):
     jr = JaxHybrid(p, compute_dtype="float32", k_chunks=t.k_chunks)
     want = np.asarray(JaxBatched(jr)(a, b))
     r = HybridSDDMM(packed_from_reference(p), compute_dtype="float32",
-                    k_chunks=t.k_chunks)
+                    k_chunks=t.k_chunks, device="cpu")
     got = bt.BatchedHybridSDDMM(r)(a, b)
     assert got.shape == want.shape == (BATCH, p.packed_size)
     real = p.inv_idx
@@ -75,7 +75,7 @@ def test_batched_run_padded_csr_order_is_per_element():
     """order="csr" of the batch is each element's own call, stacked."""
     csr, t = _case("G2C2+hub")
     r = HybridSDDMM(packed_from_reference(t.packed), compute_dtype="float32",
-                    k_chunks=t.k_chunks)
+                    k_chunks=t.k_chunks, device="cpu")
     a, b = _batches(csr.m, csr.n, 32, seed=2)
     a_pad = bt._pad_rows(torch.from_numpy(a))
     bt_pad = bt._pad_rows(batched_transpose(torch.from_numpy(b)))
@@ -102,7 +102,7 @@ def test_batched_transpose_matches_jax():
 
 def test_batch_overlap_report_needs_the_card():
     _, t = _case("G1")
-    r = HybridSDDMM(packed_from_reference(t.packed))
+    r = HybridSDDMM(packed_from_reference(t.packed), device="cpu")
     a, b = _batches(r.packed.m, r.packed.n, 32, seed=0)
     with pytest.raises(RuntimeError, match="card"):
         bt.batch_overlap_report(r, a, b)

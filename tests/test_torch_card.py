@@ -6,6 +6,9 @@ with
 
 This file imports nothing of JAX."""
 
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +25,8 @@ from sddmm_tpu_torch.ops.dense import DenseSDDMM
 from sddmm_tpu_torch.ops.reference import sddmm_reference
 from sddmm_tpu_torch.reorder.autotune import from_params
 from sddmm_tpu_torch.utils.check import check_values
+
+ROOT = Path(__file__).resolve().parents[1]
 
 pytestmark = pytest.mark.cuda
 
@@ -313,3 +318,110 @@ def test_dense_and_csr_baseline_on_card(mode, cuda_device):
     assert res.passed and res.num_errors == 0, str(res)
     res = check_values(want, csr_sddmm(a, b, csr, device=cuda_device))
     assert res.passed and res.num_errors == 0, str(res)
+
+
+def _committed(name, k):
+    """from_params keywords of a committed config (as bench.py maps it),
+    and its A layout."""
+    cfg = json.loads((ROOT / "results" / "tuned_configs.json").read_text())[
+        f"k{k}"][name]
+    return cfg.get("a_layout", "rows"), dict(
+                alpha=cfg["alpha"], delta=cfg["delta"],
+                group_size=cfg.get("g", 1), k_chunks=cfg.get("c", 1),
+                merge_superpanels=cfg.get("merge", True),
+                hub_cols=cfg.get("hub", 0),
+                b_cost_scale=cfg.get("b_cost_scale", 1.0),
+                sort_runs=cfg.get("sort_runs", "cid"),
+                sort_res=cfg.get("sort_res", "csr"))
+
+
+@pytest.mark.parametrize("name,k", [("clustered16", 128), ("banded", 64),
+                                    ("clustered16", 32)])
+def test_one_tile_launch_per_call(name, k, cuda_device):
+    """A committed config's packing of a small matrix: one call is one
+    tile-kernel launch (every segment, chunk and slab) plus one gather-dot
+    launch where there is a residual, and matches the per-segment plain
+    route."""
+    csr = _quick_clustered()
+    a_layout, kw = _committed(name, k)
+    t = from_params(csr, k, **kw)
+    a = generate.make_dense(csr.m, k, seed=1)
+    b = generate.make_dense(k, csr.n, seed=2)
+    r = hy.HybridSDDMM(t.packed, k_chunks=t.k_chunks, a_layout=a_layout,
+                       device=cuda_device)
+    ops = r.prepare_operands(a, b=b)
+    before = dict(_kernels.launches)
+    got = r.run_padded(*ops, order="csr")
+    torch.cuda.synchronize()
+    counts = {n: c - before.get(n, 0) for n, c in _kernels.launches.items()
+              if c > before.get(n, 0)}
+    want = {"sddmm_tile_dot_tf32": 1}
+    if t.packed.nnz_res:
+        want["sddmm_gather_dot_float32_float32"] = 1
+    assert counts == want
+    plain = r.run_padded(*ops, order="csr", plain=True)
+    assert _rel(got, plain) <= TILE_REL
+    res = check_values(sddmm_reference(a, b, csr), got.cpu().numpy())
+    assert res.passed and res.num_errors == 0, str(res)
+
+
+@pytest.mark.parametrize("mode", ["float32", "tf32"])
+def test_batched_one_launch_matches_loop(mode, cuda_device):
+    """Three heads over a G=2, C=2 packing with a hub slab: one tile-kernel
+    launch for all heads, equal to each head's own call."""
+    csr = _quick_clustered()
+    t = from_params(csr, 64, alpha=0.3, delta=0.05, group_size=2,
+                    k_chunks=2, hub_cols=128)
+    assert t.packed.hub_cols and t.k_chunks == 2
+    r = hy.HybridSDDMM(t.packed, compute_dtype=mode, k_chunks=2,
+                       device=cuda_device)
+    rng = np.random.default_rng(4)
+    a = torch.tensor(rng.uniform(0, 2, (3, csr.m + 1, 64)),
+                     dtype=torch.float32, device=cuda_device)
+    b = torch.tensor(rng.uniform(0, 2, (3, csr.n + 1, 64)),
+                     dtype=torch.float32, device=cuda_device)
+    a[:, -1] = 0
+    b[:, -1] = 0
+    n = _kernels.launches[f"sddmm_tile_dot_{mode}"]
+    got = bt.BatchedHybridSDDMM(r).run_padded(a, b, order="csr")
+    torch.cuda.synchronize()
+    assert _kernels.launches[f"sddmm_tile_dot_{mode}"] == n + 1
+    for h in range(3):
+        one = r.run_padded(*r.device_prepare(a[h], b[h]), order="csr")
+        assert torch.equal(got[h], one)
+    plain = bt.BatchedHybridSDDMM(r).run_padded(a, b, order="csr",
+                                                plain=True)
+    assert _rel(got, plain) <= TILE_REL
+
+
+@pytest.mark.parametrize("K", [64, 128])
+def test_spmm_long_row_split_matches_plain(K, cuda_device):
+    """Rows longer than SPMM_LONG_ROW (a global token's 4096 entries, and
+    100,000) are split across a block's warps and their pieces added in a
+    fixed order: within SPMM_REL of the plain version, the same on every
+    run, and empty rows exact zeros."""
+    rng = np.random.default_rng(K + 1)
+    m, n = 2000, 3000
+    deg = rng.integers(0, 600, m)
+    deg[::9] = 0
+    deg[5], deg[77], deg[1999] = 4096, 100000, sp.SPMM_LONG_ROW + 1
+    row_ptr = np.r_[0, np.cumsum(deg)]
+    cols = rng.integers(0, n, row_ptr[-1])
+    plan = sp.spmm_plan(row_ptr, cols)
+    assert (plan.tasks[:, 1] == 0).sum() == 3
+    rows = torch.tensor(np.repeat(np.arange(m), deg), device=cuda_device)
+    c = torch.tensor(cols, dtype=torch.int32, device=cuda_device)
+    v = torch.tensor(rng.standard_normal(len(rows)), dtype=torch.float32,
+                     device=cuda_device)
+    d = torch.tensor(rng.standard_normal((n, K)), dtype=torch.float32,
+                     device=cuda_device)
+    rp = torch.tensor(row_ptr, device=cuda_device)
+    plan_t = plan.to(cuda_device)
+    got = sp.csr_spmm_torch(v, rows, c, d, m, row_ptr=rp, plan=plan_t)
+    again = sp.csr_spmm_torch(v, rows, c, d, m, row_ptr=rp, plan=plan_t)
+    want = sp.csr_spmm_plain(v, rows, c, d, m)
+    scale = sp.csr_spmm_plain(v.abs(), rows, c, d.abs(), m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert ((got - want).abs() / scale.clamp_min(1e-30)).max() <= SPMM_REL
+    assert not got[torch.tensor(deg == 0, device=cuda_device)].any()

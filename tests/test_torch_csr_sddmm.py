@@ -42,7 +42,7 @@ def test_csr_sddmm_matches_jax(max_gathered_mb, scale_by_values, case):
     want = j_csr_sddmm(a, b, csr, scale_by_values=scale_by_values,
                        max_gathered_mb=max_gathered_mb)
     got = csr_sddmm(a, b, tcsr, scale_by_values=scale_by_values,
-                    max_gathered_mb=max_gathered_mb)
+                    max_gathered_mb=max_gathered_mb, device="cpu")
     assert isinstance(got, np.ndarray) and got.shape == (csr.nnz,)
     assert got.dtype == want.dtype == np.float32
     assert np.max(np.abs(got - want) / np.abs(want)) <= PARITY_REL

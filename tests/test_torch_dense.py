@@ -46,7 +46,7 @@ def test_dense_matches_jax(mode, order, case):
     jr = JaxDense.from_csr(csr, compute_dtype=mode)
     want = np.asarray(jr.run_padded(*jr.prepare_operands(a, b=b),
                                     order=order))
-    r = dn.DenseSDDMM.from_csr(tcsr, compute_dtype=mode)
+    r = dn.DenseSDDMM.from_csr(tcsr, compute_dtype=mode, device="cpu")
     got = r.run_padded(*r.prepare_operands(a, b=b), order=order)
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     tol = SPLIT_REL if mode == "tf32" else PARITY_REL
@@ -68,7 +68,8 @@ def test_dense_any_k_matches_jax(k, mode, case):
     jr = JaxDense.from_csr(csr, compute_dtype=mode)
     want = np.asarray(jr.run_padded(*jr.prepare_operands(a, b=b),
                                     order="csr"))
-    got = dn.DenseSDDMM.from_csr(tcsr, compute_dtype=mode)(a, b=b).numpy()
+    got = dn.DenseSDDMM.from_csr(tcsr, compute_dtype=mode,
+                                 device="cpu")(a, b=b).numpy()
     tol = SPLIT_REL_FEW if mode == "tf32" else PARITY_REL
     assert np.max(np.abs(got - want) / np.abs(want)) <= tol
     res = check_values(sddmm_reference(a, b, tcsr), got)
@@ -79,7 +80,7 @@ def test_dense_any_k_matches_jax(k, mode, case):
 def test_dense_masked_matches_jax(mode, case):
     csr, tcsr, a, b = case
     want = j_dense_masked(a, b, csr, compute_dtype=mode)
-    got = dn.dense_masked_sddmm(a, b, tcsr, compute_dtype=mode)
+    got = dn.dense_masked_sddmm(a, b, tcsr, compute_dtype=mode, device="cpu")
     assert isinstance(got, np.ndarray) and got.shape == (csr.nnz,)
     tol = SPLIT_REL if mode == "tf32" else PARITY_REL
     assert np.max(np.abs(got - want) / np.abs(want)) <= tol
@@ -87,7 +88,7 @@ def test_dense_masked_matches_jax(mode, case):
 
 def test_operands_bt_and_storage(case):
     _, tcsr, a, b = case
-    r = dn.DenseSDDMM.from_csr(tcsr, compute_dtype="mixed")
+    r = dn.DenseSDDMM.from_csr(tcsr, compute_dtype="mixed", device="cpu")
     a1, bt1 = r.prepare_operands(a, b=b)
     a2, bt2 = r.prepare_operands(a, bt=np.ascontiguousarray(b.T))
     assert a1.dtype == torch.float32 and bt1.dtype == torch.bfloat16
@@ -101,20 +102,20 @@ def test_csr_order_two_d_index_above_the_flat_limit(case, monkeypatch):
     """Above M*N = 2^31 the CSR gather takes a (row, col) index; forced
     here by lowering the limit, it gives the same values."""
     _, tcsr, a, b = case
-    flat = dn.DenseSDDMM.from_csr(tcsr)
+    flat = dn.DenseSDDMM.from_csr(tcsr, device="cpu")
     want = flat(a, b=b)
     assert len(flat._csr_gather()) == 1
     monkeypatch.setattr(dn, "FLAT_INDEX_LIMIT", 16)
-    two_d = dn.DenseSDDMM.from_csr(tcsr)
+    two_d = dn.DenseSDDMM.from_csr(tcsr, device="cpu")
     assert torch.equal(two_d(a, b=b), want)
     assert len(two_d._csr_gather()) == 2
 
 
 def test_csr_order_needs_the_pattern(case):
     _, tcsr, a, b = case
-    r = dn.DenseSDDMM(tcsr.m, tcsr.n)
+    r = dn.DenseSDDMM(tcsr.m, tcsr.n, device="cpu")
     assert tuple(r(a, b=b, order="packed").shape) == (tcsr.m, tcsr.n)
     with pytest.raises(ValueError, match="from_csr"):
         r(a, b=b)
     with pytest.raises(ValueError, match="compute_dtype"):
-        dn.DenseSDDMM(4, 4, compute_dtype="tf16")
+        dn.DenseSDDMM(4, 4, compute_dtype="tf16", device="cpu")

@@ -1,6 +1,7 @@
 """Guards of the port: it never loads jax, never builds or runs a kernel
 without the CUDA toolchain, and never carries on silently on the CPU."""
 
+import inspect
 import os
 import subprocess
 import sys
@@ -115,3 +116,71 @@ def test_chip_smoke_fails_without_cuda():
                          cwd=str(ROOT))
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def _entry_points():
+    """Every public constructor and function of the port that takes a
+    device, by name."""
+    # modules from sys.modules: ``sddmm_tpu_torch.ops.csr_sddmm`` is also a
+    # function of ``sddmm_tpu_torch.ops``
+    from importlib import import_module
+    entry, batch, csr_sddmm, dense, hybrid, spmm = (
+        import_module(f"sddmm_tpu_torch.{name}") for name in (
+            "entry", "ops.batch", "ops.csr_sddmm", "ops.dense", "ops.hybrid",
+            "ops.spmm"))
+    from sddmm_tpu_torch.models import (BlockSparseAttention,
+                                        GraphAttentionLayer)
+    return {
+        "HybridSDDMM": hybrid.HybridSDDMM.__init__,
+        "HybridSDDMM.from_csr": hybrid.HybridSDDMM.from_csr,
+        "sddmm_hybrid": hybrid.sddmm_hybrid,
+        "DenseSDDMM": dense.DenseSDDMM.__init__,
+        "DenseSDDMM.from_csr": dense.DenseSDDMM.from_csr,
+        "dense_masked_sddmm": dense.dense_masked_sddmm,
+        "csr_sddmm": csr_sddmm.csr_sddmm,
+        "csr_spmm": spmm.csr_spmm,
+        "batched_csr_sddmm": batch.batched_csr_sddmm,
+        "GraphAttentionLayer": GraphAttentionLayer.__init__,
+        "BlockSparseAttention": BlockSparseAttention.__init__,
+        "entry": entry.entry,
+    }
+
+
+ENTRY_POINTS = ("HybridSDDMM", "HybridSDDMM.from_csr", "sddmm_hybrid",
+                "DenseSDDMM", "DenseSDDMM.from_csr", "dense_masked_sddmm",
+                "csr_sddmm", "csr_spmm", "batched_csr_sddmm",
+                "GraphAttentionLayer", "BlockSparseAttention", "entry")
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_point_defaults_to_the_card(name):
+    """The port runs on the card unless the caller asks for the CPU: every
+    entry point's ``device`` defaults to "cuda" (read from its
+    signature)."""
+    fn = _entry_points()[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("name", ["HybridSDDMM", "DenseSDDMM",
+                                  "GraphAttentionLayer", "entry"])
+def test_default_device_raises_without_a_card(name):
+    """Without a card the default raises; it never falls back to the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from sddmm_tpu_torch.data import generate
+    from sddmm_tpu_torch.entry import entry
+    from sddmm_tpu_torch.models import GraphAttentionLayer
+    from sddmm_tpu_torch.ops.dense import DenseSDDMM
+    from sddmm_tpu_torch.ops.hybrid import HybridSDDMM
+    from sddmm_tpu_torch.reorder.autotune import from_params
+    csr = generate.block_clustered(8, 8, block_prob=0.3, seed=1)
+    calls = {
+        "HybridSDDMM": lambda: HybridSDDMM(
+            from_params(csr, 32, alpha=0.3, delta=0.05).packed),
+        "DenseSDDMM": lambda: DenseSDDMM(4, 4),
+        "GraphAttentionLayer": lambda: GraphAttentionLayer(csr, 8, 8),
+        "entry": entry,
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[name]()

@@ -87,7 +87,7 @@ def _jax_packed(packed, a, b, compute_dtype, a_layout, k_chunks=1):
 def _port(packed, a, b, compute_dtype, a_layout, k_chunks=1):
     r = hy.HybridSDDMM(packed_from_reference(packed),
                        compute_dtype=compute_dtype, a_layout=a_layout,
-                       use_pallas=True, k_chunks=k_chunks)
+                       use_pallas=True, k_chunks=k_chunks, device="cpu")
     ops = operands_from_numpy(r, a, b)
     flat = r.run_padded(*ops, order="packed")
     return r, flat, r.run_padded(*ops, order="csr")
@@ -129,40 +129,49 @@ def test_slice_matches_jax(name, a_layout, compute_dtype, cases,
 
 
 def test_dense_tiles_go_through_tile_dot(cases, monkeypatch):
-    """Every dense segment of a tf32 call reaches tile_dot (the kernel's
-    wrapper), once per (family, bucket) segment, never as a plain call."""
+    """Every dense segment of a tf32 call reaches the tile kernel's wrapper
+    (``tile_table``) in one call, whose table holds each (family, bucket)
+    segment's runs, never as a plain call."""
     _, packed, a, b = cases["quick1024"]
     calls = []
-    real = hy.tile_dot
+    real = hy.tile_table
 
-    def spy(a_run, bg, mode, out=None, accumulate=False, plain=False):
-        calls.append((tuple(a_run.shape), mode, plain))
-        return real(a_run, bg, mode, out=out, accumulate=accumulate,
-                    plain=plain)
+    def spy(a_pad, bt, table, mode, out, accumulate=False):
+        calls.append((tuple(a_pad.shape), table, mode))
+        return real(a_pad, bt, table, mode, out, accumulate=accumulate)
 
-    monkeypatch.setattr(hy, "tile_dot", spy)
-    r = hy.HybridSDDMM(packed_from_reference(packed), a_layout="panels")
+    monkeypatch.setattr(hy, "tile_table", spy)
+    r = hy.HybridSDDMM(packed_from_reference(packed), a_layout="panels",
+                       device="cpu")
     r.run_padded(*operands_from_numpy(r, a, b))
     n_segments = sum(len(getattr(packed, f + "_buckets"))
                      for f in ("super", "quad", "pair", "group"))
-    assert len(calls) == n_segments > 0
-    assert all(mode == "tf32" and not plain for _, mode, plain in calls)
+    assert len(calls) == 1 and n_segments > 0
+    (shape, table, mode), = calls
+    assert mode == "tf32" and shape == (1, packed.m + 1, K)
+    # one entry per run, 64-row window and 128-lane group of b*128 lanes
+    n_windows = sum(
+        n_runs * -(-getattr(packed, f + "_rows").shape[1] // 64) * b_
+        for f in ("super", "quad", "pair", "group")
+        for b_, _, n_runs in getattr(packed, f + "_buckets"))
+    assert table.n_entries == n_windows
 
 
 def test_plain_flag_gives_same_values(cases):
     _, packed, a, b = cases["conftest"]
-    r = hy.HybridSDDMM(packed_from_reference(packed), a_layout="panels")
+    r = hy.HybridSDDMM(packed_from_reference(packed), a_layout="panels",
+                       device="cpu")
     ops = operands_from_numpy(r, a, b)
     assert torch.equal(r.run_padded(*ops), r.run_padded(*ops, plain=True))
 
 
 def test_packed_rows_cols_and_from_csr(cases):
     csr, packed, a, b = cases["conftest"]
-    r = hy.HybridSDDMM(packed_from_reference(packed))
+    r = hy.HybridSDDMM(packed_from_reference(packed), device="cpu")
     assert np.array_equal(r.packed_rows.numpy(), packed.packed_rows)
     assert np.array_equal(r.packed_cols.numpy(), packed.packed_cols)
     tcsr = TCSR(csr.shape, csr.row_ptr, csr.col_idx, csr.values)
-    r2 = hy.HybridSDDMM.from_csr(tcsr, 0.3, 0.3)
+    r2 = hy.HybridSDDMM.from_csr(tcsr, 0.3, 0.3, device="cpu")
     res = check_values(sddmm_reference(a, b, csr), r2(a, b).numpy())
     assert res.passed, str(res)
 
@@ -310,7 +319,7 @@ def test_hot_row_slab_slots():
     rank - H): its value there is its own dot product."""
     csr, t, a, b = _config_case("hub+rowslab")
     p = t.packed
-    r = hy.HybridSDDMM(packed_from_reference(p))
+    r = hy.HybridSDDMM(packed_from_reference(p), device="cpu")
     flat = r.run_padded(*operands_from_numpy(r, a, b)).numpy()
     hot_index = {row: i for i, row in enumerate(p.rowslab_rows)
                  if row < p.m}
@@ -332,7 +341,8 @@ def test_device_prepare_matches_build_bt_phys(G, C):
     b = jgen.make_dense(K, csr.n, seed=2)
     bt_pad = np.concatenate([b.T, np.zeros((1, K), np.float32)])
     want = j_build_bt_phys(bt_pad, t.packed, C)
-    r = hy.HybridSDDMM(packed_from_reference(t.packed), k_chunks=C)
+    r = hy.HybridSDDMM(packed_from_reference(t.packed), k_chunks=C,
+                       device="cpu")
     a = jgen.make_dense(csr.m, K, seed=1)
     _, got = r.prepare_operands(a, b=b)
     assert got.shape == want.shape and np.array_equal(got.numpy(), want)
@@ -345,7 +355,7 @@ def test_operands_in_storage_dtypes(mode, cases):
     """prepare_operands casts once, into the JAX package's _STORAGE."""
     _, packed, a, b = cases["conftest"]
     r = hy.HybridSDDMM(packed_from_reference(packed), compute_dtype=mode,
-                       a_layout="panels")
+                       a_layout="panels", device="cpu")
     (a_pad, a_panels), bt = r.prepare_operands(a, b=b)
     jr = JaxHybrid(packed, compute_dtype=mode, a_layout="panels")
     (ja, jp), jbt = jr.prepare_operands(a, b=b)
@@ -360,7 +370,7 @@ def test_two_d_bt_needs_identity_layout():
     the JAX runner; otherwise it raises instead of computing wrong dots.
     The hub packing reorders its columns (hub-first ranks) at G=1, C=1."""
     csr, t, a, b = _config_case("hub")
-    r = hy.HybridSDDMM(packed_from_reference(t.packed))
+    r = hy.HybridSDDMM(packed_from_reference(t.packed), device="cpu")
     assert not r.is_identity_layout
     a_pad, _ = operands_from_numpy(r, a, b)
     bt_pad = torch.from_numpy(np.concatenate(
@@ -370,7 +380,7 @@ def test_two_d_bt_needs_identity_layout():
 
     ident = jgen.random_sparse(200, 160, density=0.05, seed=3)
     ti = j_from_params(ident, K, alpha=0.3, delta=0.05)
-    ri = hy.HybridSDDMM(packed_from_reference(ti.packed))
+    ri = hy.HybridSDDMM(packed_from_reference(ti.packed), device="cpu")
     assert ri.is_identity_layout
     ai = jgen.make_dense(ident.m, K, seed=1)
     bi = jgen.make_dense(K, ident.n, seed=2)
@@ -384,9 +394,10 @@ def test_rows_runner_ignores_panels(cases):
     uses a_pad and ignores the panels, as the JAX runner does."""
     _, packed, a, b = cases["conftest"]
     p = packed_from_reference(packed)
-    panels_ops = hy.HybridSDDMM(p, a_layout="panels").prepare_operands(
+    panels_ops = hy.HybridSDDMM(p, a_layout="panels",
+                                device="cpu").prepare_operands(
         a, b=b)
-    rows = hy.HybridSDDMM(p, a_layout="rows")
+    rows = hy.HybridSDDMM(p, a_layout="rows", device="cpu")
     assert torch.equal(rows.run_padded(*panels_ops, order="csr"),
                        rows(a, b=b))
 
@@ -405,14 +416,15 @@ def test_unported_clustering_raises():
 def test_sddmm_hybrid_matches_jax(cases, pallas_interpret):
     csr, packed, a, b = cases["conftest"]
     want = j_sddmm_hybrid(a, b, packed)
-    got = sddmm_hybrid(a, b, packed_from_reference(packed))
+    got = sddmm_hybrid(a, b, packed_from_reference(packed), device="cpu")
     assert isinstance(got, np.ndarray) and got.shape == (csr.nnz,)
     assert np.max(np.abs(got - want) / np.abs(want)) <= SPLIT_REL
 
 
 def test_panels_layout_needs_panel_operands(cases):
     _, packed, a, b = cases["conftest"]
-    r = hy.HybridSDDMM(packed_from_reference(packed), a_layout="panels")
+    r = hy.HybridSDDMM(packed_from_reference(packed), a_layout="panels",
+                       device="cpu")
     (a_pad, _), bt = operands_from_numpy(r, a, b)
     with pytest.raises(ValueError):
         r.run_padded(a_pad, bt)

@@ -72,7 +72,8 @@ def test_graph_attention_matches_jax(name):
     params = jl.init(jax.random.PRNGKey(key))
     x = jgen.make_dense(adj.m, F, seed=xseed)
     want = np.asarray(jl(params, jnp.asarray(x)))
-    layer = GraphAttentionLayer(_tcsr(adj), feature_dim=F, head_dim=D)
+    layer = GraphAttentionLayer(_tcsr(adj), feature_dim=F, head_dim=D,
+                                device="cpu")
     interop.graph_attention_params_from_reference(params, layer)
     with torch.inference_mode():
         got = layer(torch.from_numpy(x))
@@ -92,7 +93,8 @@ def test_graph_attention_matches_dense_softmax_attention():
     """On the fully connected 12-node graph the layer is dense softmax
     attention (the JAX test's oracle, here in fp64)."""
     adj, F, D, _, _ = _graph_case("dense12")
-    layer = GraphAttentionLayer(_tcsr(adj), feature_dim=F, head_dim=D)
+    layer = GraphAttentionLayer(_tcsr(adj), feature_dim=F, head_dim=D,
+                                device="cpu")
     p = layer.init(torch.Generator().manual_seed(3))
     x = torch.from_numpy(jgen.make_dense(adj.m, F, seed=5))
     with torch.inference_mode():
@@ -162,7 +164,7 @@ def _block_case(causal, a_layout="rows"):
     x = np.random.default_rng(5).standard_normal((160, 24)).astype(
         np.float32)
     model = BlockSparseAttention(_tcsr(mask), feature_dim=24, num_heads=2,
-                                 head_dim=16, a_layout=a_layout)
+                                 head_dim=16, a_layout=a_layout, device="cpu")
     interop.block_sparse_params_from_reference(params, model)
     return mask, jm, params, x, model
 
@@ -203,7 +205,8 @@ def test_interop_rejects_wrong_shapes():
     adj, F, D, key, _ = _graph_case("dense12")
     params = JaxGraphAttention(adj, feature_dim=F, head_dim=D).init(
         jax.random.PRNGKey(key))
-    layer = GraphAttentionLayer(_tcsr(adj), feature_dim=F, head_dim=D + 1)
+    layer = GraphAttentionLayer(_tcsr(adj), feature_dim=F, head_dim=D + 1,
+                                device="cpu")
     with pytest.raises(ValueError, match="weight"):
         interop.graph_attention_params_from_reference(params, layer)
     _, _, bparams, _, model = _block_case(False)
@@ -217,7 +220,8 @@ def test_forward_raises_on_grad_requiring_operands():
     differentiate raises, on the CPU as on the card, naming the ROADMAP
     item, and never returns values without a grad_fn."""
     adj, F, D, _, _ = _graph_case("dense12")
-    layer = GraphAttentionLayer(_tcsr(adj), feature_dim=F, head_dim=D)
+    layer = GraphAttentionLayer(_tcsr(adj), feature_dim=F, head_dim=D,
+                                device="cpu")
     layer.init(torch.Generator().manual_seed(0))
     x = torch.from_numpy(jgen.make_dense(adj.m, F, seed=5))
     assert all(p.requires_grad for p in layer.parameters())
@@ -233,7 +237,7 @@ def test_forward_raises_on_grad_requiring_operands():
     q = torch.zeros((adj.m + 1, D), requires_grad=True)
     with pytest.raises(NotImplementedError, match=AUTOGRAD_ITEM):
         r.run_padded(q, q.detach())
-    dense = DenseSDDMM(4, 4)
+    dense = DenseSDDMM(4, 4, device="cpu")
     with pytest.raises(NotImplementedError, match=AUTOGRAD_ITEM):
         dense.run_padded(torch.ones(4, 8, requires_grad=True),
                          torch.ones(4, 8))

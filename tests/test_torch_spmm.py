@@ -65,7 +65,7 @@ def test_csr_spmm_host_wrapper_matches_jax():
     for values in (None, np.random.default_rng(4).standard_normal(
             csr.nnz).astype(np.float32)):
         want = j_csr_spmm(csr, dense, values=values)
-        got = csr_spmm(tcsr, dense, values=values)
+        got = csr_spmm(tcsr, dense, values=values, device="cpu")
         assert isinstance(got, np.ndarray) and got.shape == want.shape
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
@@ -162,3 +162,91 @@ def test_csr_spmm_gradient_guard():
     assert out.tolist() == [[2.0] * 8, [2.0] * 8]
     with torch.no_grad():
         assert sp.csr_spmm_torch(v, r, c, d, 2).grad_fn is None
+
+
+def _plan_pattern(seed):
+    """Rows with sorted columns: 100 sliding-window rows (neighbours share
+    most columns), then random rows, a 4096-entry row and empty rows."""
+    rng = np.random.default_rng(seed)
+    n = 5000
+    rows = [np.arange(max(0, r - 30), r + 31) for r in range(100)]
+    rows += [np.sort(rng.choice(n, rng.integers(0, 60), replace=False))
+             for _ in range(100)]
+    rows[3] = np.arange(4096)
+    rows[150] = np.arange(sp.SPMM_LONG_ROW + 1)
+    for r in (10, 11, 120, 199):
+        rows[r] = np.zeros(0, dtype=np.int64)
+    row_ptr = np.r_[0, np.cumsum([len(c) for c in rows])]
+    return row_ptr, np.concatenate(rows).astype(np.int64), n
+
+
+@pytest.mark.parametrize("group_rows", [None, 2, 4])
+@pytest.mark.parametrize("order", ["natural", "permuted"])
+def test_spmm_plan_covers_every_entry_once(order, group_rows):
+    """The kernel's plan: every entry is summed exactly once, into its own
+    row, and (columns sorted) each row's pieces run through its entries in
+    CSR order; long rows are their own tasks; groups share columns."""
+    row_ptr, cols, _ = _plan_pattern(0)
+    m = len(row_ptr) - 1
+    ro = (np.random.default_rng(1).permutation(m) if order == "permuted"
+          else None)
+    plan = sp.spmm_plan(row_ptr, cols, ro, group_rows)
+    assert plan.group_rows in sp.SPMM_GROUPS
+    long = plan.tasks[plan.tasks[:, 1] == 0, 0]
+    assert sorted(long) == [3, 150]
+    per_row = {}
+    for row, e in sp.spmm_pieces(plan, row_ptr):
+        per_row.setdefault(int(row), []).append(e)
+    assert sorted(per_row) == list(range(m))
+    for r in range(m):
+        assert np.array_equal(np.concatenate(per_row[r]),
+                              np.arange(row_ptr[r], row_ptr[r + 1]))
+    if order == "natural":
+        # the window rows share: their groups read fewer columns than
+        # they have entries
+        multi = plan.groups[plan.groups[:, 3] >= 0]
+        assert len(multi) and len(plan.items) < row_ptr[100]
+
+
+@pytest.mark.parametrize("group_rows", [None, 2, 4])
+def test_spmm_split_matches_jax(group_rows):
+    """The plan's order of sums (``csr_spmm_split_plain``) against the JAX
+    package's ``csr_spmm_jax`` within 1e-5 of the sum of the terms'
+    magnitudes, on a 4096-entry row, a row past ``SPMM_LONG_ROW`` and
+    empty rows."""
+    row_ptr, cols, n = _plan_pattern(2)
+    m = len(row_ptr) - 1
+    rng = np.random.default_rng(3)
+    values = rng.standard_normal(len(cols)).astype(np.float32)
+    dense = rng.standard_normal((n, 16)).astype(np.float32)
+    rows = np.repeat(np.arange(m), np.diff(row_ptr)).astype(np.int32)
+    plan = sp.spmm_plan(row_ptr, cols, group_rows=group_rows)
+    got = sp.csr_spmm_split_plain(torch.from_numpy(values),
+                                  torch.from_numpy(cols),
+                                  torch.from_numpy(dense), row_ptr, plan)
+    want = _jax(values, rows, cols.astype(np.int32), dense, m)
+    scale = _jax(np.abs(values), rows, cols.astype(np.int32),
+                 np.abs(dense), m)
+    assert (np.abs(got.numpy() - want) / np.maximum(scale, 1e-30)).max() \
+        <= 1e-5
+    assert not got[[10, 11, 120, 199]].any()
+
+
+def test_spmm_plan_adapts_to_sharing():
+    """A sliding window shares almost every column between neighbours: the
+    plan takes groups of 4.  Random rows share none: every group is one
+    row.  A bad row order or group size raises."""
+    from sddmm_tpu_torch.models.block_sparse_attention import \
+        make_attention_mask
+    mask = make_attention_mask(600, window=30, num_global=1)
+    assert sp.spmm_plan(mask.row_ptr, mask.col_idx).group_rows == 4
+    rng = np.random.default_rng(4)
+    row_ptr = np.arange(0, 301 * 20, 20)
+    cols = np.concatenate([np.sort(rng.choice(100000, 20, replace=False))
+                           for _ in range(300)])
+    plan = sp.spmm_plan(row_ptr, cols)
+    assert (plan.groups[:, 3] < 0).all() and len(plan.items) == 0
+    with pytest.raises(ValueError, match="permutation"):
+        sp.spmm_plan(row_ptr, cols, row_order=np.zeros(300, dtype=int))
+    with pytest.raises(ValueError, match="group_rows"):
+        sp.spmm_plan(row_ptr, cols, group_rows=3)
