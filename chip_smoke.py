@@ -19,10 +19,16 @@ its time:
    "tf32" must miss 3 * 2^-18 of each product; every instance also at
    K = 8 and 24 (zero-padded to the kernel's 16-step) and a C=2 chunk at
    K = 24;
-4. the residual gather-dot kernel against its plain version at G in
-   (1, 2, 4), C in (1, 2) and each storage pair of the compute modes;
-   the CSR SpMM kernel against its plain version on random patterns with
-   empty rows and one very long row, at K in (8, 64, 128);
+4. the gather-dot kernel against its plain version at G in (1, 2, 4), C
+   in (1, 2), each storage pair of the compute modes and H in (1, 3)
+   heads in one launch: random entries walked in their order, and
+   clustered entries (rows sharing keys) sorted and unsorted, walked with
+   a plan and without; the CSR SpMM kernel against its plain version on
+   random patterns with empty rows and one very long row, at K in (8, 64,
+   128); the segment softmax kernel against its plain version on random
+   patterns (every 7th row empty, one row of 200,000 entries) at H in
+   (1, 12), from packed scores through an ``inv_idx`` and from CSR-order
+   scores;
 5. the main path at full bench scale: every K=128 cell of ``bench.py``'s
    suite (clustered16, clustered128, powerlaw with its hub and hot-row
    slabs, banded, and dlmc through ``DenseSDDMM``) plus clustered16 at K=32
@@ -33,7 +39,8 @@ its time:
    the launch counters are zeroed just before this run and read just
    after, per cell: each call must launch the tile kernel exactly once
    (every segment, chunk and slab of the packing, or the dense product)
-   and the gather-dot exactly once where the packing has a residual;
+   and the gather-dot exactly once where the packing has a residual (it
+   walks the residual's plan, ``HybridSDDMM.res_plan``);
 6. per cell, each kernel again at the main path's own shapes against its
    plain version (the tile kernel's one launch against the per-segment
    route of gathers and ``tile_dot_plain``); then timing with CUDA events
@@ -48,8 +55,11 @@ its time:
    peak of their type (989 TFLOP/s for the tile kernel's bf16 products,
    67 TFLOP/s for fp32 outside the tensor cores), whichever is larger;
 7. the CSR baseline (the gather-dot kernel with C = G = 1) on each K=128
-   cell: checked against the golden, timed beside ``sampled_addmm`` and
-   its bound, and the hybrid's speed-up over it on this card;
+   cell: the pattern's plan built on the host (its seconds printed), one
+   planned launch per cell checked against the golden, timed beside its
+   plain version, ``sampled_addmm`` and its bound, and the hybrid's
+   speed-up over it on this card; ``batched_csr_sddmm`` on a batch of 2
+   is one launch;
 8. the five compute modes on banded K=128: "float32", "tf32" and "mixed"
    must pass the contract; "float16" and "bfloat16" fail it by design, so
    they are held to their plain versions and their max rel is printed;
@@ -61,12 +71,14 @@ its time:
    side, 1 global token, hidden 768, 12 heads of 64), plus the port's
    ``entry``.  The launch counters are zeroed just before the forwards and
    read just after: each forward launches the tile kernel's "float32"
-   instance exactly once (the Longformer's 12 heads together) and the SpMM
-   kernel exactly once, and the gather-dot once per head where a packing
-   has a residual.  Each output is checked against an fp64 reference under
-   the contract and against the same forward with every kernel's plain
-   version; both forwards, and the SpMM at the models' shapes (beside
-   ``torch.sparse.mm`` on a CSR tensor and its bound), are timed.
+   instance, the segment softmax and the SpMM kernel exactly once (the
+   Longformer's 12 heads together), and the gather-dot once where a
+   packing has a residual.  Each output is checked against an fp64
+   reference under the contract and against the same forward with every
+   kernel's plain version; both forwards, the SpMM at the models' shapes
+   (beside ``torch.sparse.mm`` on a CSR tensor and its bound) and the
+   segment softmax at the models' shapes (beside ``torch.sparse.softmax``
+   on a COO tensor of the same scaled scores and its bound) are timed.
 
 It then prints one JSON line with the kernels' record (per kernel: its
 launches on its path, max abs error against its plain version, and the
@@ -106,6 +118,10 @@ PROBE_TF32_MIN = 1e-5
 # 4096-entry rows of a global token
 SPMM_REL_TOL = 1e-5
 SPMM_K = (8, 64, 128)
+# softmax kernel vs plain, as max |kernel - plain| / plain: the same fp32
+# exps, the denominator summed in another order over up to 200,000 terms
+SOFTMAX_REL_TOL = 1e-5
+SOFTMAX_HEADS = (1, 12)
 # the models phase: graph attention's cell and width, and Longformer-base
 GRAPH_CELL = "clustered16"
 GRAPH_WIDTH = 128
@@ -307,33 +323,126 @@ def check_float32_precision(torch, td, rng):
     return worst
 
 
+def shared_entries(rng, m, n_keys, order):
+    """(rows, keys) of clustered rows: groups of 8 rows draw 70 % of a
+    common set of 48 keys (every 7th row empty, rows shuffled), the entries
+    in CSR order ("sorted") or shuffled ("unsorted")."""
+    import numpy as np
+    perm = rng.permutation(m)
+    grp = np.repeat(np.arange(-(-m // 8)), 8)[:m]
+    common = np.stack([rng.choice(n_keys, 48, replace=False)
+                       for _ in range(grp.max() + 1)])
+    rows = np.repeat(perm, 48)
+    keys = common[grp].reshape(-1)
+    keep = (rng.random(len(rows)) < 0.7) & (rows % 7 != 0)
+    rows, keys = rows[keep], keys[keep]
+    o = (np.lexsort((keys, rows)) if order == "sorted"
+         else rng.permutation(len(rows)))
+    return rows[o], keys[o]
+
+
 def check_gather_dot(torch, hy, rng):
+    """The gather-dot against its plain version, every instance: random
+    entries in their order, and clustered entries sorted and unsorted with
+    a plan and without, for 1 and 3 heads in one launch.  Returns (max
+    rel, max abs, cases)."""
+    import numpy as np
+    from sddmm_tpu_torch import _kernels
+    from sddmm_tpu_torch.ops.gather_plan import gather_plan
     worst_rel = worst_abs = 0.0
+    cases = 0
     m, ng, nR, K = 4096, 3072, 65536, 128
     for G in (1, 2, 4):
         for C in (1, 2):
             kc = K // C
+            lists = {"random": (rng.integers(0, m + 1, nR),
+                                rng.integers(0, (ng + 1) * G, nR))}
+            for order in ("sorted", "unsorted"):
+                lists[order] = shared_entries(rng, m, ng * G, order)
+            entry_lists = {}
+            for lst, (rows_np, keys_np) in lists.items():
+                t = {name: torch.tensor(x, dtype=torch.int32, device=DEVICE)
+                     for name, x in (("rows", rows_np), ("gids", keys_np // G),
+                                     ("member", keys_np % G))}
+                plans = [None] + ([] if lst == "random" else [gather_plan(
+                    rows_np, keys_np, group_rows=8).to(DEVICE)])
+                entry_lists[lst] = (t, plans)
             for adt, bdt in hy.GATHER_STORAGE:
-                a = torch.tensor(rng.uniform(0, 2, (m + 1, K)),
-                                 dtype=torch.float32, device=DEVICE).to(adt)
-                bt = torch.tensor(rng.uniform(0, 2, (C, ng + 1, G * kc)),
-                                  dtype=torch.float32, device=DEVICE).to(bdt)
-                rows = torch.tensor(rng.integers(0, m + 1, nR),
-                                    dtype=torch.int32, device=DEVICE)
-                gids = torch.tensor(rng.integers(0, ng + 1, nR),
-                                    dtype=torch.int32, device=DEVICE)
-                member = (torch.tensor(rng.integers(0, G, nR),
-                                       dtype=torch.int32, device=DEVICE)
-                          if G > 1 else None)
-                got = hy.residual_gather_dot(a, bt, rows, gids, member)
-                ref = hy.residual_gather_dot_plain(a, bt, rows, gids, member)
-                torch.cuda.synchronize()
-                rel = max_rel(got, ref)
-                worst_rel = max(worst_rel, rel)
-                worst_abs = max(worst_abs, float((got - ref).abs().max()))
-                if not rel <= GATHER_REL_TOL:
-                    fail(f"gather_dot G={G} C={C} {adt}/{bdt}: max rel "
-                         f"{rel:.3e} vs plain > {GATHER_REL_TOL}")
+                for H in (1, 3):
+                    a = torch.tensor(rng.uniform(0, 2, (H, m + 1, K)),
+                                     dtype=torch.float32,
+                                     device=DEVICE).to(adt)
+                    bt = torch.tensor(
+                        rng.uniform(0, 2, (H, C, ng + 1, G * kc)),
+                        dtype=torch.float32, device=DEVICE).to(bdt)
+                    for lst, (t, plans) in entry_lists.items():
+                        member = t["member"] if G > 1 else None
+                        for plan in plans:
+                            name = _kernels.gather_dot_entry(adt, bdt)
+                            n0 = _kernels.launches[name]
+                            got = hy.residual_gather_dot(
+                                a, bt, t["rows"], t["gids"], member,
+                                plan=plan)
+                            if _kernels.launches[name] != n0 + 1:
+                                fail(f"gather_dot H={H}: not one launch")
+                            torch.cuda.synchronize()
+                            for h in range(H):
+                                ref = hy.residual_gather_dot_plain(
+                                    a[h], bt[h], t["rows"], t["gids"],
+                                    member)
+                                rel = max_rel(got[h], ref)
+                                worst_rel = max(worst_rel, rel)
+                                worst_abs = max(worst_abs, float(
+                                    (got[h] - ref).abs().max()))
+                                if not rel <= GATHER_REL_TOL:
+                                    fail(f"gather_dot G={G} C={C} {adt}/"
+                                         f"{bdt} H={H} {lst} entries, "
+                                         f"{'plan' if plan else 'no plan'}"
+                                         f": max rel {rel:.3e} vs plain > "
+                                         f"{GATHER_REL_TOL}")
+                            cases += 1
+    return worst_rel, worst_abs, cases
+
+
+def softmax_case(torch, rng, heads):
+    """Rows of 0..700 entries (every 7th empty, row 3 with 200,000):
+    (row_ptr, inv_idx into packed scores with spare slots, packed scores
+    (heads, F))."""
+    import numpy as np
+    m = 20000
+    deg = rng.integers(0, 700, m)
+    deg[::7] = 0
+    deg[3] = 200000
+    row_ptr = np.r_[0, np.cumsum(deg)]
+    nnz = int(row_ptr[-1])
+    inv = rng.permutation(nnz + 5000)[:nnz]
+    flat = torch.tensor(rng.standard_normal((heads, nnz + 5000)) * 4,
+                        dtype=torch.float32, device=DEVICE)
+    return (torch.tensor(row_ptr, device=DEVICE),
+            torch.tensor(inv, dtype=torch.int32, device=DEVICE), flat)
+
+
+def check_softmax(torch, sm, rng):
+    """The segment softmax kernel against its plain version, from packed
+    scores through inv_idx and from CSR-order scores, at SOFTMAX_HEADS.
+    Returns (max |kernel - plain| / plain, max abs)."""
+    worst_rel = worst_abs = 0.0
+    for heads in SOFTMAX_HEADS:
+        row_ptr, inv, flat = softmax_case(torch, rng, heads)
+        for packed in (True, False):
+            x, idx = ((flat, inv) if packed
+                      else (flat[:, inv.long()].contiguous(), None))
+            got = sm.segment_softmax_torch(x, row_ptr, 0.125, idx)
+            want = sm.segment_softmax_plain(x, row_ptr, 0.125, idx)
+            torch.cuda.synchronize()
+            rel = float(((got - want).abs() / want).max())
+            worst_rel = max(worst_rel, rel)
+            worst_abs = max(worst_abs, float((got - want).abs().max()))
+            if not rel <= SOFTMAX_REL_TOL:
+                fail(f"segment_softmax H={heads} "
+                     f"{'packed' if packed else 'CSR order'}: max rel "
+                     f"{rel:.3e} vs plain > {SOFTMAX_REL_TOL}")
+        del row_ptr, inv, flat
     return worst_rel, worst_abs
 
 
@@ -504,10 +613,66 @@ def time_spmm(torch, sp, label, agg, d, card):
             "library_ms": tl["median_ms"], **bnd}
 
 
-def run_models(torch, sp, card, adj):
+def time_softmax(torch, sm, label, model, d, card):
+    """The segment softmax kernel against its plain version at one model's
+    shapes (its heads, pattern and packing; N(0, 16) packed scores, scale
+    1/sqrt(d)), beside ``torch.sparse.softmax`` on a COO tensor of the same
+    scaled scores (the heads' block-diagonal pattern): the record's
+    numbers."""
+    from sddmm_tpu_torch import _kernels
+    from sddmm_tpu_torch.utils.timing import cuda_time_ms
+    agg, runner = model._agg, model.runner
+    heads = agg.heads
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    flat = torch.randn((heads, runner.packed.packed_size), generator=g,
+                       device=DEVICE) * 4
+    inv, scale = runner.inv_idx32, 1.0 / d ** 0.5
+
+    def kernel():
+        return sm.segment_softmax_torch(flat, agg.head_row_ptr, scale, inv,
+                                        agg.long_rows)
+
+    def plain():
+        return sm.segment_softmax_plain(flat, agg.head_row_ptr, scale, inv)
+
+    got, want = kernel(), plain()
+    vals = (flat[:, inv.long()] * scale).reshape(-1)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([agg.rows, agg.cols.long()]), vals,
+        size=(agg.num_rows, agg.num_rows)).coalesce()
+    lib = torch.sparse.softmax(coo, dim=1)
+    torch.cuda.synchronize()
+    rel = float(((got - want).abs() / want).max())
+    if not rel <= SOFTMAX_REL_TOL:
+        fail(f"{label} segment softmax at the model's shapes: max rel "
+             f"{rel:.3e} vs plain")
+    if not float(((lib.values() - want.reshape(-1)).abs()
+                  / want.reshape(-1)).max()) <= SOFTMAX_REL_TOL:
+        fail(f"{label}: torch.sparse.softmax does not compute the same "
+             "function")
+    err = float((got - want).abs().max())
+    del got, want, lib
+    tk = cuda_time_ms(kernel, 20)
+    tp = cuda_time_ms(plain, 5)
+    tl = cuda_time_ms(lambda: torch.sparse.softmax(coo, dim=1), 20)
+    nnz = inv.numel()
+    nbytes = 8 * heads * nnz + 4 * nnz + 8 * agg.head_row_ptr.numel()
+    bnd = bound_times(nbytes, 5.0 * heads * nnz, FP32_FLOPS)
+    say(f"[time] {label} {_kernels.SOFTMAX_ENTRY} ({heads} heads x {nnz} "
+        f"entries, max rel vs plain {rel:.3e}): kernel "
+        f"{tk['median_ms']:.4f} ms, plain {tp['median_ms']:.4f} ms, "
+        f"torch.sparse.softmax {tl['median_ms']:.4f} ms, bound "
+        f"{max(bnd.values()):.4f} ms ({nbytes / 1e6:.1f} MB read once + "
+        f"written once) = {100 * max(bnd.values()) / tk['median_ms']:.1f} % "
+        f"of it on {card}")
+    return {"err": err, "ms": tk["median_ms"], "plain_ms": tp["median_ms"],
+            "library_ms": tl["median_ms"], **bnd}
+
+
+def run_models(torch, sp, sm, card, adj):
     """Phase 9 on the clustered16 adjacency ``adj``: returns the launch
-    counts of the models' forwards, and the SpMM's (max abs err, ms, plain
-    ms) at the models' shapes, summed over the two models."""
+    counts of the models' forwards, and the records of the SpMM and of the
+    segment softmax at the models' shapes, summed over the two models."""
     from sddmm_tpu_torch import _kernels
     from sddmm_tpu_torch.data import generate
     from sddmm_tpu_torch.entry import entry
@@ -562,11 +727,11 @@ def run_models(torch, sp, card, adj):
     for label, got in per_model.items():
         say(f"[models] {label} launches: {got}")
         model = models[label][0]
-        # one tile launch for all heads; the residual, one launch a head
-        want = {"sddmm_tile_dot_float32": 1, _kernels.SPMM_ENTRY: 1}
+        # one launch of each kernel for all heads
+        want = {"sddmm_tile_dot_float32": 1, _kernels.SPMM_ENTRY: 1,
+                _kernels.SOFTMAX_ENTRY: 1}
         if model.runner.packed.nnz_res:
-            want["sddmm_gather_dot_float32_float32"] = getattr(
-                model, "num_heads", 1)
+            want["sddmm_gather_dot_float32_float32"] = 1
         if got != want:
             fail(f"{label}: launches {got}, want {want}")
 
@@ -581,13 +746,16 @@ def run_models(torch, sp, card, adj):
                                         fn.layer.adj))
     time_model(torch, "graph attention", graph, x_graph, card)
     time_model(torch, "block-sparse attention", block, x_block, card)
-    rec = {_kernels.SPMM_ENTRY: new_record(0.0)}
-    for label, agg, d in (("graph attention", graph._agg, GRAPH_WIDTH),
-                          ("block-sparse attention", block._agg,
-                           lf["head_dim"])):
-        add_times(rec, {_kernels.SPMM_ENTRY: time_spmm(torch, sp, label, agg,
-                                                       d, card)})
-    return counts, rec[_kernels.SPMM_ENTRY]
+    rec = {_kernels.SPMM_ENTRY: new_record(0.0),
+           _kernels.SOFTMAX_ENTRY: new_record(0.0)}
+    for label, model, d in (("graph attention", graph, GRAPH_WIDTH),
+                            ("block-sparse attention", block,
+                             lf["head_dim"])):
+        add_times(rec, {_kernels.SPMM_ENTRY: time_spmm(
+            torch, sp, label, model._agg, d, card)})
+        add_times(rec, {_kernels.SOFTMAX_ENTRY: time_softmax(
+            torch, sm, label, model, d, card)})
+    return counts, rec
 
 
 def gather_name(runner):
@@ -668,13 +836,15 @@ def kernel_pass(torch, td, runner, ops, timing_iters, label, card):
         return out
     gname = gather_name(runner)
     residual = runner.residual_call(*ops)
-    res_out = hy.residual_gather_dot(*residual)
+    plan = runner.res_plan
+    res_out = hy.residual_gather_dot(*residual, plan=plan)
     ref = hy.residual_gather_dot_plain(*residual)
     torch.cuda.synchronize()
     rel = max_rel(res_out, ref)
     if not rel <= GATHER_REL_TOL:
         fail(f"{label} {gname}: max rel {rel:.3e} vs plain")
-    tk = cuda_time_ms(lambda: hy.residual_gather_dot(*residual, out=res_out),
+    tk = cuda_time_ms(lambda: hy.residual_gather_dot(*residual, out=res_out,
+                                                     plan=plan),
                       timing_iters)
     tp = cuda_time_ms(lambda: hy.residual_gather_dot_plain(*residual),
                       timing_iters)
@@ -693,7 +863,8 @@ def kernel_pass(torch, td, runner, ops, timing_iters, label, card):
     out[gname] = {"err": float((res_out - ref).abs().max()),
                   "ms": tk["median_ms"], "plain_ms": tp["median_ms"],
                   "library_ms": lib_ms, **bnd}
-    say(f"[time] {label} {gname} ({n} entries, max rel vs plain "
+    say(f"[time] {label} {gname} ({n} entries, plan of "
+        f"{plan.group_rows} rows a group, max rel vs plain "
         f"{rel:.3e}): kernel {tk['median_ms']:.4f} ms, plain "
         f"{tp['median_ms']:.4f} ms, sampled_addmm "
         + (f"{lib_ms:.4f} ms" if lib_ms is not None else "n/a")
@@ -787,9 +958,11 @@ def main() -> None:
 
     from sddmm_tpu_torch import _kernels
     from sddmm_tpu_torch.ops import hybrid as hy
+    from sddmm_tpu_torch.ops import softmax as sm
     from sddmm_tpu_torch.ops import spmm as sp
     from sddmm_tpu_torch.ops import tile_dot as td
-    from sddmm_tpu_torch.ops.csr_sddmm import csr_sddmm_torch
+    from sddmm_tpu_torch.ops.batch import batched_csr_sddmm
+    from sddmm_tpu_torch.ops.csr_sddmm import csr_plan, csr_sddmm_torch
     from sddmm_tpu_torch.ops.dense import DenseSDDMM
     from sddmm_tpu_torch.ops.reference import sddmm_reference
     from sddmm_tpu_torch.utils.check import check_values
@@ -826,16 +999,25 @@ def main() -> None:
                 f"{data} {mode} {err:.3e}"
                 for (data, mode), err in f32.items()))
     with Phase("gather-dot vs plain"):
-        rel2, abs2 = check_gather_dot(torch, hy, rng)
-        say(f"[gather_dot] 65536 entries, G in (1, 2, 4), C in (1, 2), "
-            f"storage {', '.join(gather_pair_names())}: max rel vs plain "
-            f"{rel2:.3e} (tol {GATHER_REL_TOL}), max abs {abs2:.3e}")
+        rel2, abs2, n_cases = check_gather_dot(torch, hy, rng)
+        say(f"[gather_dot] {n_cases} cases: G in (1, 2, 4), C in (1, 2), "
+            f"storage {', '.join(gather_pair_names())}, H in (1, 3) in one "
+            "launch; 65536 random entries in their order, clustered "
+            "entries sorted and unsorted with a plan (8 rows a group) and "
+            f"without: max rel vs plain {rel2:.3e} (tol {GATHER_REL_TOL}), "
+            f"max abs {abs2:.3e}")
     with Phase("SpMM kernel vs plain"):
         rel3, abs3 = check_spmm(torch, sp, rng)
         say(f"[spmm] 20000 rows (every 7th empty, row 3 with 200000 "
             f"entries), K in {SPMM_K}, K=8 unsorted: max abs err / sum "
             f"|terms| vs plain {rel3:.3e} (tol {SPMM_REL_TOL}), max abs "
             f"{abs3:.3e}; empty rows exact zeros")
+    with Phase("segment softmax vs plain"):
+        rel4, abs4 = check_softmax(torch, sm, rng)
+        say(f"[softmax] 20000 rows (every 7th empty, row 3 with 200000 "
+            f"entries), H in {SOFTMAX_HEADS}, packed scores through inv_idx "
+            "and CSR-order scores: max |kernel - plain| / plain "
+            f"{rel4:.3e} (tol {SOFTMAX_REL_TOL}), max abs {abs4:.3e}")
 
     # every kernel instance's record; "launches" is from the named path
     rec = {f"sddmm_tile_dot_{m}": new_record(worst[m][1]) for m in td.MODES}
@@ -947,8 +1129,7 @@ def main() -> None:
 
     # -- 7. the CSR baseline on each K=128 cell --
     with Phase("CSR baseline"):
-        _kernels.launches.clear()
-        base_in = {}
+        base_in, base_plan = {}, {}
         for (name, k), (csr, _, _, a, b) in cells.items():
             if k != 128:
                 continue
@@ -959,7 +1140,17 @@ def main() -> None:
                                 device=DEVICE),
                 torch.as_tensor(csr.col_idx, dtype=torch.int32,
                                 device=DEVICE))
-        base_out = {name: csr_sddmm_torch(*args)
+            t0 = time.perf_counter()
+            plan = csr_plan(csr)
+            secs = time.perf_counter() - t0
+            base_plan[name] = plan.to(DEVICE)
+            say(f"[plan] {name}@K128 CSR baseline: {secs:.2f} s on the host"
+                f": {plan.group_rows} rows a group"
+                + (f", {len(plan.groups)} groups, {len(plan.items)} items "
+                   f"for {csr.nnz} entries, {len(plan.tasks)} tasks"
+                   if plan.grouped else " (the entry-order walk)"))
+        _kernels.launches.clear()
+        base_out = {name: csr_sddmm_torch(*args, plan=base_plan[name])
                     for name, args in base_in.items()}
         torch.cuda.synchronize()
         csr_launches = _kernels.launches["sddmm_gather_dot_float32_float32"]
@@ -975,7 +1166,8 @@ def main() -> None:
                 fail(f"{name}: CSR baseline has {res.num_errors} values "
                      "outside the contract")
             ref = hy.residual_gather_dot_plain(*args)
-            tk = cuda_time_ms(lambda: csr_sddmm_torch(*args), 20)
+            tk = cuda_time_ms(lambda: csr_sddmm_torch(
+                *args, plan=base_plan[name]), 20)
             tp = cuda_time_ms(lambda: hy.residual_gather_dot_plain(*args), 20)
             a_t, bt_t, rows, cols = args
             lib = sampled_addmm_ms(torch, a_t, bt_t, rows, cols, 20)
@@ -997,6 +1189,23 @@ def main() -> None:
                 f"{tk['median_ms'] / packed:.3f}x, CSR order "
                 f"{tk['median_ms'] / in_csr:.3f}x on {card}")
         del base_in, base_out
+        # the batched CSR SDDMM: one launch for a batch of 2
+        csr, _, _, a, b = cells[("clustered16", 128)]
+        a2 = np.stack([a, a[::-1]])
+        b2 = np.stack([b, b[:, ::-1]])
+        _kernels.launches.clear()
+        got = batched_csr_sddmm(a2, b2, csr, device=DEVICE)
+        batch_launches = dict(_kernels.launches)
+        if batch_launches != {"sddmm_gather_dot_float32_float32": 1}:
+            fail(f"batched_csr_sddmm (batch 2): launches {batch_launches}, "
+                 "want one gather-dot launch")
+        for i in range(2):
+            res = check_values(sddmm_reference(a2[i], b2[i], csr), got[i])
+            if not res.passed or res.num_errors:
+                fail(f"batched_csr_sddmm element {i}: {res.num_errors} "
+                     "values outside the contract")
+        say(f"[check] batched_csr_sddmm clustered16@K128, batch 2: "
+            f"launches {batch_launches}; each element vs fp64 golden: {res}")
 
     # -- 8. the five compute modes on banded K=128 --
     mode_launches = {}
@@ -1034,10 +1243,13 @@ def main() -> None:
 
     # -- 9. the models: the serving path of the two attention families --
     with Phase("models"):
-        model_launches, rec[_kernels.SPMM_ENTRY] = run_models(
-            torch, sp, card, csrs[GRAPH_CELL])
+        model_launches, model_rec = run_models(
+            torch, sp, sm, card, csrs[GRAPH_CELL])
+    rec.update(model_rec)
     rec[_kernels.SPMM_ENTRY]["max_abs_err"] = max(
         rec[_kernels.SPMM_ENTRY]["max_abs_err"], abs3)
+    rec[_kernels.SOFTMAX_ENTRY]["max_abs_err"] = max(
+        rec[_kernels.SOFTMAX_ENTRY]["max_abs_err"], abs4)
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -1052,7 +1264,10 @@ def main() -> None:
                                         "attention, entry)", model_launches),
              _kernels.SPMM_ENTRY: ("models (graph attention, "
                                    "Longformer-shaped block-sparse "
-                                   "attention, entry)", model_launches)}
+                                   "attention, entry)", model_launches),
+             _kernels.SOFTMAX_ENTRY: ("models (graph attention, "
+                                      "Longformer-shaped block-sparse "
+                                      "attention, entry)", model_launches)}
     record = []
     for kname, r in rec.items():
         if kname.startswith("sddmm_tile_dot_"):
@@ -1060,6 +1275,9 @@ def main() -> None:
                                 "sddmm_tpu/ops/pallas_tiles.py:72")
         elif kname == _kernels.SPMM_ENTRY:
             source, replaces = "spmm.cu", "sddmm_tpu/ops/spmm.py:23"
+        elif kname == _kernels.SOFTMAX_ENTRY:
+            source, replaces = ("segment_softmax.cu",
+                                "sddmm_tpu/models/graph_attention.py:30")
         else:
             source, replaces = "gather_dot.cu", "sddmm_tpu/ops/hybrid.py:306"
         path, counts = paths.get(kname, ("compute modes on banded@K128",

@@ -11,14 +11,18 @@ both have (``HybridSDDMM``, ``DenseSDDMM``, the two attention models,
 ``csr_spmm_torch``).
 
 For each K=128 cell of ``chip_smoke.py`` (generated and packed as it does)
-one call in packed order, for the graph-attention and Longformer-shaped
-forwards, and for the SpMM alone at the models' shapes, it prints one JSON
-line: the host wall of a call (CUDA-synchronised, without the profiler),
-the device time of a call by kernel group from ``torch.profiler`` (the
-tile kernel, the gather-dot, the SpMM, cuBLAS, and every other kernel,
-which on the parent's packed-order call is the torch gathers that feed the
-tile kernel), the launches of a call per group, and the device busy share
-(device time over host wall).  Needs a CUDA card; imports nothing of JAX.
+one call in packed order, the CSR baseline (``csr_sddmm_torch``, with
+the checkout's gather-dot plan where it has one) and
+``torch.sparse.sampled_addmm`` at the same entries, for the
+graph-attention and Longformer-shaped forwards, and for the SpMM alone at
+the models' shapes, it prints one JSON line: the host wall of a call
+(CUDA-synchronised, without the profiler), the device time of a call by
+kernel group from ``torch.profiler`` (the tile kernel, the gather-dot, the
+segment softmax, the SpMM, cuBLAS, and every other kernel: torch ops,
+cuSPARSE), the launches of a call per group, the device busy share (device
+time over host wall), and the largest kernels of the "other" group by name
+(``other_top``: [name, ms a call, launches a call]).  Needs a CUDA card;
+imports nothing of JAX.
 """
 
 import argparse
@@ -28,6 +32,8 @@ import json
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 CELLS = ("clustered16", "clustered128", "powerlaw", "banded", "dlmc")
@@ -45,7 +51,13 @@ def group(name: str) -> str:
         return "gather_dot"
     if "spmm" in name:
         return "spmm"
+    if "segment_softmax" in name:
+        return "softmax"
     return "other"
+
+
+#: the "other" kernels listed by name in a record
+OTHER_TOP = 8
 
 
 def profile(torch, fn, calls: int) -> dict:
@@ -70,12 +82,17 @@ def profile(torch, fn, calls: int) -> dict:
             torch.cuda.synchronize()
         ms = collections.Counter()
         launches = collections.Counter()
+        other = collections.defaultdict(lambda: [0.0, 0.0])
         for e in prof.events():
             if e.device_type != DeviceType.CUDA:
                 continue
             g = group(e.name)
-            ms[g] += e.time_range.elapsed_us() / 1e3 / calls
+            t = e.time_range.elapsed_us() / 1e3 / calls
+            ms[g] += t
             launches[g] += 1 / calls
+            if g == "other":
+                other[e.name][0] += t
+                other[e.name][1] += 1 / calls
         if ms:
             break
     else:
@@ -84,7 +101,41 @@ def profile(torch, fn, calls: int) -> dict:
     return {"host_ms": host_ms, "device_ms": device_ms,
             "busy": device_ms / host_ms,
             "by_group_ms": dict(ms), "launches": dict(launches),
-            "tile_plus_other_ms": ms["tile"] + ms["other"]}
+            "tile_plus_other_ms": ms["tile"] + ms["other"],
+            "other_top": sorted(([n[:120], t, c] for n, (t, c)
+                                 in other.items()),
+                                key=lambda x: -x[1])[:OTHER_TOP]}
+
+
+def csr_baseline(torch, csr, a, b):
+    """One CSR-baseline call at the pattern of ``csr``, through the
+    checkout's gather-dot plan where it has one (``csr_plan``)."""
+    # the module by its full path: ``sddmm_tpu_torch.ops.csr_sddmm`` is
+    # also a function of ``sddmm_tpu_torch.ops``
+    cs = importlib.import_module("sddmm_tpu_torch.ops.csr_sddmm")
+    args = (torch.as_tensor(a, device="cuda"),
+            torch.as_tensor(np.ascontiguousarray(b.T), device="cuda"),
+            torch.as_tensor(csr.row_indices(), dtype=torch.int32,
+                            device="cuda"),
+            torch.as_tensor(csr.col_idx, dtype=torch.int32, device="cuda"))
+    kw = ({"plan": cs.csr_plan(csr).to("cuda")} if hasattr(cs, "csr_plan")
+          else {})
+    return lambda: cs.csr_sddmm_torch(*args, **kw)
+
+
+def sampled_addmm(torch, csr, a, b):
+    """``torch.sparse.sampled_addmm`` in fp32 at the pattern of ``csr``
+    (the library call the CSR baseline is held against; the port never
+    calls it)."""
+    s = torch.sparse_csr_tensor(
+        torch.as_tensor(csr.row_ptr, dtype=torch.int64, device="cuda"),
+        torch.as_tensor(csr.col_idx, dtype=torch.int64, device="cuda"),
+        torch.zeros(csr.nnz, device="cuda"), size=(csr.m, csr.n))
+    a_t = torch.as_tensor(a, device="cuda")
+    # B as the transpose of a row-major B^T, as chip_smoke.py times it:
+    # cuSPARSE then reads each column of B contiguously
+    mat2 = torch.as_tensor(np.ascontiguousarray(b.T), device="cuda").T
+    return lambda: torch.sparse.sampled_addmm(s, a_t, mat2, beta=0.0)
 
 
 def main() -> None:
@@ -140,12 +191,16 @@ def main() -> None:
                                      k_chunks=t.k_chunks,
                                      use_pallas=t.use_pallas,
                                      a_layout=t.a_layout, device="cuda")
-            ops = runner.prepare_operands(
-                generate.make_dense(csr.m, K, seed=1),
-                b=generate.make_dense(K, csr.n, seed=2))
+            a = generate.make_dense(csr.m, K, seed=1)
+            b = generate.make_dense(K, csr.n, seed=2)
+            ops = runner.prepare_operands(a, b=b)
             emit(f"{name}@K{K} packed", profile(
                 torch, lambda: runner.run_padded(*ops), args.calls))
             del runner, ops
+            emit(f"{name}@K{K} CSR baseline", profile(
+                torch, csr_baseline(torch, csr, a, b), args.calls))
+            emit(f"{name}@K{K} sampled_addmm", profile(
+                torch, sampled_addmm(torch, csr, a, b), args.calls))
 
         lf = smoke.LONGFORMER
         adj = csrs[smoke.GRAPH_CELL]

@@ -10,13 +10,13 @@ Longformer/BigBird pattern class).  The mask is packed once (BSMR + hybrid
 packing) and every head reuses the packing: the window packs into banded
 tiles, the global columns and rows into dense tiles or the residual.
 
-Forward pass: the heads' scores ``SDDMM(Q_h, K_h) * 1/sqrt(D)`` through
-``BatchedHybridSDDMM`` (one tile-kernel launch for all heads, a
-gather-dot launch per head for the residual), gathered into CSR order; one
-row softmax over all heads at once (head h's rows are ``h*L + row``); one
-SpMM launch that
-aggregates every head's V (a block-diagonal CSR of H copies of the mask);
-then the output projection.  The JAX model does softmax and aggregation in
+Forward pass: the heads' packed scores ``SDDMM(Q_h, K_h)`` through
+``BatchedHybridSDDMM`` (one tile-kernel launch and one gather-dot launch
+for all heads); one segment softmax launch over all heads' rows, which
+reads the packed scores through ``inv_idx`` and scales them by 1/sqrt(D)
+in its loads; one SpMM launch that aggregates every head's V (a
+block-diagonal CSR of H copies of the mask); then the output
+projection.  The JAX model does softmax and aggregation in
 the packed layout with sentinel segments; on the real slots this is the
 same arithmetic, summed in another order.
 
@@ -91,19 +91,6 @@ class BlockSparseAttentionParams(NamedTuple):
     w_o: torch.Tensor   # (H * D, F)
 
 
-def _stacked(mask: CSR, heads: int) -> CSR:
-    """H copies of the (L, L) mask on the diagonal of an (H*L, H*L) CSR:
-    head h's entries are rows and columns ``h*L + ...``, in head order."""
-    L, nnz = mask.m, mask.nnz
-    offs = np.arange(heads, dtype=np.int64)
-    row_ptr = np.concatenate([(offs[:, None] * nnz
-                               + mask.row_ptr[None, :-1]).ravel(),
-                              [heads * nnz]])
-    cols = (offs[:, None] * L + mask.col_idx[None, :]).ravel()
-    return CSR((heads * L, heads * L), row_ptr, cols,
-               np.ones(heads * nnz, dtype=np.float32))
-
-
 class BlockSparseAttention(nn.Module):
     """Multi-head block-sparse self-attention over a fixed mask, on one
     device (the card unless the caller asks for ``"cpu"``; the packing's
@@ -130,7 +117,7 @@ class BlockSparseAttention(nn.Module):
         self.device = self.runner.device
         self.batched = BatchedHybridSDDMM(self.runner)
         self._len = mask.m
-        self._agg = CSRAggregation(_stacked(mask, num_heads), self.device)
+        self._agg = CSRAggregation(mask, self.device, heads=num_heads)
         shape = (num_heads, feature_dim, head_dim)
         self.w_q = nn.Parameter(torch.zeros(shape, device=self.device))
         self.w_k = nn.Parameter(torch.zeros(shape, device=self.device))
@@ -171,13 +158,19 @@ class BlockSparseAttention(nn.Module):
             k = torch.einsum("lf,hfd->hld", x, self.w_k)
             v = torch.einsum("lf,hfd->hld", x, self.w_v)
         pad = (0, 0, 0, 1)                      # a zero sentinel row
-        scores = self.batched.run_padded(
-            torch.nn.functional.pad(q, pad), torch.nn.functional.pad(k, pad),
-            order="csr", plain=plain)           # (H, nnz)
-        scores = scores * (1.0 / np.sqrt(D))
-        heads = self._agg.softmax_spmm(scores.reshape(-1),
-                                       v.reshape(H * L, D).contiguous(),
-                                       plain=plain)
+        q_pad = torch.nn.functional.pad(q, pad)
+        k_pad = torch.nn.functional.pad(k, pad)
+        v = v.reshape(H * L, D).contiguous()
+        scale = 1.0 / np.sqrt(D)
+        if plain:
+            scores = self.batched.run_padded(q_pad, k_pad, order="csr",
+                                             plain=True)   # (H, nnz)
+            heads = self._agg.softmax_spmm_plain(
+                (scores * scale).reshape(-1), v)
+        else:
+            flat = self.batched.run_padded(q_pad, k_pad)   # (H, F)
+            heads = self._agg.softmax_spmm(flat, v, scale,
+                                           self.runner.inv_idx32)
         cat = heads.view(H, L, D).transpose(0, 1).reshape(L, H * D)
         with full_fp32_matmul():
             return cat @ self.w_o               # (L, F)

@@ -11,11 +11,12 @@ projections (``ops.spmm.csr_spmm_torch``: the SpMM kernel on the card).
 
 The JAX layer runs softmax and aggregation in the packed layout, with the
 padding slots routed into a dropped sentinel segment (row ``m``) and a
-zero V row (column ``n``).  Here they run in CSR order: the scores are
-gathered through ``inv_idx`` (``run_padded(order="csr")``), so only real
-edges remain, and the aggregation walks the adjacency's ``row_ptr``.  On
-the real slots this is the same arithmetic; only the order of the sums
-differs.  A node with no edges outputs exact zeros.
+zero V row (column ``n``).  Here they run in CSR order: the segment
+softmax kernel (``ops.softmax.segment_softmax_torch``) reads the packed
+scores through ``inv_idx``, so only real edges remain, and the aggregation
+walks the adjacency's ``row_ptr``.  On the real slots this is the same
+arithmetic; only the order of the sums differs.  A node with no edges
+outputs exact zeros.
 
 The forward has no backward pass yet: under grad mode with a parameter or
 input that requires grad it raises ``NotImplementedError`` (see
@@ -31,9 +32,15 @@ import torch
 from torch import nn
 
 from sddmm_tpu_torch.data.sparse import CSR
-from sddmm_tpu_torch.ops.hybrid import HybridSDDMM, check_no_grad
+from sddmm_tpu_torch.ops.hybrid import (HybridSDDMM, check_no_grad,
+                                        packing_row_order)
+from sddmm_tpu_torch.ops.softmax import (find_long_rows, segment_softmax,
+                                         segment_softmax_torch)
 from sddmm_tpu_torch.ops.spmm import csr_spmm_plain, csr_spmm_torch, spmm_plan
 from sddmm_tpu_torch.ops.tile_dot import full_fp32_matmul
+
+__all__ = ["CSRAggregation", "GraphAttentionLayer", "GraphAttentionParams",
+           "packing_row_order", "segment_softmax", "stacked"]
 
 
 class GraphAttentionParams(NamedTuple):
@@ -42,58 +49,63 @@ class GraphAttentionParams(NamedTuple):
     w_v: torch.Tensor  # (F, D)
 
 
-def segment_softmax(scores: torch.Tensor, rows: torch.Tensor,
-                    num_rows: int) -> torch.Tensor:
-    """Numerically stable softmax over per-row segments of edge scores:
-    scores and rows (nnz,), row ids in ``[0, num_rows)`` in any order."""
-    rows = rows.long()
-    row_max = torch.full((num_rows,), -torch.inf, dtype=scores.dtype,
-                         device=scores.device)
-    row_max = row_max.scatter_reduce(0, rows, scores, "amax")
-    exp = torch.exp(scores - row_max[rows])
-    denom = torch.zeros((num_rows,), dtype=scores.dtype,
-                        device=scores.device).index_add_(0, rows, exp)
-    return exp / denom.clamp_min(1e-30)[rows]
-
-
-def packing_row_order(packed) -> np.ndarray:
-    """The rows in a packing's clustered order (its A-row slots, first
-    occurrence), then any row it leaves out: rows that share columns come
-    together, which is what the SpMM plan's row groups want."""
-    slots = np.asarray(packed.a_row_gather, dtype=np.int64)
-    slots = slots[slots < packed.m]
-    _, first = np.unique(slots, return_index=True)
-    slots = slots[np.sort(first)]
-    return np.concatenate([slots, np.setdiff1d(np.arange(packed.m), slots)])
+def stacked(csr: CSR, heads: int) -> CSR:
+    """H copies of the (m, n) pattern on the diagonal of an (H*m, H*n) CSR:
+    head h's entries are rows ``h*m + ...`` and columns ``h*n + ...``, in
+    head order."""
+    m, n, nnz = csr.m, csr.n, csr.nnz
+    offs = np.arange(heads, dtype=np.int64)
+    row_ptr = np.concatenate([(offs[:, None] * nnz
+                               + csr.row_ptr[None, :-1]).ravel(),
+                              [heads * nnz]])
+    cols = (offs[:, None] * n + csr.col_idx[None, :]).ravel()
+    return CSR((heads * m, heads * n), row_ptr, cols,
+               np.ones(heads * nnz, dtype=np.float32))
 
 
 class CSRAggregation:
-    """The CSR index of a pattern on one device, for a softmax and an SpMM
-    in CSR entry order: row ids, row pointers, column ids and the SpMM
-    kernel's plan (``spmm_plan``, built once here, its row groups taken in
-    ``row_order``)."""
+    """A pattern's CSR index on one device, for H heads' row softmax and
+    SpMM in CSR entry order.  The softmax kernel reads the pattern's row
+    pointers (``head_row_ptr``) and its long rows for all heads at once;
+    the SpMM runs over the block-diagonal CSR of H copies of the pattern
+    (``stacked``: row ids, row pointers, column ids) with its kernel's plan
+    (``spmm_plan``, built once here, its row groups taken in ``row_order``
+    when H = 1)."""
 
-    def __init__(self, csr: CSR, device, row_order=None):
-        self.num_rows = csr.m
-        self.rows = torch.as_tensor(csr.row_indices(), dtype=torch.int64,
+    def __init__(self, csr: CSR, device, row_order=None, heads: int = 1):
+        self.heads = heads
+        self.head_row_ptr = torch.as_tensor(csr.row_ptr, dtype=torch.int64,
+                                            device=device)
+        self.long_rows = torch.as_tensor(find_long_rows(csr.row_ptr),
+                                         device=device)
+        agg = stacked(csr, heads) if heads > 1 else csr
+        self.num_rows = agg.m
+        self.rows = torch.as_tensor(agg.row_indices(), dtype=torch.int64,
                                     device=device)
-        self.row_ptr = torch.as_tensor(csr.row_ptr, dtype=torch.int64,
+        self.row_ptr = torch.as_tensor(agg.row_ptr, dtype=torch.int64,
                                        device=device)
-        self.cols = torch.as_tensor(csr.col_idx, dtype=torch.int32,
+        self.cols = torch.as_tensor(agg.col_idx, dtype=torch.int32,
                                     device=device)
-        self.plan = spmm_plan(csr.row_ptr, csr.col_idx,
-                              row_order).to(device)
+        self.plan = spmm_plan(agg.row_ptr, agg.col_idx,
+                              row_order if heads == 1 else None).to(device)
 
-    def softmax_spmm(self, scores: torch.Tensor, v: torch.Tensor,
-                     plain: bool = False) -> torch.Tensor:
-        """Row softmax of the CSR-order ``scores``, then ``attn @ v``
-        (``plain``: the SpMM's plain version on any device)."""
-        attn = segment_softmax(scores, self.rows, self.num_rows)
-        if plain:
-            return csr_spmm_plain(attn, self.rows, self.cols, v,
-                                  self.num_rows)
+    def softmax_spmm(self, flat: torch.Tensor, v: torch.Tensor,
+                     scale: float, inv_idx: torch.Tensor) -> torch.Tensor:
+        """The kernel path: the segment softmax of ``scale`` times the
+        runner's packed scores ``flat`` (H, F), read through ``inv_idx``
+        (nnz,) int32, then ``attn @ v`` (v (H*m, D)): one softmax launch,
+        one SpMM launch."""
+        attn = segment_softmax_torch(flat, self.head_row_ptr, scale,
+                                     inv_idx, self.long_rows).reshape(-1)
         return csr_spmm_torch(attn, self.rows, self.cols, v, self.num_rows,
                               row_ptr=self.row_ptr, plan=self.plan)
+
+    def softmax_spmm_plain(self, scores: torch.Tensor,
+                           v: torch.Tensor) -> torch.Tensor:
+        """The plain path: ``segment_softmax`` (torch ops) of the scaled
+        CSR-order scores (H*nnz,), then the SpMM's plain version."""
+        attn = segment_softmax(scores, self.rows, self.num_rows)
+        return csr_spmm_plain(attn, self.rows, self.cols, v, self.num_rows)
 
 
 class GraphAttentionLayer(nn.Module):
@@ -151,8 +163,14 @@ class GraphAttentionLayer(nn.Module):
         zero = q.new_zeros((1, q.shape[1]))
         q_pad = torch.cat([q, zero])
         k_pad = torch.cat([k, zero])
+        # JAX divides by sqrt(D); both paths here multiply by 1/sqrt(D), at
+        # most one ulp of a score apart
+        scale = 1.0 / np.sqrt(self.head_dim)
         # a 2-D k_pad is the identity layout's B^T, as in the JAX layer
-        scores = self.runner.run_padded(q_pad, k_pad, order="csr",
-                                        plain=plain)
-        scores = scores / np.sqrt(self.head_dim)
-        return self._agg.softmax_spmm(scores, v, plain=plain)
+        if plain:
+            scores = self.runner.run_padded(q_pad, k_pad, order="csr",
+                                            plain=True)
+            return self._agg.softmax_spmm_plain(scores * scale, v)
+        flat = self.runner.run_padded(q_pad, k_pad, order="packed")
+        return self._agg.softmax_spmm(flat[None], v, scale,
+                                      self.runner.inv_idx32)

@@ -6,6 +6,7 @@ from sddmm_tpu_torch.ops.hybrid import (HybridSDDMM, residual_gather_dot,
 from sddmm_tpu_torch.ops.csr_sddmm import csr_sddmm, csr_sddmm_torch
 from sddmm_tpu_torch.ops.dense import DenseSDDMM, dense_masked_sddmm
 from sddmm_tpu_torch.ops.spmm import csr_spmm, csr_spmm_torch
+from sddmm_tpu_torch.ops.softmax import csr_softmax, segment_softmax_torch
 from sddmm_tpu_torch.ops.batch import (BatchedHybridSDDMM, batched_csr_sddmm,
                                        batched_transpose)
 
@@ -23,6 +24,8 @@ __all__ = [
     "dense_masked_sddmm",
     "csr_spmm",
     "csr_spmm_torch",
+    "csr_softmax",
+    "segment_softmax_torch",
     "BatchedHybridSDDMM",
     "batched_csr_sddmm",
     "batched_transpose",

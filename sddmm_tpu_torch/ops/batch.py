@@ -6,8 +6,8 @@ The JAX package batches with ``jax.vmap`` over the single-instance paths.
 Here ``BatchedHybridSDDMM`` passes the batch to the runner's
 ``run_heads``: the tiles of every batch element are one tile-kernel launch
 with a head stride on A, B^T and the output (the vmapped batch, K12), and
-the residual one gather-dot launch per element.  ``batched_csr_sddmm`` is
-one gather-dot launch per element.
+so is the residual's gather-dot.  ``batched_csr_sddmm`` is one gather-dot
+launch for the batch, walking the pattern's plan (``csr_plan``).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from sddmm_tpu_torch.data.sparse import CSR
-from sddmm_tpu_torch.ops.csr_sddmm import csr_sddmm_torch
+from sddmm_tpu_torch.ops.csr_sddmm import csr_plan, csr_sddmm_torch
 from sddmm_tpu_torch.ops.hybrid import HybridSDDMM, check_device
 from sddmm_tpu_torch.ops.tile_dot import STORAGE
 
@@ -32,9 +32,9 @@ def batched_csr_sddmm(a_batch, b_batch, s: CSR, device="cuda"
                               device=dev)
     bt_batch = batched_transpose(torch.as_tensor(
         np.asarray(b_batch, dtype=np.float32), device=dev))
-    out = torch.stack([csr_sddmm_torch(a, bt, rows, cols)
-                       for a, bt in zip(a_batch, bt_batch)])
-    return out.cpu().numpy()
+    plan = csr_plan(s).to(dev)
+    return csr_sddmm_torch(a_batch, bt_batch, rows, cols,
+                           plan).cpu().numpy()
 
 
 def _pad_rows(x: torch.Tensor) -> torch.Tensor:

@@ -34,7 +34,9 @@ with a head stride.  ``plain=True`` runs the per-segment route
 (``tile_calls``: torch gathers and ``tile_dot_plain`` per segment and
 chunk), the reference the kernel is held to.  The residual is one exact
 fp32 dot per entry over all chunks (``residual_gather_dot``, a CUDA kernel
-on the card).  Slots that are not nnz hold garbage, as in the reference;
+on the card, one launch for all heads), walking a plan built once in
+``__init__`` (``res_plan``: residual rows that share group rows read each
+of them once).  Slots that are not nnz hold garbage, as in the reference;
 compare real slots only, or CSR order.  CSR order is one gather,
 ``flat[inv_idx]``.
 """
@@ -50,6 +52,7 @@ import torch
 
 from sddmm_tpu_torch import _kernels, config
 from sddmm_tpu_torch.data.sparse import CSR
+from sddmm_tpu_torch.ops.gather_plan import GatherPlan, gather_plan
 from sddmm_tpu_torch.ops.tile_dot import (STORAGE, TileTable, table_blocks,
                                           tile_dot, tile_table)
 from sddmm_tpu_torch.reorder.bsmr import BSMR
@@ -63,17 +66,19 @@ GATHER_STORAGE = tuple(dict.fromkeys(STORAGE.values()))
 
 
 def _gather_shape(a_pad, bt_phys, member):
-    """(C, G, kc) of a gather-dot call, checked."""
-    if a_pad.dim() != 2 or bt_phys.dim() != 3:
-        raise ValueError(f"gather_dot: want a_pad (M+1, K) and bt_phys "
-                         f"(C, NG+1, G*kc), got {tuple(a_pad.shape)} and "
-                         f"{tuple(bt_phys.shape)}")
-    C, k = bt_phys.shape[0], a_pad.shape[1]
+    """(C, G, kc) of a gather-dot call, checked: a_pad (..., M+1, K) and
+    bt_phys (..., C, NG+1, G*kc) with the same leading dimensions."""
+    if a_pad.dim() < 2 or bt_phys.dim() != a_pad.dim() + 1 or (
+            a_pad.shape[:-2] != bt_phys.shape[:-3]):
+        raise ValueError(f"gather_dot: want a_pad ([H,] M+1, K) and bt_phys "
+                         f"([H,] C, NG+1, G*kc), got {tuple(a_pad.shape)} "
+                         f"and {tuple(bt_phys.shape)}")
+    C, k = bt_phys.shape[-3], a_pad.shape[-1]
     kc = k // C if C else 0
-    if kc < 1 or kc * C != k or bt_phys.shape[2] % kc:
+    if kc < 1 or kc * C != k or bt_phys.shape[-1] % kc:
         raise ValueError(f"gather_dot: a_pad {tuple(a_pad.shape)} and "
                          f"bt_phys {tuple(bt_phys.shape)} disagree on K")
-    G = bt_phys.shape[2] // kc
+    G = bt_phys.shape[-1] // kc
     if G > 1 and member is None:
         raise ValueError(f"gather_dot: G={G} needs member")
     return C, G, kc
@@ -106,67 +111,191 @@ def residual_gather_dot_plain(a_pad: torch.Tensor, bt_phys: torch.Tensor,
     return res
 
 
+def gather_dot_plan_plain(a_pad: torch.Tensor, bt_phys: torch.Tensor,
+                          plan: GatherPlan) -> torch.Tensor:
+    """The kernel's walk of a grouped plan in PyTorch ops: per group row,
+    the items that hold it, each dotted (fp32 products and sums, per chunk,
+    the chunks added in order) with the group's A row and written to its
+    entry.  One head: a_pad (M+1, C*kc), bt_phys (C, NG+1, G*kc)."""
+    C, k = bt_phys.shape[0], a_pad.shape[1]
+    kc = k // C
+    G = bt_phys.shape[2] // kc
+    dev = a_pad.device
+    groups = torch.as_tensor(plan.groups, device=dev).long()
+    items = torch.as_tensor(plan.items, device=dev).long()
+    item_group = torch.repeat_interleave(
+        torch.arange(len(groups), device=dev), groups[:, 1] - groups[:, 0])
+    out = torch.zeros(plan.n, dtype=torch.float32, device=dev)
+    for r in range(plan.group_rows):
+        has = items[:, 1 + r] >= 0
+        ent, key = items[has, 1 + r], items[has, 0]
+        rows = groups[item_group[has], 2 + r]
+        gid, member = key // G, key % G
+        lanes = member[:, None] * kc + torch.arange(kc, device=dev)
+        res = torch.zeros(len(ent), dtype=torch.float32, device=dev)
+        for c in range(C):
+            b = bt_phys[c][gid[:, None], lanes]
+            a = a_pad[rows, c * kc:(c + 1) * kc]
+            res = res + (a.to(torch.float32) * b.to(torch.float32)).sum(
+                dim=-1)
+        out[ent] = res
+    return out
+
+
+def _gather_vec(kc, a_pad, bt_phys, *strides) -> int:
+    """8 where the kernel's 16-byte loads fit: kc, the row, chunk and head
+    strides multiples of 8 elements and both pointers 16-byte aligned;
+    else 1 (scalar loads)."""
+    ok = (kc % 8 == 0 and all(st % 8 == 0 for st in strides)
+          and a_pad.data_ptr() % 16 == 0 and bt_phys.data_ptr() % 16 == 0)
+    return 8 if ok else 1
+
+
+def _gather_lanes(vec, kc, C) -> int:
+    """Lanes of a dot in the entry-order walk: the fewest of 8, 16, 32
+    whose 8-element loads cover the C chunks of kc in at most two slices a
+    lane (the slices it keeps in registers); 32 at scalar loads."""
+    if vec == 1:
+        return 32
+    return next((n for n in (8, 16) if C * -(-kc // (8 * n)) <= 2), 32)
+
+
 def residual_gather_dot(a_pad: torch.Tensor, bt_phys: torch.Tensor,
                         rows: torch.Tensor, gids: torch.Tensor,
                         member: Optional[torch.Tensor] = None,
-                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        out: Optional[torch.Tensor] = None,
+                        plan: Optional[GatherPlan] = None) -> torch.Tensor:
     """``out[i] = sum_c a_pad[rows[i], c*kc:(c+1)*kc] .
-    bt_phys[c, gids[i], member[i]*kc:(member[i]+1)*kc]`` in exact fp32.
+    bt_phys[c, gids[i], member[i]*kc:(member[i]+1)*kc]`` in exact fp32,
+    for one head or for H heads at once.
 
-    a_pad (M+1, C*kc), last dimension contiguous; bt_phys (C, NG+1, G*kc)
-    contiguous (a 2-D (NG+1, K) is one chunk of G = 1); the two stored as
-    one of the ``GATHER_STORAGE`` pairs (fp32/fp32, fp32/bf16, fp16/fp16,
-    bf16/bf16).  rows, gids and member (nR,) int32 and in range
-    (the packing guarantees it); member None means G = 1.  CUDA tensors go
-    through the gather-dot kernel (``csrc/gather_dot.cu``) or raise; CPU
-    tensors through ``residual_gather_dot_plain``."""
-    if bt_phys.dim() == 2:
-        bt_phys = bt_phys[None]
-    C, G, kc = _gather_shape(a_pad, bt_phys, member)
+    a_pad (M+1, C*kc) or (H, M+1, C*kc), rows contiguous; bt_phys
+    (C, NG+1, G*kc) or (H, C, NG+1, G*kc) contiguous (a 2-D (NG+1, K) is
+    one chunk of G = 1); the two stored as one of the ``GATHER_STORAGE``
+    pairs (fp32/fp32, fp32/bf16, fp16/fp16, bf16/bf16).  rows, gids and
+    member (nR,) int32 and in range (the packing guarantees it); member
+    None means G = 1.  ``out`` (nR,) or (H, nR) fp32, its last dimension
+    contiguous (a head stride is taken as it is).  ``plan``: the entries'
+    ``GatherPlan`` on this device (``gather_plan(rows, gids * G + member)
+    .to(device)``), or None to walk the entries in their order.  CUDA
+    tensors go through the gather-dot kernel (``csrc/gather_dot.cu``, one
+    launch for all heads) or raise; CPU tensors through the plain versions
+    (``gather_dot_plan_plain`` with a grouped plan, else
+    ``residual_gather_dot_plain``), head by head."""
+    one = a_pad.dim() == 2
+    if one:
+        if out is not None and out.dim() != 1:
+            raise ValueError(f"gather_dot: out {tuple(out.shape)} for one "
+                             "head")
+        a_pad = a_pad.unsqueeze(0)
+        bt_phys = (bt_phys.unsqueeze(0) if bt_phys.dim() == 3
+                   else bt_phys[None, None])
+        out = None if out is None else out.unsqueeze(0)
+    if a_pad.dim() != 3:
+        raise ValueError(f"gather_dot: want a_pad (H, M+1, K), got "
+                         f"{tuple(a_pad.shape)}")
+    C, _, kc = _gather_shape(a_pad, bt_phys, member)
+    heads, k = a_pad.shape[0], a_pad.shape[2]
     n = rows.shape[0]
-    tensors = [("rows", rows, torch.int32), ("gids", gids, torch.int32)]
-    if member is not None:
-        tensors.append(("member", member, torch.int32))
-    if out is not None:
-        tensors.append(("out", out, torch.float32))
-    for name, t, dt in tensors:
-        if t.shape != (n,):
-            raise ValueError(f"gather_dot: {name} {tuple(t.shape)} != ({n},)")
-        if t.dtype != dt:
-            raise TypeError(f"gather_dot: {name} is {t.dtype}, want {dt}")
+    dev = a_pad.device
+    index = (("rows", rows), ("gids", gids)) + (
+        () if member is None else (("member", member),))
+    for name, t in index:
+        if t.dtype != torch.int32:
+            raise TypeError(f"gather_dot: {name} is {t.dtype}, want "
+                            "torch.int32")
+        if t.shape != (n,) or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"gather_dot: {name} {tuple(t.shape)} on "
+                             f"{t.device} must be a contiguous ({n},) on "
+                             f"{dev}")
     if (a_pad.dtype, bt_phys.dtype) not in GATHER_STORAGE:
         raise TypeError(f"gather_dot: a_pad/bt_phys are {a_pad.dtype}/"
                         f"{bt_phys.dtype}, want one of {GATHER_STORAGE}")
-    for name, t in [("a_pad", a_pad), ("bt_phys", bt_phys)] + [
-            (name, t) for name, t, _ in tensors]:
-        if t.device != a_pad.device:
-            raise ValueError(f"gather_dot: {name} is on {t.device}, a_pad "
-                             f"on {a_pad.device}")
-    if a_pad.stride(1) != 1 or not all(
-            t.is_contiguous() for _, t, _ in tensors) \
-            or not bt_phys.is_contiguous():
-        raise ValueError("gather_dot: a_pad's rows, bt_phys and the index "
-                         "and output vectors must be contiguous")
-    if a_pad.device.type == "cpu":
-        res = residual_gather_dot_plain(a_pad, bt_phys, rows, gids, member)
-        if out is None:
-            return res
-        return out.copy_(res)
-    if a_pad.device.type != "cuda":
-        raise ValueError(f"gather_dot: unsupported device {a_pad.device}")
+    if bt_phys.device != dev or a_pad.stride(2) != 1 or (
+            not bt_phys.is_contiguous()):
+        raise ValueError("gather_dot: bt_phys must be contiguous and a_pad's "
+                         "rows too, both on one device")
+    if out is not None and (out.shape != (heads, n) or out.dtype
+                            != torch.float32 or out.device != dev
+                            or (n > 1 and out.stride(1) != 1)):
+        raise ValueError(f"gather_dot: out {tuple(out.shape)} {out.dtype}, "
+                         f"want ({heads}, {n}) float32 rows on {dev}")
+    if plan is not None and plan.n != n:
+        raise ValueError(f"gather_dot: the plan covers {plan.n} entries, "
+                         f"not {n}")
+    grouped = plan is not None and plan.grouped
+    if dev.type == "cpu":
+        res = torch.stack([
+            gather_dot_plan_plain(a_pad[h], bt_phys[h], plan) if grouped
+            else residual_gather_dot_plain(a_pad[h], bt_phys[h], rows, gids,
+                                           member)
+            for h in range(heads)]) if heads else torch.zeros((0, n))
+        res = res if out is None else out.copy_(res)
+        return res[0] if one else res
+    if dev.type != "cuda":
+        raise ValueError(f"gather_dot: unsupported device {dev}")
     if out is None:
-        out = torch.empty((n,), dtype=torch.float32, device=a_pad.device)
-    if n == 0:
-        return out
+        out = torch.empty((heads, n), dtype=torch.float32, device=dev)
+    if grouped:
+        for name, t in (("tasks", plan.tasks), ("groups", plan.groups),
+                        ("items", plan.items)):
+            if (not isinstance(t, torch.Tensor) or t.dtype != torch.int32
+                    or t.device != dev or not t.is_contiguous()):
+                raise ValueError(f"gather_dot: plan.{name} must be "
+                                 "gather_plan's, int32, contiguous, on "
+                                 "a_pad's device (GatherPlan.to)")
+        if 4 * (plan.group_rows * (k + 32) + 4 * 32 * 36) > 227 * 1024:
+            raise ValueError(f"gather_dot: a plan of {plan.group_rows} rows "
+                             f"at K={k} needs more shared memory than a "
+                             "block has; plan with fewer rows a group")
+    _gather_launch(a_pad, bt_phys, rows, gids, member, out, plan)
+    return out[0] if one else out
+
+
+#: C entry point of the gather-dot per (A, B) storage pair
+_GATHER_ENTRY = {pair: _kernels.gather_dot_entry(*pair)
+                 for pair in GATHER_STORAGE}
+
+
+def _gather_launch(a_pad, bt_phys, rows, gids, member, out, plan):
+    """One gather-dot launch on checked CUDA operands: a_pad (H, M+1, K),
+    bt_phys (H, C, NG+1, G*kc), out (H, n) (the callers' checks; the
+    runner's are made once in ``__init__`` and ``_operands``)."""
+    heads, n = out.shape
+    C = bt_phys.shape[1]
+    kc = a_pad.shape[2] // C
+    if n == 0 or heads == 0:
+        return
+    grouped = plan is not None and plan.group_rows > 1
+    vec = _gather_vec(kc, a_pad, bt_phys, a_pad.stride(1), a_pad.stride(0),
+                      bt_phys.stride(1), bt_phys.stride(2), bt_phys.stride(0))
     with torch.cuda.device(a_pad.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _kernels.launch(_kernels.gather_dot_entry(a_pad.dtype, bt_phys.dtype),
-                        a_pad.data_ptr(), a_pad.stride(0),
-                        bt_phys.data_ptr(), bt_phys.stride(0),
-                        bt_phys.stride(1), rows.data_ptr(), gids.data_ptr(),
-                        member.data_ptr() if member is not None else None,
-                        out.data_ptr(), n, C, kc, stream)
-    return out
+        _kernels.launch(
+            _GATHER_ENTRY[(a_pad.dtype, bt_phys.dtype)],
+            a_pad.data_ptr(), a_pad.stride(1), a_pad.stride(0),
+            bt_phys.data_ptr(), bt_phys.stride(1), bt_phys.stride(2),
+            bt_phys.stride(0), rows.data_ptr(), gids.data_ptr(),
+            None if member is None else member.data_ptr(),
+            plan.tasks.data_ptr() if grouped else None,
+            plan.tasks.shape[0] if grouped else 0,
+            plan.groups.data_ptr() if grouped else None,
+            plan.items.data_ptr() if grouped else None,
+            plan.group_rows if grouped else 1, bt_phys.shape[3] // kc,
+            out.data_ptr(), out.stride(0), n, heads, C, kc, vec,
+            _gather_lanes(vec, kc, C),
+            torch.cuda.current_stream().cuda_stream)
+
+
+def packing_row_order(packed) -> np.ndarray:
+    """The rows in a packing's clustered order (its A-row slots, first
+    occurrence), then any row it leaves out: rows that share columns come
+    together, which is what the row groups of the SpMM's and the
+    gather-dot's plans want."""
+    slots = np.asarray(packed.a_row_gather, dtype=np.int64)
+    slots = slots[slots < packed.m]
+    _, first = np.unique(slots, return_index=True)
+    slots = slots[np.sort(first)]
+    return np.concatenate([slots, np.setdiff1d(np.arange(packed.m), slots)])
 
 
 def device_bt_phys(bt_pad: torch.Tensor, col_order: torch.Tensor, g: int,
@@ -375,6 +504,12 @@ class HybridSDDMM:
         # at G = 1 every member is 0: the kernel skips the select
         self._res_member = (put(packed.res_member, torch.int32) if G > 1
                             else None)
+        #: the residual gather-dot's plan (``gather_plan``), its rows
+        #: grouped in the packing's clustered row order
+        self.res_plan = gather_plan(
+            packed.res_rows, np.asarray(packed.res_gids, np.int64) * G
+            + (np.asarray(packed.res_member) if G > 1 else 0),
+            packing_row_order(packed)).to(self.device)
         if offset + len(packed.res_rows) != packed.packed_size:
             raise ValueError(
                 f"packing layout mismatch: segments, slabs {offset} + "
@@ -384,6 +519,10 @@ class HybridSDDMM:
                                        packed.col_order, packed.n))
         self._inv_idx = (put(packed.inv_idx)
                          if packed.inv_idx is not None else None)
+        # the segment softmax kernel reads it as int32
+        self._inv_idx32 = (put(packed.inv_idx, torch.int32)
+                           if packed.inv_idx is not None
+                           and packed.packed_size < 2 ** 31 else None)
         self._packed_rows = (put(packed.packed_rows)
                              if packed.packed_rows is not None else None)
         self._packed_cols = (put(packed.packed_cols)
@@ -396,6 +535,15 @@ class HybridSDDMM:
             raise ValueError("light packing (full_metadata=False) has no "
                              "packed_rows; re-pack with full metadata")
         return self._packed_rows
+
+    @property
+    def inv_idx32(self) -> torch.Tensor:
+        """(nnz,) int32: the packed slot of each CSR entry."""
+        if self._inv_idx32 is None:
+            raise ValueError("light packing (full_metadata=False) has no "
+                             "CSR-order metadata; re-pack with full "
+                             "metadata")
+        return self._inv_idx32
 
     @property
     def packed_cols(self) -> torch.Tensor:
@@ -573,7 +721,7 @@ class HybridSDDMM:
 
     def residual_call(self, a_ops, bt_phys: torch.Tensor):
         """``(a_pad, bt_phys, rows, gids, member)``, the residual
-        gather-dot's arguments."""
+        gather-dot's arguments (its plan is ``res_plan``)."""
         a_pad, _, bt_phys, _ = self._operands(a_ops, bt_phys)
         return (a_pad, bt_phys, self._res_rows, self._res_gids,
                 self._res_member)
@@ -606,9 +754,8 @@ class HybridSDDMM:
         and grouped B^T (H, C, NG+1, G*kc) (``device_bt`` of a (H, N+1, K)
         batch) on the runner's device -> (H, packed_size), or (H, nnz) with
         ``order="csr"``.  The tiles of all heads are one tile-kernel launch
-        with a head stride (the vmapped batch of the JAX package); the
-        residual is one gather-dot launch per head.  ``plain`` as in
-        ``run_padded``."""
+        with a head stride (the vmapped batch of the JAX package), and so
+        is the residual's gather-dot.  ``plain`` as in ``run_padded``."""
         if order not in ("packed", "csr"):
             raise ValueError(f"unknown order {order!r}")
         check_no_grad("HybridSDDMM.run_heads", a_pad, bt_phys)
@@ -628,14 +775,22 @@ class HybridSDDMM:
         flat = torch.empty((heads, self.packed.packed_size),
                            dtype=torch.float32, device=a_pad.device)
         self._tiles(a_pad, bt_phys, flat, plain, a_panels)
-        for h in range(heads):
-            args = (a_pad[h], bt_phys[h], self._res_rows, self._res_gids,
-                    self._res_member)
-            res = flat[h, self._res_offset:]
-            if plain:
-                res.copy_(residual_gather_dot_plain(*args))
-            else:
-                residual_gather_dot(*args, out=res)
+        if plain:
+            for h in range(heads):
+                flat[h, self._res_offset:].copy_(residual_gather_dot_plain(
+                    a_pad[h], bt_phys[h], self._res_rows, self._res_gids,
+                    self._res_member))
+        elif a_pad.device.type == "cuda":
+            # the operands were checked by _operands / run_heads, the
+            # residual's index arrays and plan when they were made
+            _gather_launch(a_pad, bt_phys, self._res_rows, self._res_gids,
+                           self._res_member, flat[:, self._res_offset:],
+                           self.res_plan)
+        else:
+            residual_gather_dot(a_pad, bt_phys, self._res_rows,
+                                self._res_gids, self._res_member,
+                                out=flat[:, self._res_offset:],
+                                plan=self.res_plan)
         if order == "csr":
             return self.to_csr_order(flat)
         return flat

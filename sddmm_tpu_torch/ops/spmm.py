@@ -26,6 +26,7 @@ import torch
 
 from sddmm_tpu_torch import _kernels
 from sddmm_tpu_torch.data.sparse import CSR
+from sddmm_tpu_torch.ops.gather_plan import group_items, occurrences
 from sddmm_tpu_torch.ops.hybrid import check_device, check_no_grad
 
 #: rows with more entries than this are split across the warps of a block
@@ -63,22 +64,6 @@ class SpmmPlan:
         return SpmmPlan(*(torch.as_tensor(x, device=device).contiguous()
                           for x in (self.tasks, self.groups, self.items)),
                         self.group_rows)
-
-
-def _group_items(e_group, e_slot, e_col, occ, ent, gr):
-    """Items of entries tagged with their group and slot: the distinct
-    (group, column, occurrence) triples ascending, as (items (I, 1 + gr)
-    int32, the group of each item)."""
-    order = np.lexsort((occ, e_col, e_group))
-    g_s, c_s, o_s = e_group[order], e_col[order], occ[order]
-    new = (np.r_[True, (g_s[1:] != g_s[:-1]) | (c_s[1:] != c_s[:-1])
-                 | (o_s[1:] != o_s[:-1])] if len(order)
-           else np.zeros(0, dtype=bool))
-    item_of = np.cumsum(new) - 1
-    items = np.full((int(new.sum()), 1 + gr), -1, dtype=np.int32)
-    items[item_of, 0] = c_s
-    items[item_of, 1 + e_slot[order]] = ent[order]
-    return items, g_s[new]
 
 
 def spmm_plan(row_ptr, cols, row_order=None, group_rows=None) -> SpmmPlan:
@@ -139,17 +124,10 @@ def _plan_groups(row_ptr, cols, short, gr):
     ent = np.flatnonzero(cand_of_row[row_of] >= 0)
     e_row, e_col = row_of[ent], cols[ent]
     # the occurrence of a column within its row (0 unless repeated)
-    occ = np.zeros(len(ent), dtype=np.int64)
-    same = e_row[1:] == e_row[:-1]
-    if not np.all((e_col[1:] > e_col[:-1]) | ~same):
-        o = np.lexsort((ent, e_col, e_row))
-        r_s, c_s = e_row[o], e_col[o]
-        new = np.r_[True, (r_s[1:] != r_s[:-1]) | (c_s[1:] != c_s[:-1])]
-        idx = np.arange(len(o))
-        occ[o] = idx - np.maximum.accumulate(np.where(new, idx, 0))
+    occ = occurrences(e_row, e_col)
     e_cand = cand_of_row[e_row]
-    items, item_cand = _group_items(e_cand, slot_of_row[e_row], e_col, occ,
-                                    ent, gr)
+    items, item_cand = group_items(e_cand, slot_of_row[e_row], e_col, occ,
+                                   ent, gr)
     keep = (np.bincount(item_cand, minlength=n_cand)
             <= SPMM_SHARE * np.bincount(e_cand, minlength=n_cand))
     # kept candidates stay groups; the rows of the others, groups of one

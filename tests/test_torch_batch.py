@@ -18,6 +18,7 @@ from sddmm_tpu_torch.data.sparse import CSR as TCSR
 from sddmm_tpu_torch.interop import packed_from_reference
 from sddmm_tpu_torch.ops import batch as bt
 from sddmm_tpu_torch.ops import batched_csr_sddmm, batched_transpose
+from sddmm_tpu_torch.ops.csr_sddmm import csr_plan
 from sddmm_tpu_torch.ops.hybrid import HybridSDDMM
 
 # "float32" on both sides: JAX's CPU backend takes the exact fp32 dot, the
@@ -45,9 +46,19 @@ def _case(name):
     return csr, t
 
 
+@pytest.mark.parametrize("pattern", ["random", "clustered"])
 @pytest.mark.parametrize("K", [24, 32])
-def test_batched_csr_sddmm_matches_jax(K):
-    csr = jgen.random_sparse(120, 90, density=0.06, seed=3)
+def test_batched_csr_sddmm_matches_jax(K, pattern):
+    """The batch in one gather-dot call (a head stride), walking the
+    pattern's plan: the entry order on a random pattern, groups of rows
+    that share columns on a clustered one (rows shuffled)."""
+    csr = (jgen.random_sparse(120, 90, density=0.06, seed=3)
+           if pattern == "random" else
+           jgen.block_clustered(12, 12, block_prob=0.2, block_density=0.7,
+                                seed=3))
+    if pattern == "clustered":
+        assert csr_plan(TCSR(csr.shape, csr.row_ptr, csr.col_idx,
+                             csr.values)).grouped
     a, b = _batches(csr.m, csr.n, K, seed=K)
     want = j_batched_csr_sddmm(a, b, csr)
     tcsr = TCSR(csr.shape, csr.row_ptr, csr.col_idx, csr.values)

@@ -15,10 +15,13 @@ import torch
 
 from sddmm_tpu_torch import _kernels
 from sddmm_tpu_torch.data import generate
-from sddmm_tpu_torch.models import GraphAttentionLayer
+from sddmm_tpu_torch.models import (BlockSparseAttention, GraphAttentionLayer,
+                                    make_attention_mask)
 from sddmm_tpu_torch.ops import batch as bt
 from sddmm_tpu_torch.ops import hybrid as hy
+from sddmm_tpu_torch.ops import softmax as sm
 from sddmm_tpu_torch.ops import spmm as sp
+from sddmm_tpu_torch.ops.gather_plan import gather_plan
 from sddmm_tpu_torch.ops import tile_dot as td
 from sddmm_tpu_torch.ops.csr_sddmm import csr_sddmm
 from sddmm_tpu_torch.ops.dense import DenseSDDMM
@@ -43,6 +46,9 @@ F32_EXACT = 1e-6
 # up to (n-1) * 2^-24 of that, and by about sqrt(n) * 2^-24 in practice:
 # 3.8e-6 for the 4096-entry rows of a global token
 SPMM_REL = 1e-5
+# softmax kernel vs plain, max |kernel - plain| / plain: the same fp32
+# exps, the denominator summed in another order over up to 200,000 terms
+SOFTMAX_REL = 1e-5
 # a model's kernel path vs its plain path, as max abs diff / max |plain|:
 # the scores differ by the tile sums' order, the aggregation by the SpMM's
 # (an output near 0 has no relative error to speak of)
@@ -267,7 +273,8 @@ def test_graph_attention_kernel_path_matches_plain(cuda_device):
         got = layer(x)
         plain = layer(x, plain=True)
     torch.cuda.synchronize()
-    used = ["sddmm_tile_dot_float32", _kernels.SPMM_ENTRY] + (
+    used = ["sddmm_tile_dot_float32", _kernels.SPMM_ENTRY,
+            _kernels.SOFTMAX_ENTRY] + (
         ["sddmm_gather_dot_float32_float32"]
         if layer.runner.packed.nnz_res else [])
     for name in used:
@@ -425,3 +432,195 @@ def test_spmm_long_row_split_matches_plain(K, cuda_device):
     assert torch.equal(got, again)
     assert ((got - want).abs() / scale.clamp_min(1e-30)).max() <= SPMM_REL
     assert not got[torch.tensor(deg == 0, device=cuda_device)].any()
+
+
+def _shared_entries(rng, m, n_keys, order):
+    """(rows, keys) int32 of clustered rows: groups of 8 rows draw 70 % of
+    a common set of 40 keys; every 7th row is empty; rows shuffled, and the
+    entries in CSR order ("sorted") or shuffled ("unsorted")."""
+    rows, keys = [], []
+    perm = rng.permutation(m)
+    for g0 in range(0, m, 8):
+        common = rng.choice(n_keys, 40, replace=False)
+        for r in perm[g0:g0 + 8]:
+            if r % 7 == 0:
+                continue
+            k = np.sort(common[rng.random(40) < 0.7])
+            rows.append(np.full(len(k), r))
+            keys.append(k)
+    rows, keys = np.concatenate(rows), np.concatenate(keys)
+    o = (np.lexsort((keys, rows)) if order == "sorted"
+         else rng.permutation(len(rows)))
+    return rows[o].astype(np.int32), keys[o].astype(np.int32)
+
+
+def _gather_case(rng, G, C, storage, heads, K, order, device):
+    kc = K // C
+    m, ng = 600, 300
+    rows, keys = _shared_entries(rng, m, ng * G, order)
+    gids, member = keys // G, keys % G
+    a = _u02(rng, (heads, m + 1, K), device, storage[0])
+    b = _u02(rng, (heads, C, ng + 1, G * kc), device, storage[1])
+    t = [torch.tensor(x, device=device) for x in (rows, gids, member)]
+    return a, b, t[0], t[1], (t[2] if G > 1 else None), rows, keys
+
+
+@pytest.mark.parametrize("plan_rows", [None, 2, 16], ids=["entries", "GR2",
+                                                         "GR16"])
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("C", [1, 2])
+@pytest.mark.parametrize("storage", hy.GATHER_STORAGE,
+                         ids=lambda p: "_".join(str(d)[6:] for d in p))
+def test_gather_dot_plan_matches_plain(storage, C, G, plan_rows,
+                                       cuda_device):
+    """The gather-dot walking a plan (groups of 2 or 16 rows) or the
+    entries in their order, sorted and unsorted, for 3 heads in one
+    launch: each head within GATHER_REL of the plain version."""
+    rng = np.random.default_rng(G * 10 + C)
+    for order in ("sorted", "unsorted"):
+        a, b, rows, gids, member, r_np, k_np = _gather_case(
+            rng, G, C, storage, 3, 128, order, cuda_device)
+        plan = (None if plan_rows is None else
+                gather_plan(r_np, k_np, group_rows=plan_rows).to(cuda_device))
+        name = _kernels.gather_dot_entry(*storage)
+        n = _kernels.launches[name]
+        got = hy.residual_gather_dot(a, b, rows, gids, member, plan=plan)
+        assert _kernels.launches[name] == n + 1
+        torch.cuda.synchronize()
+        for h in range(3):
+            want = hy.residual_gather_dot_plain(a[h], b[h], rows, gids,
+                                                member)
+            assert _rel(got[h], want) <= GATHER_REL, (order, h)
+
+
+@pytest.mark.parametrize("K,C", [(24, 2), (40, 1), (256, 1), (1024, 1)])
+@pytest.mark.parametrize("plan_rows", [None, 8], ids=["entries", "GR8"])
+def test_gather_dot_any_k(K, C, plan_rows, cuda_device):
+    """kc off the 8-element loads (scalar lanes), kc below one step,
+    K = 256 (32 lanes) and K = 1024 (slices past the registers' cache)."""
+    rng = np.random.default_rng(K)
+    a, b, rows, gids, member, r_np, k_np = _gather_case(
+        rng, 1, C, (torch.float32, torch.float32), 2, K, "sorted",
+        cuda_device)
+    plan = (None if plan_rows is None else
+            gather_plan(r_np, k_np, group_rows=plan_rows).to(cuda_device))
+    got = hy.residual_gather_dot(a, b, rows, gids, member, plan=plan)
+    torch.cuda.synchronize()
+    for h in range(2):
+        want = hy.residual_gather_dot_plain(a[h], b[h], rows, gids, member)
+        assert _rel(got[h], want) <= GATHER_REL
+
+
+def test_gather_dot_one_launch_for_heads(cuda_device):
+    """The hybrid's residual over 3 heads (a G=2, C=2 packing) is one
+    gather-dot launch, equal to each head's own call."""
+    csr = _quick_clustered()
+    t = from_params(csr, 64, alpha=0.3, delta=0.05, group_size=2,
+                    k_chunks=2)
+    assert t.packed.nnz_res
+    r = hy.HybridSDDMM(t.packed, compute_dtype="float32", k_chunks=2,
+                       device=cuda_device)
+    rng = np.random.default_rng(6)
+    a = torch.tensor(rng.uniform(0, 2, (3, csr.m + 1, 64)),
+                     dtype=torch.float32, device=cuda_device)
+    b = torch.tensor(rng.uniform(0, 2, (3, csr.n + 1, 64)),
+                     dtype=torch.float32, device=cuda_device)
+    name = "sddmm_gather_dot_float32_float32"
+    n = _kernels.launches[name]
+    got = bt.BatchedHybridSDDMM(r).run_padded(a, b, order="csr")
+    torch.cuda.synchronize()
+    assert _kernels.launches[name] == n + 1
+    for h in range(3):
+        one = r.run_padded(*r.device_prepare(a[h], b[h]), order="csr")
+        assert torch.equal(got[h], one)
+
+
+def _softmax_case(rng, heads, device):
+    """Rows of 0..700 entries (every 7th empty, row 5 with 200,000 and
+    some past SOFTMAX_LONG_ROW), packed scores with spare slots, and the
+    CSR-order scores."""
+    m = 3000
+    deg = rng.integers(0, 700, m)
+    deg[::7] = 0
+    deg[5] = 200000
+    row_ptr = np.r_[0, np.cumsum(deg)]
+    nnz = int(row_ptr[-1])
+    inv = rng.permutation(nnz + 1000)[:nnz]
+    flat = torch.tensor(rng.standard_normal((heads, nnz + 1000)) * 4,
+                        dtype=torch.float32, device=device)
+    return (torch.tensor(row_ptr, device=device),
+            torch.tensor(inv, dtype=torch.int32, device=device), flat, deg)
+
+
+@pytest.mark.parametrize("heads", [1, 3])
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "csr"])
+def test_softmax_kernel_matches_plain(packed, heads, cuda_device):
+    """The segment softmax kernel against its plain version, from packed
+    scores through inv_idx and from CSR-order scores, short rows in
+    registers and long rows as blocks; the same on every run."""
+    rng = np.random.default_rng(heads)
+    row_ptr, inv, flat, deg = _softmax_case(rng, heads, cuda_device)
+    if not packed:
+        flat, inv = flat[:, inv.long()].contiguous(), None
+    scale = 0.125
+    n = _kernels.launches[_kernels.SOFTMAX_ENTRY]
+    got = sm.segment_softmax_torch(flat, row_ptr, scale, inv)
+    again = sm.segment_softmax_torch(flat, row_ptr, scale, inv)
+    assert _kernels.launches[_kernels.SOFTMAX_ENTRY] == n + 2
+    want = sm.segment_softmax_plain(flat, row_ptr, scale, inv)
+    torch.cuda.synchronize()
+    assert got.shape == (heads, int(deg.sum()))
+    assert torch.equal(got, again)
+    assert ((got - want).abs() / want).max().item() <= SOFTMAX_REL
+
+
+def test_softmax_empty_rows_write_nothing(cuda_device):
+    """Empty rows (every 7th, and a run at the end) write nothing: the
+    output, a view into a sentinel-filled buffer, is written exactly on
+    its nnz slots; a pattern with no entries launches nothing."""
+    rng = np.random.default_rng(2)
+    row_ptr, inv, flat, deg = _softmax_case(rng, 2, cuda_device)
+    nnz = int(deg.sum())
+    row_ptr = torch.cat([row_ptr, row_ptr[-1:].repeat(50)])
+    buf = torch.full((2, nnz + 7), -7.0, device=cuda_device)
+    out = buf[:, 3:3 + nnz]
+    sm.segment_softmax_torch(flat, row_ptr, 1.0, inv, out=out)
+    torch.cuda.synchronize()
+    assert (buf[:, :3] == -7.0).all() and (buf[:, 3 + nnz:] == -7.0).all()
+    assert (out > 0).all()
+    n = _kernels.launches[_kernels.SOFTMAX_ENTRY]
+    empty = sm.segment_softmax_torch(
+        flat[:, :0], torch.zeros(9, dtype=torch.int64, device=cuda_device))
+    assert empty.shape == (2, 0)
+    assert _kernels.launches[_kernels.SOFTMAX_ENTRY] == n
+
+
+def test_one_softmax_launch_per_forward(cuda_device):
+    """Each forward of the two models: one tile launch, at most one
+    gather-dot launch (all heads), one softmax launch and one SpMM
+    launch."""
+    adj = generate.powerlaw_graph(1500, avg_degree=10, seed=3)
+    graph = GraphAttentionLayer(adj, 32, 32, device=cuda_device)
+    graph.init(torch.Generator().manual_seed(0))
+    mask = make_attention_mask(320, window=16, num_global=2)
+    block = BlockSparseAttention(mask, 48, 3, 16, device=cuda_device)
+    block.init(torch.Generator().manual_seed(1))
+    for model, x in ((graph, torch.as_tensor(generate.make_dense(
+            adj.m, 32, seed=1), device=cuda_device)),
+                     (block, torch.as_tensor(generate.make_dense(
+                         320, 48, seed=2), device=cuda_device))):
+        before = dict(_kernels.launches)
+        with torch.inference_mode():
+            got = model(x)
+            torch.cuda.synchronize()
+            counts = {n: c - before.get(n, 0)
+                      for n, c in _kernels.launches.items()
+                      if c > before.get(n, 0)}
+            plain = model(x, plain=True)
+        want = {"sddmm_tile_dot_float32": 1, _kernels.SPMM_ENTRY: 1,
+                _kernels.SOFTMAX_ENTRY: 1}
+        if model.runner.packed.nnz_res:
+            want["sddmm_gather_dot_float32_float32"] = 1
+        assert counts == want
+        assert ((got - plain).abs().max() / plain.abs().max()).item() \
+            <= MODEL_PLAIN

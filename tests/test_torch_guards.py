@@ -1,12 +1,14 @@
 """Guards of the port: it never loads jax, never builds or runs a kernel
 without the CUDA toolchain, and never carries on silently on the CPU."""
 
+import ctypes
 import inspect
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -73,9 +75,8 @@ def test_library_name_tracks_sources():
     p = _kernels.lib_path()
     assert p.parent.name == "_build" and p.name.startswith("libsddmm_kernels_")
     assert p == _kernels.lib_path()
-    assert {s.name for s in _kernels._sources()} == {"tile_dot.cu",
-                                                     "gather_dot.cu",
-                                                     "spmm.cu"}
+    assert {s.name for s in _kernels._sources()} == {
+        "tile_dot.cu", "gather_dot.cu", "spmm.cu", "segment_softmax.cu"}
 
 
 def test_build_runs_commands_together_and_raises():
@@ -94,6 +95,9 @@ def test_build_runs_commands_together_and_raises():
         "sddmm_gather_dot_float16_float16",
         "sddmm_gather_dot_bfloat16_bfloat16"}
     assert _kernels.SPMM_ENTRY in eps
+    # the segment softmax binds too, so a build or bind failure raises
+    assert _kernels.SOFTMAX_ENTRY in eps
+    assert eps[_kernels.SOFTMAX_ENTRY][7] is ctypes.c_float
 
 
 def test_cuda_device_raises_without_cuda():
@@ -124,10 +128,10 @@ def _entry_points():
     # modules from sys.modules: ``sddmm_tpu_torch.ops.csr_sddmm`` is also a
     # function of ``sddmm_tpu_torch.ops``
     from importlib import import_module
-    entry, batch, csr_sddmm, dense, hybrid, spmm = (
+    entry, batch, csr_sddmm, dense, hybrid, softmax, spmm = (
         import_module(f"sddmm_tpu_torch.{name}") for name in (
             "entry", "ops.batch", "ops.csr_sddmm", "ops.dense", "ops.hybrid",
-            "ops.spmm"))
+            "ops.softmax", "ops.spmm"))
     from sddmm_tpu_torch.models import (BlockSparseAttention,
                                         GraphAttentionLayer)
     return {
@@ -139,6 +143,7 @@ def _entry_points():
         "dense_masked_sddmm": dense.dense_masked_sddmm,
         "csr_sddmm": csr_sddmm.csr_sddmm,
         "csr_spmm": spmm.csr_spmm,
+        "csr_softmax": softmax.csr_softmax,
         "batched_csr_sddmm": batch.batched_csr_sddmm,
         "GraphAttentionLayer": GraphAttentionLayer.__init__,
         "BlockSparseAttention": BlockSparseAttention.__init__,
@@ -148,7 +153,7 @@ def _entry_points():
 
 ENTRY_POINTS = ("HybridSDDMM", "HybridSDDMM.from_csr", "sddmm_hybrid",
                 "DenseSDDMM", "DenseSDDMM.from_csr", "dense_masked_sddmm",
-                "csr_sddmm", "csr_spmm", "batched_csr_sddmm",
+                "csr_sddmm", "csr_spmm", "csr_softmax", "batched_csr_sddmm",
                 "GraphAttentionLayer", "BlockSparseAttention", "entry")
 
 
@@ -162,7 +167,8 @@ def test_entry_point_defaults_to_the_card(name):
 
 
 @pytest.mark.parametrize("name", ["HybridSDDMM", "DenseSDDMM",
-                                  "GraphAttentionLayer", "entry"])
+                                  "GraphAttentionLayer", "entry",
+                                  "csr_softmax"])
 def test_default_device_raises_without_a_card(name):
     """Without a card the default raises; it never falls back to the
     CPU."""
@@ -173,6 +179,7 @@ def test_default_device_raises_without_a_card(name):
     from sddmm_tpu_torch.models import GraphAttentionLayer
     from sddmm_tpu_torch.ops.dense import DenseSDDMM
     from sddmm_tpu_torch.ops.hybrid import HybridSDDMM
+    from sddmm_tpu_torch.ops.softmax import csr_softmax
     from sddmm_tpu_torch.reorder.autotune import from_params
     csr = generate.block_clustered(8, 8, block_prob=0.3, seed=1)
     calls = {
@@ -181,6 +188,7 @@ def test_default_device_raises_without_a_card(name):
         "DenseSDDMM": lambda: DenseSDDMM(4, 4),
         "GraphAttentionLayer": lambda: GraphAttentionLayer(csr, 8, 8),
         "entry": entry,
+        "csr_softmax": lambda: csr_softmax(csr, np.ones(csr.nnz)),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[name]()

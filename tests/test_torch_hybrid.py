@@ -22,6 +22,7 @@ from sddmm_tpu_torch import _kernels, sddmm_hybrid
 from sddmm_tpu_torch.data.sparse import CSR as TCSR
 from sddmm_tpu_torch.interop import operands_from_numpy, packed_from_reference
 from sddmm_tpu_torch.ops import hybrid as hy
+from sddmm_tpu_torch.ops.gather_plan import gather_plan, plan_entries
 from sddmm_tpu_torch.ops.reference import sddmm_reference
 from sddmm_tpu_torch.utils.check import check_values
 
@@ -428,3 +429,84 @@ def test_panels_layout_needs_panel_operands(cases):
     (a_pad, _), bt = operands_from_numpy(r, a, b)
     with pytest.raises(ValueError):
         r.run_padded(a_pad, bt)
+
+
+#: residual layouts: (matrix, from_params keywords)
+RES_CONFIGS = {
+    "G1": (_clustered, {}),
+    "G1 sort gid": (_clustered, dict(sort_res="gid")),
+    "G2 sort gid": (_powerlaw, dict(group_size=2, sort_res="gid")),
+    "G4C2": (_clustered, dict(group_size=4, k_chunks=2,
+                              merge_superpanels=False)),
+    "C2 powerlaw": (_powerlaw, dict(k_chunks=2)),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _res_case(name):
+    gen, kw = RES_CONFIGS[name]
+    csr = gen()
+    t = j_from_params(csr, K, alpha=0.3, delta=0.05, **kw)
+    assert t.packed.nnz_res > 0
+    return csr, t, jgen.make_dense(csr.m, K, seed=1), jgen.make_dense(
+        K, csr.n, seed=2)
+
+
+@pytest.mark.parametrize("group_rows", [None, 2, 8])
+@pytest.mark.parametrize("name", list(RES_CONFIGS))
+def test_residual_plan_matches_jax(name, group_rows):
+    """The residual's plan covers every residual entry exactly once, in a
+    group whose row holds it at the listed group row; the plain route in
+    plan order matches the JAX residual ("float32": exact fp32 products),
+    for CSR- and gid-sorted residuals, G > 1 and C > 1."""
+    csr, t, a, b = _res_case(name)
+    p = t.packed
+    G = p.group_size
+    keys = p.res_gids.astype(np.int64) * G + (p.res_member if G > 1 else 0)
+    plan = gather_plan(p.res_rows, keys, hy.packing_row_order(p),
+                       group_rows)
+    assert plan.n == p.nnz_res
+    if plan.grouped:
+        seen = np.zeros(p.nnz_res, dtype=np.int64)
+        for row, ents, ks in plan_entries(plan):
+            assert (p.res_rows[ents] == row).all()
+            assert (keys[ents] == ks).all()
+            seen[ents] += 1
+        assert (seen == 1).all()
+    jr = JaxHybrid(p, compute_dtype="float32", k_chunks=t.k_chunks)
+    want = np.asarray(jr.run_padded(*jr.prepare_operands(a, b=b)))[
+        p.packed_size - p.nnz_res:]
+    r = hy.HybridSDDMM(packed_from_reference(p), compute_dtype="float32",
+                       k_chunks=t.k_chunks, device="cpu")
+    a_pad, bt_phys = r.prepare_operands(a, b=b)
+    args = r.residual_call(a_pad, bt_phys)
+    got = (hy.gather_dot_plan_plain(*args[:2], plan) if plan.grouped
+           else hy.residual_gather_dot(*args, plan=plan))
+    assert np.max(np.abs(got.numpy() - want) / np.abs(want)) <= 1e-6
+    # the runner's own plan is a plan of the same entries
+    assert r.res_plan.n == p.nnz_res
+
+
+@pytest.mark.parametrize("name", ["G2C2+slabs", "G4"])
+def test_run_heads_matches_jax_heads(name):
+    """run_heads over 3 heads (one tile launch and one gather-dot launch
+    on the card) against the JAX runner head by head, on the real slots."""
+    csr, t, _, _ = _config_case(name)
+    p = t.packed
+    rng = np.random.default_rng(8)
+    a = rng.uniform(0, 2, (3, csr.m, K)).astype(np.float32)
+    b = rng.uniform(0, 2, (3, K, csr.n)).astype(np.float32)
+    r = hy.HybridSDDMM(packed_from_reference(p), compute_dtype="float32",
+                       k_chunks=t.k_chunks, device="cpu")
+    pad = lambda x: torch.nn.functional.pad(torch.from_numpy(x),  # noqa
+                                            (0, 0, 0, 1))
+    got = r.run_heads(pad(a), r.device_bt(pad(np.ascontiguousarray(
+        b.transpose(0, 2, 1))))).numpy()
+    jr = JaxHybrid(p, compute_dtype="float32", k_chunks=t.k_chunks)
+    real = p.inv_idx
+    res = real >= p.packed_size - p.nnz_res
+    for h in range(3):
+        want = np.asarray(jr.run_padded(*jr.prepare_operands(a[h], b=b[h])))
+        rel = np.abs(got[h][real] - want[real]) / np.abs(want[real])
+        assert rel.max() <= PARITY_REL
+        assert rel[res].max(initial=0.0) <= 1e-6

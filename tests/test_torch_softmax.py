@@ -1,0 +1,181 @@
+"""The port's segment softmax (``sddmm_tpu_torch.ops.softmax``) against the
+JAX package's ``segment_softmax`` as its models apply it, on packings built
+by ``from_params`` in the JAX package and carried across with
+``interop.packed_from_reference``.  On the CPU ``segment_softmax_torch``
+runs its plain version (the gather, the scale, the torch-ops softmax); the
+kernel is held to it on the card (``tests/test_torch_card.py``,
+``chip_smoke.py``)."""
+
+import functools
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sddmm_tpu.data import generate as jgen
+from sddmm_tpu.data.sparse import COO as JCOO
+from sddmm_tpu.models.graph_attention import (
+    segment_softmax as j_segment_softmax)
+from sddmm_tpu.reorder.autotune import from_params as j_from_params
+from sddmm_tpu_torch import _kernels
+from sddmm_tpu_torch.data.sparse import CSR as TCSR
+from sddmm_tpu_torch.interop import packed_from_reference
+from sddmm_tpu_torch.ops import csr_softmax
+from sddmm_tpu_torch.ops import softmax as sm
+from sddmm_tpu_torch.ops.hybrid import HybridSDDMM
+
+ROOT = Path(__file__).resolve().parents[1]
+# both sides take the same fp32 exps; the denominators are summed in
+# another order (segment_sum's against index_add_'s)
+RTOL, ATOL = 1e-5, 1e-6
+K = 32
+
+
+def _long_row_csr():
+    """Random rows with every 7th row empty and row 2 longer than the
+    kernel's in-register limit."""
+    rng = np.random.default_rng(5)
+    m, n = 120, 900
+    rows, cols = [], []
+    for r in range(m):
+        deg = 0 if r % 7 == 0 else int(rng.integers(1, 30))
+        if r == 2:
+            deg = sm.SOFTMAX_LONG_ROW + 60
+        c = rng.choice(n, deg, replace=False)
+        rows.append(np.full(deg, r))
+        cols.append(c)
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    return JCOO((m, n), rows, cols, np.ones(len(rows))).to_csr()
+
+
+@functools.lru_cache(maxsize=None)
+def _case(name):
+    """(JAX CSR, JAX packing) of a small pattern packed by from_params."""
+    if name == "powerlaw":
+        csr = jgen.powerlaw_graph(300, avg_degree=8, seed=4)
+    elif name == "clustered":
+        csr = jgen.block_clustered(12, 12, block_prob=0.2,
+                                   block_density=0.7, seed=3)
+    else:
+        csr = _long_row_csr()
+    t = j_from_params(csr, K, alpha=0.3, delta=0.05)
+    return csr, t.packed
+
+
+def _flat(packed, heads, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((heads, packed.packed_size)) * 4).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("heads", [1, 3])
+@pytest.mark.parametrize("name", ["powerlaw", "clustered", "long_row"])
+def test_packed_softmax_matches_jax(name, heads):
+    """The fused softmax on the packed flat vector through inv_idx equals
+    JAX's segment_softmax(take(flat, inv_idx) * scale, rows, m), head by
+    head."""
+    csr, packed = _case(name)
+    if name != "clustered":
+        assert (csr.row_nnz() == 0).any()
+    if name == "long_row":
+        assert csr.row_nnz().max() > sm.SOFTMAX_LONG_ROW
+    flat = _flat(packed, heads, seed=heads)
+    scale = 1.0 / np.sqrt(K)
+    rows = jnp.asarray(csr.row_indices())
+    r = HybridSDDMM(packed_from_reference(packed), device="cpu")
+    before = dict(_kernels.launches)
+    got = sm.segment_softmax_torch(torch.from_numpy(flat),
+                                   torch.from_numpy(csr.row_ptr.astype(
+                                       np.int64)), scale, r.inv_idx32)
+    assert dict(_kernels.launches) == before
+    assert got.shape == (heads, csr.nnz) and got.dtype == torch.float32
+    for h in range(heads):
+        want = np.asarray(j_segment_softmax(
+            jnp.take(jnp.asarray(flat[h]), jnp.asarray(packed.inv_idx))
+            * scale, rows, csr.m))
+        np.testing.assert_allclose(got[h].numpy(), want, rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("heads", [1, 3])
+@pytest.mark.parametrize("name", ["powerlaw", "long_row"])
+def test_matches_jax_packed_sentinel_route(name, heads):
+    """The JAX models' own route: the softmax over every packed slot with
+    the padding slots in a dropped sentinel segment (row m); on the real
+    slots it equals the port's CSR-order softmax."""
+    csr, packed = _case(name)
+    flat = _flat(packed, heads, seed=7)
+    scale = 0.125
+    got = sm.segment_softmax_torch(
+        torch.from_numpy(flat), torch.from_numpy(csr.row_ptr.astype(
+            np.int64)), scale,
+        torch.from_numpy(packed.inv_idx.astype(np.int32)))
+    for h in range(heads):
+        attn = np.asarray(j_segment_softmax(
+            jnp.asarray(flat[h]) * scale, jnp.asarray(packed.packed_rows),
+            csr.m + 1))
+        np.testing.assert_allclose(got[h].numpy(), attn[packed.inv_idx],
+                                   rtol=RTOL, atol=ATOL)
+
+
+def test_csr_order_form_and_host_wrapper():
+    """Scores already in CSR order (inv_idx None), a 1-D head, and the
+    host wrapper ``csr_softmax`` (numpy in, numpy out) against JAX."""
+    csr, _ = _case("long_row")
+    rng = np.random.default_rng(2)
+    scores = (rng.standard_normal((2, csr.nnz)) * 3).astype(np.float32)
+    want = np.stack([np.asarray(j_segment_softmax(
+        jnp.asarray(s) * 0.5, jnp.asarray(csr.row_indices()), csr.m))
+        for s in scores])
+    tcsr = TCSR(csr.shape, csr.row_ptr, csr.col_idx, csr.values)
+    got = csr_softmax(tcsr, scores, 0.5, device="cpu")
+    assert isinstance(got, np.ndarray) and got.shape == (2, csr.nnz)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    one = sm.segment_softmax_torch(torch.from_numpy(scores[1]),
+                                   torch.from_numpy(csr.row_ptr.astype(
+                                       np.int64)), 0.5)
+    assert one.shape == (csr.nnz,)
+    np.testing.assert_allclose(one.numpy(), want[1], rtol=RTOL, atol=ATOL)
+    # out= is written in place
+    out = torch.full((2, csr.nnz), -7.0)
+    res = sm.segment_softmax_torch(torch.from_numpy(scores),
+                                   torch.from_numpy(csr.row_ptr.astype(
+                                       np.int64)), 0.5, out=out)
+    assert res is out and torch.equal(out, torch.from_numpy(got))
+
+
+def test_find_long_rows_and_rejects():
+    row_ptr = np.array([0, 3, 3, 3 + sm.SOFTMAX_LONG_ROW + 1,
+                        3 + sm.SOFTMAX_LONG_ROW + 1 + sm.SOFTMAX_LONG_ROW])
+    assert sm.find_long_rows(row_ptr).tolist() == [2]
+    flat = torch.zeros((1, 10))
+    rp = torch.tensor([0, 4, 10])
+    with pytest.raises(TypeError, match="inv_idx"):
+        sm.segment_softmax_torch(flat, rp, 1.0, torch.arange(10))
+    with pytest.raises(TypeError, match="row_ptr"):
+        sm.segment_softmax_torch(flat, rp.int())
+    with pytest.raises(ValueError, match="float32"):
+        sm.segment_softmax_torch(flat.double(), rp)
+    with pytest.raises(ValueError, match="out"):
+        sm.segment_softmax_torch(flat, rp, out=torch.zeros((1, 9)))
+    with pytest.raises(NotImplementedError, match="Autograd"):
+        sm.segment_softmax_torch(flat.requires_grad_(), rp)
+
+
+def test_softmax_module_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run(
+        [sys.executable, "-c",
+         "import sys\n"
+         "import sddmm_tpu_torch.ops.softmax\n"
+         "import sddmm_tpu_torch.ops.gather_plan\n"
+         "assert 'jax' not in sys.modules, 'jax loaded'\n"
+         "assert 'sddmm_tpu' not in sys.modules, 'sddmm_tpu loaded'\n"
+         "print('clean')\n"],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300)
+    assert res.returncode == 0 and "clean" in res.stdout, res.stderr
