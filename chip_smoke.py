@@ -80,6 +80,30 @@ its time:
    segment softmax at the models' shapes (beside ``torch.sparse.softmax``
    on a COO tensor of the same scaled scores and its bound) are timed.
 
+10. the backward passes at the main path's shapes: the hybrid's (B1: two
+   SpMM launches over the packing's read pattern) on clustered16 K=128
+   (G=1, panels), banded K=64 (G=2, rows, a residual) and clustered16 K=32
+   (G=4), and on a small powerlaw packing with both slabs and C=2 at 2
+   heads: the read pattern's host seconds, the kernels' gradients against
+   the plain Function's within 1e-5, a repeat backward bit-equal, exactly
+   2 SpMM launches a backward, and against fp64 scipy (G ⊙ S)·B with a
+   cotangent on the real slots under the contract; the CSR SDDMM's (B4,
+   its launches counted alone) and the dense class's (B5, cuBLAS) timed;
+11. the training path: the graph layer's and the Longformer-shaped
+   model's backward of sum(out^2) (the counts zeroed just before the
+   ``backward()`` calls and read just after: one softmax-backward launch,
+   one gather-dot and three SpMM launches each), their weight gradients
+   against the plain path and against fp64 autograd of the dense
+   references; then ``SparseFactorizationModel.from_csr`` on the bench's
+   clustered16 at K=128, "float32", Adam at lr 1e-2: step 1's gradients
+   against fp64 scipy, 20 steps (counts zeroed just before and read just
+   after: 1 tile, 1 gather-dot and 2 SpMM launches a step), the loss
+   finite and falling, the first 3 losses against the plain path's, a
+   checkpoint saved, restored and stepped bit-equal, and the step's time
+   split into forward, backward and optimizer beside the plain path's;
+   each backward kernel timed beside its plain version, a library call
+   where one exists, and its bound.
+
 It then prints one JSON line with the kernels' record (per kernel: its
 launches on its path, max abs error against its plain version, and the
 summed times of the timed calls: kernel, plain version, PyTorch library
@@ -89,8 +113,10 @@ those lines.  Without a CUDA card, or outside the repo, it fails at once.
 """
 
 import json
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -133,6 +159,21 @@ LONGFORMER = dict(seq_len=4096, window=256, num_global=1, hidden=768,
 MODEL_PLAIN_TOL = 1e-5
 MODEL_ITERS = 10        # timed forwards with the kernels, after 2 warm-ups
 MODEL_PLAIN_ITERS = 3   # and with the plain versions, after 1
+# the backward phases: a backward kernel vs its plain version on U[0,2) data
+# (no cancellation), as max |kernel - plain| / |plain|: the same fp32
+# products summed in another order (the SpMM row by row, the plain
+# index_add_ with atomics)
+BACKWARD_REL = 1e-5
+# the hybrid's backward is checked on these main-path cells
+GRAD_CELLS = [("clustered16", 128), ("banded", 64), ("clustered16", 32)]
+# weight gradients vs fp64 autograd, as max abs err / max |exact| per
+# weight: each is a sum over every position (4096 or 16384) of terms of both
+# signs, so no elementwise contract holds near its zeros
+GRAD_FP64_TOL = 1e-4
+# the factorization's first losses, kernels vs plain versions: the forward
+# within about one fp32 rounding, the gradients summed in another order
+LOSS_REL_TOL = 1e-5
+TRAIN = dict(k=128, lr=1e-2, steps=20)
 # the card's published peaks (H100 SXM, NVIDIA's data sheet), for bounds
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12     # dense bf16 on the tensor cores
@@ -671,8 +712,9 @@ def time_softmax(torch, sm, label, model, d, card):
 
 def run_models(torch, sp, sm, card, adj):
     """Phase 9 on the clustered16 adjacency ``adj``: returns the launch
-    counts of the models' forwards, and the records of the SpMM and of the
-    segment softmax at the models' shapes, summed over the two models."""
+    counts of the models' forwards, the records of the SpMM and of the
+    segment softmax at the models' shapes, summed over the two models, and
+    the two models with their inputs (graph, x, block, x, mask)."""
     from sddmm_tpu_torch import _kernels
     from sddmm_tpu_torch.data import generate
     from sddmm_tpu_torch.entry import entry
@@ -755,7 +797,7 @@ def run_models(torch, sp, sm, card, adj):
             torch, sp, label, model._agg, d, card)})
         add_times(rec, {_kernels.SOFTMAX_ENTRY: time_softmax(
             torch, sm, label, model, d, card)})
-    return counts, rec
+    return counts, rec, (graph, x_graph, block, x_block, mask)
 
 
 def gather_name(runner):
@@ -929,6 +971,643 @@ def new_record(err):
             "ops_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
 
 
+def pad_rows(torch, x):
+    """(..., M, K) -> (..., M+1, K) with a zero row: the runners' pads."""
+    return torch.nn.functional.pad(x, (0, 0, 0, 1))
+
+
+def rel_nonzero(got, want) -> float:
+    """max |got - want| / |want| over want != 0; inf if got is not 0 where
+    want is."""
+    nz = want != 0
+    if bool(got[~nz].any()):
+        return float("inf")
+    return float(((got[nz] - want[nz]).abs() / want[nz].abs()).max())
+
+
+def check_backward(torch, label, runner, csr, a_np, b_np, heads):
+    """B1 on one packing, ``heads`` heads through ``BatchedHybridSDDMM``:
+    the first backward builds the read pattern (host seconds printed); each
+    backward is exactly 2 SpMM launches; with a U[0,2) cotangent on every
+    packed slot the kernel's gradients equal the plain Function's within
+    BACKWARD_REL and a second backward is bit-equal; with one on the real
+    slots they pass the contract against fp64 scipy (G ⊙ S)·B and
+    (G ⊙ S)^T·A.  Returns (max rel vs plain, max abs vs plain)."""
+    import numpy as np
+    import scipy.sparse as sps
+    from sddmm_tpu_torch import _kernels
+    from sddmm_tpu_torch.ops.batch import BatchedHybridSDDMM
+    from sddmm_tpu_torch.utils.check import check_values
+    p = runner.packed
+    a = torch.as_tensor(a_np, device=DEVICE)
+    bt = torch.as_tensor(np.ascontiguousarray(b_np.T), device=DEVICE)
+    a = torch.stack([a, a.flip(0)][:heads])
+    bt = torch.stack([bt, bt.flip(0)][:heads])
+    batched = BatchedHybridSDDMM(runner)
+
+    def grads(g, order, plain=False):
+        a_t, b_t = a.clone().requires_grad_(), bt.clone().requires_grad_()
+        batched.run_padded(pad_rows(torch, a_t), pad_rows(torch, b_t),
+                           order=order, plain=plain).backward(g)
+        return a_t.grad, b_t.grad
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    g_all = torch.rand((heads, p.packed_size), generator=gen,
+                       device=DEVICE) * 2
+    n0 = _kernels.launches[_kernels.SPMM_ENTRY]
+    ka, kb = grads(g_all, "packed")
+    torch.cuda.synchronize()
+    if _kernels.launches[_kernels.SPMM_ENTRY] != n0 + 2:
+        fail(f"{label} backward: "
+             f"{_kernels.launches[_kernels.SPMM_ENTRY] - n0} SpMM launches, "
+             "want 2")
+    pa_, pb_ = runner.grad_patterns()
+    say(f"[grad] {label}: read pattern of {p.packed_size} slots and its "
+        f"two SpMM plans: {runner.grad_pattern_seconds:.2f} s on the host; "
+        f"P {pa_.n_entries} entries over {pa_.num_rows} rows (plan of "
+        f"{pa_.plan().group_rows} rows a group), P^T {pb_.n_entries} over "
+        f"{pb_.num_rows} (groups of {pb_.plan().group_rows})")
+    ka2, kb2 = grads(g_all, "packed")
+    pa, pb = grads(g_all, "packed", plain=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(ka, ka2) and torch.equal(kb, kb2)):
+        fail(f"{label}: two backward passes differ")
+    rel = max(rel_nonzero(ka, pa), rel_nonzero(kb, pb))
+    err = max(float((ka - pa).abs().max()), float((kb - pb).abs().max()))
+    if not rel <= BACKWARD_REL:
+        fail(f"{label} backward: max rel {rel:.3e} vs the plain Function > "
+             f"{BACKWARD_REL}")
+    del ka2, kb2, pa, pb
+    g = torch.rand((heads, csr.nnz), generator=gen, device=DEVICE) * 2
+    ka, kb = grads(g, "csr")
+    worst = None
+    for h in range(heads):
+        s = sps.csr_matrix((g[h].double().cpu().numpy(), csr.col_idx,
+                            csr.row_ptr), shape=csr.shape)
+        for name, got, want in (
+                ("dA", ka[h], s @ bt[h].double().cpu().numpy()),
+                ("dB^T", kb[h], s.T @ a[h].double().cpu().numpy())):
+            res = check_values(want, got.cpu().numpy())
+            worst = res if worst is None or (
+                res.max_rel_err > worst.max_rel_err) else worst
+            if not res.passed or res.num_errors:
+                fail(f"{label} {name} vs fp64: {res}")
+    say(f"[grad] {label} ({heads} head(s), G={p.group_size}, "
+        f"C={runner.k_chunks}, {runner.a_layout}): 2 SpMM launches a "
+        f"backward; vs the plain Function max rel {rel:.3e} (tol "
+        f"{BACKWARD_REL}); repeat bit-equal; vs fp64 (cotangent on the "
+        f"real slots), worst {worst}")
+    return rel, err
+
+
+def time_hybrid_backward(torch, label, runner, a_pad, bt_phys, g, card):
+    """B1's record at one packing: its two SpMM launches (``vjp``) beside
+    the plain SpMMs over the same read pattern and ``torch.sparse.mm`` of
+    the read pattern (one call each for P·B and P^T·A), and the bound."""
+    from sddmm_tpu_torch.utils.timing import cuda_time_ms
+    pa, pb = runner.grad_patterns()
+    H, C, ng1, gk = bt_phys.shape
+    m1, K = a_pad.shape[1:]
+    kc = K // C
+    if H != 1 or C != 1:
+        fail(f"{label}: the library yardstick takes H = C = 1")
+    lanes = ng1 * (gk // kc)
+    b2 = bt_phys.view(lanes, kc)
+    da, db = runner.vjp(a_pad, bt_phys, g)
+    mats = []
+    for pat, ncols in ((pa, lanes), (pb, m1)):
+        # garbage slots repeat (row, lane) pairs: coalesced (summed) first,
+        # as a CSR tensor must not repeat a column in a row
+        vals = g[0] if pat.vidx is None else g[0, pat.vidx.long()]
+        mats.append(torch.sparse_coo_tensor(
+            torch.stack([pat.rows, pat.cols.long()]),
+            vals[:pat.n_entries], size=(pat.num_rows, ncols)
+        ).coalesce().to_sparse_csr())
+    lib = (torch.sparse.mm(mats[0], b2), torch.sparse.mm(mats[1], a_pad[0]))
+    torch.cuda.synchronize()
+    for got, want in ((da[0], lib[0]), (db.view(lanes, kc), lib[1])):
+        if not rel_nonzero(got, want) <= BACKWARD_REL:
+            fail(f"{label}: torch.sparse.mm of the read pattern does not "
+                 "compute the same function")
+    del lib, da, db
+    tk = cuda_time_ms(lambda: runner.vjp(a_pad, bt_phys, g), 10)
+    tp = cuda_time_ms(lambda: runner.vjp(a_pad, bt_phys, g, plain=True), 3,
+                      warmup=1)
+    tl = cuda_time_ms(lambda: (torch.sparse.mm(mats[0], b2),
+                               torch.sparse.mm(mats[1], a_pad[0])), 10)
+    n = pa.n_entries + pb.n_entries
+    # g, A and B^T read once, dA and dB^T written once, and the read
+    # pattern once: each slot's A row and lane, int32 each (P and P^T are
+    # two orders of the one pattern)
+    nbytes = (4 * g.numel() + 8 * a_pad.numel() + 8 * bt_phys.numel()
+              + 8 * g.shape[1])
+    bnd = bound_times(nbytes, 2.0 * n * kc, FP32_FLOPS)
+    say(f"[time] {label} hybrid backward B1 (2 x sddmm_csr_spmm_float32, "
+        f"{pa.n_entries} + {pb.n_entries} entries, K={K}): kernel "
+        f"{tk['median_ms']:.4f} ms, plain {tp['median_ms']:.4f} ms, "
+        f"torch.sparse.mm of the read pattern {tl['median_ms']:.4f} ms, "
+        f"bound {max(bnd.values()):.4f} ms = "
+        f"{100 * max(bnd.values()) / tk['median_ms']:.1f} % of it on {card}")
+    return {"err": 0.0, "ms": tk["median_ms"], "plain_ms": tp["median_ms"],
+            "library_ms": tl["median_ms"], **bnd}
+
+
+def time_csr_backward(torch, label, csr, a, bt, plan, card):
+    """B4: csr_sddmm_torch's backward on one cell's CSR baseline operands.
+    Its path: one forward, then the counts zeroed just before the user's
+    ``backward()`` and read just after (2 SpMM launches, over the pattern
+    and its transpose, built at that first backward and kept on the CSR
+    baseline's ``plan``).  Its record: the two
+    launches beside their plain versions and torch.sparse.mm of (g ⊙ S)
+    and of its transpose.  Returns (launches, record)."""
+    from sddmm_tpu_torch import _kernels
+    from sddmm_tpu_torch.ops.csr_sddmm import csr_sddmm_torch
+    from sddmm_tpu_torch.utils.timing import cuda_time_ms
+    rows = torch.as_tensor(csr.row_indices(), dtype=torch.int32,
+                           device=DEVICE)
+    cols = torch.as_tensor(csr.col_idx, dtype=torch.int32, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    g = torch.rand((1, csr.nnz), generator=gen, device=DEVICE) * 2
+    a_t, bt_t = a.clone().requires_grad_(), bt.clone().requires_grad_()
+    out = csr_sddmm_torch(a_t, bt_t, rows, cols, plan)
+    torch.cuda.synchronize()
+    _kernels.launches.clear()
+    out.backward(g[0])
+    torch.cuda.synchronize()
+    counts = dict(_kernels.launches)
+    if counts != {_kernels.SPMM_ENTRY: 2}:
+        fail(f"{label} csr_sddmm backward: launches {counts}")
+    grads = plan.grads
+    da = torch.empty((1, 1) + tuple(a.shape), device=DEVICE)
+    db = torch.empty((1, 1) + tuple(bt.shape), device=DEVICE)
+
+    def kernel(plain=False):
+        grads.spmm(g, bt[None, None], da, plain)
+        grads.spmm_t(g, a[None, None], db, plain)
+
+    kernel(plain=True)
+    torch.cuda.synchronize()
+    rel = max(rel_nonzero(a_t.grad, da[0, 0]), rel_nonzero(bt_t.grad,
+                                                            db[0, 0]))
+    if not rel <= BACKWARD_REL:
+        fail(f"{label} csr_sddmm backward: max rel {rel:.3e} vs plain")
+    err = float(max((a_t.grad - da[0, 0]).abs().max(),
+                    (bt_t.grad - db[0, 0]).abs().max()))
+    row_ptr = torch.as_tensor(csr.row_ptr, device=DEVICE)
+    s = torch.sparse_csr_tensor(row_ptr, cols.long(), g[0], size=csr.shape)
+    st = s.to_sparse_coo().t().to_sparse_csr()
+    tk = cuda_time_ms(kernel, 10)
+    tp = cuda_time_ms(lambda: kernel(plain=True), 3, warmup=1)
+    tl = cuda_time_ms(lambda: (torch.sparse.mm(s, bt),
+                               torch.sparse.mm(st, a)), 10)
+    K = a.shape[1]
+    # g read once, A and B^T read and dA, dB^T written once, the pattern
+    # once: each entry's row and column, int32 each
+    nbytes = 4 * csr.nnz + 8 * (a.numel() + bt.numel()) + 8 * csr.nnz
+    bnd = bound_times(nbytes, 4.0 * csr.nnz * K, FP32_FLOPS)
+    say(f"[time] {label} csr_sddmm backward B4 (2 x sddmm_csr_spmm_float32, "
+        f"{csr.nnz} entries, K={K}, max rel vs plain {rel:.3e}): kernel "
+        f"{tk['median_ms']:.4f} ms, plain {tp['median_ms']:.4f} ms, "
+        f"torch.sparse.mm of S and S^T {tl['median_ms']:.4f} ms, bound "
+        f"{max(bnd.values()):.4f} ms on {card}")
+    return counts, {"err": err, "ms": tk["median_ms"],
+                    "plain_ms": tp["median_ms"],
+                    "library_ms": tl["median_ms"], **bnd}
+
+
+def time_aggregation_backward(torch, label, model, d, card):
+    """B3's two records at one model's shapes, all heads in one launch
+    each: the attention's cotangent (the gather-dot at the pattern, beside
+    ``sampled_addmm`` on the heads' block-diagonal CSR) and V's (the SpMM
+    on the transpose, beside ``torch.sparse.mm``), each beside its plain
+    version and its bound."""
+    from sddmm_tpu_torch.ops import hybrid as hy
+    from sddmm_tpu_torch.utils.timing import cuda_time_ms
+    agg = model._agg
+    grads = agg.plan.grads
+    H = agg.heads
+    m, n = grads.shape
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    nnz = agg.cols.shape[0] // H
+    attn = torch.rand((H, nnz), generator=gen, device=DEVICE)
+    v = torch.rand((H, n, d), generator=gen, device=DEVICE)
+    dout = torch.rand((H, m, d), generator=gen, device=DEVICE)
+    dv = torch.empty((H, 1, n, d), device=DEVICE)
+    rows32, cols32, _ = grads.gather_index
+    out = {}
+
+    def d_values():
+        return grads.sddmm(dout, v)
+
+    def d_values_plain():
+        return torch.stack([hy.residual_gather_dot_plain(
+            dout[h], v[h], rows32, cols32) for h in range(H)])
+
+    def d_dense(plain=False):
+        return grads.spmm_t(attn, dout[:, None], dv, plain)
+
+    got, want = d_values(), d_values_plain()
+    torch.cuda.synchronize()
+    rel = rel_nonzero(got, want)
+    if not rel <= BACKWARD_REL:
+        fail(f"{label} B3 d values: max rel {rel:.3e} vs plain")
+    lib = sampled_addmm_ms(torch, dout.reshape(H * m, d), v.reshape(H * n, d),
+                           agg.rows, agg.cols, 10)
+    nbytes = 4 * H * nnz + 4 * H * d * (m + n) + 8 * nnz
+    bnd = bound_times(nbytes, 2.0 * H * nnz * d, FP32_FLOPS)
+    out["B3 values"] = {"err": float((got - want).abs().max()),
+                        "ms": cuda_time_ms(d_values, 10)["median_ms"],
+                        "plain_ms": cuda_time_ms(d_values_plain, 3,
+                                                 warmup=1)["median_ms"],
+                        "library_ms": lib, **bnd}
+    got = d_dense().clone()
+    want = d_dense(plain=True).clone()
+    torch.cuda.synchronize()
+    rel2 = rel_nonzero(got, want)
+    if not rel2 <= BACKWARD_REL:
+        fail(f"{label} B3 d dense: max rel {rel2:.3e} vs plain")
+    st = torch.sparse_csr_tensor(
+        agg.row_ptr, agg.cols.long(), attn.reshape(-1),
+        size=(agg.num_rows, H * n)).to_sparse_coo().t().to_sparse_csr()
+    flat_dout = dout.reshape(H * m, d)
+    lib = torch.sparse.mm(st, flat_dout)
+    if not rel_nonzero(got.reshape(H * n, d), lib) <= BACKWARD_REL:
+        fail(f"{label}: torch.sparse.mm of S^T does not compute the same "
+             "function")
+    # as d values': the heads' attention and dOut read, dV written, the
+    # pattern (row and column, int32 each) read once for all heads
+    nbytes = 4 * H * nnz + 4 * H * d * (m + n) + 8 * nnz
+    bnd = bound_times(nbytes, 2.0 * H * nnz * d, FP32_FLOPS)
+    out["B3 dense"] = {"err": float((got - want).abs().max()),
+                       "ms": cuda_time_ms(d_dense, 10)["median_ms"],
+                       "plain_ms": cuda_time_ms(lambda: d_dense(True), 3,
+                                                warmup=1)["median_ms"],
+                       "library_ms": cuda_time_ms(lambda: torch.sparse.mm(
+                           st, flat_dout), 10)["median_ms"], **bnd}
+    for key, what, lname in (("B3 values", "gather-dot, d values",
+                              "sampled_addmm"),
+                             ("B3 dense", "SpMM on S^T, d V",
+                              "torch.sparse.mm")):
+        r = out[key]
+        say(f"[time] {label} aggregation backward B3 ({what}; {H} head(s) "
+            f"x {nnz} entries, K={d}, max rel vs plain "
+            f"{max(rel, rel2):.3e}): kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, {lname} {r['library_ms']:.4f} ms, "
+            f"bound {max(r['bytes_ms'], r['ops_ms']):.4f} ms on {card}")
+    return out
+
+
+def time_softmax_backward(torch, sm, label, model, d, card):
+    """B2's record at one model's shapes: the softmax backward kernel
+    (one launch, written at inv_idx into the zeroed packed gradient)
+    beside its plain version and ``torch._sparse_softmax_backward_data``
+    on COO tensors of the same p and g (the op behind torch.sparse.softmax's
+    backward; the heads' block-diagonal pattern, the scale applied outside
+    the timed call, as K10's yardstick does)."""
+    from sddmm_tpu_torch.utils.timing import cuda_time_ms
+    agg, runner = model._agg, model.runner
+    H = agg.heads
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    F = runner.packed.packed_size
+    flat = torch.randn((H, F), generator=gen, device=DEVICE) * 4
+    inv, scale = runner.inv_idx32, 1.0 / d ** 0.5
+    p = sm.segment_softmax_torch(flat, agg.head_row_ptr, scale, inv,
+                                 agg.long_rows)
+    g = torch.randn(p.shape, generator=gen, device=DEVICE)
+
+    def kernel():
+        return sm.segment_softmax_backward(p, g, agg.head_row_ptr, scale,
+                                           inv, F, agg.long_rows)
+
+    def plain():
+        return sm.segment_softmax_backward_plain(p, g, agg.head_row_ptr,
+                                                 scale, inv, F)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    rel = float((got - want).abs().max() / want.abs().max())
+    if not rel <= SOFTMAX_REL_TOL:
+        fail(f"{label} softmax backward: max |kernel - plain| / max |plain|"
+             f" {rel:.3e}")
+    err = float((got - want).abs().max())
+
+    def coo(x):
+        return torch.sparse_coo_tensor(
+            torch.stack([agg.rows, agg.cols.long()]), x.reshape(-1),
+            size=(agg.num_rows, agg.num_rows)).coalesce()
+
+    p_c, g_c, x_c = coo(p), coo(g), coo(flat[:, inv.long()] * scale)
+
+    def library():
+        return torch._sparse_softmax_backward_data(g_c, p_c, 1, x_c)
+
+    lib = library().values().reshape(p.shape) * scale
+    at_inv = got[:, inv.long()]
+    lib_rel = float((lib - at_inv).abs().max() / at_inv.abs().max())
+    if not lib_rel <= BACKWARD_REL:
+        fail(f"{label}: torch._sparse_softmax_backward_data does not compute "
+             f"the same function (max |diff| / max |kernel| {lib_rel:.3e})")
+    del got, want, lib, at_inv
+    tk = cuda_time_ms(kernel, 20)
+    tp = cuda_time_ms(plain, 5)
+    tl = cuda_time_ms(library, 20)
+    nnz = inv.numel()
+    # p and g read once, inv_idx and the row pointers once, every packed
+    # slot written once (the zeroed gradient)
+    nbytes = 8 * H * nnz + 4 * nnz + 8 * agg.head_row_ptr.numel() + 4 * H * F
+    bnd = bound_times(nbytes, 4.0 * H * nnz, FP32_FLOPS)
+    say(f"[time] {label} sddmm_segment_softmax_backward_float32 ({H} "
+        f"head(s) x {nnz} entries into {F} slots, max |kernel - plain| / "
+        f"max |plain| {rel:.3e}): kernel {tk['median_ms']:.4f} ms, plain "
+        f"{tp['median_ms']:.4f} ms, torch._sparse_softmax_backward_data "
+        f"{tl['median_ms']:.4f} ms (max |diff| / max |kernel| "
+        f"{lib_rel:.3e}), bound {max(bnd.values()):.4f} ms = "
+        f"{100 * max(bnd.values()) / tk['median_ms']:.1f} % of it on {card}")
+    return {"err": err, "ms": tk["median_ms"], "plain_ms": tp["median_ms"],
+            "library_ms": tl["median_ms"], **bnd}
+
+
+def op_launches(torch, loss, ops=("_HybridFnBackward", "_SoftmaxFnBackward",
+                                  "_SpmmFnBackward")):
+    """``{op: {kernel: launches}}``, filled while ``loss.backward()`` runs:
+    hooks on the nodes of ``loss``'s graph of the port's autograd ops
+    ``ops`` read the launch counts just before and just after each node's
+    backward, so each kernel's launches are told apart by the op that made
+    them."""
+    from sddmm_tpu_torch import _kernels
+    counts = {op: {} for op in ops}
+    seen, todo = set(), [loss.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        todo.extend(f for f, _ in node.next_functions)
+        op = type(node).__name__
+        if op not in counts:
+            continue
+        before = {}
+
+        def pre(grad_out, before=before):
+            before.clear()
+            before.update(_kernels.launches)
+
+        def post(grad_in, grad_out, before=before, into=counts[op]):
+            for name, c in _kernels.launches.items():
+                if c > before.get(name, 0):
+                    into[name] = into.get(name, 0) + c - before.get(name, 0)
+
+        node.register_prehook(pre)
+        node.register_hook(post)
+    return counts
+
+
+def model_grads(torch, model, x, plain=False):
+    """The weight gradients of sum(out^2) through ``model``."""
+    model.zero_grad()
+    model(x, plain=plain).square().sum().backward()
+    return [w.grad.clone() for w in model.parameters()]
+
+
+def check_model_grads(torch, label, model, x, kernel_grads, golden_fn):
+    """A model's kernel-path weight gradients against its plain path's
+    (max abs diff / max |plain| per weight, MODEL_PLAIN_TOL) and against
+    autograd of an fp64 reference (max abs err / max |exact| per weight,
+    GRAD_FP64_TOL: each is a sum over every position of terms of both
+    signs, so no elementwise contract holds near its zeros)."""
+    plain = model_grads(torch, model, x, plain=True)
+    exact = golden_fn()
+    rel_p = rel_e = 0.0
+    for g_k, g_p, g_e in zip(kernel_grads, plain, exact):
+        rel_p = max(rel_p, float((g_k - g_p).abs().max() / g_p.abs().max()))
+        rel_e = max(rel_e, float((g_k.double() - g_e).abs().max()
+                                 / g_e.abs().max()))
+    say(f"[train] {label} weight gradients of sum(out^2): vs the plain path "
+        f"max abs diff / max |plain| {rel_p:.3e} (tol {MODEL_PLAIN_TOL}); "
+        f"vs fp64 autograd max abs err / max |exact| {rel_e:.3e} (tol "
+        f"{GRAD_FP64_TOL})")
+    if not rel_p <= MODEL_PLAIN_TOL:
+        fail(f"{label}: weight gradients {rel_p:.3e} off the plain path's")
+    if not rel_e <= GRAD_FP64_TOL:
+        fail(f"{label}: weight gradients {rel_e:.3e} off fp64")
+
+
+def fp64_params(torch, model):
+    return [w.detach().double().requires_grad_() for w in model.parameters()]
+
+
+def run_training(torch, sm, card, graph, x_graph, block, x_block, mask,
+                 adj, csr16):
+    """Phase 11, the training path: the two models' backward of
+    sum(out^2) (the launch counts zeroed just before the two
+    ``backward()`` calls and read just after, and by op around each op's
+    backward), their weight gradients against the plain path and fp64
+    autograd, then the factorization trainer on clustered16 (20 Adam
+    steps, the counts zeroed just before and read just after), checked and
+    timed.  Returns (the models' backward launches by op, training
+    launches, records)."""
+    import numpy as np
+    import scipy.sparse as sps
+    from sddmm_tpu_torch import _kernels
+    from sddmm_tpu_torch.models import (SparseFactorizationModel,
+                                        dense_reference_attention)
+    from sddmm_tpu_torch.utils.check import check_values
+    from sddmm_tpu_torch.utils.checkpoint import Checkpointer
+    from sddmm_tpu_torch.utils.timing import cuda_time_ms
+    rec = {name: new_record(0.0)
+           for name in ("B1", "B2", "B3 values", "B3 dense")}
+    # -- the models' backward --
+    losses = {}
+    for label, model, x in (("graph attention", graph, x_graph),
+                            ("block-sparse attention", block, x_block)):
+        model.zero_grad()
+        losses[label] = model(x).square().sum()
+    by_op = {label: op_launches(torch, loss) for label, loss in losses.items()}
+    torch.cuda.synchronize()
+    _kernels.launches.clear()
+    per_model = {}
+    for label, loss in losses.items():
+        before = dict(_kernels.launches)
+        loss.backward()
+        per_model[label] = {n: c - before.get(n, 0)
+                            for n, c in _kernels.launches.items()
+                            if c > before.get(n, 0)}
+    torch.cuda.synchronize()
+    del losses
+    gather = "sddmm_gather_dot_float32_float32"
+    want = {_kernels.SOFTMAX_BWD_ENTRY: 1, gather: 1, _kernels.SPMM_ENTRY: 3}
+    want_by_op = {"_HybridFnBackward": {_kernels.SPMM_ENTRY: 2},
+                  "_SoftmaxFnBackward": {_kernels.SOFTMAX_BWD_ENTRY: 1},
+                  "_SpmmFnBackward": {gather: 1, _kernels.SPMM_ENTRY: 1}}
+    for label, got in per_model.items():
+        say(f"[train] {label} backward launches: {got}; by op: "
+            f"{by_op[label]}")
+        if got != want or by_op[label] != want_by_op:
+            fail(f"{label} backward: launches {got} by op {by_op[label]}, "
+                 f"want {want} by op {want_by_op}")
+    # each op's launches over both models: B2's in the softmax's backward,
+    # B3's two kernels' in the aggregation's
+    model_bwd = {op: {} for op in want_by_op}
+    for ops in by_op.values():
+        for op, counts in ops.items():
+            for name, c in counts.items():
+                model_bwd[op][name] = model_bwd[op].get(name, 0) + c
+    for label, model in (("graph attention", graph),
+                         ("block-sparse attention", block)):
+        say(f"[train] {label}: read pattern and plans "
+            f"{model.runner.grad_pattern_seconds:.2f} s on the host")
+    grads = {label: [w.grad.clone() for w in model.parameters()]
+             for label, model in (("graph attention", graph),
+                                  ("block-sparse attention", block))}
+
+    def graph_golden():
+        params = fp64_params(torch, graph)
+        graph_reference(torch, x_graph, params, adj).square().sum().backward()
+        return [w.grad for w in params]
+
+    def block_golden():
+        params = fp64_params(torch, block)
+        dense_reference_attention(params, x_block,
+                                  mask).square().sum().backward()
+        return [w.grad for w in params]
+
+    check_model_grads(torch, "graph attention (clustered16, F=D=128)", graph,
+                      x_graph, grads["graph attention"], graph_golden)
+    check_model_grads(torch, "block-sparse attention (Longformer-base shape)",
+                      block, x_block, grads["block-sparse attention"],
+                      block_golden)
+    for label, model, d in (("graph attention", graph, GRAPH_WIDTH),
+                            ("block-sparse attention", block,
+                             LONGFORMER["head_dim"])):
+        add_times(rec, {"B2": time_softmax_backward(torch, sm, label, model,
+                                                    d, card),
+                        **time_aggregation_backward(torch, label, model, d,
+                                                    card)})
+
+    # -- the factorization trainer --
+    t0 = time.perf_counter()
+    model = SparseFactorizationModel.from_csr(
+        csr16, TRAIN["k"], learning_rate=TRAIN["lr"], device=DEVICE)
+    p = model.packed
+    say(f"[pack] factorization clustered16 K={TRAIN['k']}: packed "
+        f"{p.packed_size} slots, residual {p.nnz_res}: "
+        f"{time.perf_counter() - t0:.1f} s to pack")
+    tgt = np.asarray(csr16.values, dtype=np.float32)
+    tp = model.pack_targets(tgt)
+    model.init(torch.Generator().manual_seed(0))
+    init = [w.clone() for w in model.params()]
+    # step 1's gradients against fp64 scipy
+    loss = model.loss(tp)
+    loss.backward()
+    torch.cuda.synchronize()
+    say(f"[train] factorization: read pattern and its plans "
+        f"{model.runner.grad_pattern_seconds:.2f} s on the host")
+    with torch.no_grad():
+        pred = model(order="csr").double()
+    g = (2.0 / p.nnz) * (pred - torch.as_tensor(tgt, device=DEVICE).double())
+    s = sps.csr_matrix((g.cpu().numpy(), csr16.col_idx, csr16.row_ptr),
+                       shape=csr16.shape)
+    for name, got, want in (
+            ("dA", model.a.grad, s @ init[1].double().cpu().numpy()),
+            ("dB^T", model.bt.grad, s.T @ init[0].double().cpu().numpy())):
+        res = check_values(want, got.cpu().numpy())
+        rel = res.max_abs_err / float(np.abs(want).max())
+        say(f"[train] factorization step 1 {name} vs fp64 scipy: {res}; max "
+            f"abs err / max |exact| {rel:.3e} (tol {GRAD_FP64_TOL})")
+        if not res.passed or res.num_errors or not rel <= GRAD_FP64_TOL:
+            fail(f"factorization step 1 {name} vs fp64: {res}, max abs err "
+                 f"/ max |exact| {rel:.3e}")
+    model.zero_grad()
+    # 20 steps, the launch counts zeroed just before and read just after
+    step = model.make_train_step()
+    _kernels.launches.clear()
+    train_losses = [float(step(tp)) for _ in range(TRAIN["steps"])]
+    torch.cuda.synchronize()
+    train_launches = dict(_kernels.launches)
+    steps = TRAIN["steps"]
+    want = {"sddmm_tile_dot_float32": steps, _kernels.SPMM_ENTRY: 2 * steps}
+    if p.nnz_res:
+        want["sddmm_gather_dot_float32_float32"] = steps
+    say(f"[train] factorization, {steps} Adam steps (lr {TRAIN['lr']}): "
+        f"launches {train_launches}; losses {train_losses[0]:.6f} -> "
+        f"{train_losses[-1]:.6f}")
+    if train_launches != want:
+        fail(f"factorization: launches {train_launches}, want {want}")
+    if not (np.isfinite(train_losses).all()
+            and train_losses[-1] < train_losses[0]):
+        fail(f"factorization: losses {train_losses[0]} -> "
+             f"{train_losses[-1]}")
+    # the first 3 losses on the plain path, from the same start
+    model.load_params(init)
+    pstep = model.make_train_step(plain=True)
+    plain_losses = [float(pstep(tp)) for _ in range(3)]
+    rel = max(abs(a_ - b_) / abs(b_) for a_, b_ in
+              zip(train_losses[:3], plain_losses))
+    say(f"[train] factorization first 3 losses, kernels {train_losses[:3]} "
+        f"vs plain {plain_losses}: max rel {rel:.3e} (tol {LOSS_REL_TOL})")
+    if not rel <= LOSS_REL_TOL:
+        fail(f"factorization: first losses {rel:.3e} off the plain path's")
+    # a checkpoint: save, step, restore, the same step again bit for bit
+    model.load_params(init)
+    for _ in range(3):
+        step(tp)
+    with tempfile.TemporaryDirectory() as d:
+        ck = Checkpointer(d)
+        ck.save(3, model.state())
+        after = float(step(tp))
+        a_after = model.a.detach().clone()
+        model.init(torch.Generator().manual_seed(9))
+        model.load_state(ck.restore(map_location="cpu"))
+        again = float(step(tp))
+        if ck.latest_step != 3 or again != after or not torch.equal(
+                a_after, model.a.detach()):
+            fail(f"factorization checkpoint: resumed step gives {again}, "
+                 f"the original {after}")
+    say(f"[train] factorization checkpoint: saved at step 3, restored "
+        f"into re-initialised factors; step 4 bit-equal ({after:.6f})")
+
+    # the step's time, split with CUDA events, beside the plain path's
+    def split(plain, iters, warmup):
+        st = model.make_train_step(plain=plain)
+        for _ in range(warmup):
+            st(tp)
+        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+              for _ in range(iters)]
+        for e in ev:
+            model.optimizer.zero_grad(set_to_none=True)
+            e[0].record()
+            loss = model.loss(tp, plain=plain)
+            e[1].record()
+            loss.backward()
+            e[2].record()
+            model.optimizer.step()
+            e[3].record()
+        torch.cuda.synchronize()
+        med = [statistics.median(e[i].elapsed_time(e[i + 1]) for e in ev)
+               for i in range(3)]
+        total = statistics.median(e[0].elapsed_time(e[3]) for e in ev)
+        return med, total
+
+    (fk, bk, ok), tk = split(False, 10, 3)
+    (fp, bp, op), tpl = split(True, 3, 1)
+    say(f"[time] factorization step (clustered16, K={TRAIN['k']}, "
+        f"{p.packed_size} slots): kernels {tk:.4f} ms = forward {fk:.4f} + "
+        f"backward {bk:.4f} + Adam {ok:.4f} (medians of 10 after 3); plain "
+        f"versions {tpl:.4f} ms = {fp:.4f} + {bp:.4f} + {op:.4f} (of 3 after "
+        f"1) on {card}")
+    # B1's record at the trainer's shapes, on U[0,2) operands and
+    # cotangent (the yardstick is compared element by element)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    a_ops, bt_phys = model.runner.device_prepare(*(
+        torch.rand((n + 1, TRAIN["k"]), generator=gen, device=DEVICE) * 2
+        for n in (p.m, p.n)))
+    gp = torch.rand((1, p.packed_size), generator=gen, device=DEVICE) * 2
+    add_times(rec, {"B1": time_hybrid_backward(
+        torch, "factorization clustered16", model.runner, a_ops[None],
+        bt_phys[None], gp, card)})
+    return model_bwd, train_launches, rec
+
+
 def main() -> None:
     if not (ROOT / "sddmm_tpu_torch" / "__init__.py").is_file() or not (
             ROOT / "results" / "tuned_configs.json").is_file():
@@ -968,6 +1647,7 @@ def main() -> None:
     from sddmm_tpu_torch.utils.check import check_values
     from sddmm_tpu_torch.utils.timing import cuda_time_ms
     from sddmm_tpu_torch.data import generate
+    from sddmm_tpu_torch.reorder.autotune import from_params
 
     # -- 2. build --
     with Phase("build"):
@@ -1243,9 +1923,63 @@ def main() -> None:
 
     # -- 9. the models: the serving path of the two attention families --
     with Phase("models"):
-        model_launches, model_rec = run_models(
+        model_launches, model_rec, models = run_models(
             torch, sp, sm, card, csrs[GRAPH_CELL])
     rec.update(model_rec)
+
+    # -- 10. the backward passes at the main path's shapes --
+    with Phase("backward checks"):
+        grad_abs = 0.0
+        for name, k in GRAD_CELLS:
+            csr, runner, _, a, b = cells[(name, k)]
+            _, err = check_backward(torch, f"{name}@K{k}", runner, csr, a, b,
+                                    heads=1)
+            grad_abs = max(grad_abs, err)
+        pl = generate.powerlaw_graph(2048, avg_degree=16, seed=44)
+        t = from_params(pl, 64, alpha=0.1, delta=0.05, group_size=2,
+                        k_chunks=2, hub_cols=256, hot_rows=128,
+                        hot_rows_pre=True)
+        _, err = check_backward(
+            torch, "powerlaw 2048 slabs C=2", hybrid_runner(
+                t.packed, t, "tf32"), pl,
+            generate.make_dense(pl.m, 64, seed=1),
+            generate.make_dense(64, pl.n, seed=2), heads=2)
+        grad_abs = max(grad_abs, err)
+        csr, _, _, a, b = cells[("clustered16", 128)]
+        csr_bwd_launches, b4 = time_csr_backward(
+            torch, "clustered16@K128", csr, torch.as_tensor(a, device=DEVICE),
+            torch.as_tensor(np.ascontiguousarray(b.T), device=DEVICE),
+            base_plan["clustered16"], card)
+        # B5: the dense class's backward is two fp32 cuBLAS products and the
+        # CSR gather's scatter (no hand kernel)
+        csr, dense, ops, _, _ = cells[("dlmc", 128)]
+        a_t, bt_t = (x.float().clone().requires_grad_() for x in ops)
+        out = dense.run_padded(a_t, bt_t, order="csr")
+        g = torch.rand(out.shape, device=DEVICE)
+        b5 = cuda_time_ms(lambda: torch.autograd.grad(
+            out, (a_t, bt_t), g, retain_graph=True), 10)
+        # g read, the (M, N) cotangent written once, A and B^T read, dA and
+        # dB^T written; two products of 2*M*N*K operations in fp32
+        K = a_t.shape[1]
+        bnd = bound_times(4 * csr.nnz + 4 * csr.m * csr.n
+                          + 8 * (a_t.numel() + bt_t.numel()),
+                          4.0 * csr.m * csr.n * K, FP32_FLOPS)
+        say(f"[time] dlmc@K128 dense backward B5 (scatter into (M, N), 2 "
+            f"fp32 cuBLAS products): {b5['median_ms']:.4f} ms, bound "
+            f"{max(bnd.values()):.4f} ms (by "
+            f"{'bytes' if bnd['bytes_ms'] >= bnd['ops_ms'] else 'operations'}"
+            f") on {card}")
+        del out, a_t, bt_t, g
+
+    # -- 11. the training path --
+    with Phase("training"):
+        graph, x_graph, block, x_block, mask = models
+        model_bwd, train_launches, train_rec = run_training(
+            torch, sm, card, graph, x_graph, block, x_block, mask,
+            csrs[GRAPH_CELL], csrs["clustered16"])
+    train_rec["B1"]["max_abs_err"] = grad_abs
+    train_rec["B4"] = new_record(0.0)
+    add_times(train_rec, {"B4": b4})
     rec[_kernels.SPMM_ENTRY]["max_abs_err"] = max(
         rec[_kernels.SPMM_ENTRY]["max_abs_err"], abs3)
     rec[_kernels.SOFTMAX_ENTRY]["max_abs_err"] = max(
@@ -1290,6 +2024,33 @@ def main() -> None:
         "sddmm_tpu_torch/csrc/gather_dot.cu",
         "sddmm_tpu/ops/csr_sddmm.py:25", csr_launches,
         "CSR baseline (K=128 cells)", base_rec))
+    # the backward kernels (this slice): the VJPs of the JAX programs
+    for key, name, source, replaces, launches, path in (
+            ("B1", f"{_kernels.SPMM_ENTRY} (hybrid backward B1)", "spmm.cu",
+             "sddmm_tpu/ops/hybrid.py:135",
+             train_launches.get(_kernels.SPMM_ENTRY, 0),
+             f"factorization training ({TRAIN['steps']} steps)"),
+            ("B2", _kernels.SOFTMAX_BWD_ENTRY, "segment_softmax.cu",
+             "sddmm_tpu/models/graph_attention.py:30",
+             model_bwd["_SoftmaxFnBackward"].get(_kernels.SOFTMAX_BWD_ENTRY,
+                                                 0),
+             "models' backward (graph attention, Longformer shape)"),
+            # B3's counts: those read while the aggregation's backward ran
+            ("B3 values", "sddmm_gather_dot_float32_float32 (SpMM backward "
+             "B3, d values)", "gather_dot.cu", "sddmm_tpu/ops/spmm.py:23",
+             model_bwd["_SpmmFnBackward"].get(
+                 "sddmm_gather_dot_float32_float32", 0),
+             "models' backward (graph attention, Longformer shape)"),
+            ("B3 dense", f"{_kernels.SPMM_ENTRY} (SpMM backward B3, d dense)",
+             "spmm.cu", "sddmm_tpu/ops/spmm.py:23",
+             model_bwd["_SpmmFnBackward"].get(_kernels.SPMM_ENTRY, 0),
+             "models' backward (graph attention, Longformer shape)"),
+            ("B4", f"{_kernels.SPMM_ENTRY} (CSR SDDMM backward B4)",
+             "spmm.cu", "sddmm_tpu/ops/csr_sddmm.py:25",
+             csr_bwd_launches.get(_kernels.SPMM_ENTRY, 0),
+             "csr_sddmm backward (clustered16 K=128)")):
+        record.append(record_entry(name, f"sddmm_tpu_torch/csrc/{source}",
+                                   replaces, launches, path, train_rec[key]))
     for r in record:
         if not r["launches"]:
             fail(f"{r['name']} was not launched on its path")

@@ -2,6 +2,7 @@
 """Device time by kernel of the PyTorch/CUDA port's calls, on one card.
 
     python scripts/torch_profile.py [--root DIR] [--label NAME] [--calls 20]
+                                    [--training-only]
 
 Imports ``sddmm_tpu_torch`` from the checkout at DIR (default: the one this
 script is in), so that one session on one card can measure two checkouts
@@ -21,8 +22,13 @@ kernel group from ``torch.profiler`` (the tile kernel, the gather-dot, the
 segment softmax, the SpMM, cuBLAS, and every other kernel: torch ops,
 cuSPARSE), the launches of a call per group, the device busy share (device
 time over host wall), and the largest kernels of the "other" group by name
-(``other_top``: [name, ms a call, launches a call]).  Needs a CUDA card;
-imports nothing of JAX.
+(``other_top``: [name, ms a call, launches a call]).  Where the checkout
+has the training path (``models.factorization``), it adds the training
+cells: one factorization train step on clustered16 at K=128 (forward,
+backward, Adam), the two models' forward and backward of sum(out^2), and
+the dense class's forward and backward on dlmc into CSR order
+(``--training-only``: these alone).  Needs a CUDA card; imports nothing of
+JAX.
 """
 
 import argparse
@@ -51,6 +57,8 @@ def group(name: str) -> str:
         return "gather_dot"
     if "spmm" in name:
         return "spmm"
+    if "segment_softmax_backward" in name:
+        return "softmax_bwd"
     if "segment_softmax" in name:
         return "softmax"
     return "other"
@@ -84,7 +92,10 @@ def profile(torch, fn, calls: int) -> dict:
         launches = collections.Counter()
         other = collections.defaultdict(lambda: [0.0, 0.0])
         for e in prof.events():
-            if e.device_type != DeviceType.CUDA:
+            # a user annotation (``Optimizer.step#Adam.step``) spans kernels
+            # the profiler lists too: not a kernel of its own
+            if (e.device_type != DeviceType.CUDA
+                    or getattr(e, "is_user_annotation", False)):
                 continue
             g = group(e.name)
             t = e.time_range.elapsed_us() / 1e3 / calls
@@ -138,11 +149,47 @@ def sampled_addmm(torch, csr, a, b):
     return lambda: torch.sparse.sampled_addmm(s, a_t, mat2, beta=0.0)
 
 
+def training(torch, smoke, emit, csrs, graph, x_graph, block, x_block,
+             calls):
+    """The training cells: a factorization train step, the models'
+    forward and backward, and the dense class's into CSR order."""
+    from sddmm_tpu_torch.models import SparseFactorizationModel
+    from sddmm_tpu_torch.ops.dense import DenseSDDMM
+    from sddmm_tpu_torch.data import generate
+    csr = csrs["clustered16"]
+    model = SparseFactorizationModel.from_csr(
+        csr, smoke.TRAIN["k"], learning_rate=smoke.TRAIN["lr"],
+        device="cuda")
+    model.init(torch.Generator().manual_seed(0))
+    step = model.make_train_step()
+    tp = model.pack_targets(csr.values)
+    emit(f"factorization step K={smoke.TRAIN['k']}", profile(
+        torch, lambda: step(tp), calls))
+    for name, m, x in (("graph attention", graph, x_graph),
+                       ("Longformer", block, x_block)):
+        def fwd_bwd(m=m, x=x):
+            m.zero_grad(set_to_none=True)
+            m(x).square().sum().backward()
+        emit(f"{name} forward + backward", profile(torch, fwd_bwd, calls))
+    csr = csrs["dlmc"]
+    dense = DenseSDDMM.from_csr(csr, compute_dtype="tf32", device="cuda")
+    a, bt = dense.prepare_operands(generate.make_dense(csr.m, 128, seed=1),
+                                   b=generate.make_dense(128, csr.n, seed=2))
+    a.requires_grad_()
+    bt.requires_grad_()
+    g = torch.rand(csr.nnz, device="cuda")
+    emit("dlmc dense forward + backward (CSR order)", profile(
+        torch, lambda: dense.run_padded(a, bt, order="csr").backward(g),
+        calls))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(ROOT))
     ap.add_argument("--label", default="")
     ap.add_argument("--calls", type=int, default=20)
+    ap.add_argument("--training-only", action="store_true",
+                    help="profile the training cells only")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -175,10 +222,26 @@ def main() -> None:
     configs = json.loads((ROOT / "results" / "tuned_configs.json")
                          .read_text())[f"k{K}"]
     gens = smoke.suite()
-    csrs = {}
+    csrs = {name: gens[name]() for name in CELLS}
+    # the models outside inference_mode: the training cells differentiate
+    # through their weights
+    lf = smoke.LONGFORMER
+    adj = csrs[smoke.GRAPH_CELL]
+    graph = GraphAttentionLayer(adj, smoke.GRAPH_WIDTH, smoke.GRAPH_WIDTH,
+                                device="cuda")
+    graph.init(torch.Generator().manual_seed(0))
+    mask = make_attention_mask(lf["seq_len"], window=lf["window"],
+                               num_global=lf["num_global"])
+    block = BlockSparseAttention(mask, lf["hidden"], lf["heads"],
+                                 lf["head_dim"], device="cuda")
+    block.init(torch.Generator().manual_seed(1))
+    x_graph = torch.as_tensor(generate.make_dense(
+        adj.m, smoke.GRAPH_WIDTH, seed=1), device="cuda")
+    x_block = torch.as_tensor(generate.make_dense(
+        lf["seq_len"], lf["hidden"], seed=3), device="cuda")
     with torch.inference_mode():
-        for name in CELLS:
-            csr = csrs[name] = gens[name]()
+        for name in () if args.training_only else CELLS:
+            csr = csrs[name]
             cfg = configs[name]
             if cfg.get("dense"):
                 runner = DenseSDDMM.from_csr(
@@ -202,26 +265,14 @@ def main() -> None:
             emit(f"{name}@K{K} sampled_addmm", profile(
                 torch, sampled_addmm(torch, csr, a, b), args.calls))
 
-        lf = smoke.LONGFORMER
-        adj = csrs[smoke.GRAPH_CELL]
-        graph = GraphAttentionLayer(adj, smoke.GRAPH_WIDTH, smoke.GRAPH_WIDTH,
-                                    device="cuda")
-        graph.init(torch.Generator().manual_seed(0))
-        mask = make_attention_mask(lf["seq_len"], window=lf["window"],
-                                   num_global=lf["num_global"])
-        block = BlockSparseAttention(mask, lf["hidden"], lf["heads"],
-                                     lf["head_dim"], device="cuda")
-        block.init(torch.Generator().manual_seed(1))
-        x_graph = torch.as_tensor(generate.make_dense(
-            adj.m, smoke.GRAPH_WIDTH, seed=1), device="cuda")
-        x_block = torch.as_tensor(generate.make_dense(
-            lf["seq_len"], lf["hidden"], seed=3), device="cuda")
-        emit("graph attention forward", profile(
-            torch, lambda: graph(x_graph), args.calls))
-        emit("Longformer forward", profile(
-            torch, lambda: block(x_block), args.calls))
-        for name, agg, d in (("graph", graph._agg, smoke.GRAPH_WIDTH),
-                             ("Longformer", block._agg, lf["head_dim"])):
+        if not args.training_only:
+            emit("graph attention forward", profile(
+                torch, lambda: graph(x_graph), args.calls))
+            emit("Longformer forward", profile(
+                torch, lambda: block(x_block), args.calls))
+        for name, agg, d in () if args.training_only else (
+                ("graph", graph._agg, smoke.GRAPH_WIDTH),
+                ("Longformer", block._agg, lf["head_dim"])):
             g = torch.Generator(device="cuda").manual_seed(0)
             w = torch.rand(agg.cols.shape[0], generator=g, device="cuda")
             v = torch.rand((agg.num_rows, d), generator=g, device="cuda")
@@ -230,6 +281,9 @@ def main() -> None:
                 torch, lambda: sp.csr_spmm_torch(
                     w, agg.rows, agg.cols, v, agg.num_rows,
                     row_ptr=agg.row_ptr, **kw), args.calls))
+    if importlib.util.find_spec("sddmm_tpu_torch.models.factorization"):
+        training(torch, smoke, emit, csrs, graph, x_graph, block, x_block,
+                 args.calls)
     if "jax" in sys.modules:
         sys.exit("jax was imported")
 

@@ -15,9 +15,10 @@ find:
   (``DenseSDDMM``) on the tile kernel; ``ops.csr_sddmm`` the CSR baseline
   on the gather-dot kernel; ``ops.spmm`` the CSR SpMM (``csrc/spmm.cu``);
   ``ops.batch`` the batched SDDMM over the runners.
-- ``models`` holds the serving path of the two attention models
-  (``GraphAttentionLayer``, ``BlockSparseAttention``); ``entry`` the
-  flagship forward, as ``__graft_entry__.entry``.
+- ``models`` holds the two attention models (``GraphAttentionLayer``,
+  ``BlockSparseAttention``) and the factorization trainer
+  (``SparseFactorizationModel``, checkpointed by ``utils.checkpoint``);
+  ``entry`` the flagship forward, as ``__graft_entry__.entry``.
 - ``_kernels`` builds ``csrc/*.cu`` with nvcc for ``sm_90a`` at first use
   and binds them with ctypes.
 - ``interop`` carries a ``PackedMatrix``, the operands and the models'
@@ -25,9 +26,10 @@ find:
 
 Every committed ``results/tuned_configs.json`` configuration runs (any G
 and C, hub and hot-row slabs, the five compute modes, the dense class, any
-K).  Nothing has a backward pass yet: a forward under grad mode on an
-operand that requires grad raises ``NotImplementedError``.  See ROADMAP.md
-for what comes next.
+K).  Every op the JAX package differentiates is an autograd op here
+(the hybrid runners, the dense class, the CSR SDDMM and SpMM, the segment
+softmax), each backward on the hand kernels, so the models train.  See
+ROADMAP.md for what comes next.
 """
 
 from sddmm_tpu_torch import config as config

@@ -104,6 +104,8 @@ def _build(out: Path) -> str:
 SPMM_ENTRY = "sddmm_csr_spmm_float32"
 #: C entry point of the segment softmax kernel (``csrc/segment_softmax.cu``)
 SOFTMAX_ENTRY = "sddmm_segment_softmax_float32"
+#: and of its backward, in the same source
+SOFTMAX_BWD_ENTRY = "sddmm_segment_softmax_backward_float32"
 
 
 def gather_dot_entry(adt, bdt) -> str:
@@ -116,19 +118,23 @@ def gather_dot_entry(adt, bdt) -> str:
 def _entry_points() -> dict:
     """C entry point name -> ctypes argtypes, for every kernel instance:
     the tile dot per compute mode, the gather-dot per (A, B) storage pair
-    of the modes, the CSR SpMM and the segment softmax."""
+    of the modes, the CSR SpMM and the segment softmax and its backward."""
     from sddmm_tpu_torch.ops.tile_dot import MODES, STORAGE
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     tile = [p, i64, i64, p, i64, i64, i64, p, i64, p, p, p, i64, i32, i32,
             i32, i32, i32, p]
     gather = [p, i64, i64, p, i64, i64, i64, p, p, p, p, i64, p, p, i32,
               i32, p, i64, i64, i32, i32, i32, i32, i32, p]
-    spmm = [p, i64, p, p, i32, p, p, p, p, i64, p, i32, i32, p]
+    spmm = [p, i64, p, p, i32, p, p, p, p, i64, p, i64, i64, i64, p, i64,
+            i64, i64, i32, i32, i32, i32, p]
     softmax = [p, i64, p, p, i64, p, i64, ctypes.c_float, p, i64, i32, p]
+    softmax_bwd = [p, i64, p, i64, p, p, i64, p, i64, ctypes.c_float, p,
+                   i64, i32, p]
     eps = {f"sddmm_tile_dot_{m}": tile for m in MODES}
     eps.update({gather_dot_entry(*pair): gather for pair in STORAGE.values()})
     eps[SPMM_ENTRY] = spmm
     eps[SOFTMAX_ENTRY] = softmax
+    eps[SOFTMAX_BWD_ENTRY] = softmax_bwd
     return eps
 
 

@@ -29,6 +29,21 @@
 // What bounds it.  Bytes: each real score is read once (gathered through
 // inv_idx, which is read once a head) and each probability written once;
 // the arithmetic is a few operations an entry.
+//
+// Backward (a second entry point, sddmm_segment_softmax_backward_float32).
+// Replaces the VJP that jax.value_and_grad builds of segment_softmax as the
+// models apply it: with p the forward's output (H, nnz) in CSR order and g
+// its cotangent (H, nnz),
+//   d scores[h, inv_idx[e]] = scale * p_e * (g_e - sum_row p * g)
+// written straight into the packed gradient (H, F), which the wrapper has
+// zeroed, at inv_idx (the transpose of the forward's fused gather: the
+// padding slots keep 0), or at e without inv_idx.  The same shape as the
+// forward: one launch for all rows and heads, a warp per row of up to 640
+// entries (p and g held in registers, each read once), a block per longer
+// row (a strided pass for the sum, a second pass that writes).  Sums in a
+// fixed order (a lane's entries in order, an xor tree, the warps in
+// order): deterministic.  Bytes: p and g read once, one value written per
+// entry; a few operations an entry.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -134,6 +149,69 @@ segment_softmax_kernel(const float* __restrict__ scores, long long s_head,
     out[e] = expf(score(scores, inv_idx, e, scale) - m_all) / denom;
 }
 
+__global__ void __launch_bounds__(kWarps * 32)
+segment_softmax_backward_kernel(const float* __restrict__ p, long long p_head,
+                                const float* __restrict__ g, long long g_head,
+                                const int* __restrict__ inv_idx,
+                                const long long* __restrict__ row_ptr,
+                                long long m, long long n_row_blocks,
+                                const long long* __restrict__ long_rows,
+                                float scale, float* __restrict__ out,
+                                long long o_head) {
+  p += blockIdx.y * p_head;
+  g += blockIdx.y * g_head;
+  out += blockIdx.y * o_head;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if ((long long)blockIdx.x < n_row_blocks) {
+    const long long r = (long long)blockIdx.x * kWarps + warp;
+    if (r >= m) return;
+    const long long e0 = row_ptr[r], e1 = row_ptr[r + 1];
+    const long long n = e1 - e0;
+    if (n <= 0 || n > 32LL * kPer) return;  // empty, or its own block
+    float pv[kPer], gv[kPer];
+    float dot = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const long long e = e0 + i * 32 + lane;
+      pv[i] = gv[i] = 0.0f;
+      if (i * 32 < n && e < e1) {
+        pv[i] = p[e];
+        gv[i] = g[e];
+        dot = fmaf(pv[i], gv[i], dot);
+      }
+    }
+    for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(kFull, dot, o);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const long long e = e0 + i * 32 + lane;
+      if (i * 32 < n && e < e1)
+        out[inv_idx ? (long long)inv_idx[e] : e] =
+            scale * (pv[i] * (gv[i] - dot));
+    }
+    return;
+  }
+  // one long row: a strided pass for sum p * g, then a write pass
+  __shared__ float part[kWarps];
+  __shared__ float total;
+  const long long r = long_rows[blockIdx.x - n_row_blocks];
+  const long long e0 = row_ptr[r], e1 = row_ptr[r + 1];
+  float dot = 0.0f;
+  for (long long e = e0 + threadIdx.x; e < e1; e += blockDim.x)
+    dot = fmaf(p[e], g[e], dot);
+  for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(kFull, dot, o);
+  if (lane == 0) part[warp] = dot;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = part[0];
+    for (int w = 1; w < kWarps; ++w) s += part[w];
+    total = s;
+  }
+  __syncthreads();
+  const float s = total;
+  for (long long e = e0 + threadIdx.x; e < e1; e += blockDim.x)
+    out[inv_idx ? (long long)inv_idx[e] : e] = scale * (p[e] * (g[e] - s));
+}
+
 }  // namespace
 
 // C interface (ctypes).  The wrapper (ops/softmax.py::segment_softmax_torch)
@@ -157,5 +235,29 @@ extern "C" int sddmm_segment_softmax_float32(
                            kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       scores, s_head, inv_idx, row_ptr, m, row_blocks, long_rows, scale, out,
       o_head);
+  return (int)cudaGetLastError();
+}
+
+// C interface of the backward (ctypes), checked by the wrapper
+// (ops/softmax.py::segment_softmax_backward): p and g (heads, nnz) fp32 in
+// CSR order with head strides p_head and g_head; inv_idx (nnz,) int32 or
+// null; row_ptr and long_rows as in the forward; out fp32 with head stride
+// o_head, (heads, F) and zeroed where inv_idx is given, else (heads, nnz).
+// Returns the launch's cudaGetLastError() code.
+extern "C" int sddmm_segment_softmax_backward_float32(
+    const float* p, long long p_head, const float* g, long long g_head,
+    const int* inv_idx, const long long* row_ptr, long long m,
+    const long long* long_rows, long long n_long, float scale, float* out,
+    long long o_head, int heads, void* stream) {
+  if (m <= 0 || heads <= 0) return 0;
+  const long long row_blocks = (m + kWarps - 1) / kWarps;
+  if (heads > 65535 || row_blocks + n_long > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  segment_softmax_backward_kernel<<<dim3((unsigned)(row_blocks + n_long),
+                                         (unsigned)heads),
+                                    kWarps * 32, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      p, p_head, g, g_head, inv_idx, row_ptr, m, row_blocks, long_rows,
+      scale, out, o_head);
   return (int)cudaGetLastError();
 }

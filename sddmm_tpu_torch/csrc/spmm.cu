@@ -5,9 +5,23 @@
 // aggregation step of the attention models:
 //   out[r, k] = sum_{e in [row_ptr[r], row_ptr[r+1])} values[e] * dense[cols[e], k]
 // row_ptr (m+1,) int64, cols (nnz,) int32 and values (nnz,) fp32 are the
-// CSR; dense (N, K) fp32 with row stride ldd; out (m, K) fp32 contiguous.
-// Each product is rounded to fp32 and added in fp32 (no fused multiply-add),
-// as the plain version's multiply and index_add_ do.
+// CSR; dense (N, K) fp32 with row stride ldd; out (m, K) fp32 with row
+// stride ldo.  Each product is rounded to fp32 and added in fp32 (no fused
+// multiply-add), as the plain version's multiply and index_add_ do.
+//
+// Batches.  One launch runs H x C products over the one pattern (grid.z =
+// h * C + c): batch (h, c) reads values + h*vs_h, dense + h*ds_h + c*ds_c
+// and writes out + h*os_h + c*os_c.  The backward passes use it so: the
+// heads of a model, and the C chunks of the hybrid op's K, where a chunk
+// writes kc of dA's K columns (ldo = K, os_c = kc) and the chunks share
+// their head's values -- the VJPs of the hybrid op
+// (sddmm_tpu/ops/hybrid.py::_hybrid_packed_jit), of csr_sddmm_jax and of
+// csr_spmm_jax are SpMMs over the pattern or its transpose.
+//
+// Value index.  With vidx (nnz,) int32 given, entry e's value is
+// values[vidx[e]] (within its head's row): a backward passes the packed
+// cotangent as it is and the pattern's entry -> slot map, so the values
+// are never copied into CSR order (without vidx, values[e]).
 //
 // Design.  The kernel walks a plan built once on the host from the pattern
 // (ops/spmm.py::spmm_plan).  Neighbouring rows of attention and graph
@@ -92,18 +106,26 @@ __device__ __forceinline__ void store_vec(float* p, const float (&x)[VEC]) {
   *reinterpret_cast<typename Vec<VEC>::T*>(p) = v;
 }
 
+// entry e's value: values[vidx[e]], or values[e] without an index
+__device__ __forceinline__ float value_of(const float* __restrict__ values,
+                                          const int* __restrict__ vidx,
+                                          long long e) {
+  return values[vidx ? (long long)vidx[e] : e];
+}
+
 // acc += sum over entries [e0, e1) of values[e] * dense[cols[e], k..k+VEC),
 // in entry order; every lane of the warp calls it with the same range
 template <int VEC>
 __device__ __forceinline__ void walk_entries(
     long long e0, long long e1, const int* __restrict__ cols,
-    const float* __restrict__ values, const float* __restrict__ dense,
-    long long ldd, int k, bool active, int lane, float (&acc)[VEC]) {
+    const float* __restrict__ values, const int* __restrict__ vidx,
+    const float* __restrict__ dense, long long ldd, int k, bool active,
+    int lane, float (&acc)[VEC]) {
   int c = 0;
   float v = 0.0f;
   if (e0 + lane < e1) {
     c = cols[e0 + lane];
-    v = values[e0 + lane];
+    v = value_of(values, vidx, e0 + lane);
   }
   for (long long base = e0; base < e1; base += 32) {
     const int n = (int)min(32LL, e1 - base);
@@ -111,7 +133,7 @@ __device__ __forceinline__ void walk_entries(
     float v_next = 0.0f;
     if (base + 32 + lane < e1) {
       c_next = cols[base + 32 + lane];
-      v_next = values[base + 32 + lane];
+      v_next = value_of(values, vidx, base + 32 + lane);
     }
     for (int j = 0; j < n; j += kAhead) {
       float x[kAhead][VEC];
@@ -176,7 +198,8 @@ __device__ __forceinline__ RawItem<GR> load_raw(
 
 template <int GR>
 __device__ __forceinline__ Item<GR> gather_values(
-    const RawItem<GR>& raw, const float* __restrict__ values) {
+    const RawItem<GR>& raw, const float* __restrict__ values,
+    const int* __restrict__ vidx) {
   Item<GR> it;
   it.col = raw.col;
   it.mask = 0;
@@ -184,7 +207,7 @@ __device__ __forceinline__ Item<GR> gather_values(
   for (int r = 0; r < GR; ++r) {
     it.v[r] = 0.0f;
     if (raw.e[r] >= 0) {
-      it.v[r] = values[raw.e[r]];
+      it.v[r] = value_of(values, vidx, raw.e[r]);
       it.mask |= 1u << r;
     }
   }
@@ -198,18 +221,19 @@ __device__ __forceinline__ Item<GR> gather_values(
 template <int VEC, int GR>
 __device__ __forceinline__ void walk_items(
     long long i0, long long i1, const int* __restrict__ items,
-    const float* __restrict__ values, const float* __restrict__ dense,
-    long long ldd, int k, bool active, int lane, float (&acc)[GR][VEC]) {
+    const float* __restrict__ values, const int* __restrict__ vidx,
+    const float* __restrict__ dense, long long ldd, int k, bool active,
+    int lane, float (&acc)[GR][VEC]) {
   constexpr int kAheadItems = 16 / GR;
   Item<GR> it = gather_values<GR>(
-      load_raw<GR>(items, i0 + lane, i0 + lane < i1), values);
+      load_raw<GR>(items, i0 + lane, i0 + lane < i1), values, vidx);
   RawItem<GR> raw_next =
       load_raw<GR>(items, i0 + 32 + lane, i0 + 32 + lane < i1);
   for (long long base = i0; base < i1; base += 32) {
     const int n = (int)min(32LL, i1 - base);
     const RawItem<GR> raw_after =
         load_raw<GR>(items, base + 64 + lane, base + 64 + lane < i1);
-    const Item<GR> next = gather_values<GR>(raw_next, values);
+    const Item<GR> next = gather_values<GR>(raw_next, values, vidx);
     for (int j = 0; j < n; j += kAheadItems) {
       float x[kAheadItems][VEC];
 #pragma unroll
@@ -247,11 +271,18 @@ csr_spmm_kernel(const long long* __restrict__ tasks,
                 const long long* __restrict__ groups,
                 const int* __restrict__ items,
                 const long long* __restrict__ row_ptr,
-                const int* __restrict__ cols,
-                const float* __restrict__ values,
-                const float* __restrict__ dense, long long ldd,
-                float* __restrict__ out, int K) {
+                const int* __restrict__ cols, const float* __restrict__ values,
+                const int* __restrict__ vidx, long long vs_h,
+                const float* __restrict__ dense, long long ldd, long long ds_h,
+                long long ds_c, float* __restrict__ out, long long ldo,
+                long long os_h, long long os_c, int K, int C) {
   __shared__ float part[kWarpsPerBlock][32 * VEC];
+  {
+    const long long h = blockIdx.z / C, c = blockIdx.z - h * C;
+    values += h * vs_h;
+    dense += h * ds_h + c * ds_c;
+    out += h * os_h + c * os_c;
+  }
   const long long first = tasks[2 * (long long)blockIdx.x];
   const long long count = tasks[2 * (long long)blockIdx.x + 1];
   const int warp = threadIdx.x / 32;
@@ -270,16 +301,16 @@ csr_spmm_kernel(const long long* __restrict__ tasks,
     if (g[3] < 0) {
       // a group of one row walks its CSR entries: no items
       walk_entries<VEC>(row_ptr[g[2]], row_ptr[g[2] + 1], cols, values,
-                        dense, ldd, k, active, lane, acc[0]);
+                        vidx, dense, ldd, k, active, lane, acc[0]);
     } else {
-      walk_items<VEC, GR>(g[0], g[1], items, values, dense, ldd, k, active,
-                          lane, acc);
+      walk_items<VEC, GR>(g[0], g[1], items, values, vidx, dense, ldd, k,
+                          active, lane, acc);
     }
     if (!active) return;
 #pragma unroll
     for (int r = 0; r < GR; ++r) {
       const long long row = g[2 + r];
-      if (row >= 0) store_vec<VEC>(out + row * K + k, acc[r]);
+      if (row >= 0) store_vec<VEC>(out + row * ldo + k, acc[r]);
     }
     return;
   }
@@ -290,8 +321,8 @@ csr_spmm_kernel(const long long* __restrict__ tasks,
   const long long e0 = row_ptr[first], e1 = row_ptr[first + 1];
   const long long piece = (e1 - e0 + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const long long p0 = min(e1, e0 + warp * piece);
-  walk_entries<VEC>(p0, min(e1, p0 + piece), cols, values, dense, ldd, k,
-                    active, lane, acc);
+  walk_entries<VEC>(p0, min(e1, p0 + piece), cols, values, vidx, dense, ldd,
+                    k, active, lane, acc);
 #pragma unroll
   for (int i = 0; i < VEC; ++i) part[warp][lane * VEC + i] = acc[i];
   __syncthreads();
@@ -303,40 +334,51 @@ csr_spmm_kernel(const long long* __restrict__ tasks,
       s = __fadd_rn(s, part[w][lane * VEC + i]);
     acc[i] = s;
   }
-  store_vec<VEC>(out + first * K + k, acc);
+  store_vec<VEC>(out + first * ldo + k, acc);
 }
 
+// The arguments of one launch, as the wrapper passes them
+struct Args {
+  const long long* tasks;
+  long long n_tasks;
+  const long long* groups;
+  const int* items;
+  const long long* row_ptr;
+  const int* cols;
+  const float* values;
+  const int* vidx;
+  long long vs_h;
+  const float* dense;
+  long long ldd, ds_h, ds_c;
+  float* out;
+  long long ldo, os_h, os_c;
+  int K, heads, C;
+};
+
 template <int VEC, int GR>
-int launch(const long long* tasks, long long n_tasks,
-           const long long* groups, const int* items,
-           const long long* row_ptr, const int* cols, const float* values,
-           const float* dense, long long ldd, float* out, int K,
-           cudaStream_t stream) {
-  const long long slices = (K + 32 * VEC - 1) / (32 * VEC);
-  if (n_tasks > 2147483647LL || slices > 65535)
+int launch(const Args& a, cudaStream_t stream) {
+  const long long slices = (a.K + 32 * VEC - 1) / (32 * VEC);
+  const long long batches = (long long)a.heads * a.C;
+  if (a.n_tasks > 2147483647LL || slices > 65535 || batches > 65535)
     return (int)cudaErrorInvalidValue;
-  csr_spmm_kernel<VEC, GR><<<dim3((unsigned)n_tasks, (unsigned)slices),
-                         kWarpsPerBlock * 32, 0, stream>>>(
-      tasks, groups, items, row_ptr, cols, values, dense, ldd, out, K);
+  csr_spmm_kernel<VEC, GR>
+      <<<dim3((unsigned)a.n_tasks, (unsigned)slices, (unsigned)batches),
+         kWarpsPerBlock * 32, 0, stream>>>(
+          a.tasks, a.groups, a.items, a.row_ptr, a.cols, a.values, a.vidx,
+          a.vs_h, a.dense, a.ldd, a.ds_h, a.ds_c, a.out, a.ldo, a.os_h,
+          a.os_c, a.K, a.C);
   return (int)cudaGetLastError();
 }
 
 template <int GR>
-int launch_vec(int vec, const long long* tasks, long long n_tasks,
-               const long long* groups, const int* items,
-               const long long* row_ptr, const int* cols, const float* values,
-               const float* dense, long long ldd, float* out, int K,
-               cudaStream_t s) {
+int launch_vec(int vec, const Args& a, cudaStream_t s) {
   switch (vec) {
     case 1:
-      return launch<1, GR>(tasks, n_tasks, groups, items, row_ptr, cols,
-                           values, dense, ldd, out, K, s);
+      return launch<1, GR>(a, s);
     case 2:
-      return launch<2, GR>(tasks, n_tasks, groups, items, row_ptr, cols,
-                           values, dense, ldd, out, K, s);
+      return launch<2, GR>(a, s);
     case 4:
-      return launch<4, GR>(tasks, n_tasks, groups, items, row_ptr, cols,
-                           values, dense, ldd, out, K, s);
+      return launch<4, GR>(a, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -344,33 +386,32 @@ int launch_vec(int vec, const long long* tasks, long long n_tasks,
 
 }  // namespace
 
-// C interface (ctypes).  The wrapper (ops/spmm.py::csr_spmm_torch) has
+// C interface (ctypes).  The wrapper (ops/spmm.py::spmm_launch) has
 // checked shapes, dtypes and contiguity and passes spmm_plan's arrays for
 // its group size group_rows (GR, 2 or 4): tasks (n_tasks, 2) int64 [first
 // group, group count 1..8] or [row, 0] for one long row; groups
 // (n_groups, 2 + GR) int64 [first item, end item, then its 1..GR rows, -1
 // past them; a group of one row has no items]; items (n_items, 1 + GR)
 // int32 [column, entry of each row or -1].  Together they cover every row
-// once.  It chose vec (1, 2 or 4) with K, ldd and the dense pointer
-// multiples of it; the caller guarantees that row_ptr is non-decreasing
-// and the column ids in range.  Returns the launch's cudaGetLastError()
-// code.
-extern "C" int sddmm_csr_spmm_float32(const long long* tasks,
-                                      long long n_tasks,
-                                      const long long* groups,
-                                      const int* items, int group_rows,
-                                      const long long* row_ptr,
-                                      const int* cols, const float* values,
-                                      const float* dense, long long ldd,
-                                      float* out, int K, int vec,
-                                      void* stream) {
-  if (n_tasks <= 0 || K <= 0) return 0;
+// once.  vidx (nnz,) int32 or null (the value index above).  heads x C
+// batches (the strides above, in elements).  It chose vec
+// (1, 2 or 4) with K, every row, head and chunk stride of dense and out,
+// and both pointers multiples of it; the caller guarantees that row_ptr is
+// non-decreasing and the column ids in range.  Returns the launch's
+// cudaGetLastError() code.
+extern "C" int sddmm_csr_spmm_float32(
+    const long long* tasks, long long n_tasks, const long long* groups,
+    const int* items, int group_rows, const long long* row_ptr,
+    const int* cols, const float* values, const int* vidx, long long vs_h,
+    const float* dense, long long ldd, long long ds_h, long long ds_c,
+    float* out, long long ldo, long long os_h, long long os_c, int K,
+    int heads, int C, int vec, void* stream) {
+  if (n_tasks <= 0 || K <= 0 || heads <= 0 || C <= 0) return 0;
+  const Args a{tasks, n_tasks, groups, items, row_ptr, cols,  values,
+               vidx,  vs_h,    dense,  ldd,   ds_h,    ds_c,  out,
+               ldo,   os_h,    os_c,   K,     heads,   C};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (group_rows == 2)
-    return launch_vec<2>(vec, tasks, n_tasks, groups, items, row_ptr, cols,
-                         values, dense, ldd, out, K, s);
-  if (group_rows == 4)
-    return launch_vec<4>(vec, tasks, n_tasks, groups, items, row_ptr, cols,
-                         values, dense, ldd, out, K, s);
+  if (group_rows == 2) return launch_vec<2>(vec, a, s);
+  if (group_rows == 4) return launch_vec<4>(vec, a, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,7 @@
 """Carry state across from the JAX package.
 
 The SDDMM's state is the ``PackedMatrix`` and the dense operands; the
-attention models add their weights.  With these helpers a test packs once
+attention models add their weights, the factorization model its factors.  With these helpers a test packs once
 in ``sddmm_tpu`` (or initialises a JAX model) and runs both packages on the
 identical layout, weights and inputs.  Nothing here imports ``sddmm_tpu``
 (that would load jax): the JAX package's objects are read by duck typing.
@@ -81,3 +81,13 @@ def block_sparse_params_from_reference(p, model):
     from sddmm_tpu_torch.models.block_sparse_attention import (
         BlockSparseAttentionParams)
     return _load_weights(p, model, BlockSparseAttentionParams)
+
+
+def factorization_params_from_reference(p, model):
+    """Load the JAX package's ``FactorizationParams`` (a (M, K), bt (N,
+    K)) into the port's ``SparseFactorizationModel`` ``model`` (which
+    starts a fresh optimizer state); returns it.  torch cannot draw
+    ``jax.random``'s numbers, so a parity test starts both models from the
+    JAX factors."""
+    from sddmm_tpu_torch.models.factorization import FactorizationParams
+    return _load_weights(p, model, FactorizationParams)

@@ -20,8 +20,12 @@ projection.  The JAX model does softmax and aggregation in
 the packed layout with sentinel segments; on the real slots this is the
 same arithmetic, summed in another order.
 
-No backward pass yet: a forward under grad mode on operands that require
-grad raises ``NotImplementedError`` (``ops.hybrid.check_no_grad``).
+The forward is differentiable (the counterpart of ``jax.grad`` of the
+JAX model's loss): the projections and ``w_o`` through torch autograd
+(cuBLAS); the SDDMM, the softmax and the aggregation through their
+autograd ops, whose backward is one softmax-backward launch, one
+gather-dot launch (the attention's cotangent), one SpMM launch (V's) and
+two SpMM launches (the SDDMM's dQ and dK), each for all heads.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from torch import nn
 from sddmm_tpu_torch.data.sparse import COO, CSR
 from sddmm_tpu_torch.models.graph_attention import CSRAggregation
 from sddmm_tpu_torch.ops.batch import BatchedHybridSDDMM
-from sddmm_tpu_torch.ops.hybrid import HybridSDDMM, check_no_grad
+from sddmm_tpu_torch.ops.hybrid import HybridSDDMM
 from sddmm_tpu_torch.ops.tile_dot import full_fp32_matmul
 
 
@@ -150,8 +154,8 @@ class BlockSparseAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """x (L, F) on the module's device -> (L, F).  ``plain=True`` runs
-        every kernel's plain PyTorch version."""
-        check_no_grad("BlockSparseAttention.forward", x, *self._weights())
+        every kernel's plain PyTorch version (and its backward the plain
+        versions' too)."""
         H, L, D = self.num_heads, self._len, self.head_dim
         with full_fp32_matmul():
             q = torch.einsum("lf,hfd->hld", x, self.w_q)

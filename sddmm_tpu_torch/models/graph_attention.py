@@ -18,9 +18,11 @@ walks the adjacency's ``row_ptr``.  On the real slots this is the same
 arithmetic; only the order of the sums differs.  A node with no edges
 outputs exact zeros.
 
-The forward has no backward pass yet: under grad mode with a parameter or
-input that requires grad it raises ``NotImplementedError`` (see
-``ops.hybrid.check_no_grad``).  Serve under ``torch.inference_mode()``.
+The forward is differentiable: the projections through torch autograd
+(cuBLAS), the SDDMM, the softmax and the SpMM through their autograd ops,
+each backward on the hand kernels (``CSRAggregation`` keeps the pattern's
+backward state, built at the first backward).  Serving runs under
+``torch.inference_mode()`` and pays nothing for it.
 """
 
 from __future__ import annotations
@@ -32,11 +34,11 @@ import torch
 from torch import nn
 
 from sddmm_tpu_torch.data.sparse import CSR
-from sddmm_tpu_torch.ops.hybrid import (HybridSDDMM, check_no_grad,
-                                        packing_row_order)
+from sddmm_tpu_torch.ops.hybrid import HybridSDDMM, packing_row_order
 from sddmm_tpu_torch.ops.softmax import (find_long_rows, segment_softmax,
                                          segment_softmax_torch)
-from sddmm_tpu_torch.ops.spmm import csr_spmm_plain, csr_spmm_torch, spmm_plan
+from sddmm_tpu_torch.ops.spmm import (GradPattern, csr_spmm_plain,
+                                      csr_spmm_torch, spmm_plan)
 from sddmm_tpu_torch.ops.tile_dot import full_fp32_matmul
 
 __all__ = ["CSRAggregation", "GraphAttentionLayer", "GraphAttentionParams",
@@ -70,7 +72,11 @@ class CSRAggregation:
     the SpMM runs over the block-diagonal CSR of H copies of the pattern
     (``stacked``: row ids, row pointers, column ids) with its kernel's plan
     (``spmm_plan``, built once here, its row groups taken in ``row_order``
-    when H = 1)."""
+    when H = 1).  The plan carries the pattern's backward state
+    (``plan.grads``, the ``spmm.GradPattern`` of one head's pattern: the
+    gather-dot's plan for the attention's cotangent and the transpose's
+    SpMM for V's, all heads in one launch each), built at the first
+    backward."""
 
     def __init__(self, csr: CSR, device, row_order=None, heads: int = 1):
         self.heads = heads
@@ -88,13 +94,16 @@ class CSRAggregation:
                                     device=device)
         self.plan = spmm_plan(agg.row_ptr, agg.col_idx,
                               row_order if heads == 1 else None).to(device)
+        self.plan.grads = GradPattern(csr.row_indices(), csr.col_idx,
+                                      csr.shape, device, row_order)
 
     def softmax_spmm(self, flat: torch.Tensor, v: torch.Tensor,
                      scale: float, inv_idx: torch.Tensor) -> torch.Tensor:
         """The kernel path: the segment softmax of ``scale`` times the
         runner's packed scores ``flat`` (H, F), read through ``inv_idx``
         (nnz,) int32, then ``attn @ v`` (v (H*m, D)): one softmax launch,
-        one SpMM launch."""
+        one SpMM launch (a backward: one launch of the softmax's backward,
+        one gather-dot, one SpMM)."""
         attn = segment_softmax_torch(flat, self.head_row_ptr, scale,
                                      inv_idx, self.long_rows).reshape(-1)
         return csr_spmm_torch(attn, self.rows, self.cols, v, self.num_rows,
@@ -153,9 +162,8 @@ class GraphAttentionLayer(nn.Module):
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """x (num_nodes, F) on the layer's device -> (num_nodes, D).
         ``plain=True`` runs every kernel's plain PyTorch version (the
-        reference the kernels are held to on the card)."""
-        check_no_grad("GraphAttentionLayer.forward", x, self.w_q, self.w_k,
-                      self.w_v)
+        reference the kernels are held to on the card; its backward runs
+        the plain versions too)."""
         with full_fp32_matmul():
             q = x @ self.w_q                    # (N, D)
             k = x @ self.w_k

@@ -7,17 +7,21 @@ Here ``BatchedHybridSDDMM`` passes the batch to the runner's
 ``run_heads``: the tiles of every batch element are one tile-kernel launch
 with a head stride on A, B^T and the output (the vmapped batch, K12), and
 so is the residual's gather-dot.  ``batched_csr_sddmm`` is one gather-dot
-launch for the batch, walking the pattern's plan (``csr_plan``).
+launch for the batch, walking the pattern's plan (``csr_plan``).  Both differentiate
+through the runner's autograd op and ``csr_sddmm_torch``'s.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 from sddmm_tpu_torch.data.sparse import CSR
 from sddmm_tpu_torch.ops.csr_sddmm import csr_plan, csr_sddmm_torch
-from sddmm_tpu_torch.ops.hybrid import HybridSDDMM, check_device
+from sddmm_tpu_torch.ops.hybrid import (HybridSDDMM, check_device,
+                                        storage_cast)
 from sddmm_tpu_torch.ops.tile_dot import STORAGE
 
 
@@ -55,12 +59,13 @@ class BatchedHybridSDDMM:
         self.runner = runner
 
     def run_padded(self, a_pad: torch.Tensor, bt_pad: torch.Tensor,
-                   order: str = "packed", plain: bool = False
+                   order: Optional[str] = None, plain: bool = False
                    ) -> torch.Tensor:
         """Padded A (B, M+1, K) and B^T (B, N+1, K) on the runner's device
-        -> (B, packed_size), or (B, nnz) with ``order="csr"``: one
-        tile-kernel launch for the whole batch.  ``plain`` as in
-        ``HybridSDDMM.run_padded``."""
+        -> (B, packed_size), or (B, nnz) with ``order="csr"`` (None: the
+        runner's ``default_order``): one tile-kernel launch for the whole
+        batch.  ``plain`` as in ``HybridSDDMM.run_padded``; differentiable
+        in both operands."""
         if a_pad.dim() != 3 or bt_pad.dim() != 3 or (
                 a_pad.shape[0] != bt_pad.shape[0]):
             raise ValueError(f"want a_pad (B, M+1, K) and bt_pad (B, N+1, K),"
@@ -68,12 +73,14 @@ class BatchedHybridSDDMM:
                              f"{tuple(bt_pad.shape)}")
         r = self.runner
         adt, bdt = STORAGE[r.compute_dtype]
-        return r.run_heads(a_pad.to(adt), r.device_bt(bt_pad.to(bdt)),
+        return r.run_heads(storage_cast(a_pad, adt),
+                           r.device_bt(storage_cast(bt_pad, bdt)),
                            order=order, plain=plain)
 
     def __call__(self, a_batch, b_batch) -> np.ndarray:
-        """numpy A (B, M, K) and B (B, K, N) -> (B, packed_size) numpy, the
-        packed layout (non-nnz slots hold garbage)."""
+        """numpy A (B, M, K) and B (B, K, N) -> (B, packed_size) numpy in
+        the packed layout (non-nnz slots hold garbage), or (B, nnz) in CSR
+        order for a runner whose ``default_order`` is "csr"."""
         dev = self.runner.device
         a = torch.as_tensor(np.asarray(a_batch, dtype=np.float32), device=dev)
         b = torch.as_tensor(np.asarray(b_batch, dtype=np.float32), device=dev)

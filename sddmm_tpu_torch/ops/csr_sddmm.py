@@ -15,6 +15,12 @@ A batch of operand pairs over one pattern is one launch (a head stride).
 Its plain version gathers both rows of every entry, so the host wrapper
 keeps the JAX package's nnz blocking above ``max_gathered_mb`` there, and
 its memory stays bounded.
+
+``csr_sddmm_torch`` is an autograd op (B4, the VJP of ``csr_sddmm_jax``):
+``dA = (g ⊙ S)·B`` and ``dB^T = (g ⊙ S)^T·A``, two launches of the SpMM
+kernel (``ops/spmm.py``) in fp32 over the pattern and its transpose, whose
+CSR and plans (``spmm.GradPattern``) are built at the first backward and
+kept on the pattern's plan (``spmm.pattern_grads``).
 """
 
 from __future__ import annotations
@@ -23,12 +29,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from sddmm_tpu_torch.data.sparse import CSR
 from sddmm_tpu_torch.ops.gather_plan import GatherPlan, csr_gather_plan
 from sddmm_tpu_torch.ops.hybrid import (GATHER_STORAGE, check_device,
-                                        check_no_grad, residual_gather_dot,
+                                        residual_gather_dot,
                                         residual_gather_dot_plain)
+from sddmm_tpu_torch.ops.spmm import pattern_grads
 
 
 def csr_plan(s: CSR) -> GatherPlan:
@@ -37,6 +45,43 @@ def csr_plan(s: CSR) -> GatherPlan:
     groups, in the pattern's row order or ``similar_rows_order``, the
     group size chosen by the plan's time model."""
     return csr_gather_plan(s.row_ptr, s.col_idx)
+
+
+class _CsrSddmmFn(torch.autograd.Function):
+    """csr_sddmm_torch as an autograd op (B4)."""
+
+    @staticmethod
+    def forward(ctx, a, bt, rows, cols, plan):
+        ctx.save_for_backward(a, bt, rows, cols)
+        ctx.plan = plan
+        a_s, bt_s = a, bt
+        if (a.dtype, bt.dtype) not in GATHER_STORAGE:
+            a_s, bt_s = a.to(torch.float32), bt.to(torch.float32)
+        if a.dim() == 3:
+            bt_s = bt_s[:, None]
+        return residual_gather_dot(a_s, bt_s, rows, cols, plan=plan)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        a, bt, rows, cols = ctx.saved_tensors
+        one = a.dim() == 2
+        a3, bt3 = (a[None], bt[None]) if one else (a, bt)
+        H, m, K = a3.shape
+        n = bt3.shape[1]
+        grads = pattern_grads(ctx.plan, rows, cols, (m, n), a.device)
+        g = g.reshape(H, -1).to(torch.float32).contiguous()
+        da = dbt = None
+        if ctx.needs_input_grad[0]:
+            da = torch.empty((H, m, K), dtype=torch.float32, device=a.device)
+            grads.spmm(g, bt3.to(torch.float32)[:, None], da[:, None])
+            da = da[0] if one else da
+        if ctx.needs_input_grad[1]:
+            dbt = torch.empty((H, n, K), dtype=torch.float32,
+                              device=a.device)
+            grads.spmm_t(g, a3.to(torch.float32)[:, None], dbt[:, None])
+            dbt = dbt[0] if one else dbt
+        return da, dbt, None, None, None
 
 
 def csr_sddmm_torch(a: torch.Tensor, bt: torch.Tensor, rows: torch.Tensor,
@@ -51,13 +96,13 @@ def csr_sddmm_torch(a: torch.Tensor, bt: torch.Tensor, rows: torch.Tensor,
     the gather-dot has no instance for (fp16 beside fp32, say) is first
     cast to fp32, exactly, as the JAX package's ``astype(float32)`` does.
     CUDA tensors go through the gather-dot kernel (one launch, or raise);
-    CPU tensors through its plain version, unblocked."""
-    check_no_grad("csr_sddmm_torch", a, bt)
-    if (a.dtype, bt.dtype) not in GATHER_STORAGE:
-        a, bt = a.to(torch.float32), bt.to(torch.float32)
-    if a.dim() == 3:
-        bt = bt[:, None]
-    return residual_gather_dot(a, bt, rows, cols, plan=plan)
+    CPU tensors through its plain version, unblocked.
+
+    Differentiable in ``a`` and ``bt`` (B4): each cotangent is one SpMM
+    launch in fp32 (the plain version on the CPU).  Their state is built
+    at the first backward and kept on ``plan`` (``spmm.pattern_grads``);
+    without a plan it is built for each backward."""
+    return _CsrSddmmFn.apply(a, bt, rows, cols, plan)
 
 
 def csr_sddmm_blocked_plain(a: torch.Tensor, bt: torch.Tensor,

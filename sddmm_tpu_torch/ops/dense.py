@@ -10,6 +10,12 @@ path's tiles.  Its (M, N) output is the native
 layout: the value of CSR entry (r, c) sits at slot r*N + c.  CSR order is
 one gather, by a flat index below M*N = 2^31 and a (row, col) index above.
 
+``run_padded`` is an autograd op (B5, the VJP of ``_dense_full_jit``):
+``dA = dFull . B^T`` and ``dB^T = dFull^T . A``, plain large products in
+fp32 (``torch.matmul`` under ``full_fp32_matmul``, as JAX leaves them to
+XLA outside any Pallas kernel); the CSR-order gather's backward is a
+scatter into a zero (M, N) (``hybrid.gather_unique``).
+
 The JAX package's window-plan CSR strategies (``ops/csr_order.py``) exist
 because scalar gathers are slow on the TPU and are not ported; nor are
 ``make_looped_fn``/``measure_kernel_ms``, which fight XLA's hoisting and
@@ -22,16 +28,45 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from sddmm_tpu_torch.data.sparse import CSR
 from sddmm_tpu_torch.ops.hybrid import (COMPUTE_DTYPES, check_device,
-                                        check_no_grad)
+                                        gather_unique)
 from sddmm_tpu_torch.ops.tile_dot import (STORAGE, TileTable, table_blocks,
-                                          tile_dot, tile_table)
+                                          full_fp32_matmul, tile_dot,
+                                          tile_table)
 
 #: M*N from which the CSR gather takes a (row, col) index, not a flat one
 #: (the JAX package's int32 limit, kept so both index the same way)
 FLAT_INDEX_LIMIT = 2 ** 31
+
+
+class _DenseFn(torch.autograd.Function):
+    """The (M, N) product of ``DenseSDDMM.run_padded`` as an autograd op
+    (B5): forward one tile launch (or its plain version), backward two fp32
+    products at the storage-cast operands."""
+
+    @staticmethod
+    def forward(ctx, runner, plain, a_dev, bt_dev):
+        adt, bdt = STORAGE[runner.compute_dtype]
+        a_s, bt_s = a_dev.to(adt), bt_dev.to(bdt)
+        ctx.save_for_backward(a_s, bt_s)
+        full = torch.empty((runner.m, runner.n), dtype=torch.float32,
+                           device=a_dev.device)
+        return runner.run_tiles(a_s, bt_s, full, plain=plain)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        a_s, bt_s = ctx.saved_tensors
+        da = dbt = None
+        with full_fp32_matmul():
+            if ctx.needs_input_grad[2]:
+                da = g @ bt_s.to(torch.float32)
+            if ctx.needs_input_grad[3]:
+                dbt = g.T @ a_s.to(torch.float32)
+        return None, None, da, dbt
 
 
 class DenseSDDMM:
@@ -86,19 +121,23 @@ class DenseSDDMM:
         if self._gather is None:
             rows = self._csr.row_indices().astype(np.int64)
             cols = self._csr.col_idx.astype(np.int64)
-            if self.m * self.n < FLAT_INDEX_LIMIT:
-                self._gather = (torch.as_tensor(rows * self.n + cols,
-                                                device=self.device),)
-            else:
-                self._gather = (torch.as_tensor(rows, device=self.device),
-                                torch.as_tensor(cols, device=self.device))
+            # kept across calls, so not an inference tensor even when a
+            # call under inference_mode makes it: autograd saves it later
+            with torch.inference_mode(False):
+                if self.m * self.n < FLAT_INDEX_LIMIT:
+                    self._gather = (torch.as_tensor(rows * self.n + cols,
+                                                    device=self.device),)
+                else:
+                    self._gather = (
+                        torch.as_tensor(rows, device=self.device),
+                        torch.as_tensor(cols, device=self.device))
         return self._gather
 
     def to_csr_order(self, full: torch.Tensor) -> torch.Tensor:
         """(M, N) product -> (nnz,) values in CSR entry order."""
         gather = self._csr_gather()
         if len(gather) == 1:
-            return full.reshape(-1)[gather[0]]
+            return gather_unique(full.reshape(-1), gather[0])
         return full[gather[0], gather[1]]
 
     def tile_calls(self, a_dev: torch.Tensor, bt_dev: torch.Tensor,
@@ -131,13 +170,11 @@ class DenseSDDMM:
                    order: str = "packed", plain: bool = False) -> torch.Tensor:
         """The (M, N) product, or with ``order="csr"`` its nnz values: one
         tile-kernel launch.  ``plain=True`` runs the tile kernel's plain
-        PyTorch version (the reference it is timed against on the card)."""
+        PyTorch version (the reference it is timed against on the card).
+        Differentiable in ``a_dev`` and ``bt_dev`` (B5)."""
         if order not in ("packed", "csr"):
             raise ValueError(f"unknown order {order!r}")
-        check_no_grad("DenseSDDMM.run_padded", a_dev, bt_dev)
-        full = torch.empty((self.m, self.n), dtype=torch.float32,
-                           device=a_dev.device)
-        self.run_tiles(a_dev, bt_dev, full, plain=plain)
+        full = _DenseFn.apply(self, plain, a_dev, bt_dev)
         if order == "csr":
             return self.to_csr_order(full)
         return full

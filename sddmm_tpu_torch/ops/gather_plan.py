@@ -97,12 +97,15 @@ class GatherPlan:
     (I, 1 + GR) int32 ``[key, entry of each row of the group or -1]``,
     ascending by key within a group.  ``n`` is the number of entries the
     plan covers.  ``group_rows == 1`` means the entry-order walk, with no
-    arrays.  numpy arrays, or tensors after ``to``."""
+    arrays.  numpy arrays, or tensors after ``to``.  ``grads``: the
+    pattern's backward state where the CSR baseline is differentiated
+    (``spmm.pattern_grads``)."""
     tasks: object
     groups: object
     items: object
     group_rows: int
     n: int
+    grads: object = None
 
     def to(self, device) -> "GatherPlan":
         return GatherPlan(*(torch.as_tensor(x, device=device).contiguous()

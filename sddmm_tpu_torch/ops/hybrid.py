@@ -39,16 +39,28 @@ on the card, one launch for all heads), walking a plan built once in
 of them once).  Slots that are not nnz hold garbage, as in the reference;
 compare real slots only, or CSR order.  CSR order is one gather,
 ``flat[inv_idx]``.
+
+``run_padded`` and ``run_heads`` are an autograd op (B1, the VJP of
+``_hybrid_packed_jit`` that ``jax.value_and_grad`` builds): the cotangent
+of the packed flat vector reaches A and the grouped B^T through the
+packing's *read pattern*, one entry per packed slot (the A row and the
+grouped-B^T lane the forward read for it, garbage slots included, as JAX
+differentiates through them), so the backward is two launches of the SpMM
+kernel for all heads and chunks: ``dA = P . B^T_phys`` and ``dB^T_phys =
+P^T . A``, summed in fp32 in a fixed order.  The pattern and its two SpMM
+plans are built at the first backward (``grad_patterns``) and kept.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from sddmm_tpu_torch import _kernels, config
 from sddmm_tpu_torch.data.sparse import CSR
@@ -160,6 +172,26 @@ def _gather_lanes(vec, kc, C) -> int:
     return next((n for n in (8, 16) if C * -(-kc // (8 * n)) <= 2), 32)
 
 
+#: shared memory one block may take on the card (bytes): an H100's 227 KB
+GATHER_SMEM_LIMIT = 227 * 1024
+
+
+def plan_smem_bytes(group_rows: int, k: int) -> int:
+    """Shared memory of a planned gather-dot block at group size GR and K
+    (``csrc/gather_dot.cu`` launch_plan: the group's A rows, K + 32 floats
+    each, and 4 warps' staging of 32 B^T slices at its widest)."""
+    return 4 * (group_rows * (k + 32) + 4 * 32 * 36)
+
+
+def planned_walk(plan: Optional[GatherPlan], k: int) -> bool:
+    """Whether a gather-dot call at K = ``k`` walks ``plan``: a grouped
+    plan whose block fits ``GATHER_SMEM_LIMIT`` at that K.  Otherwise the
+    same kernel walks the entries in their order, which takes any K: the
+    walk is chosen at launch, from the call's K, on both devices."""
+    return (plan is not None and plan.grouped
+            and plan_smem_bytes(plan.group_rows, k) <= GATHER_SMEM_LIMIT)
+
+
 def residual_gather_dot(a_pad: torch.Tensor, bt_phys: torch.Tensor,
                         rows: torch.Tensor, gids: torch.Tensor,
                         member: Optional[torch.Tensor] = None,
@@ -177,11 +209,12 @@ def residual_gather_dot(a_pad: torch.Tensor, bt_phys: torch.Tensor,
     None means G = 1.  ``out`` (nR,) or (H, nR) fp32, its last dimension
     contiguous (a head stride is taken as it is).  ``plan``: the entries'
     ``GatherPlan`` on this device (``gather_plan(rows, gids * G + member)
-    .to(device)``), or None to walk the entries in their order.  CUDA
-    tensors go through the gather-dot kernel (``csrc/gather_dot.cu``, one
-    launch for all heads) or raise; CPU tensors through the plain versions
-    (``gather_dot_plan_plain`` with a grouped plan, else
-    ``residual_gather_dot_plain``), head by head."""
+    .to(device)``), or None to walk the entries in their order; a plan
+    whose block would not fit in shared memory at this K is not walked
+    (``planned_walk``).  CUDA tensors go through the gather-dot kernel
+    (``csrc/gather_dot.cu``, one launch for all heads) or raise; CPU tensors
+    through the plain versions (``gather_dot_plan_plain`` where the plan is
+    walked, else ``residual_gather_dot_plain``), head by head."""
     one = a_pad.dim() == 2
     if one:
         if out is not None and out.dim() != 1:
@@ -223,7 +256,7 @@ def residual_gather_dot(a_pad: torch.Tensor, bt_phys: torch.Tensor,
     if plan is not None and plan.n != n:
         raise ValueError(f"gather_dot: the plan covers {plan.n} entries, "
                          f"not {n}")
-    grouped = plan is not None and plan.grouped
+    grouped = planned_walk(plan, k)
     if dev.type == "cpu":
         res = torch.stack([
             gather_dot_plan_plain(a_pad[h], bt_phys[h], plan) if grouped
@@ -244,10 +277,6 @@ def residual_gather_dot(a_pad: torch.Tensor, bt_phys: torch.Tensor,
                 raise ValueError(f"gather_dot: plan.{name} must be "
                                  "gather_plan's, int32, contiguous, on "
                                  "a_pad's device (GatherPlan.to)")
-        if 4 * (plan.group_rows * (k + 32) + 4 * 32 * 36) > 227 * 1024:
-            raise ValueError(f"gather_dot: a plan of {plan.group_rows} rows "
-                             f"at K={k} needs more shared memory than a "
-                             "block has; plan with fewer rows a group")
     _gather_launch(a_pad, bt_phys, rows, gids, member, out, plan)
     return out[0] if one else out
 
@@ -260,13 +289,14 @@ _GATHER_ENTRY = {pair: _kernels.gather_dot_entry(*pair)
 def _gather_launch(a_pad, bt_phys, rows, gids, member, out, plan):
     """One gather-dot launch on checked CUDA operands: a_pad (H, M+1, K),
     bt_phys (H, C, NG+1, G*kc), out (H, n) (the callers' checks; the
-    runner's are made once in ``__init__`` and ``_operands``)."""
+    runner's are made once in ``__init__`` and ``_operands``); the walk
+    is ``planned_walk``'s choice at this K."""
     heads, n = out.shape
     C = bt_phys.shape[1]
     kc = a_pad.shape[2] // C
     if n == 0 or heads == 0:
         return
-    grouped = plan is not None and plan.group_rows > 1
+    grouped = planned_walk(plan, a_pad.shape[2])
     vec = _gather_vec(kc, a_pad, bt_phys, a_pad.stride(1), a_pad.stride(0),
                       bt_phys.stride(1), bt_phys.stride(2), bt_phys.stride(0))
     with torch.cuda.device(a_pad.device):
@@ -336,25 +366,6 @@ def check_slice(compute_dtype: str, k_chunks: int,
             "'greedy' or 'batched'")
 
 
-#: the ROADMAP item that brings backward passes to the hand kernels
-AUTOGRAD_ITEM = "ROADMAP Queue 1: 'Autograd for the hybrid op'"
-
-
-def check_no_grad(name: str, *tensors) -> None:
-    """Raise NotImplementedError if autograd would need a gradient through
-    ``name``: grad mode is on and one of ``tensors`` (None and non-tensors
-    are skipped) requires grad.  The hand kernels write through ctypes, so
-    their results carry no ``grad_fn``; the plain versions on the CPU raise
-    too, so both devices behave alike.  Serving runs under
-    ``torch.inference_mode()`` (or ``torch.no_grad()``)."""
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: sddmm_tpu_torch has no backward pass yet ({AUTOGRAD_ITEM}"
-            "); run under torch.inference_mode() or torch.no_grad(), or "
-            "detach the operands")
-
-
 @dataclasses.dataclass
 class _Segment:
     """One (family, bucket) segment of the packed flat vector."""
@@ -383,6 +394,74 @@ def check_device(device) -> torch.device:
     return dev
 
 
+def _check_order(order):
+    if order not in ("packed", "csr"):
+        raise ValueError(f"unknown order {order!r}")
+    return order
+
+
+def storage_cast(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` in the storage ``dtype``, unless autograd will differentiate
+    through it (grad mode on and ``x`` requires grad)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return x
+    return x.to(dtype)
+
+
+class _GatherUnique(torch.autograd.Function):
+    """``x[..., index]`` where ``index`` repeats no position (a CSR
+    order's slots): its backward writes the cotangent at ``index`` into
+    zeros (``index_copy_``, a plain scatter), where autograd's backward of
+    an index (``index_put_`` with accumulation) sorts the index first."""
+
+    @staticmethod
+    def forward(ctx, x, index):
+        ctx.save_for_backward(index)
+        ctx.size = x.shape[-1]
+        return x[..., index]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (index,) = ctx.saved_tensors
+        out = g.new_zeros(g.shape[:-1] + (ctx.size,))
+        return out.index_copy_(out.dim() - 1, index, g), None
+
+
+def gather_unique(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``x[..., index]`` for an ``index`` without repeats, differentiable
+    by a scatter (``_GatherUnique``)."""
+    return _GatherUnique.apply(x, index)
+
+
+class _HybridFn(torch.autograd.Function):
+    """The runner's packed SDDMM of (H, M+1, K) A and (H, C, NG+1, G*kc)
+    B^T as an autograd op (B1).  Forward: the storage cast, then one tile
+    launch and one gather-dot launch (or the plain route).  Backward: the
+    SpMMs of the read pattern (``HybridSDDMM.vjp``) at the saved
+    storage-cast operands, in fp32 in every mode: more exact than the JAX
+    package's "tf32" VJP, which rounds the cotangent to bf16."""
+
+    @staticmethod
+    def forward(ctx, runner, plain, a_panels, a_pad, bt_phys):
+        adt, bdt = STORAGE[runner.compute_dtype]
+        a_s = a_pad.to(adt).contiguous()
+        b_s = bt_phys.to(bdt).contiguous()
+        if a_panels is not None:
+            a_panels = [x.to(adt) for x in a_panels]
+        ctx.save_for_backward(a_s, b_s)
+        ctx.runner, ctx.plain = runner, plain
+        return runner._flat(a_s, b_s, plain, a_panels)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        a_s, b_s = ctx.saved_tensors
+        da, dbt = ctx.runner.vjp(a_s, b_s, g, ctx.plain,
+                                 *ctx.needs_input_grad[3:5])
+        return None, None, None, da, dbt
+
+
 class HybridSDDMM:
     """Reusable hybrid SDDMM for a fixed sparsity packing, on one device.
 
@@ -391,21 +470,25 @@ class HybridSDDMM:
     kernel runs its plain PyTorch version), so a call only ships A and B.
     Output layouts (``order``): ``"packed"``, the flat vector of length
     ``packed.packed_size`` in which non-nnz slots hold garbage; ``"csr"``,
-    the values in CSR entry order of the input matrix.
+    the values in CSR entry order of the input matrix.  ``order=None``
+    means ``default_order``, as in the JAX package.
     """
 
     def __init__(self, packed: PackedMatrix, compute_dtype: str = "tf32",
-                 k_chunks: int = 1, use_pallas: bool = False,
-                 a_layout: str = "rows", device="cuda"):
+                 *, default_order: str = "packed", k_chunks: int = 1,
+                 use_pallas: bool = False, a_layout: str = "rows",
+                 device="cuda"):
         check_slice(compute_dtype, k_chunks)
         if a_layout not in ("rows", "panels"):
             raise ValueError(f"unknown a_layout {a_layout!r}")
+        _check_order(default_order)
         if a_layout == "panels" and packed.cont_panel_off is None:
             raise ValueError("a_layout='panels' needs container topology "
                              "(packed.cont_panel_off)")
         self.device = check_device(device)
         self.packed = packed
         self.compute_dtype = compute_dtype
+        self.default_order = default_order
         self.k_chunks = int(k_chunks)
         # accepted for config compatibility: every dense tile goes through
         # the tile kernel either way
@@ -519,10 +602,10 @@ class HybridSDDMM:
                                        packed.col_order, packed.n))
         self._inv_idx = (put(packed.inv_idx)
                          if packed.inv_idx is not None else None)
-        # the segment softmax kernel reads it as int32
-        self._inv_idx32 = (put(packed.inv_idx, torch.int32)
-                           if packed.inv_idx is not None
-                           and packed.packed_size < 2 ** 31 else None)
+        #: the backward's read patterns (``grad_patterns``), built at the
+        #: first backward, and the host seconds that took
+        self._grad = None
+        self.grad_pattern_seconds = None
         self._packed_rows = (put(packed.packed_rows)
                              if packed.packed_rows is not None else None)
         self._packed_cols = (put(packed.packed_cols)
@@ -536,14 +619,23 @@ class HybridSDDMM:
                              "packed_rows; re-pack with full metadata")
         return self._packed_rows
 
-    @property
+    @functools.cached_property
     def inv_idx32(self) -> torch.Tensor:
-        """(nnz,) int32: the packed slot of each CSR entry."""
-        if self._inv_idx32 is None:
+        """(nnz,) int32: the packed slot of each CSR entry (the segment
+        softmax kernel reads it so)."""
+        p = self.packed
+        if p.inv_idx is None:
             raise ValueError("light packing (full_metadata=False) has no "
                              "CSR-order metadata; re-pack with full "
                              "metadata")
-        return self._inv_idx32
+        if p.packed_size >= 2 ** 31:
+            raise ValueError(f"packed_size {p.packed_size} >= 2^31: the "
+                             "packed slots do not fit the int32 index the "
+                             "segment softmax kernel reads")
+        # kept across calls, so not an inference tensor even when a
+        # forward under inference_mode makes it: autograd saves it later
+        with torch.inference_mode(False):
+            return self._inv_idx.to(torch.int32)
 
     @property
     def packed_cols(self) -> torch.Tensor:
@@ -579,15 +671,18 @@ class HybridSDDMM:
     def device_prepare(self, a_pad: torch.Tensor, bt_pad: torch.Tensor):
         """Padded A (M+1, K) and B^T (N+1, K) already on the runner's
         device -> the runner's operands ``(a_pad, bt_phys)``, in the mode's
-        storage dtypes (cast once here, not on every call); ``a_pad`` is
-        the pair ``(a_pad, a_panels)`` under ``a_layout="panels"`` (the
-        panels serve the per-segment route, ``plain=True``)."""
+        storage dtypes (cast once here, not on every call), except where
+        autograd will differentiate through an operand: that one keeps its
+        dtype, and the runner's autograd op casts it, so that its gradient
+        is not rounded to the storage dtype.  ``a_pad`` is the pair
+        ``(a_pad, a_panels)`` under ``a_layout="panels"`` (the panels serve
+        the per-segment route, ``plain=True``)."""
         adt, bdt = STORAGE[self.compute_dtype]
-        a_pad = a_pad.to(adt)
+        a_pad = storage_cast(a_pad, adt)
         a_ops = a_pad
         if self.a_layout == "panels":
             a_ops = (a_pad, self._a_panels(a_pad))
-        return a_ops, self.device_bt(bt_pad.to(bdt))
+        return a_ops, self.device_bt(storage_cast(bt_pad, bdt))
 
     def prepare_operands(self, a, b=None, bt=None):
         """numpy A (M, K) and B (K, N), or B^T (N, K) as ``bt`` -> the
@@ -621,9 +716,10 @@ class HybridSDDMM:
                              f"(NG={p.num_col_groups}, G={p.group_size})")
         return kc
 
-    def _operands(self, a_ops, bt_phys: torch.Tensor):
+    def _operands(self, a_ops, bt_phys: torch.Tensor, cast: bool = True):
         """(a_pad, a_panels or None, bt_phys, kc) from run_padded's
-        operands, contiguous, in the mode's storage dtypes."""
+        operands, contiguous, in the mode's storage dtypes (or as they
+        came, without ``cast``)."""
         if isinstance(a_ops, (tuple, list)):
             # a rows-layout runner given panels operands ignores the
             # relayout, as the JAX runner does
@@ -642,6 +738,8 @@ class HybridSDDMM:
                     "prepare_operands/device_prepare for grouped packing")
             bt_phys = bt_phys[None]
         kc = self._check_bt(a_pad, bt_phys)
+        if not cast:
+            return a_pad, a_panels, bt_phys, kc
         adt, bdt = STORAGE[self.compute_dtype]
         a_pad = a_pad.to(adt).contiguous()
         bt_phys = bt_phys.to(bdt).contiguous()
@@ -695,7 +793,8 @@ class HybridSDDMM:
 
     def run_tiles(self, a_ops, bt_phys: torch.Tensor, flat: torch.Tensor,
                   plain: bool = False) -> torch.Tensor:
-        """The dense tiles (segments and slabs) of one call into ``flat``:
+        """The dense tiles (segments and slabs) of one call into ``flat``
+        (no autograd):
         one tile-kernel launch over the work table, or with ``plain`` the
         per-segment route's plain versions."""
         a_pad, a_panels, bt_phys, _ = self._operands(a_ops, bt_phys)
@@ -727,50 +826,53 @@ class HybridSDDMM:
                 self._res_member)
 
     def run_padded(self, a_ops, bt_phys: torch.Tensor,
-                   order: str = "packed",
+                   order: Optional[str] = None,
                    plain: bool = False) -> torch.Tensor:
         """Compute from operands already in the runner's layout
         (``prepare_operands``/``device_prepare``; a plain (N+1, K) B^T is
         accepted under the identity layout).  ``order`` is ``"packed"`` or
-        ``"csr"``.  On the card a call is one tile-kernel launch and, where
-        the packing has a residual, one gather-dot launch.
+        ``"csr"`` (None: ``default_order``).  On the card a call is one
+        tile-kernel launch and, where the packing has a residual, one
+        gather-dot launch.  Differentiable in ``a_pad`` and ``bt_phys``
+        (the module docstring; under ``a_layout="panels"`` the gradient
+        reaches ``a_pad``, the panels get none).
 
         ``plain=True`` runs the plain PyTorch versions of the kernels on
-        any device, the tiles by the per-segment route: the reference the
+        any device, the tiles by the per-segment route, and the backward by
+        the plain SpMM over the same read pattern: the reference the
         kernels are timed against on the card.  It is only ever chosen
         explicitly."""
-        if order not in ("packed", "csr"):
-            raise ValueError(f"unknown order {order!r}")
-        check_no_grad("HybridSDDMM.run_padded", bt_phys, *(
-            a_ops if isinstance(a_ops, (tuple, list)) else (a_ops,)))
-        a_pad, a_panels, bt_phys, _ = self._operands(a_ops, bt_phys)
-        return self._run(a_pad[None], bt_phys[None], order, plain,
-                         None if a_panels is None else [a_panels])[0]
+        order = _check_order(order or self.default_order)
+        a_pad, a_panels, bt_phys, _ = self._operands(a_ops, bt_phys,
+                                                     cast=False)
+        flat = _HybridFn.apply(self, plain,
+                               None if a_panels is None else [a_panels],
+                               a_pad[None], bt_phys[None])[0]
+        return self.to_csr_order(flat) if order == "csr" else flat
 
     def run_heads(self, a_pad: torch.Tensor, bt_phys: torch.Tensor,
-                  order: str = "packed", plain: bool = False
+                  order: Optional[str] = None, plain: bool = False
                   ) -> torch.Tensor:
         """A batch of H heads sharing this packing: padded A (H, M+1, K)
         and grouped B^T (H, C, NG+1, G*kc) (``device_bt`` of a (H, N+1, K)
         batch) on the runner's device -> (H, packed_size), or (H, nnz) with
-        ``order="csr"``.  The tiles of all heads are one tile-kernel launch
-        with a head stride (the vmapped batch of the JAX package), and so
-        is the residual's gather-dot.  ``plain`` as in ``run_padded``."""
-        if order not in ("packed", "csr"):
-            raise ValueError(f"unknown order {order!r}")
-        check_no_grad("HybridSDDMM.run_heads", a_pad, bt_phys)
+        ``order="csr"`` (None: ``default_order``).  The tiles of all heads
+        are one tile-kernel launch with a head stride (the vmapped batch of
+        the JAX package), and so is the residual's gather-dot; a backward
+        is two SpMM launches for all heads.  ``plain`` as in
+        ``run_padded``."""
+        order = _check_order(order or self.default_order)
         if a_pad.dim() != 3 or a_pad.shape[0] != bt_phys.shape[0]:
             raise ValueError(f"want a_pad (H, M+1, K) and bt_phys (H, C, "
                              f"NG+1, G*kc), got {tuple(a_pad.shape)} and "
                              f"{tuple(bt_phys.shape)}")
         self._check_bt(a_pad, bt_phys)
-        adt, bdt = STORAGE[self.compute_dtype]
-        return self._run(a_pad.to(adt).contiguous(),
-                         bt_phys.to(bdt).contiguous(), order, plain)
+        flat = _HybridFn.apply(self, plain, None, a_pad, bt_phys)
+        return self.to_csr_order(flat) if order == "csr" else flat
 
-    def _run(self, a_pad, bt_phys, order, plain, a_panels=None):
+    def _flat(self, a_pad, bt_phys, plain, a_panels=None):
         """a_pad (H, M+1, K), bt_phys (H, C, NG+1, G*kc), contiguous in
-        the storage dtypes -> (H, F) or (H, nnz)."""
+        the storage dtypes -> the packed (H, F)."""
         heads = a_pad.shape[0]
         flat = torch.empty((heads, self.packed.packed_size),
                            dtype=torch.float32, device=a_pad.device)
@@ -791,18 +893,113 @@ class HybridSDDMM:
                                 self._res_gids, self._res_member,
                                 out=flat[:, self._res_offset:],
                                 plan=self.res_plan)
-        if order == "csr":
-            return self.to_csr_order(flat)
         return flat
+
+    def read_pattern(self):
+        """``(rows, lanes, slots)``, int64 numpy, one entry per packed slot:
+        the row of ``a_pad`` (``m`` is its zero row) and the lane of the
+        grouped B^T (``gid * G + member``; group row NG is the zero one)
+        that the forward reads for that slot, taken from what the kernels
+        read: the work table (each entry's rows and lanes, its output block)
+        and the residual's index arrays.  Garbage slots included; no Python
+        loop over blocks."""
+        t = self.table
+        ent = t.entries.cpu().numpy()
+        row_ids = t.row_ids.cpu().numpy().astype(np.int64)
+        gids = t.gids.cpu().numpy().astype(np.int64)
+        G = t.group_size
+        n_rows, n_lanes = ent[:, 1], ent[:, 4]
+        count = n_rows * n_lanes
+        e = np.repeat(np.arange(len(ent)), count)
+        i = np.arange(int(count.sum())) - np.repeat(np.cumsum(count) - count,
+                                                    count)
+        r, l = i // n_lanes[e], i % n_lanes[e]
+        lane = ent[e, 3] + l
+        rows = [row_ids[ent[e, 0] + r]]
+        lanes = [gids[ent[e, 2] + lane // G] * G + lane % G]
+        slots = [ent[e, 5] + r * ent[e, 6] + l]
+        del e, i, r, l, lane
+        p = self.packed
+        rows.append(np.asarray(p.res_rows, dtype=np.int64))
+        lanes.append(np.asarray(p.res_gids, dtype=np.int64) * G + (
+            np.asarray(p.res_member, dtype=np.int64) if G > 1 else 0))
+        slots.append(self._res_offset + np.arange(len(p.res_rows),
+                                                  dtype=np.int64))
+        rows, lanes, slots = (np.concatenate(x) for x in (rows, lanes,
+                                                           slots))
+        if len(slots) != p.packed_size or not (np.bincount(
+                slots, minlength=p.packed_size) == 1).all():
+            raise ValueError("read_pattern: the work table and the residual "
+                             "do not cover every packed slot once")
+        return rows, lanes, slots
+
+    def grad_patterns(self):
+        """The backward's two SpMM patterns over the read pattern, built at
+        the first call (``grad_pattern_seconds`` records its host time)
+        and kept: ``P`` (rows of ``a_pad``, entries at lanes) for dA and
+        ``P^T`` for dB^T_phys, their plans built too on the card.  The zero
+        rows' gradients (``a_pad`` row m, group row NG) are left at 0: they
+        are the pads', which ``torch.cat`` and ``device_bt`` discard, and
+        the pad row's entries would make one long row of the SpMM."""
+        if self._grad is None:
+            # ops.spmm imports this module
+            from sddmm_tpu_torch.ops.spmm import SpmmPattern
+            t0 = time.perf_counter()
+            rows, lanes, slots = self.read_pattern()
+            p = self.packed
+            lanes_real = p.num_col_groups * p.group_size
+            keep = rows < p.m
+            pa = SpmmPattern(rows[keep], lanes[keep], p.m + 1, self.device,
+                             entries=slots[keep])
+            keep = lanes < lanes_real
+            pb = SpmmPattern(lanes[keep], rows[keep],
+                             lanes_real + p.group_size, self.device,
+                             entries=slots[keep])
+            del rows, lanes, slots, keep
+            if self.device.type == "cuda":
+                pa.plan()
+                pb.plan()
+            self.grad_pattern_seconds = time.perf_counter() - t0
+            self._grad = (pa, pb)
+        return self._grad
+
+    def vjp(self, a_pad: torch.Tensor, bt_phys: torch.Tensor,
+            g: torch.Tensor, plain: bool = False, need_a: bool = True,
+            need_b: bool = True):
+        """The backward of one call (B1): (dA (H, M+1, K), dB^T_phys (H, C,
+        NG+1, G*kc)) fp32 of the packed cotangent g (H, F) at the operands
+        (H, M+1, K) and (H, C, NG+1, G*kc), contiguous, as the forward read
+        them (storage dtypes): one SpMM launch each on the card, for all
+        heads and chunks (chunk c writes dA's columns c*kc.., or reads
+        A's), or ``csr_spmm_plain`` per head and chunk with ``plain`` or on
+        the CPU; None for what is not needed."""
+        pa, pb = self.grad_patterns()
+        H, C, ng1, gk = bt_phys.shape
+        m1, K = a_pad.shape[1:]
+        kc = K // C
+        lanes = ng1 * (gk // kc)
+        g = g.to(torch.float32).contiguous()
+        da = dbt = None
+        if need_a:
+            da = torch.empty((H, m1, K), dtype=torch.float32,
+                             device=g.device)
+            pa(g, bt_phys.to(torch.float32).view(H, C, lanes, kc),
+               da.view(H, m1, C, kc).transpose(1, 2), plain)
+        if need_b:
+            dbt = torch.empty((H, C, ng1, gk), dtype=torch.float32,
+                              device=g.device)
+            pb(g, a_pad.to(torch.float32).view(H, m1, C, kc).transpose(1, 2),
+               dbt.view(H, C, lanes, kc), plain)
+        return da, dbt
 
     def to_csr_order(self, flat: torch.Tensor) -> torch.Tensor:
         """Packed-order flat vector (..., F) -> CSR entry order: one
-        gather."""
+        gather (whose backward is one scatter: ``gather_unique``)."""
         if self._inv_idx is None:
             raise ValueError("light packing (full_metadata=False) has no "
                              "CSR-order metadata; re-pack with full "
                              "metadata")
-        return flat[..., self._inv_idx]
+        return gather_unique(flat, self._inv_idx)
 
     @staticmethod
     def from_csr(csr: CSR, alpha: float = config.DEFAULT_ALPHA,

@@ -14,20 +14,35 @@ the warps of one block, whose partial sums are added in a fixed order
 ``csr_spmm_split_plain`` is that order in PyTorch ops).  No atomics: the
 result is deterministic.  Row ids outside ``[0, num_rows)`` are dropped on
 both paths, as ``jax.ops.segment_sum`` drops them.
+
+One launch runs a batch of H x C products over one pattern
+(``spmm_launch``: head and chunk strides on values, dense and out, and a
+row stride on out), which the backward passes use.  ``csr_spmm_torch`` is
+an autograd op (B3, the VJP of ``csr_spmm_jax``): the values' cotangent is
+the gather-dot at the pattern and the dense operand's the SpMM on the
+transposed pattern.  What a pattern's backward needs (``SpmmPattern``, the
+SpMM's CSR of an entry list; ``GradPattern``, a pattern and its transpose
+and the gather-dot's plan) is built at the first backward and kept on the
+pattern's forward plan (``pattern_grads``), so a forward pays nothing for
+it and a caller keeps one object per pattern.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from sddmm_tpu_torch import _kernels
 from sddmm_tpu_torch.data.sparse import CSR
-from sddmm_tpu_torch.ops.gather_plan import group_items, occurrences
-from sddmm_tpu_torch.ops.hybrid import check_device, check_no_grad
+from sddmm_tpu_torch.ops.gather_plan import (gather_plan, group_items,
+                                             occurrences)
+from sddmm_tpu_torch.ops.hybrid import (GATHER_STORAGE, check_device,
+                                        residual_gather_dot)
 
 #: rows with more entries than this are split across the warps of a block
 SPMM_LONG_ROW = 1024
@@ -54,11 +69,13 @@ class SpmmPlan:
     of its group and the entry of each of the group's rows there (-1 where
     the row has none), ascending by column within a group.  A group of one
     row has no items: it walks its CSR entries.  numpy arrays, or tensors
-    after ``to``."""
+    after ``to``.  ``grads``: the pattern's backward state
+    (``pattern_grads``)."""
     tasks: object
     groups: object
     items: object
     group_rows: int
+    grads: Optional["GradPattern"] = None
 
     def to(self, device) -> "SpmmPlan":
         return SpmmPlan(*(torch.as_tensor(x, device=device).contiguous()
@@ -92,14 +109,21 @@ def spmm_plan(row_ptr, cols, row_order=None, group_rows=None) -> SpmmPlan:
     lengths = np.diff(row_ptr)
     is_long = lengths > SPMM_LONG_ROW
     short = order[~is_long[order]]
+    sampled = {}
     if group_rows is None:
         head = short[:SPMM_SAMPLE_ROWS]
-        group_rows = min(SPMM_GROUPS, key=lambda gr: len(_plan_groups(
-            row_ptr, cols, head, gr)[1]) * (2 + gr))
+        sampled = {gr: _plan_groups(row_ptr, cols, head, gr)
+                   for gr in SPMM_GROUPS}
+        group_rows = min(SPMM_GROUPS, key=lambda gr: len(
+            sampled[gr][1]) * (2 + gr))
+        if len(head) < len(short):
+            sampled = {}
     if group_rows not in SPMM_GROUPS:
         raise ValueError(f"spmm_plan: group_rows={group_rows}, want one of "
                          f"{SPMM_GROUPS}")
-    groups, items = _plan_groups(row_ptr, cols, short, group_rows)
+    # a sample that held every short row is the plan itself
+    groups, items = sampled.get(group_rows) or _plan_groups(
+        row_ptr, cols, short, group_rows)
     long_rows = np.flatnonzero(is_long)
     t0 = np.arange(0, len(groups), SPMM_WARPS)
     tasks = np.concatenate([
@@ -247,6 +271,273 @@ def _check(values, rows, cols, dense, num_rows, row_ptr):
                             "or int64 index")
 
 
+def _spmm_forward(values, rows, cols, dense, num_rows, row_ptr, plan):
+    """csr_spmm_torch's forward, checked: the kernel or the plain version."""
+    _check(values, rows, cols, dense, num_rows, row_ptr)
+    if dense.device.type == "cpu":
+        return csr_spmm_plain(values, rows, cols, dense, num_rows)
+    if dense.device.type != "cuda":
+        raise ValueError(f"csr_spmm: unsupported device {dense.device}")
+    if dense.dtype != torch.float32:
+        raise TypeError(f"csr_spmm: the kernel takes fp32 dense, got "
+                        f"{dense.dtype}")
+    if dense.stride(1) != 1 and dense.shape[1] > 1:
+        raise ValueError("csr_spmm: dense's rows must be contiguous")
+    values = values.to(torch.float32)
+    if row_ptr is None:
+        row_ptr, cols, values = csr_index(values, rows, cols, num_rows)
+    row_ptr = row_ptr.to(torch.int64).contiguous()
+    cols = cols.to(torch.int32).contiguous()
+    K = dense.shape[1]
+    out = torch.empty((num_rows, K), dtype=torch.float32,
+                      device=dense.device)
+    if num_rows == 0:
+        return out
+    if plan is None:
+        plan = spmm_plan(row_ptr.cpu().numpy(),
+                         cols.cpu().numpy()).to(dense.device)
+    spmm_launch(plan, row_ptr, cols, values.contiguous()[None],
+                dense[None, None], out[None, None])
+    return out
+
+
+def spmm_launch(plan: SpmmPlan, row_ptr: torch.Tensor, cols: torch.Tensor,
+                values: torch.Tensor, dense: torch.Tensor, out: torch.Tensor,
+                vidx: Optional[torch.Tensor] = None) -> None:
+    """One launch of the SpMM kernel for H x C products over one CSR
+    pattern: ``out[h, c] = S(values[h]) . dense[h, c]``.  row_ptr (m+1,)
+    int64 and cols (nnz,) int32, contiguous, with their plan (``SpmmPlan``
+    on the card); values (H, nnz) fp32 with contiguous rows (the C chunks
+    share them), or (H, n) read through ``vidx`` (nnz,) int32, entry e's
+    value being ``values[h, vidx[e]]`` (in range: the caller's
+    guarantee); dense (H, C, N, K) and out (H, C, m, K) fp32 views whose
+    last dimension is contiguous, any other strides (a chunk of out may be
+    K columns of a wider row).  CUDA tensors only."""
+    H, C, m, K = out.shape
+    dev = out.device
+    nnz = cols.shape[0]
+    if (dense.dim() != 4 or dense.shape[:2] != (H, C) or dense.shape[3] != K
+            or values.dim() != 2 or values.shape[0] != H
+            or row_ptr.shape != (m + 1,)
+            or (vidx is None and values.shape[1] != nnz)
+            or (vidx is not None and vidx.shape != (nnz,))):
+        raise ValueError(f"spmm_launch: values {tuple(values.shape)}, dense "
+                         f"{tuple(dense.shape)}, out {tuple(out.shape)} and "
+                         f"row_ptr {tuple(row_ptr.shape)} do not fit")
+    for name, t, dt in (("values", values, torch.float32),
+                        ("dense", dense, torch.float32),
+                        ("out", out, torch.float32),
+                        ("row_ptr", row_ptr, torch.int64),
+                        ("cols", cols, torch.int32),
+                        ("vidx", vidx, torch.int32)):
+        if t is None:
+            continue
+        if t.dtype != dt or t.device != dev:
+            raise TypeError(f"spmm_launch: {name} is {t.dtype} on "
+                            f"{t.device}, want {dt} on {dev}")
+        if t.numel() > 1 and t.stride(-1) != 1:
+            raise ValueError(f"spmm_launch: {name}'s last dimension must be "
+                             "contiguous")
+    gr = plan.group_rows
+    for name, t, dt, w in (("tasks", plan.tasks, torch.int64, 2),
+                           ("groups", plan.groups, torch.int64, 2 + gr),
+                           ("items", plan.items, torch.int32, 1 + gr)):
+        if (not isinstance(t, torch.Tensor) or t.dim() != 2
+                or t.shape[1] != w or t.dtype != dt or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"csr_spmm: plan.{name} must be spmm_plan's, "
+                             "contiguous, on dense's device (SpmmPlan.to)")
+    if m == 0 or H == 0 or C == 0 or K == 0:
+        return
+    # columns per lane: float4 or float2 loads where K, the strides and the
+    # pointers allow them
+    strides = (dense.stride(0), dense.stride(1), dense.stride(2),
+               out.stride(0), out.stride(1), out.stride(2))
+    vec = 4 if K > 64 else 2 if K > 32 else 1
+    while vec > 1 and (K % vec or any(st % vec for st in strides)
+                       or dense.data_ptr() % (4 * vec)
+                       or out.data_ptr() % (4 * vec)):
+        vec //= 2
+    with torch.cuda.device(dev):
+        _kernels.launch(_kernels.SPMM_ENTRY, plan.tasks.data_ptr(),
+                        plan.tasks.shape[0], plan.groups.data_ptr(),
+                        plan.items.data_ptr(), gr, row_ptr.data_ptr(),
+                        cols.data_ptr(), values.data_ptr(),
+                        None if vidx is None else vidx.data_ptr(),
+                        values.stride(0), dense.data_ptr(), dense.stride(2),
+                        dense.stride(0), dense.stride(1), out.data_ptr(),
+                        out.stride(2), out.stride(0), out.stride(1), K, H, C,
+                        vec, torch.cuda.current_stream().cuda_stream)
+
+
+class SpmmPattern:
+    """An entry list as the SpMM kernel's CSR, for the backward passes:
+    ``out[r] = sum over entries e with rows[e] == r of values[e] *
+    dense[cols[e]]``, for ``num_rows`` rows (rows[e] in range).
+
+    Built once on the host (numpy, vectorised): the entries sorted by row,
+    then column (``vidx``, int32: the position in ``values`` of each CSR
+    entry, which the kernel reads its values through, None where it is the
+    identity), the row pointers, and the kernel's plan at first use on the
+    card.  ``entries`` (optional, one per entry, below 2^31) is the
+    position of each entry's value in the values vector a call passes: a
+    packed slot, say, so that the caller need not order its values."""
+
+    def __init__(self, rows, cols, num_rows: int, device, entries=None):
+        rows = np.asarray(rows, dtype=np.int64)
+        cols = np.asarray(cols, dtype=np.int64)
+        self.num_rows = int(num_rows)
+        self.device = torch.device(device)
+        if len(rows) and (rows.min() < 0 or rows.max() >= num_rows):
+            raise ValueError(f"SpmmPattern: a row id is outside [0, "
+                             f"{num_rows})")
+        width = int(cols.max()) + 1 if len(cols) else 1
+        order = np.argsort(rows * width + cols, kind="stable")
+        perm = order if entries is None else np.asarray(
+            entries, dtype=np.int64)[order]
+        if len(perm) and perm.max() >= 2 ** 31:
+            raise ValueError("SpmmPattern: value positions must fit int32")
+        self.n_entries = len(rows)
+        self.vidx = (None if np.array_equal(perm, np.arange(len(perm)))
+                     else torch.as_tensor(perm, dtype=torch.int32,
+                                          device=self.device))
+        rows, cols = rows[order], cols[order]
+        self._host = (np.searchsorted(rows, np.arange(num_rows + 1)), cols)
+        self.rows = torch.as_tensor(rows, device=self.device)
+        self.cols = torch.as_tensor(cols, dtype=torch.int32,
+                                    device=self.device)
+        self.row_ptr = torch.as_tensor(self._host[0], device=self.device)
+        self._plan = None
+
+    def plan(self) -> SpmmPlan:
+        """The kernel's plan (``spmm_plan``), built at the first call."""
+        if self._plan is None:
+            self._plan = spmm_plan(*self._host).to(self.device)
+        return self._plan
+
+    def __call__(self, values: torch.Tensor, dense: torch.Tensor,
+                 out: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """values (H, n) (its entries at ``entries``, or in the list's
+        order); dense (H, C, N, K) and out (H, C, num_rows, K), both with a
+        contiguous last dimension: ``out[h, c] = S(values[h]) .
+        dense[h, c]``, written.  On the card one kernel launch for all H x C
+        that reads the values through ``vidx`` (``plain`` takes
+        ``csr_spmm_plain`` per product), on the CPU the plain version."""
+        if plain or out.device.type == "cpu":
+            v = (values[:, :self.n_entries] if self.vidx is None
+                 else values.index_select(1, self.vidx))
+            for h in range(out.shape[0]):
+                for c in range(out.shape[1]):
+                    out[h, c] = csr_spmm_plain(v[h], self.rows, self.cols,
+                                               dense[h, c], self.num_rows)
+            return out
+        v = values.to(torch.float32)
+        if self.vidx is None:
+            v = v[:, :self.n_entries]
+        spmm_launch(self.plan(), self.row_ptr, self.cols, v.contiguous(),
+                    dense, out, self.vidx)
+        return out
+
+
+class GradPattern:
+    """One pattern's backward passes, for H heads that share it (a batch
+    laid out head by head, as ``stacked`` lays out the heads' CSR).  From
+    the entries (rows[e], cols[e]) of an (m, n) pattern (any order), each
+    built at first use and then kept:
+
+    - ``spmm``: the SpMM over the pattern (an SDDMM's dA = (g ⊙ S)·B);
+    - ``spmm_t``: over its transpose (an SDDMM's dB^T, an SpMM's d dense
+      = S^T·dOut);
+    - ``sddmm``: the gather-dot at the pattern with its plan, ``row_order``
+      grouping its rows (an SpMM's d values)."""
+
+    def __init__(self, rows, cols, shape, device, row_order=None):
+        self.rows = np.asarray(rows, dtype=np.int64)
+        self.cols = np.asarray(cols, dtype=np.int64)
+        self.shape = tuple(int(x) for x in shape)
+        self.device = torch.device(device)
+        self.row_order = row_order
+
+    @functools.cached_property
+    def spmm(self) -> SpmmPattern:
+        return SpmmPattern(self.rows, self.cols, self.shape[0], self.device)
+
+    @functools.cached_property
+    def spmm_t(self) -> SpmmPattern:
+        return SpmmPattern(self.cols, self.rows, self.shape[1], self.device)
+
+    @functools.cached_property
+    def gather_index(self):
+        """(rows, cols) int32 on the device and the gather-dot's plan."""
+        def put(x):
+            return torch.as_tensor(x, dtype=torch.int32, device=self.device)
+        plan = gather_plan(self.rows, self.cols, self.row_order)
+        return put(self.rows), put(self.cols), plan.to(self.device)
+
+    def sddmm(self, a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+        """(H, nnz) fp32 dots ``a[h, rows[e]] . bt[h, cols[e]]`` of a (H, m,
+        K) and bt (H, n, K): one gather-dot launch on the card."""
+        rows, cols, plan = self.gather_index
+        if (a.dtype, bt.dtype) not in GATHER_STORAGE:
+            a, bt = a.to(torch.float32), bt.to(torch.float32)
+        return residual_gather_dot(a.contiguous(), bt.contiguous()[:, None],
+                                   rows, cols, plan=plan)
+
+
+def pattern_grads(plan, rows: torch.Tensor, cols: torch.Tensor, shape,
+                  device) -> GradPattern:
+    """The backward state of the (m, n) pattern of ``rows`` and ``cols``
+    whose forward plan (``SpmmPlan`` or ``GatherPlan``) is ``plan``: kept
+    on the plan as ``plan.grads``, built at its first backward from the
+    index read back to the host; built for the one call where the caller
+    keeps no plan.  A caller whose entries are H heads' block-diagonal
+    copies of one pattern (``stacked``) sets ``plan.grads`` to that one
+    head's ``GradPattern`` beforehand, so the heads share it."""
+    grads = None if plan is None else plan.grads
+    if grads is None:
+        m = shape[0]
+        if rows.numel() and bool(((rows < 0) | (rows >= m)).any()):
+            raise ValueError(f"backward: a row id is outside [0, {m}); the "
+                             "backward needs them in range")
+        grads = GradPattern(rows.cpu().numpy(), cols.cpu().numpy(), shape,
+                            device)
+        if plan is not None:
+            plan.grads = grads
+    return grads
+
+
+class _SpmmFn(torch.autograd.Function):
+    """csr_spmm_torch as an autograd op (B3)."""
+
+    @staticmethod
+    def forward(ctx, values, dense, rows, cols, num_rows, row_ptr, plan):
+        ctx.save_for_backward(values, dense, rows, cols)
+        ctx.num_rows, ctx.plan = num_rows, plan
+        return _spmm_forward(values, rows, cols, dense, num_rows, row_ptr,
+                             plan)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        values, dense, rows, cols = ctx.saved_tensors
+        m, n = ctx.num_rows, dense.shape[0]
+        grads = pattern_grads(ctx.plan, rows, cols, (m, n), dense.device)
+        heads = m // grads.shape[0]
+        K = dense.shape[1]
+        g = g.contiguous()
+        d_values = d_dense = None
+        if ctx.needs_input_grad[0]:
+            d_values = grads.sddmm(g.view(heads, -1, K),
+                                   dense.view(heads, -1, K)).reshape(-1)
+        if ctx.needs_input_grad[1]:
+            d_dense = torch.empty((n, K), dtype=torch.float32,
+                                  device=dense.device)
+            grads.spmm_t(values.to(torch.float32).view(heads, -1),
+                         g.view(heads, 1, -1, K),
+                         d_dense.view(heads, 1, -1, K))
+        return d_values, d_dense, None, None, None, None, None
+
+
 def csr_spmm_torch(values: torch.Tensor, rows: torch.Tensor,
                    cols: torch.Tensor, dense: torch.Tensor, num_rows: int,
                    row_ptr: Optional[torch.Tensor] = None,
@@ -263,56 +554,15 @@ def csr_spmm_torch(values: torch.Tensor, rows: torch.Tensor,
     caller keeps one (else it is built here, which reads the row pointers
     and columns back to the host).  CUDA tensors go through the kernel (dense
     fp32, values cast to fp32 as JAX's astype does) or raise; CPU tensors
-    through ``csr_spmm_plain``."""
-    check_no_grad("csr_spmm_torch", values, dense)
-    _check(values, rows, cols, dense, num_rows, row_ptr)
-    if dense.device.type == "cpu":
-        return csr_spmm_plain(values, rows, cols, dense, num_rows)
-    if dense.device.type != "cuda":
-        raise ValueError(f"csr_spmm: unsupported device {dense.device}")
-    if dense.dtype != torch.float32:
-        raise TypeError(f"csr_spmm: the kernel takes fp32 dense, got "
-                        f"{dense.dtype}")
-    if dense.stride(1) != 1 and dense.shape[1] > 1:
-        raise ValueError("csr_spmm: dense's rows must be contiguous")
-    values = values.to(torch.float32)
-    if row_ptr is None:
-        row_ptr, cols, values = csr_index(values, rows, cols, num_rows)
-    row_ptr = row_ptr.to(torch.int64).contiguous()
-    cols = cols.to(torch.int32).contiguous()
-    values = values.contiguous()
-    K = dense.shape[1]
-    out = torch.empty((num_rows, K), dtype=torch.float32,
-                      device=dense.device)
-    if num_rows == 0:
-        return out
-    if plan is None:
-        plan = spmm_plan(row_ptr.cpu().numpy(),
-                         cols.cpu().numpy()).to(dense.device)
-    gr = plan.group_rows
-    for name, t, dt, w in (("tasks", plan.tasks, torch.int64, 2),
-                           ("groups", plan.groups, torch.int64, 2 + gr),
-                           ("items", plan.items, torch.int32, 1 + gr)):
-        if (not isinstance(t, torch.Tensor) or t.dim() != 2
-                or t.shape[1] != w or t.dtype != dt
-                or t.device != dense.device or not t.is_contiguous()):
-            raise ValueError(f"csr_spmm: plan.{name} must be spmm_plan's, "
-                             "contiguous, on dense's device (SpmmPlan.to)")
-    # columns per lane: float4 or float2 loads where K, the row stride and
-    # the pointer allow them
-    vec = 4 if K > 64 else 2 if K > 32 else 1
-    while vec > 1 and (K % vec or dense.stride(0) % vec
-                       or dense.data_ptr() % (4 * vec)):
-        vec //= 2
-    with torch.cuda.device(dense.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _kernels.launch(_kernels.SPMM_ENTRY, plan.tasks.data_ptr(),
-                        plan.tasks.shape[0], plan.groups.data_ptr(),
-                        plan.items.data_ptr(), gr, row_ptr.data_ptr(),
-                        cols.data_ptr(),
-                        values.data_ptr(), dense.data_ptr(), dense.stride(0),
-                        out.data_ptr(), K, vec, stream)
-    return out
+    through ``csr_spmm_plain``.
+
+    Differentiable in ``values`` and ``dense`` (B3): d values is one
+    gather-dot launch at the pattern, d dense one SpMM launch on the
+    transpose, each taking the plain version on the CPU; it needs every row
+    id in range.  Their state is built at the first backward and kept on
+    ``plan`` (``pattern_grads``); without a plan it is built for each
+    backward, as the forward then builds its plan for each call."""
+    return _SpmmFn.apply(values, dense, rows, cols, num_rows, row_ptr, plan)
 
 
 def csr_spmm(s: CSR, dense, values=None, device="cuda") -> np.ndarray:

@@ -16,6 +16,7 @@ import torch
 from sddmm_tpu_torch import _kernels
 from sddmm_tpu_torch.data import generate
 from sddmm_tpu_torch.models import (BlockSparseAttention, GraphAttentionLayer,
+                                    SparseFactorizationModel,
                                     make_attention_mask)
 from sddmm_tpu_torch.ops import batch as bt
 from sddmm_tpu_torch.ops import hybrid as hy
@@ -23,7 +24,8 @@ from sddmm_tpu_torch.ops import softmax as sm
 from sddmm_tpu_torch.ops import spmm as sp
 from sddmm_tpu_torch.ops.gather_plan import gather_plan
 from sddmm_tpu_torch.ops import tile_dot as td
-from sddmm_tpu_torch.ops.csr_sddmm import csr_sddmm
+from sddmm_tpu_torch.ops.csr_sddmm import (csr_plan, csr_sddmm,
+                                          csr_sddmm_torch)
 from sddmm_tpu_torch.ops.dense import DenseSDDMM
 from sddmm_tpu_torch.ops.reference import sddmm_reference
 from sddmm_tpu_torch.reorder.autotune import from_params
@@ -290,8 +292,15 @@ def test_graph_attention_kernel_path_matches_plain(cuda_device):
     want = torch.nan_to_num(torch.softmax(s, dim=1)) @ v
     res = check_values(want.cpu().numpy(), got.cpu().numpy())
     assert res.passed and res.num_errors == 0, str(res)
-    with pytest.raises(NotImplementedError, match="Autograd"):
-        layer(x)
+    # once a guard that raised: the backward runs on the kernels and its
+    # weight gradients match the plain path's
+    layer(x).square().sum().backward()
+    kernel = [w.grad.clone() for w in layer.parameters()]
+    layer.zero_grad()
+    layer(x, plain=True).square().sum().backward()
+    for g_k, w in zip(kernel, layer.parameters()):
+        assert ((g_k - w.grad).abs().max() / w.grad.abs().max()).item() \
+            <= MODEL_PLAIN
 
 
 def test_batched_hybrid_and_overlap_report_on_card(cuda_device):
@@ -624,3 +633,300 @@ def test_one_softmax_launch_per_forward(cuda_device):
         assert counts == want
         assert ((got - plain).abs().max() / plain.abs().max()).item() \
             <= MODEL_PLAIN
+
+
+# -- the backward passes (B1-B4) and the trainer --
+
+# a backward kernel vs its plain version on U[0,2) data (no cancellation):
+# the same fp32 products summed in another order (the SpMM row by row in a
+# fixed order, the plain index_add_ with atomics), as max |kernel - plain|
+# / |plain| over the nonzero gradients
+BACKWARD_REL = 1e-5
+
+
+def _rel_nonzero(got, want):
+    """max |got - want| / |want| where want != 0; got must be 0 where want
+    is."""
+    nz = want != 0
+    assert not got[~nz].any()
+    return ((got[nz] - want[nz]).abs() / want[nz].abs()).max().item()
+
+
+#: the hybrid backward's packings: from_params keywords, A layout
+GRAD_CASES = {
+    "G1 panels": (dict(alpha=0.2, delta=0.05, b_cost_scale=2.0), "panels"),
+    "G2 residual": (dict(alpha=0.3, delta=0.05, group_size=2), "rows"),
+    "G4": (dict(alpha=0.3, delta=0.0, group_size=4, merge_superpanels=False),
+           "rows"),
+    "slabs C2": (dict(alpha=0.1, delta=0.05, group_size=2, k_chunks=2,
+                      hub_cols=256, hot_rows=128, hot_rows_pre=True),
+                 "panels"),
+}
+
+
+@pytest.mark.parametrize("name", list(GRAD_CASES))
+def test_hybrid_backward_on_card(name, cuda_device):
+    """B1 on the card, 2 heads through BatchedHybridSDDMM: exactly 2 SpMM
+    launches a backward (all heads and chunks); the gradients of a
+    cotangent on every packed slot equal the plain Function's (the same
+    read pattern, plain SpMM) within BACKWARD_REL and are bit-equal on a
+    second backward; with a cotangent on the real slots they pass the
+    contract against the fp64 (G ⊙ S)·B and (G ⊙ S)^T·A."""
+    kw, layout = GRAD_CASES[name]
+    csr = (generate.powerlaw_graph(2048, avg_degree=16, seed=44)
+           if "slabs" in name else _quick_clustered())
+    K, H = 64, 2
+    t = from_params(csr, K, **kw)
+    r = hy.HybridSDDMM(t.packed, compute_dtype="float32",
+                       k_chunks=t.k_chunks, a_layout=layout,
+                       device=cuda_device)
+    batched = bt.BatchedHybridSDDMM(r)
+    rng = np.random.default_rng(3)
+    a = _u02(rng, (H, csr.m, K), cuda_device)
+    b = _u02(rng, (H, csr.n, K), cuda_device)
+    pad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, 1))  # noqa: E731
+
+    def grads(g, order, plain=False):
+        a_t, b_t = a.clone().requires_grad_(), b.clone().requires_grad_()
+        batched.run_padded(pad(a_t), pad(b_t), order=order,
+                           plain=plain).backward(g)
+        return a_t.grad, b_t.grad
+
+    g_all = _u02(rng, (H, t.packed.packed_size), cuda_device)
+    n = _kernels.launches[_kernels.SPMM_ENTRY]
+    ka, kb = grads(g_all, "packed")
+    assert _kernels.launches[_kernels.SPMM_ENTRY] == n + 2
+    ka2, kb2 = grads(g_all, "packed")
+    pa, pb = grads(g_all, "packed", plain=True)
+    torch.cuda.synchronize()
+    assert r.grad_pattern_seconds is not None
+    assert torch.equal(ka, ka2) and torch.equal(kb, kb2)
+    assert _rel_nonzero(ka, pa) <= BACKWARD_REL
+    assert _rel_nonzero(kb, pb) <= BACKWARD_REL
+    g = _u02(rng, (H, csr.nnz), cuda_device)
+    ka, kb = grads(g, "csr")
+    rows = torch.as_tensor(csr.row_indices(), device=cuda_device)
+    cols = torch.as_tensor(csr.col_idx, dtype=torch.int64,
+                           device=cuda_device)
+    for h in range(H):
+        gd = torch.zeros((csr.m, csr.n), dtype=torch.float64,
+                         device=cuda_device)
+        gd[rows, cols] = g[h].double()
+        for got, want in ((ka[h], gd @ b[h].double()),
+                          (kb[h], gd.T @ a[h].double())):
+            res = check_values(want.cpu().numpy(), got.cpu().numpy())
+            assert res.passed and res.num_errors == 0, str(res)
+
+
+def test_spmm_batch_strides_match_plain(cuda_device):
+    """One SpMM launch for 2 heads x 2 chunks: values per head shared by
+    the chunks, dense and out column slices of wider rows (chunk c is
+    columns c*kc.. of a (rows, 2*kc) matrix), out's rows strided."""
+    rng = np.random.default_rng(5)
+    m, n, kc = 3000, 2000, 48
+    deg = rng.integers(0, 60, m)
+    deg[::7] = 0
+    deg[3] = 3000
+    rows = np.repeat(np.arange(m), deg)
+    cols = rng.integers(0, n, len(rows))
+    pat = sp.SpmmPattern(rows, cols, m, cuda_device)
+    vals = _u02(rng, (2, len(rows)), cuda_device)
+    dense = _u02(rng, (2, n, 2 * kc), cuda_device)
+    d4 = dense.view(2, n, 2, kc).transpose(1, 2)
+    out = torch.zeros((2, m, 2 * kc), device=cuda_device)
+    o4 = out.view(2, m, 2, kc).transpose(1, 2)
+    cnt = _kernels.launches[_kernels.SPMM_ENTRY]
+    pat(vals, d4, o4)
+    assert _kernels.launches[_kernels.SPMM_ENTRY] == cnt + 1
+    want = torch.zeros_like(o4)
+    pat(vals, d4, want, plain=True)
+    torch.cuda.synchronize()
+    assert _rel_nonzero(o4, want) <= BACKWARD_REL
+    assert not out[:, torch.as_tensor(deg == 0, device=cuda_device)].any()
+
+
+@pytest.mark.parametrize("heads", [1, 3])
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "csr"])
+def test_softmax_backward_matches_plain(packed, heads, cuda_device):
+    """B2 on the card: the backward entry of the softmax kernel against its
+    plain version (short rows in registers, long rows as blocks), written
+    at inv_idx into a zeroed packed gradient (padding slots exactly 0),
+    bit-equal on a second call, one launch; the autograd op's gradient is
+    the same."""
+    rng = np.random.default_rng(heads + 10)
+    row_ptr, inv, flat, _ = _softmax_case(rng, heads, cuda_device)
+    if not packed:
+        flat, inv = flat[:, inv.long()].contiguous(), None
+    x = flat.clone().requires_grad_()
+    p = sm.segment_softmax_torch(x, row_ptr, 0.125, inv)
+    g = torch.randn(p.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(1), device=cuda_device)
+    size = flat.shape[1]
+    n = _kernels.launches[_kernels.SOFTMAX_BWD_ENTRY]
+    got = sm.segment_softmax_backward(p.detach(), g, row_ptr, 0.125, inv,
+                                      size)
+    again = sm.segment_softmax_backward(p.detach(), g, row_ptr, 0.125, inv,
+                                        size)
+    assert _kernels.launches[_kernels.SOFTMAX_BWD_ENTRY] == n + 2
+    want = sm.segment_softmax_backward_plain(p.detach(), g, row_ptr, 0.125,
+                                             inv, size)
+    p.backward(g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(x.grad, got)
+    assert ((got - want).abs().max() / want.abs().max()).item() \
+        <= SOFTMAX_REL
+    if packed:
+        pad = torch.ones(size, dtype=torch.bool, device=cuda_device)
+        pad[inv.long()] = False
+        assert pad.any() and not got[:, pad].any()
+
+
+def test_csr_sddmm_and_spmm_backward_on_card(cuda_device):
+    """B4 (csr_sddmm_torch: dA and dB^T, one SpMM launch each) and B3
+    (csr_spmm_torch: d values one gather-dot launch, d dense one SpMM
+    launch) against fp64 products under the contract."""
+    csr = _quick_clustered()
+    K = 64
+    rng = np.random.default_rng(8)
+    a = _u02(rng, (csr.m, K), cuda_device).requires_grad_()
+    b = _u02(rng, (csr.n, K), cuda_device).requires_grad_()
+    rows = torch.as_tensor(csr.row_indices(), dtype=torch.int32,
+                           device=cuda_device)
+    cols = torch.as_tensor(csr.col_idx, dtype=torch.int32,
+                           device=cuda_device)
+    g = _u02(rng, csr.nnz, cuda_device)
+    before = dict(_kernels.launches)
+    csr_sddmm_torch(a, b, rows, cols, csr_plan(csr).to(cuda_device)
+                    ).backward(g)
+    assert (_kernels.launches[_kernels.SPMM_ENTRY]
+            - before.get(_kernels.SPMM_ENTRY, 0)) == 2
+    gd = torch.zeros((csr.m, csr.n), dtype=torch.float64, device=cuda_device)
+    gd[rows.long(), cols.long()] = g.double()
+    for got, want in ((a.grad, gd @ b.detach().double()),
+                      (b.grad, gd.T @ a.detach().double())):
+        res = check_values(want.cpu().numpy(), got.cpu().numpy())
+        assert res.passed and res.num_errors == 0, str(res)
+    vals = _u02(rng, csr.nnz, cuda_device).requires_grad_()
+    dense = _u02(rng, (csr.n, K), cuda_device).requires_grad_()
+    dout = _u02(rng, (csr.m, K), cuda_device)
+    row_ptr = torch.as_tensor(csr.row_ptr, device=cuda_device)
+    plan = sp.spmm_plan(csr.row_ptr, csr.col_idx).to(cuda_device)
+    before = dict(_kernels.launches)
+    sp.csr_spmm_torch(vals, rows.long(), cols, dense, csr.m, row_ptr=row_ptr,
+                      plan=plan).backward(dout)
+    got = {k: c - before.get(k, 0) for k, c in _kernels.launches.items()
+           if c > before.get(k, 0)}
+    assert got == {_kernels.SPMM_ENTRY: 2,
+                   "sddmm_gather_dot_float32_float32": 1}
+    assert plan.grads is not None
+    want_v = (dout.double()[rows.long()]
+              * dense.detach().double()[cols.long()]).sum(1)
+    sd = torch.zeros((csr.m, csr.n), dtype=torch.float64, device=cuda_device)
+    sd[rows.long(), cols.long()] = vals.detach().double()
+    for got, want in ((vals.grad, want_v), (dense.grad, sd.T @ dout.double())):
+        res = check_values(want.cpu().numpy(), got.cpu().numpy())
+        assert res.passed and res.num_errors == 0, str(res)
+
+
+def test_model_backward_launches(cuda_device):
+    """A backward of each model after its forward: one softmax-backward
+    launch, one gather-dot launch (the attention's cotangent) and three
+    SpMM launches (V's cotangent, then the SDDMM's dQ and dK), all heads
+    together; its weight gradients match the plain path's."""
+    adj = generate.powerlaw_graph(1500, avg_degree=10, seed=3)
+    graph = GraphAttentionLayer(adj, 32, 32, device=cuda_device)
+    graph.init(torch.Generator().manual_seed(0))
+    mask = make_attention_mask(320, window=16, num_global=2)
+    block = BlockSparseAttention(mask, 48, 3, 16, device=cuda_device)
+    block.init(torch.Generator().manual_seed(1))
+    for model, x in ((graph, torch.as_tensor(generate.make_dense(
+            adj.m, 32, seed=1), device=cuda_device)),
+                     (block, torch.as_tensor(generate.make_dense(
+                         320, 48, seed=2), device=cuda_device))):
+        model.zero_grad()
+        loss = model(x).square().sum()
+        torch.cuda.synchronize()
+        before = dict(_kernels.launches)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = {n: c - before.get(n, 0)
+                  for n, c in _kernels.launches.items()
+                  if c > before.get(n, 0)}
+        assert counts == {_kernels.SOFTMAX_BWD_ENTRY: 1,
+                          "sddmm_gather_dot_float32_float32": 1,
+                          _kernels.SPMM_ENTRY: 3}
+        kernel = [w.grad.clone() for w in model.parameters()]
+        model.zero_grad()
+        model(x, plain=True).square().sum().backward()
+        for g_k, w in zip(kernel, model.parameters()):
+            assert ((g_k - w.grad).abs().max()
+                    / w.grad.abs().max()).item() <= MODEL_PLAIN
+
+
+def test_factorization_trains_on_card(cuda_device):
+    """The trainer on the card: the loss falls; a step launches the tile
+    kernel once, the gather-dot once (a residual) and the SpMM twice."""
+    csr = _quick_clustered()
+    model = SparseFactorizationModel.from_csr(csr, 32, device=cuda_device)
+    model.init(torch.Generator().manual_seed(0))
+    step = model.make_train_step()
+    tp = model.pack_targets(csr.values)
+    losses = [float(step(tp))]
+    before = dict(_kernels.launches)
+    losses.append(float(step(tp)))
+    counts = {n: c - before.get(n, 0) for n, c in _kernels.launches.items()
+              if c > before.get(n, 0)}
+    want = {"sddmm_tile_dot_float32": 1, _kernels.SPMM_ENTRY: 2}
+    if model.packed.nnz_res:
+        want["sddmm_gather_dot_float32_float32"] = 1
+    assert counts == want
+    losses += [float(step(tp)) for _ in range(18)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+def test_gather_dot_k4096_csr_baseline(cuda_device):
+    """clustered128's CSR baseline plans groups of 16 rows, whose block
+    would need 282 KB of shared memory at K = 4096: the launch takes the
+    entry walk of the same kernel, one launch, and its values match the
+    fp64 dots (on a sample of entries)."""
+    csr = generate.block_clustered(128, 128, group_rows=128, group_cols=128,
+                                   block_prob=0.025, block_density=0.3,
+                                   noise_density=0.00001, seed=43)
+    plan = csr_plan(csr)
+    K = 4096
+    assert plan.group_rows == 16 and not hy.planned_walk(plan, K)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.rand((csr.m, K), generator=gen, device=cuda_device)
+    b = torch.rand((csr.n, K), generator=gen, device=cuda_device)
+    rows = torch.as_tensor(csr.row_indices(), dtype=torch.int32,
+                           device=cuda_device)
+    cols = torch.as_tensor(csr.col_idx, dtype=torch.int32,
+                           device=cuda_device)
+    n = _kernels.launches["sddmm_gather_dot_float32_float32"]
+    got = csr_sddmm_torch(a, b, rows, cols, plan.to(cuda_device))
+    torch.cuda.synchronize()
+    assert _kernels.launches["sddmm_gather_dot_float32_float32"] == n + 1
+    s = torch.randint(0, csr.nnz, (8192,), generator=gen, device=cuda_device)
+    want = (a[rows[s].long()].double() * b[cols[s].long()].double()).sum(1)
+    assert _rel(got[s].double(), want) <= GATHER_REL
+
+
+def test_runner_gr16_residual_plan_at_k4096(cuda_device):
+    """A runner whose residual plan groups 16 rows, called at K = 4096:
+    the launch takes the entry walk (it used to be refused by
+    cudaFuncSetAttribute), and CSR order passes the contract."""
+    csr = _quick_clustered()
+    K = 4096
+    t = from_params(csr, K, alpha=0.3, delta=0.05)
+    p = t.packed
+    assert p.nnz_res
+    r = hy.HybridSDDMM(p, compute_dtype="float32", device=cuda_device)
+    r.res_plan = gather_plan(p.res_rows, p.res_gids.astype(np.int64),
+                             hy.packing_row_order(p), 16).to(cuda_device)
+    assert not hy.planned_walk(r.res_plan, K)
+    a = generate.make_dense(csr.m, K, seed=1)
+    b = generate.make_dense(K, csr.n, seed=2)
+    got = r(a, b)
+    torch.cuda.synchronize()
+    res = check_values(sddmm_reference(a, b, csr), got.cpu().numpy())
+    assert res.passed and res.num_errors == 0, str(res)

@@ -27,6 +27,8 @@ def test_import_does_not_load_jax():
         "import sddmm_tpu_torch, sddmm_tpu_torch.ops, sddmm_tpu_torch.utils\n"
         "import sddmm_tpu_torch.interop, sddmm_tpu_torch.reorder.autotune\n"
         "import sddmm_tpu_torch.reorder.validate, sddmm_tpu_torch.data.io\n"
+        "import sddmm_tpu_torch.models.factorization\n"
+        "import sddmm_tpu_torch.utils.checkpoint\n"
         "assert 'jax' not in sys.modules, 'jax loaded'\n"
         "assert 'sddmm_tpu' not in sys.modules, 'sddmm_tpu loaded'\n"
         "print('clean')\n")
@@ -95,9 +97,14 @@ def test_build_runs_commands_together_and_raises():
         "sddmm_gather_dot_float16_float16",
         "sddmm_gather_dot_bfloat16_bfloat16"}
     assert _kernels.SPMM_ENTRY in eps
-    # the segment softmax binds too, so a build or bind failure raises
+    # the segment softmax and its backward bind too, so a build or bind
+    # failure raises
     assert _kernels.SOFTMAX_ENTRY in eps
     assert eps[_kernels.SOFTMAX_ENTRY][7] is ctypes.c_float
+    assert eps[_kernels.SOFTMAX_BWD_ENTRY][9] is ctypes.c_float
+    # the SpMM takes a value index and head and chunk strides (23
+    # arguments, stream last)
+    assert len(eps[_kernels.SPMM_ENTRY]) == 23
 
 
 def test_cuda_device_raises_without_cuda():
@@ -133,7 +140,8 @@ def _entry_points():
             "entry", "ops.batch", "ops.csr_sddmm", "ops.dense", "ops.hybrid",
             "ops.softmax", "ops.spmm"))
     from sddmm_tpu_torch.models import (BlockSparseAttention,
-                                        GraphAttentionLayer)
+                                        GraphAttentionLayer,
+                                        SparseFactorizationModel)
     return {
         "HybridSDDMM": hybrid.HybridSDDMM.__init__,
         "HybridSDDMM.from_csr": hybrid.HybridSDDMM.from_csr,
@@ -148,13 +156,18 @@ def _entry_points():
         "GraphAttentionLayer": GraphAttentionLayer.__init__,
         "BlockSparseAttention": BlockSparseAttention.__init__,
         "entry": entry.entry,
+        "SparseFactorizationModel": SparseFactorizationModel.__init__,
+        "SparseFactorizationModel.from_csr":
+            SparseFactorizationModel.from_csr,
     }
 
 
 ENTRY_POINTS = ("HybridSDDMM", "HybridSDDMM.from_csr", "sddmm_hybrid",
                 "DenseSDDMM", "DenseSDDMM.from_csr", "dense_masked_sddmm",
                 "csr_sddmm", "csr_spmm", "csr_softmax", "batched_csr_sddmm",
-                "GraphAttentionLayer", "BlockSparseAttention", "entry")
+                "GraphAttentionLayer", "BlockSparseAttention", "entry",
+                "SparseFactorizationModel",
+                "SparseFactorizationModel.from_csr")
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -168,7 +181,7 @@ def test_entry_point_defaults_to_the_card(name):
 
 @pytest.mark.parametrize("name", ["HybridSDDMM", "DenseSDDMM",
                                   "GraphAttentionLayer", "entry",
-                                  "csr_softmax"])
+                                  "csr_softmax", "SparseFactorizationModel"])
 def test_default_device_raises_without_a_card(name):
     """Without a card the default raises; it never falls back to the
     CPU."""
@@ -176,7 +189,8 @@ def test_default_device_raises_without_a_card(name):
         pytest.skip("a CUDA card is present")
     from sddmm_tpu_torch.data import generate
     from sddmm_tpu_torch.entry import entry
-    from sddmm_tpu_torch.models import GraphAttentionLayer
+    from sddmm_tpu_torch.models import (GraphAttentionLayer,
+                                        SparseFactorizationModel)
     from sddmm_tpu_torch.ops.dense import DenseSDDMM
     from sddmm_tpu_torch.ops.hybrid import HybridSDDMM
     from sddmm_tpu_torch.ops.softmax import csr_softmax
@@ -189,6 +203,8 @@ def test_default_device_raises_without_a_card(name):
         "GraphAttentionLayer": lambda: GraphAttentionLayer(csr, 8, 8),
         "entry": entry,
         "csr_softmax": lambda: csr_softmax(csr, np.ones(csr.nnz)),
+        "SparseFactorizationModel": lambda: SparseFactorizationModel.from_csr(
+            csr, 8),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[name]()

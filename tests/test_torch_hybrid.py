@@ -5,7 +5,9 @@ The packing is built once in the JAX package and carried across with
 At G=1 in "tf32" the JAX side runs its Pallas tile dot in interpret mode, as
 the JAX package's own tests do on the CPU."""
 
+import dataclasses
 import functools
+import types
 
 import jax
 import numpy as np
@@ -510,3 +512,93 @@ def test_run_heads_matches_jax_heads(name):
         rel = np.abs(got[h][real] - want[real]) / np.abs(want[real])
         assert rel.max() <= PARITY_REL
         assert rel[res].max(initial=0.0) <= 1e-6
+
+
+def test_default_order_csr_batched_matches_jax():
+    """tests/test_grouped.py:229-246 on the port: a runner built with
+    default_order="csr" (G=4, C=2) makes BatchedHybridSDDMM return (B, nnz)
+    in CSR order, as the JAX runner's does; order=None means the default
+    in run_padded and run_heads too, and the keywords after compute_dtype
+    are keyword-only."""
+    from sddmm_tpu.ops.batch import BatchedHybridSDDMM as JaxBatched
+    from sddmm_tpu_torch.ops.batch import BatchedHybridSDDMM
+
+    csr = _clustered()
+    t = j_from_params(csr, 32, alpha=0.3, delta=0.05, group_size=4,
+                      k_chunks=2, merge_superpanels=False)
+    rng = np.random.default_rng(7)
+    a = rng.random((3, csr.m, 32), dtype=np.float32)
+    b = rng.random((3, 32, csr.n), dtype=np.float32)
+    want = JaxBatched(JaxHybrid(t.packed, compute_dtype="float32",
+                                default_order="csr", k_chunks=2))(a, b)
+    r = hy.HybridSDDMM(packed_from_reference(t.packed),
+                       compute_dtype="float32", default_order="csr",
+                       k_chunks=2, device="cpu")
+    got = BatchedHybridSDDMM(r)(a, b)
+    assert got.shape == (3, csr.nnz) == want.shape
+    for i in range(3):
+        res = check_values(sddmm_reference(a[i], b[i], csr), got[i])
+        assert res.passed, str(res)
+        assert np.max(np.abs(got[i] - want[i]) / np.abs(want[i])) <= 1e-5
+    ops = r.prepare_operands(a[0], b=b[0])
+    assert r.run_padded(*ops).shape == (csr.nnz,)
+    assert r.run_padded(*ops, order="packed").shape == (
+        t.packed.packed_size,)
+    with pytest.raises(TypeError):
+        hy.HybridSDDMM(packed_from_reference(t.packed), "float32", "csr")
+    with pytest.raises(ValueError, match="order"):
+        hy.HybridSDDMM(packed_from_reference(t.packed), default_order="coo",
+                       device="cpu")
+
+
+def test_gather_walk_is_chosen_from_k():
+    """A planned gather-dot whose block would not fit in shared memory at
+    the call's K takes the entry-order walk of the same kernel (decided at
+    launch, also for the runner's residual): at K = 4096 a 16-row plan
+    needs 282 KB of the 227 a block has, an 8-row plan 150 KB.  Both
+    walks give the JAX residual's values."""
+    csr, t, a, b = _res_case("G1")
+    p = t.packed
+    plan16 = gather_plan(p.res_rows, p.res_gids.astype(np.int64),
+                         hy.packing_row_order(p), 16)
+    assert hy.plan_smem_bytes(16, 4096) > hy.GATHER_SMEM_LIMIT
+    assert hy.plan_smem_bytes(8, 4096) <= hy.GATHER_SMEM_LIMIT
+    assert hy.planned_walk(plan16, 128) and not hy.planned_walk(plan16, 4096)
+    assert not hy.planned_walk(None, 128)
+    big = 4096
+    rng = np.random.default_rng(2)
+    a_pad = torch.tensor(rng.uniform(0, 2, (csr.m + 1, big)),
+                         dtype=torch.float32)
+    bt = torch.tensor(rng.uniform(0, 2, (csr.n + 1, big)),
+                      dtype=torch.float32)
+    rows = torch.as_tensor(p.res_rows, dtype=torch.int32)
+    gids = torch.as_tensor(p.res_gids, dtype=torch.int32)
+    got = hy.residual_gather_dot(a_pad, bt, rows, gids, plan=plan16.to("cpu"))
+    want = (a_pad[rows.long()].double() * bt[gids.long()].double()).sum(1)
+    assert torch.allclose(got.double(), want, rtol=1e-6)
+    r = hy.HybridSDDMM(packed_from_reference(p), compute_dtype="float32",
+                       device="cpu")
+    r.res_plan = plan16.to("cpu")
+    ga = jgen.make_dense(csr.m, big, seed=1)
+    gb = jgen.make_dense(big, csr.n, seed=2)
+    res = check_values(sddmm_reference(ga, gb, csr), r(ga, gb).numpy())
+    assert res.passed and res.num_errors == 0, str(res)
+
+
+def test_inv_idx32_names_the_int32_limit(cases):
+    """At packed_size >= 2^31 the int32 slot index the softmax kernel reads
+    cannot exist: the error names that limit, not a light packing."""
+    _, packed, _, _ = cases["conftest"]
+    r = hy.HybridSDDMM(packed_from_reference(packed), device="cpu")
+    # a stub of the two fields the index reads (packed_size is derived)
+    r.packed = types.SimpleNamespace(inv_idx=packed.inv_idx,
+                                     packed_size=2 ** 31)
+    with pytest.raises(ValueError, match=r"2\^31.*int32"):
+        r.inv_idx32
+    light = hy.HybridSDDMM(packed_from_reference(packed), device="cpu")
+    light.packed = dataclasses.replace(light.packed, inv_idx=None)
+    with pytest.raises(ValueError, match="light packing"):
+        light.inv_idx32
+    ok = hy.HybridSDDMM(packed_from_reference(packed), device="cpu")
+    assert ok.inv_idx32.dtype == torch.int32
+    assert np.array_equal(ok.inv_idx32.numpy(), packed.inv_idx)

@@ -35,7 +35,6 @@ from sddmm_tpu_torch.models import (BlockSparseAttention,
                                     make_attention_mask, segment_softmax)
 from sddmm_tpu_torch.ops.csr_sddmm import csr_sddmm_torch
 from sddmm_tpu_torch.ops.dense import DenseSDDMM
-from sddmm_tpu_torch.ops.hybrid import AUTOGRAD_ITEM
 
 ROOT = Path(__file__).resolve().parents[1]
 # The scores match within about one fp32 rounding (JAX's CPU backend takes
@@ -216,36 +215,42 @@ def test_interop_rejects_wrong_shapes():
 
 
 def test_forward_raises_on_grad_requiring_operands():
-    """No backward pass yet: a forward that autograd would have to
-    differentiate raises, on the CPU as on the card, naming the ROADMAP
-    item, and never returns values without a grad_fn."""
+    """Once a guard that raised (there was no backward pass); now a forward
+    that autograd differentiates returns values with a grad_fn, on the CPU
+    as on the card, and finite gradients reach every weight and input:
+    both models, the runners, the dense class and csr_sddmm_torch.  Under
+    no_grad nothing is recorded."""
     adj, F, D, _, _ = _graph_case("dense12")
     layer = GraphAttentionLayer(_tcsr(adj), feature_dim=F, head_dim=D,
                                 device="cpu")
     layer.init(torch.Generator().manual_seed(0))
     x = torch.from_numpy(jgen.make_dense(adj.m, F, seed=5))
     assert all(p.requires_grad for p in layer.parameters())
-    with pytest.raises(NotImplementedError, match=AUTOGRAD_ITEM):
-        layer(x)
+    out = layer(x)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    for w in layer.parameters():
+        assert torch.isfinite(w.grad).all() and w.grad.abs().max() > 0
     mask, _, _, xb, model = _block_case(True)
-    with pytest.raises(NotImplementedError, match="Autograd for the hybrid"):
-        model(torch.from_numpy(xb))
+    xb = torch.from_numpy(xb).requires_grad_()
+    model(xb).sum().backward()
+    assert torch.isfinite(xb.grad).all() and xb.grad.abs().max() > 0
+    assert all(w.grad is not None for w in model.parameters())
     with torch.no_grad():
         assert layer(x.requires_grad_()).grad_fn is None
-    # the runners guard their own calls
+    # the runners' own calls
     r = layer.runner
-    q = torch.zeros((adj.m + 1, D), requires_grad=True)
-    with pytest.raises(NotImplementedError, match=AUTOGRAD_ITEM):
-        r.run_padded(q, q.detach())
+    q = torch.ones((adj.m + 1, D), requires_grad=True)
+    r.run_padded(q, q.detach()).sum().backward()
+    assert q.grad.abs().max() > 0
     dense = DenseSDDMM(4, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match=AUTOGRAD_ITEM):
-        dense.run_padded(torch.ones(4, 8, requires_grad=True),
-                         torch.ones(4, 8))
+    a = torch.ones(4, 8, requires_grad=True)
+    dense.run_padded(a, torch.ones(4, 8)).sum().backward()
+    assert torch.equal(a.grad, torch.full((4, 8), 4.0))
     idx = torch.zeros(3, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match=AUTOGRAD_ITEM):
-        csr_sddmm_torch(torch.ones(4, 8), torch.ones(4, 8,
-                                                     requires_grad=True),
-                        idx, idx)
+    bt = torch.ones(4, 8, requires_grad=True)
+    csr_sddmm_torch(torch.ones(4, 8), bt, idx, idx).sum().backward()
+    assert bt.grad[0].tolist() == [3.0] * 8 and not bt.grad[1:].any()
 
 
 def test_models_import_loads_no_jax():

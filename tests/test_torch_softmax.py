@@ -163,8 +163,13 @@ def test_find_long_rows_and_rejects():
         sm.segment_softmax_torch(flat.double(), rp)
     with pytest.raises(ValueError, match="out"):
         sm.segment_softmax_torch(flat, rp, out=torch.zeros((1, 9)))
-    with pytest.raises(NotImplementedError, match="Autograd"):
-        sm.segment_softmax_torch(flat.requires_grad_(), rp)
+    # once a guard that raised: now an autograd op, whose cotangent is
+    # p * (g - sum_row p * g), 0 for a constant g
+    x = flat.clone().requires_grad_()
+    out = sm.segment_softmax_torch(x, rp)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert torch.allclose(x.grad, torch.zeros_like(x), atol=1e-7)
 
 
 def test_softmax_module_imports_no_jax():

@@ -146,22 +146,37 @@ def test_csr_spmm_rejects():
 
 
 def test_csr_spmm_gradient_guard():
-    """The kernel writes through ctypes, so no gradient could flow: under
-    grad mode an operand that requires grad raises, naming the ROADMAP
-    item; without grad mode the values come back."""
+    """Once a guard that raised; now csr_spmm_torch is an autograd op: the
+    values' cotangent is dOut[row] . dense[col], dense's is S^T . dOut
+    (the same backward with or without a plan, which keeps the pattern's
+    GradPattern, or one set for a block-diagonal pattern's head); without
+    grad mode nothing is recorded, and a backward over an out-of-range row
+    id raises."""
     v, r, c = torch.ones(4), torch.tensor([0, 0, 1, 1]), torch.tensor(
         [0, 1, 2, 0], dtype=torch.int32)
-    d = torch.ones(3, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError,
-                       match="Autograd for the hybrid op"):
-        sp.csr_spmm_torch(v, r, c, d, 2)
-    with pytest.raises(NotImplementedError):
-        sp.csr_spmm_torch(v.requires_grad_(), r, c, d.detach(), 2)
+    d = torch.arange(24, dtype=torch.float32).reshape(3, 8).requires_grad_()
+    vv = v.clone().requires_grad_()
+    out = sp.csr_spmm_torch(vv, r, c, d, 2)
+    assert out.grad_fn is not None
+    g = torch.ones(2, 8)
+    out.backward(g)
+    assert torch.equal(vv.grad, (g[r] * d.detach()[c.long()]).sum(1))
+    assert d.grad.tolist() == [[2.0] * 8, [1.0] * 8, [1.0] * 8]
+    plan = sp.spmm_plan(np.array([0, 2, 4]), c.numpy())
+    plan.grads = sp.GradPattern(r.numpy(), c.numpy(), (2, 3), "cpu")
+    kept = plan.grads
+    d2 = d.detach().clone().requires_grad_()
+    sp.csr_spmm_torch(v, r, c, d2, 2, plan=plan).backward(g)
+    assert torch.equal(d2.grad, d.grad) and plan.grads is kept
     with torch.inference_mode():
         out = sp.csr_spmm_torch(v.detach(), r, c, d.detach(), 2)
-    assert out.tolist() == [[2.0] * 8, [2.0] * 8]
+    assert out.tolist() == [[8.0 + 2 * i for i in range(8)],
+                            [16.0 + 2 * i for i in range(8)]]
     with torch.no_grad():
         assert sp.csr_spmm_torch(v, r, c, d, 2).grad_fn is None
+    bad = sp.csr_spmm_torch(v, torch.tensor([0, 0, 1, 5]), c, d, 2)
+    with pytest.raises(ValueError, match="outside"):
+        bad.sum().backward()
 
 
 def _plan_pattern(seed):
