@@ -80,29 +80,37 @@ its time:
    segment softmax at the models' shapes (beside ``torch.sparse.softmax``
    on a COO tensor of the same scaled scores and its bound) are timed.
 
-10. the backward passes at the main path's shapes: the hybrid's (B1: two
-   SpMM launches over the packing's read pattern) on clustered16 K=128
-   (G=1, panels), banded K=64 (G=2, rows, a residual) and clustered16 K=32
-   (G=4), and on a small powerlaw packing with both slabs and C=2 at 2
-   heads: the read pattern's host seconds, the kernels' gradients against
-   the plain Function's within 1e-5, a repeat backward bit-equal, exactly
-   2 SpMM launches a backward, and against fp64 scipy (G ⊙ S)·B with a
-   cotangent on the real slots under the contract; the CSR SDDMM's (B4,
-   its launches counted alone) and the dense class's (B5, cuBLAS) timed;
+10. the backward passes at the main path's shapes: the hybrid's (B1: the
+   tile-grad kernel over the work table's units and its reduction, one
+   launch each for all heads and chunks, plus two SpMM launches for the
+   residual's entries) on clustered16 K=128 (G=1, panels), banded K=64
+   (G=2, rows, a residual), clustered16 K=32 (G=4) and powerlaw K=128 at
+   bench scale (123 M packed slots, the hub and hot-row slabs), and on a
+   small powerlaw packing with both slabs and C=2 at 2 heads: the backward
+   index's host seconds, exactly those launches around ``backward()`` and
+   no per-slot read pattern built, the kernels' gradients against the
+   plain Function's (``tile_table_grad_plain``) within 1e-5, a repeat
+   backward bit-equal, and against fp64 scipy (G ⊙ S)·B with a cotangent on
+   the real slots under the contract; the CSR SDDMM's (B4, its launches
+   counted alone) and the dense class's (B5, cuBLAS) timed;
 11. the training path: the graph layer's and the Longformer-shaped
    model's backward of sum(out^2) (the counts zeroed just before the
-   ``backward()`` calls and read just after: one softmax-backward launch,
-   one gather-dot and three SpMM launches each), their weight gradients
-   against the plain path and against fp64 autograd of the dense
-   references; then ``SparseFactorizationModel.from_csr`` on the bench's
-   clustered16 at K=128, "float32", Adam at lr 1e-2: step 1's gradients
-   against fp64 scipy, 20 steps (counts zeroed just before and read just
-   after: 1 tile, 1 gather-dot and 2 SpMM launches a step), the loss
-   finite and falling, the first 3 losses against the plain path's, a
-   checkpoint saved, restored and stepped bit-equal, and the step's time
-   split into forward, backward and optimizer beside the plain path's;
-   each backward kernel timed beside its plain version, a library call
-   where one exists, and its bound.
+   ``backward()`` calls and read just after, and by op: one
+   softmax-backward launch, one gather-dot and one SpMM launch for the
+   aggregation, and B1's launches), their weight gradients against the
+   plain path and against fp64 autograd of the dense references; B1 at the
+   Longformer's 12 heads timed beside the read-pattern route; then
+   ``SparseFactorizationModel.from_csr`` on the bench's clustered16 at
+   K=128, "float32", Adam at lr 1e-2: step 1's gradients against fp64
+   scipy, 20 steps (counts zeroed just before and read just after: 1 tile,
+   1 gather-dot and B1's launches a step), the loss finite and falling, the
+   first 3 losses against the plain path's, a checkpoint saved, restored
+   and stepped bit-equal, and the step's time split into forward, backward
+   and optimizer beside the plain path's; each backward kernel timed beside
+   its plain version, a library call where one exists, and its bound (B1
+   also beside the read-pattern route, its bound counted as the work's:
+   g, A and B^T read once, dA and dB^T written once, the six bf16 products
+   of each cell on the tensor cores).
 
 It then prints one JSON line with the kernels' record (per kernel: its
 launches on its path, max abs error against its plain version, and the
@@ -164,8 +172,10 @@ MODEL_PLAIN_ITERS = 3   # and with the plain versions, after 1
 # products summed in another order (the SpMM row by row, the plain
 # index_add_ with atomics)
 BACKWARD_REL = 1e-5
-# the hybrid's backward is checked on these main-path cells
-GRAD_CELLS = [("clustered16", 128), ("banded", 64), ("clustered16", 32)]
+# the hybrid's backward is checked on these main-path cells (powerlaw at
+# bench scale: 123 M packed slots, both slabs)
+GRAD_CELLS = [("clustered16", 128), ("banded", 64), ("clustered16", 32),
+              ("powerlaw", 128)]
 # weight gradients vs fp64 autograd, as max abs err / max |exact| per
 # weight: each is a sum over every position (4096 or 16384) of terms of both
 # signs, so no elementwise contract holds near its zeros
@@ -985,14 +995,38 @@ def rel_nonzero(got, want) -> float:
     return float(((got[nz] - want[nz]).abs() / want[nz].abs()).max())
 
 
+def b1_launches(runner):
+    """B1's launches a backward: the tile-grad kernel and its reduction for
+    all heads and chunks, and the residual's two SpMMs where the packing
+    has a residual."""
+    from sddmm_tpu_torch import _kernels
+    want = {_kernels.TILE_GRAD_ENTRY: 1, _kernels.TILE_GRAD_REDUCE_ENTRY: 1}
+    if runner.packed.nnz_res:
+        want[_kernels.SPMM_ENTRY] = 2
+    return want
+
+
+def grad_index_line(runner):
+    """The backward index's size and host seconds, for the [grad] lines."""
+    idx, res = runner.grad_state()
+    return (f"{runner.table.n_entries} table entries in "
+            f"{idx.n_units_a} dA + {idx.units.shape[0] - idx.n_units_a} dB^T "
+            f"units, {idx.partials} partial rows, "
+            f"{0 if res is None else res[0].n_entries} residual entries; "
+            f"built in {runner.grad_pattern_seconds:.3f} s on the host")
+
+
 def check_backward(torch, label, runner, csr, a_np, b_np, heads):
     """B1 on one packing, ``heads`` heads through ``BatchedHybridSDDMM``:
-    the first backward builds the read pattern (host seconds printed); each
-    backward is exactly 2 SpMM launches; with a U[0,2) cotangent on every
-    packed slot the kernel's gradients equal the plain Function's within
-    BACKWARD_REL and a second backward is bit-equal; with one on the real
-    slots they pass the contract against fp64 scipy (G ⊙ S)·B and
-    (G ⊙ S)^T·A.  Returns (max rel vs plain, max abs vs plain)."""
+    the first backward builds the backward index (host seconds printed);
+    each backward is the tile-grad kernel, its reduction and, with a
+    residual, 2 SpMM launches (counted around ``backward()`` alone); no
+    per-slot read pattern is built; with a U[0,2) cotangent on every packed
+    slot the kernel's gradients equal the plain Function's
+    (``tile_table_grad_plain``, the plain SpMM) within BACKWARD_REL and a
+    second backward is bit-equal; with one on the real slots they pass the
+    contract against fp64 scipy (G ⊙ S)·B and (G ⊙ S)^T·A.  Returns (max
+    rel vs plain, max abs vs plain)."""
     import numpy as np
     import scipy.sparse as sps
     from sddmm_tpu_torch import _kernels
@@ -1005,28 +1039,34 @@ def check_backward(torch, label, runner, csr, a_np, b_np, heads):
     bt = torch.stack([bt, bt.flip(0)][:heads])
     batched = BatchedHybridSDDMM(runner)
 
-    def grads(g, order, plain=False):
+    def grads(g, order, plain=False, launched=None):
         a_t, b_t = a.clone().requires_grad_(), bt.clone().requires_grad_()
-        batched.run_padded(pad_rows(torch, a_t), pad_rows(torch, b_t),
-                           order=order, plain=plain).backward(g)
+        out = batched.run_padded(pad_rows(torch, a_t), pad_rows(torch, b_t),
+                                 order=order, plain=plain)
+        torch.cuda.synchronize()
+        before = dict(_kernels.launches)
+        out.backward(g)
+        torch.cuda.synchronize()
+        if launched is not None:
+            launched.update({n: c - before.get(n, 0)
+                             for n, c in _kernels.launches.items()
+                             if c > before.get(n, 0)})
         return a_t.grad, b_t.grad
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     g_all = torch.rand((heads, p.packed_size), generator=gen,
                        device=DEVICE) * 2
-    n0 = _kernels.launches[_kernels.SPMM_ENTRY]
-    ka, kb = grads(g_all, "packed")
-    torch.cuda.synchronize()
-    if _kernels.launches[_kernels.SPMM_ENTRY] != n0 + 2:
-        fail(f"{label} backward: "
-             f"{_kernels.launches[_kernels.SPMM_ENTRY] - n0} SpMM launches, "
-             "want 2")
-    pa_, pb_ = runner.grad_patterns()
-    say(f"[grad] {label}: read pattern of {p.packed_size} slots and its "
-        f"two SpMM plans: {runner.grad_pattern_seconds:.2f} s on the host; "
-        f"P {pa_.n_entries} entries over {pa_.num_rows} rows (plan of "
-        f"{pa_.plan().group_rows} rows a group), P^T {pb_.n_entries} over "
-        f"{pb_.num_rows} (groups of {pb_.plan().group_rows})")
+    launched = {}
+    ka, kb = grads(g_all, "packed", launched=launched)
+    want = b1_launches(runner)
+    if launched != want:
+        fail(f"{label} backward: launches {launched}, want {want}")
+    if runner._read_grad is not None:
+        fail(f"{label} backward built the per-slot read pattern")
+    say(f"[grad] {label}: backward index of {p.packed_size} slots: "
+        f"{grad_index_line(runner)}; workspace "
+        f"{heads * runner.grad_state()[0].partials * a.shape[-1] * 4 / 1e6:.1f}"
+        " MB a backward")
     ka2, kb2 = grads(g_all, "packed")
     pa, pb = grads(g_all, "packed", plain=True)
     torch.cuda.synchronize()
@@ -1037,7 +1077,7 @@ def check_backward(torch, label, runner, csr, a_np, b_np, heads):
     if not rel <= BACKWARD_REL:
         fail(f"{label} backward: max rel {rel:.3e} vs the plain Function > "
              f"{BACKWARD_REL}")
-    del ka2, kb2, pa, pb
+    del ka2, kb2, pa, pb, g_all
     g = torch.rand((heads, csr.nnz), generator=gen, device=DEVICE) * 2
     ka, kb = grads(g, "csr")
     worst = None
@@ -1053,63 +1093,104 @@ def check_backward(torch, label, runner, csr, a_np, b_np, heads):
             if not res.passed or res.num_errors:
                 fail(f"{label} {name} vs fp64: {res}")
     say(f"[grad] {label} ({heads} head(s), G={p.group_size}, "
-        f"C={runner.k_chunks}, {runner.a_layout}): 2 SpMM launches a "
-        f"backward; vs the plain Function max rel {rel:.3e} (tol "
+        f"C={runner.k_chunks}, {runner.a_layout}): launches a backward "
+        f"{launched}; vs the plain Function max rel {rel:.3e} (tol "
         f"{BACKWARD_REL}); repeat bit-equal; vs fp64 (cotangent on the "
         f"real slots), worst {worst}")
     return rel, err
 
 
+def b1_work(runner, a_pad, bt_phys, g):
+    """B1's bound as the work's, not an implementation's: g, A and B^T
+    read once, dA and dB^T written once (no index), and the operations:
+    every table cell's two products of K (dA and dB^T, 2 flops each) in
+    the six bf16 products of the "float32" split on the tensor cores, and
+    the residual's in fp32."""
+    ent = runner.table.entries.cpu()
+    cells = int((ent[:, 1] * ent[:, 4]).sum())
+    H, K = a_pad.shape[0], a_pad.shape[-1]
+    nbytes = 4 * g.numel() + 8 * a_pad.numel() + 8 * bt_phys.numel()
+    ops_ms = (4.0 * H * cells * K * 6 / BF16_FLOPS
+              + 4.0 * H * runner.packed.nnz_res * K / FP32_FLOPS) * 1e3
+    return {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops_ms}
+
+
 def time_hybrid_backward(torch, label, runner, a_pad, bt_phys, g, card):
-    """B1's record at one packing: its two SpMM launches (``vjp``) beside
-    the plain SpMMs over the same read pattern and ``torch.sparse.mm`` of
-    the read pattern (one call each for P·B and P^T·A), and the bound."""
+    """B1 at one packing, in one call: its launches (``vjp``: the
+    tile-grad kernel, its reduction and the residual's SpMMs) beside the
+    read-pattern route (``vjp_read_pattern``: two SpMMs over every packed
+    slot), the plain version (``vjp(plain=True)``) and, at one head,
+    ``torch.sparse.mm`` of the read pattern (one call each for P·B and
+    P^T·A); the bound recounted as the work's (``b1_work``) beside the
+    read-pattern route's fp32 operations bound.  Returns the record's
+    numbers (library null above one head)."""
     from sddmm_tpu_torch.utils.timing import cuda_time_ms
-    pa, pb = runner.grad_patterns()
     H, C, ng1, gk = bt_phys.shape
     m1, K = a_pad.shape[1:]
     kc = K // C
-    if H != 1 or C != 1:
-        fail(f"{label}: the library yardstick takes H = C = 1")
     lanes = ng1 * (gk // kc)
-    b2 = bt_phys.view(lanes, kc)
     da, db = runner.vjp(a_pad, bt_phys, g)
-    mats = []
-    for pat, ncols in ((pa, lanes), (pb, m1)):
-        # garbage slots repeat (row, lane) pairs: coalesced (summed) first,
-        # as a CSR tensor must not repeat a column in a row
-        vals = g[0] if pat.vidx is None else g[0, pat.vidx.long()]
-        mats.append(torch.sparse_coo_tensor(
-            torch.stack([pat.rows, pat.cols.long()]),
-            vals[:pat.n_entries], size=(pat.num_rows, ncols)
-        ).coalesce().to_sparse_csr())
-    lib = (torch.sparse.mm(mats[0], b2), torch.sparse.mm(mats[1], a_pad[0]))
+    ra, rb = runner.vjp_read_pattern(a_pad, bt_phys, g)
+    pa, pb = runner.grad_patterns()
+    qa, qb = runner.vjp(a_pad, bt_phys, g, plain=True)
     torch.cuda.synchronize()
-    for got, want in ((da[0], lib[0]), (db.view(lanes, kc), lib[1])):
-        if not rel_nonzero(got, want) <= BACKWARD_REL:
-            fail(f"{label}: torch.sparse.mm of the read pattern does not "
-                 "compute the same function")
-    del lib, da, db
+    rel = max(rel_nonzero(da, qa), rel_nonzero(db, qb))
+    rel_route = max(rel_nonzero(da, ra), rel_nonzero(db, rb))
+    if not max(rel, rel_route) <= BACKWARD_REL:
+        fail(f"{label} B1: max rel {rel:.3e} vs plain, {rel_route:.3e} vs "
+             "the read-pattern route")
+    err = max(float((da - qa).abs().max()), float((db - qb).abs().max()))
+    mats = lib = None
+    if H == 1 and C == 1:
+        b2 = bt_phys.view(lanes, kc)
+        mats = []
+        for pat, ncols in ((pa, lanes), (pb, m1)):
+            # garbage slots repeat (row, lane) pairs: coalesced (summed)
+            # first, as a CSR tensor must not repeat a column in a row
+            vals = g[0] if pat.vidx is None else g[0, pat.vidx.long()]
+            mats.append(torch.sparse_coo_tensor(
+                torch.stack([pat.rows, pat.cols.long()]),
+                vals[:pat.n_entries], size=(pat.num_rows, ncols)
+            ).coalesce().to_sparse_csr())
+        lib = (torch.sparse.mm(mats[0], b2), torch.sparse.mm(mats[1],
+                                                             a_pad[0]))
+        torch.cuda.synchronize()
+        for got, want in ((da[0], lib[0]), (db.view(lanes, kc), lib[1])):
+            if not rel_nonzero(got, want) <= BACKWARD_REL:
+                fail(f"{label}: torch.sparse.mm of the read pattern does not "
+                     "compute the same function")
+    del da, db, ra, rb, qa, qb, lib
     tk = cuda_time_ms(lambda: runner.vjp(a_pad, bt_phys, g), 10)
+    tr = cuda_time_ms(lambda: runner.vjp_read_pattern(a_pad, bt_phys, g), 10)
     tp = cuda_time_ms(lambda: runner.vjp(a_pad, bt_phys, g, plain=True), 3,
                       warmup=1)
-    tl = cuda_time_ms(lambda: (torch.sparse.mm(mats[0], b2),
-                               torch.sparse.mm(mats[1], a_pad[0])), 10)
-    n = pa.n_entries + pb.n_entries
-    # g, A and B^T read once, dA and dB^T written once, and the read
-    # pattern once: each slot's A row and lane, int32 each (P and P^T are
-    # two orders of the one pattern)
-    nbytes = (4 * g.numel() + 8 * a_pad.numel() + 8 * bt_phys.numel()
-              + 8 * g.shape[1])
-    bnd = bound_times(nbytes, 2.0 * n * kc, FP32_FLOPS)
-    say(f"[time] {label} hybrid backward B1 (2 x sddmm_csr_spmm_float32, "
-        f"{pa.n_entries} + {pb.n_entries} entries, K={K}): kernel "
-        f"{tk['median_ms']:.4f} ms, plain {tp['median_ms']:.4f} ms, "
-        f"torch.sparse.mm of the read pattern {tl['median_ms']:.4f} ms, "
-        f"bound {max(bnd.values()):.4f} ms = "
-        f"{100 * max(bnd.values()) / tk['median_ms']:.1f} % of it on {card}")
-    return {"err": 0.0, "ms": tk["median_ms"], "plain_ms": tp["median_ms"],
-            "library_ms": tl["median_ms"], **bnd}
+    tl = None if mats is None else cuda_time_ms(
+        lambda: (torch.sparse.mm(mats[0], b2),
+                 torch.sparse.mm(mats[1], a_pad[0])), 10)["median_ms"]
+    bnd = b1_work(runner, a_pad, bt_phys, g)
+    # the read-pattern route's bound as first counted: its P and P^T
+    # entries' fp32 products
+    old_ops = 2.0 * (pa.n_entries + pb.n_entries) * H * kc / FP32_FLOPS * 1e3
+    idx, _ = runner.grad_state()
+    ws_mb = H * idx.partials * K * 4 / 1e6
+    say(f"[time] {label} hybrid backward B1 ({H} head(s), K={K}, C={C}; "
+        f"{runner.table.n_entries} entries, {idx.units.shape[0]} units, "
+        f"workspace {ws_mb:.1f} MB; vs plain {rel:.3e}, vs the read-pattern "
+        f"route {rel_route:.3e}): tile-grad kernels {tk['median_ms']:.4f} ms "
+        f"(min {tk['min_ms']:.4f}, max {tk['max_ms']:.4f}), read-pattern "
+        f"route (2 x {pa.n_entries} SpMM entries, patterns built in "
+        f"{runner.read_pattern_seconds:.3f} s on the host) "
+        f"{tr['median_ms']:.4f} ms, "
+        f"plain {tp['median_ms']:.4f} ms, torch.sparse.mm of the read "
+        f"pattern " + (f"{tl:.4f} ms" if tl is not None else "n/a")
+        + f"; bound {max(bnd.values()):.4f} ms (bytes "
+        f"{bnd['bytes_ms']:.4f}, tensor-core ops {bnd['ops_ms']:.4f}) = "
+        f"{100 * max(bnd.values()) / tk['median_ms']:.1f} % of it; the read "
+        f"pattern's fp32-ops bound {old_ops:.4f} ms; kernels "
+        f"{tr['median_ms'] / tk['median_ms']:.2f}x faster than the "
+        f"read-pattern route on {card}")
+    return {"err": err, "ms": tk["median_ms"], "plain_ms": tp["median_ms"],
+            "library_ms": tl, **bnd}
 
 
 def time_csr_backward(torch, label, csr, a, bt, plan, card):
@@ -1435,27 +1516,35 @@ def run_training(torch, sm, card, graph, x_graph, block, x_block, mask,
     torch.cuda.synchronize()
     del losses
     gather = "sddmm_gather_dot_float32_float32"
-    want = {_kernels.SOFTMAX_BWD_ENTRY: 1, gather: 1, _kernels.SPMM_ENTRY: 3}
-    want_by_op = {"_HybridFnBackward": {_kernels.SPMM_ENTRY: 2},
-                  "_SoftmaxFnBackward": {_kernels.SOFTMAX_BWD_ENTRY: 1},
-                  "_SpmmFnBackward": {gather: 1, _kernels.SPMM_ENTRY: 1}}
+    runners = {"graph attention": graph.runner,
+               "block-sparse attention": block.runner}
     for label, got in per_model.items():
+        b1 = b1_launches(runners[label])
+        want_by_op = {"_HybridFnBackward": b1,
+                      "_SoftmaxFnBackward": {_kernels.SOFTMAX_BWD_ENTRY: 1},
+                      "_SpmmFnBackward": {gather: 1, _kernels.SPMM_ENTRY: 1}}
+        want = {}
+        for counts in want_by_op.values():
+            for name, c in counts.items():
+                want[name] = want.get(name, 0) + c
         say(f"[train] {label} backward launches: {got}; by op: "
             f"{by_op[label]}")
         if got != want or by_op[label] != want_by_op:
             fail(f"{label} backward: launches {got} by op {by_op[label]}, "
                  f"want {want} by op {want_by_op}")
+        if runners[label]._read_grad is not None:
+            fail(f"{label} backward built the per-slot read pattern")
     # each op's launches over both models: B2's in the softmax's backward,
     # B3's two kernels' in the aggregation's
-    model_bwd = {op: {} for op in want_by_op}
+    model_bwd = {op: {} for op in want_by_op}  # the ops of either model
     for ops in by_op.values():
         for op, counts in ops.items():
             for name, c in counts.items():
                 model_bwd[op][name] = model_bwd[op].get(name, 0) + c
     for label, model in (("graph attention", graph),
                          ("block-sparse attention", block)):
-        say(f"[train] {label}: read pattern and plans "
-            f"{model.runner.grad_pattern_seconds:.2f} s on the host")
+        say(f"[train] {label}: backward index "
+            f"{grad_index_line(model.runner)}")
     grads = {label: [w.grad.clone() for w in model.parameters()]
              for label, model in (("graph attention", graph),
                                   ("block-sparse attention", block))}
@@ -1484,6 +1573,20 @@ def run_training(torch, sm, card, graph, x_graph, block, x_block, mask,
                         **time_aggregation_backward(torch, label, model, d,
                                                     card)})
 
+    # B1 at the Longformer's 12 heads, on U[0,2) operands and cotangent
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    br, lf = block.runner, LONGFORMER
+    bp = br.packed
+    a12 = torch.rand((lf["heads"], bp.m + 1, lf["head_dim"]), generator=gen,
+                     device=DEVICE) * 2
+    b12 = br.device_bt(torch.rand((lf["heads"], bp.n + 1, lf["head_dim"]),
+                                  generator=gen, device=DEVICE) * 2)
+    g12 = torch.rand((lf["heads"], bp.packed_size), generator=gen,
+                     device=DEVICE) * 2
+    time_hybrid_backward(torch, "Longformer shape", br, a12,
+                         b12.contiguous(), g12, card)
+    del a12, b12, g12
+
     # -- the factorization trainer --
     t0 = time.perf_counter()
     model = SparseFactorizationModel.from_csr(
@@ -1500,8 +1603,8 @@ def run_training(torch, sm, card, graph, x_graph, block, x_block, mask,
     loss = model.loss(tp)
     loss.backward()
     torch.cuda.synchronize()
-    say(f"[train] factorization: read pattern and its plans "
-        f"{model.runner.grad_pattern_seconds:.2f} s on the host")
+    say(f"[train] factorization: backward index "
+        f"{grad_index_line(model.runner)}")
     with torch.no_grad():
         pred = model(order="csr").double()
     g = (2.0 / p.nnz) * (pred - torch.as_tensor(tgt, device=DEVICE).double())
@@ -1525,7 +1628,8 @@ def run_training(torch, sm, card, graph, x_graph, block, x_block, mask,
     torch.cuda.synchronize()
     train_launches = dict(_kernels.launches)
     steps = TRAIN["steps"]
-    want = {"sddmm_tile_dot_float32": steps, _kernels.SPMM_ENTRY: 2 * steps}
+    want = {"sddmm_tile_dot_float32": steps,
+            **{n: c * steps for n, c in b1_launches(model.runner).items()}}
     if p.nnz_res:
         want["sddmm_gather_dot_float32_float32"] = steps
     say(f"[train] factorization, {steps} Adam steps (lr {TRAIN['lr']}): "
@@ -2026,9 +2130,11 @@ def main() -> None:
         "CSR baseline (K=128 cells)", base_rec))
     # the backward kernels (this slice): the VJPs of the JAX programs
     for key, name, source, replaces, launches, path in (
-            ("B1", f"{_kernels.SPMM_ENTRY} (hybrid backward B1)", "spmm.cu",
+            ("B1", f"{_kernels.TILE_GRAD_ENTRY} + "
+             f"{_kernels.TILE_GRAD_REDUCE_ENTRY} (hybrid backward B1; the "
+             "residual's SpMMs in the timed call)", "tile_grad.cu",
              "sddmm_tpu/ops/hybrid.py:135",
-             train_launches.get(_kernels.SPMM_ENTRY, 0),
+             train_launches.get(_kernels.TILE_GRAD_ENTRY, 0),
              f"factorization training ({TRAIN['steps']} steps)"),
             ("B2", _kernels.SOFTMAX_BWD_ENTRY, "segment_softmax.cu",
              "sddmm_tpu/models/graph_attention.py:30",

@@ -18,10 +18,11 @@ the checkout's gather-dot plan where it has one) and
 graph-attention and Longformer-shaped forwards, and for the SpMM alone at
 the models' shapes, it prints one JSON line: the host wall of a call
 (CUDA-synchronised, without the profiler), the device time of a call by
-kernel group from ``torch.profiler`` (the tile kernel, the gather-dot, the
-segment softmax, the SpMM, cuBLAS, and every other kernel: torch ops,
-cuSPARSE), the launches of a call per group, the device busy share (device
-time over host wall), and the largest kernels of the "other" group by name
+kernel group from ``torch.profiler`` (the tile kernel, the hybrid
+backward's tile-grad kernel and its reduction, the gather-dot, the segment
+softmax, the SpMM, cuBLAS, and every other kernel: torch ops, cuSPARSE),
+the launches of a call per group, the device busy share (device time over
+host wall), and the largest kernels of the "other" group by name
 (``other_top``: [name, ms a call, launches a call]).  Where the checkout
 has the training path (``models.factorization``), it adds the training
 cells: one factorization train step on clustered16 at K=128 (forward,
@@ -51,6 +52,8 @@ def group(name: str) -> str:
     "tilesize", so they are matched first)."""
     if "gemm" in name or "cutlass" in name or "xmma" in name:
         return "cublas"
+    if "tile_grad" in name:
+        return "tile_grad"
     if "tile_dot" in name or "tile_table" in name:
         return "tile"
     if "gather_dot" in name:

@@ -106,6 +106,10 @@ SPMM_ENTRY = "sddmm_csr_spmm_float32"
 SOFTMAX_ENTRY = "sddmm_segment_softmax_float32"
 #: and of its backward, in the same source
 SOFTMAX_BWD_ENTRY = "sddmm_segment_softmax_backward_float32"
+#: C entry points of the hybrid's backward over the work table
+#: (``csrc/tile_grad.cu``): the per-unit products, then their reduction
+TILE_GRAD_ENTRY = "sddmm_tile_grad_float32"
+TILE_GRAD_REDUCE_ENTRY = "sddmm_tile_grad_reduce_float32"
 
 
 def gather_dot_entry(adt, bdt) -> str:
@@ -118,7 +122,8 @@ def gather_dot_entry(adt, bdt) -> str:
 def _entry_points() -> dict:
     """C entry point name -> ctypes argtypes, for every kernel instance:
     the tile dot per compute mode, the gather-dot per (A, B) storage pair
-    of the modes, the CSR SpMM and the segment softmax and its backward."""
+    of the modes, the CSR SpMM, the segment softmax and its backward, and
+    the tile-grad kernel and its reduction."""
     from sddmm_tpu_torch.ops.tile_dot import MODES, STORAGE
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     tile = [p, i64, i64, p, i64, i64, i64, p, i64, p, p, p, i64, i32, i32,
@@ -130,7 +135,13 @@ def _entry_points() -> dict:
     softmax = [p, i64, p, p, i64, p, i64, ctypes.c_float, p, i64, i32, p]
     softmax_bwd = [p, i64, p, i64, p, p, i64, p, i64, ctypes.c_float, p,
                    i64, i32, p]
+    tile_grad = [p, i64, i64, p, i64, i64, i64, p, i64, p, p, p, p, i64,
+                 i64, p, p, i64, i32, i32, i32, i32, p]
+    tile_grad_reduce = [p, i64, i32, p, p, i64, i64, p, i64, p, i64, i64,
+                        i32, i32, i32, p]
     eps = {f"sddmm_tile_dot_{m}": tile for m in MODES}
+    eps[TILE_GRAD_ENTRY] = tile_grad
+    eps[TILE_GRAD_REDUCE_ENTRY] = tile_grad_reduce
     eps.update({gather_dot_entry(*pair): gather for pair in STORAGE.values()})
     eps[SPMM_ENTRY] = spmm
     eps[SOFTMAX_ENTRY] = softmax

@@ -25,7 +25,8 @@ JAX model's loss): the projections and ``w_o`` through torch autograd
 (cuBLAS); the SDDMM, the softmax and the aggregation through their
 autograd ops, whose backward is one softmax-backward launch, one
 gather-dot launch (the attention's cotangent), one SpMM launch (V's) and
-two SpMM launches (the SDDMM's dQ and dK), each for all heads.
+the SDDMM's dQ and dK (``HybridSDDMM.vjp``: the tile-grad kernel and its
+reduction, and two SpMM launches for the residual), each for all heads.
 """
 
 from __future__ import annotations

@@ -7,9 +7,10 @@ entries of a sparse matrix S, minimising the mean squared error over its
 nnz.  The forward is the hybrid SDDMM (``HybridSDDMM.run_padded``, one
 tile-kernel launch and one gather-dot launch on the card), the loss is
 taken over the packed slots with zero weight on the padding ones, and the
-backward is the runner's autograd op: two SpMM launches over the packing's
-read pattern.  The optimizer is ``torch.optim.Adam`` with optax's defaults
-(beta 0.9 / 0.999, eps 1e-8: the same update rule as ``optax.adam``).
+backward is the runner's autograd op: two launches over the tile kernel's
+work table (``tile_table_grad``), plus two SpMM launches for a residual.
+The optimizer is ``torch.optim.Adam`` with optax's defaults (beta
+0.9 / 0.999, eps 1e-8: the same update rule as ``optax.adam``).
 
 The factors are ``nn.Parameter``s on the model's device; torch cannot draw
 ``jax.random``'s numbers, so ``interop.factorization_params_from_reference``

@@ -42,13 +42,17 @@ compare real slots only, or CSR order.  CSR order is one gather,
 
 ``run_padded`` and ``run_heads`` are an autograd op (B1, the VJP of
 ``_hybrid_packed_jit`` that ``jax.value_and_grad`` builds): the cotangent
-of the packed flat vector reaches A and the grouped B^T through the
-packing's *read pattern*, one entry per packed slot (the A row and the
-grouped-B^T lane the forward read for it, garbage slots included, as JAX
-differentiates through them), so the backward is two launches of the SpMM
-kernel for all heads and chunks: ``dA = P . B^T_phys`` and ``dB^T_phys =
-P^T . A``, summed in fp32 in a fixed order.  The pattern and its two SpMM
-plans are built at the first backward (``grad_patterns``) and kept.
+of the packed flat vector reaches A and the grouped B^T through what the
+forward read for each slot, garbage slots included, as JAX differentiates
+through them.  The dense tiles' share walks the same work table
+(``tile_dot.tile_table_grad``: per entry ``dA_rows += dO . B^T_lanes`` and
+``dB^T_lanes += dO^T . A_rows`` on the tensor cores, two launches for all
+heads and chunks); the residual's entries are one SpMM launch each for dA
+and dB^T over a pattern of the residual alone (``grad_state``, built at
+the first backward and kept).  Everything sums in fp32 in a fixed order.
+The earlier route, two SpMMs over the *read pattern* of every packed slot
+(``read_pattern``, ``grad_patterns``, ``vjp_read_pattern``), stays as an
+explicit call, the yardstick the new route is timed against.
 """
 
 from __future__ import annotations
@@ -66,7 +70,9 @@ from sddmm_tpu_torch import _kernels, config
 from sddmm_tpu_torch.data.sparse import CSR
 from sddmm_tpu_torch.ops.gather_plan import GatherPlan, gather_plan
 from sddmm_tpu_torch.ops.tile_dot import (STORAGE, TileTable, table_blocks,
-                                          tile_dot, tile_table)
+                                          tile_dot, tile_table,
+                                          tile_table_grad,
+                                          tile_table_grad_plain)
 from sddmm_tpu_torch.reorder.bsmr import BSMR
 from sddmm_tpu_torch.reorder.pack import GROUP_LANES, PackedMatrix, pack
 
@@ -437,10 +443,10 @@ def gather_unique(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 class _HybridFn(torch.autograd.Function):
     """The runner's packed SDDMM of (H, M+1, K) A and (H, C, NG+1, G*kc)
     B^T as an autograd op (B1).  Forward: the storage cast, then one tile
-    launch and one gather-dot launch (or the plain route).  Backward: the
-    SpMMs of the read pattern (``HybridSDDMM.vjp``) at the saved
-    storage-cast operands, in fp32 in every mode: more exact than the JAX
-    package's "tf32" VJP, which rounds the cotangent to bf16."""
+    launch and one gather-dot launch (or the plain route).  Backward:
+    ``HybridSDDMM.vjp`` at the saved storage-cast operands, in fp32 in
+    every mode: more exact than the JAX package's "tf32" VJP, which rounds
+    the cotangent to bf16."""
 
     @staticmethod
     def forward(ctx, runner, plain, a_panels, a_pad, bt_phys):
@@ -602,10 +608,14 @@ class HybridSDDMM:
                                        packed.col_order, packed.n))
         self._inv_idx = (put(packed.inv_idx)
                          if packed.inv_idx is not None else None)
-        #: the backward's read patterns (``grad_patterns``), built at the
-        #: first backward, and the host seconds that took
+        #: the backward's index (``grad_state``), built at the first
+        #: backward, and the host seconds that took
         self._grad = None
         self.grad_pattern_seconds = None
+        #: the read-pattern route's patterns (``grad_patterns``), built
+        #: only when that route is called, and their host seconds
+        self._read_grad = None
+        self.read_pattern_seconds = None
         self._packed_rows = (put(packed.packed_rows)
                              if packed.packed_rows is not None else None)
         self._packed_cols = (put(packed.packed_cols)
@@ -839,9 +849,9 @@ class HybridSDDMM:
 
         ``plain=True`` runs the plain PyTorch versions of the kernels on
         any device, the tiles by the per-segment route, and the backward by
-        the plain SpMM over the same read pattern: the reference the
-        kernels are timed against on the card.  It is only ever chosen
-        explicitly."""
+        ``tile_table_grad_plain`` and the plain SpMM (``vjp``): the
+        reference the kernels are timed against on the card.  It is only
+        ever chosen explicitly."""
         order = _check_order(order or self.default_order)
         a_pad, a_panels, bt_phys, _ = self._operands(a_ops, bt_phys,
                                                      cast=False)
@@ -859,8 +869,8 @@ class HybridSDDMM:
         ``order="csr"`` (None: ``default_order``).  The tiles of all heads
         are one tile-kernel launch with a head stride (the vmapped batch of
         the JAX package), and so is the residual's gather-dot; a backward
-        is two SpMM launches for all heads.  ``plain`` as in
-        ``run_padded``."""
+        is the same launches for all heads as for one (``vjp``).  ``plain``
+        as in ``run_padded``."""
         order = _check_order(order or self.default_order)
         if a_pad.dim() != 3 or a_pad.shape[0] != bt_phys.shape[0]:
             raise ValueError(f"want a_pad (H, M+1, K) and bt_phys (H, C, "
@@ -933,34 +943,51 @@ class HybridSDDMM:
                              "do not cover every packed slot once")
         return rows, lanes, slots
 
-    def grad_patterns(self):
-        """The backward's two SpMM patterns over the read pattern, built at
-        the first call (``grad_pattern_seconds`` records its host time)
-        and kept: ``P`` (rows of ``a_pad``, entries at lanes) for dA and
-        ``P^T`` for dB^T_phys, their plans built too on the card.  The zero
-        rows' gradients (``a_pad`` row m, group row NG) are left at 0: they
-        are the pads', which ``torch.cat`` and ``device_bt`` discard, and
-        the pad row's entries would make one long row of the SpMM."""
+    def _spmm_patterns(self, rows, lanes, slots):
+        """The two SpMM patterns of (row, lane, slot) entries: ``P`` (rows
+        of ``a_pad``, entries at lanes) for dA and ``P^T`` for dB^T_phys,
+        their plans built too on the card.  The zero rows' gradients
+        (``a_pad`` row m, group row NG) are left at 0: they are the pads',
+        which ``torch.cat`` and ``device_bt`` discard."""
+        # ops.spmm imports this module
+        from sddmm_tpu_torch.ops.spmm import SpmmPattern
+        p = self.packed
+        lanes_real = p.num_col_groups * p.group_size
+        keep = rows < p.m
+        pa = SpmmPattern(rows[keep], lanes[keep], p.m + 1, self.device,
+                         entries=slots[keep])
+        keep = lanes < lanes_real
+        pb = SpmmPattern(lanes[keep], rows[keep], lanes_real + p.group_size,
+                         self.device, entries=slots[keep])
+        if self.device.type == "cuda":
+            pa.plan()
+            pb.plan()
+        return pa, pb
+
+    def grad_state(self):
+        """The backward's index, built at the first call
+        (``grad_pattern_seconds`` records its host time) and kept: the work
+        table's units and reduction (``TileTable.grad_index``, the pads'
+        rows dropped) and the residual's two SpMM patterns (None without a
+        residual).  Its cost grows with the table's entries and the
+        residual, not with the packed slots."""
         if self._grad is None:
-            # ops.spmm imports this module
-            from sddmm_tpu_torch.ops.spmm import SpmmPattern
             t0 = time.perf_counter()
-            rows, lanes, slots = self.read_pattern()
             p = self.packed
-            lanes_real = p.num_col_groups * p.group_size
-            keep = rows < p.m
-            pa = SpmmPattern(rows[keep], lanes[keep], p.m + 1, self.device,
-                             entries=slots[keep])
-            keep = lanes < lanes_real
-            pb = SpmmPattern(lanes[keep], rows[keep],
-                             lanes_real + p.group_size, self.device,
-                             entries=slots[keep])
-            del rows, lanes, slots, keep
-            if self.device.type == "cuda":
-                pa.plan()
-                pb.plan()
+            G = p.group_size
+            idx = self.table.grad_index(p.m + 1, (p.num_col_groups + 1) * G,
+                                        p.m, p.num_col_groups * G)
+            res = None
+            if len(p.res_rows):
+                res = self._spmm_patterns(
+                    np.asarray(p.res_rows, dtype=np.int64),
+                    np.asarray(p.res_gids, dtype=np.int64) * G + (
+                        np.asarray(p.res_member, dtype=np.int64) if G > 1
+                        else 0),
+                    self._res_offset + np.arange(len(p.res_rows),
+                                                 dtype=np.int64))
             self.grad_pattern_seconds = time.perf_counter() - t0
-            self._grad = (pa, pb)
+            self._grad = (idx, res)
         return self._grad
 
     def vjp(self, a_pad: torch.Tensor, bt_phys: torch.Tensor,
@@ -969,27 +996,73 @@ class HybridSDDMM:
         """The backward of one call (B1): (dA (H, M+1, K), dB^T_phys (H, C,
         NG+1, G*kc)) fp32 of the packed cotangent g (H, F) at the operands
         (H, M+1, K) and (H, C, NG+1, G*kc), contiguous, as the forward read
-        them (storage dtypes): one SpMM launch each on the card, for all
-        heads and chunks (chunk c writes dA's columns c*kc.., or reads
-        A's), or ``csr_spmm_plain`` per head and chunk with ``plain`` or on
-        the CPU; None for what is not needed."""
+        them (storage dtypes); None for what is not needed.  The residual's
+        entries first, one SpMM launch each for dA and dB^T on the card
+        (none without a residual), then the dense tiles' share added by
+        ``tile_table_grad``: two launches, all heads and chunks (chunk c
+        writes dA's columns c*kc.., or reads A's).  So a backward is 2
+        launches, or 4 with a residual, at any H and C.  ``plain`` (or the
+        CPU) takes ``tile_table_grad_plain`` and ``csr_spmm_plain``.  The
+        pads' rows (``a_pad`` row m, group row NG) stay 0."""
+        _, res = self.grad_state()
+        H, C, ng1, gk = bt_phys.shape
+        m1, K = a_pad.shape[1:]
+        kc = K // C
+        lanes = ng1 * (gk // kc)
+        g = g.to(torch.float32).contiguous()
+        a32 = a_pad.to(torch.float32).contiguous()
+        b32 = bt_phys.to(torch.float32).contiguous()
+        da = dbt = None
+        if need_a:
+            da = torch.empty((H, m1, K), dtype=torch.float32,
+                             device=g.device)
+        if need_b:
+            dbt = torch.empty((H, C, ng1, gk), dtype=torch.float32,
+                              device=g.device)
+        if res is not None:
+            pa, pb = res
+            if need_a:
+                pa(g, b32.view(H, C, lanes, kc),
+                   da.view(H, m1, C, kc).transpose(1, 2), plain)
+            if need_b:
+                pb(g, a32.view(H, m1, C, kc).transpose(1, 2),
+                   dbt.view(H, C, lanes, kc), plain)
+        p = self.packed
+        grad = tile_table_grad_plain if plain else tile_table_grad
+        grad(a32, b32, g, self.table, da, dbt, accumulate=res is not None,
+             real_rows=p.m, real_lanes=p.num_col_groups * p.group_size)
+        return da, dbt
+
+    def grad_patterns(self):
+        """The read-pattern route's two SpMM patterns over the read pattern
+        of every packed slot (``_spmm_patterns``), built at the first call
+        (``read_pattern_seconds``) and kept.  The backward does not use
+        them; ``vjp_read_pattern`` does."""
+        if self._read_grad is None:
+            t0 = time.perf_counter()
+            self._read_grad = self._spmm_patterns(*self.read_pattern())
+            self.read_pattern_seconds = time.perf_counter() - t0
+        return self._read_grad
+
+    def vjp_read_pattern(self, a_pad: torch.Tensor, bt_phys: torch.Tensor,
+                         g: torch.Tensor):
+        """``vjp`` by the read-pattern route, kept as a yardstick: one SpMM
+        launch each for dA and dB^T over the read pattern
+        (``grad_patterns``), or ``csr_spmm_plain`` per head and chunk on the
+        CPU."""
         pa, pb = self.grad_patterns()
         H, C, ng1, gk = bt_phys.shape
         m1, K = a_pad.shape[1:]
         kc = K // C
         lanes = ng1 * (gk // kc)
         g = g.to(torch.float32).contiguous()
-        da = dbt = None
-        if need_a:
-            da = torch.empty((H, m1, K), dtype=torch.float32,
-                             device=g.device)
-            pa(g, bt_phys.to(torch.float32).view(H, C, lanes, kc),
-               da.view(H, m1, C, kc).transpose(1, 2), plain)
-        if need_b:
-            dbt = torch.empty((H, C, ng1, gk), dtype=torch.float32,
-                              device=g.device)
-            pb(g, a_pad.to(torch.float32).view(H, m1, C, kc).transpose(1, 2),
-               dbt.view(H, C, lanes, kc), plain)
+        da = torch.empty((H, m1, K), dtype=torch.float32, device=g.device)
+        pa(g, bt_phys.to(torch.float32).view(H, C, lanes, kc),
+           da.view(H, m1, C, kc).transpose(1, 2))
+        dbt = torch.empty((H, C, ng1, gk), dtype=torch.float32,
+                          device=g.device)
+        pb(g, a_pad.to(torch.float32).view(H, m1, C, kc).transpose(1, 2),
+           dbt.view(H, C, lanes, kc))
         return da, dbt
 
     def to_csr_order(self, flat: torch.Tensor) -> torch.Tensor:

@@ -32,6 +32,15 @@ and ``tile_dot`` all call it.  ``tile_table_plain`` is the same indexing
 in PyTorch ops (per entry: gather the rows and lanes, ``tile_dot_plain``),
 the CPU path.
 
+The table's backward (B1's dense tiles, the VJP of the JAX runner's
+tile dots) is ``tile_table_grad``: every entry's cotangent block reaches
+its A rows (``dA += dO . B^T lanes``) and its B^T lanes (``dB^T += dO^T .
+A rows``), on the card one launch of ``csrc/tile_grad.cu`` over units of
+entries that share their rows or their lanes (``TileTable.grad_index``,
+built at the first backward and kept) into per-unit partials, and one
+launch that adds each row's partials in a fixed order.
+``tile_table_grad_plain`` is the same sums in PyTorch ops, the CPU path.
+
 ``tile_dot`` is the batched tile dot ``(nT, R, K) x (nT, L, K) -> (nT, R,
 L)`` over strided operands (A and B rows at any 16-byte row stride, so a K
 chunk is a column view) into an output view with any strides, e.g. a slab
@@ -74,6 +83,12 @@ LANE_WINDOW = 128   # B^T lanes of one table entry (the kernel's kLanes)
 #: int64 words of a table entry: [row_off, nrows, gid_off, lane0, nlanes,
 #: out_off, out_rs, 0]
 ENTRY_WORDS = 8
+#: table entries a backward unit walks at most (``TileTable.grad_index``):
+#: a long walk (the hub slab's row windows against one lane window) is cut
+#: into parts that run side by side
+GRAD_PART = 8
+#: int64 words of a backward unit: [walk start, entries, partial row, 0]
+UNIT_WORDS = 4
 
 
 def split_bf16(x: torch.Tensor, planes: int) -> list:
@@ -216,6 +231,53 @@ def table_blocks(row_base, gid_base, out_base, rows: int, lanes: int,
 
 
 @dataclasses.dataclass
+class GradIndex:
+    """The backward's walk of a work table (``TileTable.grad_index``), on
+    the table's device.  ``units`` (U, ``UNIT_WORDS``) int64: the first
+    ``n_units_a`` are dA units (entries that share their A rows: the lane
+    windows of one row window), the others dB^T units (entries that share
+    their lanes: the row windows of one lane window); each walks
+    ``units[u, 1]`` <= ``GRAD_PART`` entry ids of ``walk`` (int32, from
+    ``units[u, 0]``, in table order) and writes its partial, its entries'
+    rows (or lanes) by K, from workspace row ``units[u, 2]``; ``partials``
+    workspace rows in all.  The reduction: output row t (A rows
+    0..n_a-1, then the B^T lanes, ``n_targets`` in all) adds the workspace
+    rows ``src[tptr[t]:tptr[t+1]]`` (int32) in that order, the units'
+    order; a row past the real rows or lanes gets none (the pads' rows are
+    left at 0)."""
+    units: torch.Tensor
+    n_units_a: int
+    walk: torch.Tensor
+    partials: int
+    tptr: torch.Tensor
+    src: torch.Tensor
+    n_a: int
+    n_targets: int
+
+
+def _walks(keys: np.ndarray):
+    """Units over table entries with equal rows of ``keys`` (E, k):
+    (entry ids in walk order, unit starts, unit counts); a group keeps the
+    table's order and is cut into parts of at most ``GRAD_PART``."""
+    n = len(keys)
+    order = np.lexsort(keys.T[::-1])           # stable
+    sk = keys[order]
+    new = np.ones(n, dtype=bool)
+    new[1:] = (sk[1:] != sk[:-1]).any(axis=1)
+    first = np.flatnonzero(new)
+    pos = np.arange(n) - np.repeat(first, np.diff(np.append(first, n)))
+    starts = np.flatnonzero(new | (pos % GRAD_PART == 0))
+    return order, starts, np.diff(np.append(starts, n))
+
+
+def _expand(n: np.ndarray):
+    """(unit, index within the unit) of every partial row of units of
+    ``n`` rows each."""
+    unit = np.repeat(np.arange(len(n)), n)
+    return unit, np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+
+
+@dataclasses.dataclass
 class TileTable:
     """The tile kernel's work table: ``entries`` (E, ``ENTRY_WORDS``) int64
     (see ``table_blocks``), the int32 A row ids and B^T group rows they
@@ -229,6 +291,66 @@ class TileTable:
     max_row: int
     max_gid: int
     out_extent: int
+    _grad: dict = dataclasses.field(default_factory=dict, repr=False,
+                                    compare=False)
+
+    def grad_index(self, rows: int, lanes: int, real_rows=None,
+                   real_lanes=None) -> GradIndex:
+        """The backward's units and reduction (``GradIndex``) for operands
+        of ``rows`` A rows and ``lanes`` B^T lanes (NB * G), the partials
+        of rows at or past ``real_rows`` and lanes at or past
+        ``real_lanes`` dropped (None: keep all).  Built at the first call
+        from the entries (numpy over entries and their rows, never over
+        slots) and kept."""
+        real_rows = rows if real_rows is None else int(real_rows)
+        real_lanes = lanes if real_lanes is None else int(real_lanes)
+        key = (int(rows), int(lanes), real_rows, real_lanes)
+        if key in self._grad:
+            return self._grad[key]
+        ent = self.entries.cpu().numpy()
+        row_ids = self.row_ids.cpu().numpy().astype(np.int64)
+        gids = self.gids.cpu().numpy().astype(np.int64)
+        G = self.group_size
+        walk_a, st_a, cnt_a = _walks(ent[:, [0, 1]])
+        walk_b, st_b, cnt_b = _walks(ent[:, [2, 3, 4]])
+        first_a, first_b = ent[walk_a[st_a]], ent[walk_b[st_b]]
+        n_rows, n_lanes = first_a[:, 1], first_b[:, 4]
+        off_a = np.concatenate([[0], np.cumsum(n_rows)]).astype(np.int64)
+        off_b = off_a[-1] + np.concatenate([[0], np.cumsum(n_lanes)]).astype(
+            np.int64)
+        units = np.zeros((len(st_a) + len(st_b), UNIT_WORDS), dtype=np.int64)
+        units[:, 0] = np.concatenate([st_a, len(ent) + st_b])
+        units[:, 1] = np.concatenate([cnt_a, cnt_b])
+        units[:, 2] = np.concatenate([off_a[:-1], off_b[:-1]])
+        u, r = _expand(n_rows)
+        tgt_a = row_ids[first_a[u, 0] + r]
+        src_a = off_a[u] + r
+        keep_a = tgt_a < real_rows
+        u, l = _expand(n_lanes)
+        lane = first_b[u, 3] + l
+        tgt_b = gids[first_b[u, 2] + lane // G] * G + lane % G
+        src_b = off_b[u] + l
+        keep_b = tgt_b < real_lanes
+        tgt = np.concatenate([tgt_a[keep_a], rows + tgt_b[keep_b]])
+        src = np.concatenate([src_a[keep_a], src_b[keep_b]])
+        order = np.argsort(tgt, kind="stable")
+        tptr = np.searchsorted(tgt[order], np.arange(rows + lanes + 1))
+        if off_b[-1] >= 2 ** 31:
+            raise ValueError(f"grad_index: {off_b[-1]} partial rows do not "
+                             "fit the int32 index the reduction reads")
+        dev = self.entries.device
+
+        def put(x, dtype):
+            return torch.as_tensor(np.ascontiguousarray(x, dtype=dtype),
+                                   device=dev)
+
+        idx = GradIndex(put(units, np.int64), len(st_a),
+                        put(np.concatenate([walk_a, walk_b]), np.int32),
+                        int(off_b[-1]), put(tptr, np.int64),
+                        put(src[order], np.int32), int(rows),
+                        int(rows + lanes))
+        self._grad[key] = idx
+        return idx
 
     @staticmethod
     def build(entries, row_ids, gids, group_size: int, device) -> "TileTable":
@@ -380,6 +502,186 @@ def _launch(mode, a_ptr, sa_h, sa_r, b_ptr, sb_h, sb_c, sb_r, table, out,
                         table.n_entries, table.row_ids.data_ptr(),
                         table.gids.data_ptr(), out.data_ptr(), so_h, heads,
                         C, kc, table.group_size, int(accumulate), stream)
+
+
+def tile_table_grad_plain(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
+                          table: TileTable, da=None, dbt=None,
+                          accumulate: bool = False, real_rows=None,
+                          real_lanes=None):
+    """Plain PyTorch version of ``tile_table_grad``: per head, for 64
+    entries at a time, gather each entry's cotangent block (zero
+    outside its (nrows, nlanes)), A rows and B^T lanes (the chunks side by
+    side, as A's columns), take the fp32 products dO . B^T lanes and dO^T
+    . A rows, and add them into the rows and lanes with ``index_add_``,
+    entry by entry (a fixed order on the CPU).  Rows at or past
+    ``real_rows`` and lanes at or past ``real_lanes`` get nothing."""
+    H, C, nb = b.shape[:3]
+    G = table.group_size
+    kc = b.shape[3] // G
+    dev = a.device
+    real_rows = a.shape[1] if real_rows is None else real_rows
+    real_lanes = nb * G if real_lanes is None else real_lanes
+    for out in (da, dbt):
+        if out is not None and not accumulate:
+            out.zero_()
+    dbt_l = None if dbt is None else dbt.view(H, C, nb * G, kc)
+    ent = table.entries.to(dev)
+    row_ids, gids = table.row_ids.to(dev).long(), table.gids.to(dev).long()
+    rr = torch.arange(ROW_WINDOW, device=dev)
+    ll = torch.arange(LANE_WINDOW, device=dev)
+    batch = 64
+    for s in range(0, ent.shape[0], batch):
+        e = ent[s:s + batch]
+        n = e.shape[0]
+        rmask = rr[None] < e[:, 1:2]                       # (n, 64)
+        lmask = ll[None] < e[:, 4:5]                       # (n, 128)
+        rows = row_ids[torch.where(rmask, e[:, 0:1] + rr, 0)]
+        lane = e[:, 3:4] + ll
+        grp = gids[torch.where(lmask, e[:, 2:3] + lane // G, 0)]
+        member = (lane % G)[:, :, None, None].expand(-1, -1, 1, kc)
+        keep = rmask[:, :, None] & lmask[:, None, :]
+        pos = torch.where(keep, e[:, 5, None, None] + rr[None, :, None]
+                          * e[:, 6, None, None] + ll[None, None, :], 0)
+        to_a = rmask & (rows < real_rows)
+        tgt_lane = grp * G + lane % G
+        to_b = lmask & (tgt_lane < real_lanes)
+        for h in range(H):
+            d = torch.where(keep, g[h][pos].to(torch.float32), 0.0)
+            b_blk = torch.cat([torch.take_along_dim(
+                b[h, c][grp].reshape(n, LANE_WINDOW, G, kc), member,
+                dim=2)[:, :, 0] for c in range(C)], dim=-1).to(torch.float32)
+            with full_fp32_matmul():
+                if da is not None:
+                    pa = torch.bmm(d, b_blk)               # (n, 64, K)
+                    da[h].index_add_(0, rows[to_a], pa[to_a])
+                if dbt is not None:
+                    a_blk = a[h][rows].to(torch.float32)   # (n, 64, K)
+                    pb = torch.bmm(d.transpose(1, 2), a_blk)
+                    pb = pb[to_b]                          # (lanes, K)
+                    for c in range(C):
+                        dbt_l[h, c].index_add_(0, tgt_lane[to_b],
+                                               pb[:, c * kc:(c + 1) * kc])
+    return da, dbt
+
+
+def _check_grad(a, b, g, table, da, dbt):
+    if a.dim() != 3 or b.dim() != 4 or g.dim() != 2:
+        raise ValueError(f"tile_table_grad: want a (H, M, C*kc), b (H, C, "
+                         f"NB, G*kc) and g (H, F), got {tuple(a.shape)}, "
+                         f"{tuple(b.shape)} and {tuple(g.shape)}")
+    H, C, nb, gk = b.shape
+    G = table.group_size
+    kc = gk // G if G else 0
+    if (a.shape[0] != H or g.shape[0] != H or C < 1 or kc < 1
+            or kc * G != gk or a.shape[2] != C * kc):
+        raise ValueError(f"tile_table_grad: a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)} and g {tuple(g.shape)} disagree "
+                         f"on heads, C or kc (G={G})")
+    if table.max_row >= a.shape[1] or table.max_gid >= nb:
+        raise ValueError(f"tile_table_grad: the table indexes row "
+                         f"{table.max_row} of {a.shape[1]} and group row "
+                         f"{table.max_gid} of {nb}")
+    if table.out_extent > g.shape[1]:
+        raise ValueError(f"tile_table_grad: the table reads "
+                         f"{table.out_extent} slots, g has {g.shape[1]}")
+    for name, t, shape in (("a", a, a.shape), ("b", b, b.shape),
+                           ("g", g, g.shape), ("da", da, a.shape),
+                           ("dbt", dbt, b.shape)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32 or t.device != a.device:
+            raise TypeError(f"tile_table_grad: {name} is {t.dtype} on "
+                            f"{t.device}, want float32 on {a.device}")
+        if t.shape != shape:
+            raise ValueError(f"tile_table_grad: {name} {tuple(t.shape)} != "
+                             f"{tuple(shape)}")
+        if not (t.is_contiguous() or (name == "g" and t.stride(1) == 1)):
+            raise ValueError(f"tile_table_grad: {name} must be contiguous "
+                             "(g: its rows)")
+    return H, C, kc
+
+
+def tile_table_grad(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
+                    table: TileTable, da=None, dbt=None,
+                    accumulate: bool = False, real_rows=None,
+                    real_lanes=None):
+    """The backward of ``tile_table`` at fp32 operands: with dO the
+    cotangent ``g`` (H, F) at each entry's slots,
+    ``da[h, row] (+)= sum over entries of dO . B^T lanes`` and
+    ``dbt[h, c, lane] (+)= dO^T . A rows`` (chunk c's columns), written
+    (or added to with ``accumulate``) into ``da`` (H, M, C*kc) and ``dbt``
+    (H, C, NB, G*kc), either of them None when not wanted.  a, b, da and
+    dbt contiguous fp32, g fp32 with contiguous rows, on one device.  Rows
+    at or past ``real_rows`` and lanes at or past ``real_lanes`` (the pads)
+    get nothing: written as zeros, or left as they are.
+
+    CUDA tensors go through two launches whatever the heads, chunks and
+    slabs (or raise): ``csrc/tile_grad.cu``'s tile-grad kernel over the
+    table's units (``TileTable.grad_index``) into a workspace of partials,
+    then its reduction, which adds each row's partials in a fixed order:
+    a repeat call is bit-equal.  The products are the "float32" instance's
+    six bf16 products (about one fp32 rounding off the exact product).  A
+    kc off ``K_STEP`` is zero-padded (copies) first.  CPU tensors go
+    through ``tile_table_grad_plain``."""
+    H, C, kc = _check_grad(a, b, g, table, da, dbt)
+    if a.device.type == "cpu":
+        return tile_table_grad_plain(a, b, g, table, da, dbt, accumulate,
+                                     real_rows, real_lanes)
+    if a.device.type != "cuda":
+        raise ValueError(f"tile_table_grad: unsupported device {a.device}")
+    if table.entries.device != a.device:
+        raise ValueError(f"tile_table_grad: the table is on "
+                         f"{table.entries.device}, a on {a.device}")
+    if da is None and dbt is None:
+        return da, dbt
+    M, nb, G = a.shape[1], b.shape[2], table.group_size
+    idx = table.grad_index(M, nb * G, real_rows, real_lanes)
+    da_k, dbt_k = da, dbt
+    if kc % K_STEP:
+        a = pad_k(a, C)
+        b = pad_k(b.reshape(H, C, nb, G, kc)).reshape(H, C, nb, -1)
+        if da is not None:
+            da_k = pad_k(da, C) if accumulate else torch.empty_like(a)
+        if dbt is not None:
+            dbt_k = (pad_k(dbt.reshape(H, C, nb, G, kc)).reshape(b.shape)
+                     if accumulate else torch.empty_like(b))
+    if a.data_ptr() % _ALIGN or b.data_ptr() % _ALIGN:
+        raise ValueError(f"tile_table_grad: a and b must start "
+                         f"{_ALIGN}-byte aligned")
+    kp = b.shape[3] // G
+    K = C * kp
+    ws = torch.empty((H, idx.partials, K), dtype=torch.float32,
+                     device=a.device)
+    units, n_a, tptr = idx.units, idx.n_units_a, idx.tptr
+    n_targets, rows_a = idx.n_targets, idx.n_a
+    if da is None:
+        units, n_a = units[idx.n_units_a:], 0
+        tptr, n_targets, rows_a = tptr[idx.n_a:], n_targets - idx.n_a, 0
+    elif dbt is None:
+        units, n_targets = units[:idx.n_units_a], idx.n_a
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _kernels.launch(_kernels.TILE_GRAD_ENTRY, a.data_ptr(), a.stride(0),
+                        a.stride(1), b.data_ptr(), b.stride(0), b.stride(1),
+                        b.stride(2), g.data_ptr(), g.stride(0),
+                        table.entries.data_ptr(), table.row_ids.data_ptr(),
+                        table.gids.data_ptr(), units.data_ptr(),
+                        units.shape[0], n_a, idx.walk.data_ptr(),
+                        ws.data_ptr(), ws.stride(0), H, K, kp, G, stream)
+        _kernels.launch(_kernels.TILE_GRAD_REDUCE_ENTRY, ws.data_ptr(),
+                        ws.stride(0), K, tptr.data_ptr(), idx.src.data_ptr(),
+                        rows_a, n_targets,
+                        None if da_k is None else da_k.data_ptr(),
+                        0 if da_k is None else da_k.stride(0),
+                        None if dbt_k is None else dbt_k.data_ptr(),
+                        0 if dbt_k is None else dbt_k.stride(0),
+                        0 if dbt_k is None else dbt_k.stride(1), kp, H,
+                        int(accumulate), stream)
+    if da_k is not da:
+        da.copy_(da_k.view(H, M, C, kp)[..., :kc].reshape(da.shape))
+    if dbt_k is not dbt:
+        dbt.copy_(dbt_k.view(H, C, nb, G, kp)[..., :kc].reshape(dbt.shape))
+    return da, dbt
 
 
 def _rows_of(x: torch.Tensor):

@@ -652,6 +652,21 @@ def _rel_nonzero(got, want):
     return ((got[nz] - want[nz]).abs() / want[nz].abs()).max().item()
 
 
+def _launched(before):
+    """The launches since ``before`` (a copy of the counts), by entry."""
+    return {n: c - before.get(n, 0) for n, c in _kernels.launches.items()
+            if c > before.get(n, 0)}
+
+
+def _backward_launches(runner):
+    """B1's launches a backward: the tile-grad kernel and its reduction,
+    and the residual's two SpMMs where the packing has one."""
+    want = {_kernels.TILE_GRAD_ENTRY: 1, _kernels.TILE_GRAD_REDUCE_ENTRY: 1}
+    if runner.packed.nnz_res:
+        want[_kernels.SPMM_ENTRY] = 2
+    return want
+
+
 #: the hybrid backward's packings: from_params keywords, A layout
 GRAD_CASES = {
     "G1 panels": (dict(alpha=0.2, delta=0.05, b_cost_scale=2.0), "panels"),
@@ -666,12 +681,14 @@ GRAD_CASES = {
 
 @pytest.mark.parametrize("name", list(GRAD_CASES))
 def test_hybrid_backward_on_card(name, cuda_device):
-    """B1 on the card, 2 heads through BatchedHybridSDDMM: exactly 2 SpMM
-    launches a backward (all heads and chunks); the gradients of a
-    cotangent on every packed slot equal the plain Function's (the same
-    read pattern, plain SpMM) within BACKWARD_REL and are bit-equal on a
-    second backward; with a cotangent on the real slots they pass the
-    contract against the fp64 (G ⊙ S)·B and (G ⊙ S)^T·A."""
+    """B1 on the card, 2 heads through BatchedHybridSDDMM: a backward is
+    one tile-grad launch and one reduction (all heads and chunks), and two
+    SpMM launches where the packing has a residual; no read pattern is
+    built; the gradients of a cotangent on every packed slot equal the
+    plain Function's (tile_table_grad_plain, plain SpMM) within
+    BACKWARD_REL and are bit-equal on a second backward; with a cotangent
+    on the real slots they pass the contract against the fp64 (G ⊙ S)·B
+    and (G ⊙ S)^T·A."""
     kw, layout = GRAD_CASES[name]
     csr = (generate.powerlaw_graph(2048, avg_degree=16, seed=44)
            if "slabs" in name else _quick_clustered())
@@ -686,17 +703,22 @@ def test_hybrid_backward_on_card(name, cuda_device):
     b = _u02(rng, (H, csr.n, K), cuda_device)
     pad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, 1))  # noqa: E731
 
-    def grads(g, order, plain=False):
+    def grads(g, order, plain=False, launched=None):
         a_t, b_t = a.clone().requires_grad_(), b.clone().requires_grad_()
-        batched.run_padded(pad(a_t), pad(b_t), order=order,
-                           plain=plain).backward(g)
+        out = batched.run_padded(pad(a_t), pad(b_t), order=order,
+                                 plain=plain)
+        before = dict(_kernels.launches)
+        out.backward(g)
+        if launched is not None:
+            launched.update(_launched(before))
         return a_t.grad, b_t.grad
 
     g_all = _u02(rng, (H, t.packed.packed_size), cuda_device)
-    n = _kernels.launches[_kernels.SPMM_ENTRY]
     ka, kb = grads(g_all, "packed")
-    assert _kernels.launches[_kernels.SPMM_ENTRY] == n + 2
-    ka2, kb2 = grads(g_all, "packed")
+    launched = {}
+    ka2, kb2 = grads(g_all, "packed", launched=launched)
+    assert launched == _backward_launches(r)
+    assert r._read_grad is None
     pa, pb = grads(g_all, "packed", plain=True)
     torch.cuda.synchronize()
     assert r.grad_pattern_seconds is not None
@@ -716,6 +738,56 @@ def test_hybrid_backward_on_card(name, cuda_device):
                           (kb[h], gd.T @ a[h].double())):
             res = check_values(want.cpu().numpy(), got.cpu().numpy())
             assert res.passed and res.num_errors == 0, str(res)
+
+
+@pytest.mark.parametrize("K", [32, 64, 128, 256, 40])
+@pytest.mark.parametrize("name", list(GRAD_CASES))
+def test_tile_grad_kernel_matches_plain(name, K, cuda_device):
+    """The tile-grad kernel and its reduction (tile_table_grad) against
+    tile_table_grad_plain on U[0,2) operands and cotangent, at G 1/2/4, C
+    1/2, both slabs, 1 and 12 heads (12 at K = 64), K 32-256 and K = 40
+    (off the 16-step: zero-padded): within BACKWARD_REL, exactly one launch
+    of each a call, bit-equal on a repeat, and ``accumulate`` adds to what
+    is there; the pads' rows and lanes stay 0."""
+    kw, layout = GRAD_CASES[name]
+    csr = (generate.powerlaw_graph(2048, avg_degree=16, seed=44)
+           if "slabs" in name else _quick_clustered())
+    H = 12 if K == 64 else 1
+    t = from_params(csr, K, **kw)
+    p = t.packed
+    r = hy.HybridSDDMM(p, compute_dtype="float32", k_chunks=t.k_chunks,
+                       a_layout=layout, device=cuda_device)
+    C, G = t.k_chunks, p.group_size
+    kc = K // C
+    rng = np.random.default_rng(K + len(name))
+    a = _u02(rng, (H, p.m + 1, K), cuda_device)
+    b = _u02(rng, (H, C, p.num_col_groups + 1, G * kc), cuda_device)
+    g = _u02(rng, (H, p.packed_size), cuda_device)
+    real = dict(real_rows=p.m, real_lanes=p.num_col_groups * G)
+
+    def run(fn, accumulate=False, da=None, dbt=None):
+        da = torch.empty_like(a) if da is None else da
+        dbt = torch.empty_like(b) if dbt is None else dbt
+        fn(a, b, g, r.table, da, dbt, accumulate=accumulate, **real)
+        return da, dbt
+
+    before = dict(_kernels.launches)
+    ka, kb = run(td.tile_table_grad)
+    assert _launched(before) == {_kernels.TILE_GRAD_ENTRY: 1,
+                                 _kernels.TILE_GRAD_REDUCE_ENTRY: 1}
+    ka2, kb2 = run(td.tile_table_grad)
+    pa, pb = run(td.tile_table_grad_plain)
+    torch.cuda.synchronize()
+    assert torch.equal(ka, ka2) and torch.equal(kb, kb2)
+    assert _rel_nonzero(ka, pa) <= BACKWARD_REL
+    assert _rel_nonzero(kb, pb) <= BACKWARD_REL
+    assert not ka[:, p.m].any() and not kb[:, :, -1].any()
+    base_a, base_b = _u02(rng, a.shape, cuda_device), _u02(rng, b.shape,
+                                                          cuda_device)
+    sa, sb = run(td.tile_table_grad, True, base_a.clone(), base_b.clone())
+    torch.cuda.synchronize()
+    # the same partial sums in the same order, added to what was there
+    assert torch.equal(sa, base_a + ka) and torch.equal(sb, base_b + kb)
 
 
 def test_spmm_batch_strides_match_plain(cuda_device):
@@ -830,8 +902,9 @@ def test_csr_sddmm_and_spmm_backward_on_card(cuda_device):
 
 def test_model_backward_launches(cuda_device):
     """A backward of each model after its forward: one softmax-backward
-    launch, one gather-dot launch (the attention's cotangent) and three
-    SpMM launches (V's cotangent, then the SDDMM's dQ and dK), all heads
+    launch, one gather-dot launch (the attention's cotangent), one SpMM
+    launch (V's cotangent) and the SDDMM's backward (the tile-grad kernel,
+    its reduction and, with a residual, two SpMM launches), all heads
     together; its weight gradients match the plain path's."""
     adj = generate.powerlaw_graph(1500, avg_degree=10, seed=3)
     graph = GraphAttentionLayer(adj, 32, 32, device=cuda_device)
@@ -852,9 +925,11 @@ def test_model_backward_launches(cuda_device):
         counts = {n: c - before.get(n, 0)
                   for n, c in _kernels.launches.items()
                   if c > before.get(n, 0)}
-        assert counts == {_kernels.SOFTMAX_BWD_ENTRY: 1,
-                          "sddmm_gather_dot_float32_float32": 1,
-                          _kernels.SPMM_ENTRY: 3}
+        want = _backward_launches(model.runner)
+        want[_kernels.SPMM_ENTRY] = want.get(_kernels.SPMM_ENTRY, 0) + 1
+        want.update({_kernels.SOFTMAX_BWD_ENTRY: 1,
+                     "sddmm_gather_dot_float32_float32": 1})
+        assert counts == want
         kernel = [w.grad.clone() for w in model.parameters()]
         model.zero_grad()
         model(x, plain=True).square().sum().backward()
@@ -865,7 +940,7 @@ def test_model_backward_launches(cuda_device):
 
 def test_factorization_trains_on_card(cuda_device):
     """The trainer on the card: the loss falls; a step launches the tile
-    kernel once, the gather-dot once (a residual) and the SpMM twice."""
+    kernel once, the gather-dot once (a residual) and B1's kernels."""
     csr = _quick_clustered()
     model = SparseFactorizationModel.from_csr(csr, 32, device=cuda_device)
     model.init(torch.Generator().manual_seed(0))
@@ -876,7 +951,7 @@ def test_factorization_trains_on_card(cuda_device):
     losses.append(float(step(tp)))
     counts = {n: c - before.get(n, 0) for n, c in _kernels.launches.items()
               if c > before.get(n, 0)}
-    want = {"sddmm_tile_dot_float32": 1, _kernels.SPMM_ENTRY: 2}
+    want = {"sddmm_tile_dot_float32": 1, **_backward_launches(model.runner)}
     if model.packed.nnz_res:
         want["sddmm_gather_dot_float32_float32"] = 1
     assert counts == want

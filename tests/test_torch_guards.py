@@ -78,7 +78,8 @@ def test_library_name_tracks_sources():
     assert p.parent.name == "_build" and p.name.startswith("libsddmm_kernels_")
     assert p == _kernels.lib_path()
     assert {s.name for s in _kernels._sources()} == {
-        "tile_dot.cu", "gather_dot.cu", "spmm.cu", "segment_softmax.cu"}
+        "tile_dot.cu", "gather_dot.cu", "spmm.cu", "segment_softmax.cu",
+        "tile_grad.cu"}
 
 
 def test_build_runs_commands_together_and_raises():
@@ -105,6 +106,10 @@ def test_build_runs_commands_together_and_raises():
     # the SpMM takes a value index and head and chunk strides (23
     # arguments, stream last)
     assert len(eps[_kernels.SPMM_ENTRY]) == 23
+    # the hybrid's backward: the tile-grad kernel and its reduction (23 and
+    # 16 arguments, stream last)
+    assert len(eps[_kernels.TILE_GRAD_ENTRY]) == 23
+    assert len(eps[_kernels.TILE_GRAD_REDUCE_ENTRY]) == 16
 
 
 def test_cuda_device_raises_without_cuda():

@@ -2,8 +2,11 @@
 JAX package's: the same generators give the same arrays, and
 ``from_params`` on a committed config gives the identical ``PackedMatrix``."""
 
+import copy
 import dataclasses
+import importlib.util
 import json
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -21,6 +24,69 @@ from sddmm_tpu_torch.reorder.validate import check_pack
 
 CONFIGS = json.loads((Path(__file__).resolve().parents[1] / "results"
                       / "tuned_configs.json").read_text())["k128"]
+
+#: the layout model's measured constants (``autotune.load_calibration``
+#: replaces them)
+_LAYOUT_MODEL = ("STREAM_GBPS", "TAKE_PAYLOAD_CAP_GBPS", "_ROW_RATE_8MB",
+                 "_SRC_MB", "_SRC_F", "_REPEAT_COST", "_DOT_G16_MS")
+
+
+def _shipped_jax_autotune():
+    """A fresh load of the JAX package's ``autotune.py`` under a private
+    name: its constants as shipped, whatever a test did to the imported
+    module."""
+    path = (Path(__file__).resolve().parents[1] / "sddmm_tpu" / "reorder"
+            / "autotune.py")
+    spec = importlib.util.spec_from_file_location("_shipped_autotune", path)
+    module = importlib.util.module_from_spec(spec)
+    # its dataclasses look their module up in sys.modules while it loads
+    sys.modules[spec.name] = module
+    try:
+        spec.loader.exec_module(module)
+    finally:
+        del sys.modules[spec.name]
+    return module
+
+
+_SHIPPED = _shipped_jax_autotune()
+
+
+def _put(module, name, value):
+    """Set a module constant to a copy of ``value`` (a dict in place)."""
+    if isinstance(value, dict):
+        getattr(module, name).clear()
+        getattr(module, name).update(value)
+    else:
+        setattr(module, name, copy.copy(value))
+
+
+@pytest.fixture(autouse=True)
+def _shipped_layout_model():
+    """The JAX package's ``from_params`` on its shipped layout model.  A
+    test that loads a calibration into it earlier in the same process
+    (``tests/test_reorder.py``'s restores three of the constants, not
+    ``_SRC_F``, ``_SRC_MB`` or the rate keys it adds) would otherwise leave
+    another ``est_ms`` there; the module's values are put back as they were
+    after each test."""
+    from sddmm_tpu.reorder import autotune as ja
+    saved = {name: copy.copy(getattr(ja, name)) for name in _LAYOUT_MODEL}
+    for name in _LAYOUT_MODEL:
+        _put(ja, name, getattr(_SHIPPED, name))
+    yield
+    for name, value in saved.items():
+        _put(ja, name, value)
+
+
+@pytest.mark.parametrize("name", _LAYOUT_MODEL)
+def test_layout_model_constants_identical(name):
+    """The port's layout model is the JAX package's as shipped."""
+    from sddmm_tpu_torch.reorder import autotune as ta
+    x, y = getattr(_SHIPPED, name), getattr(ta, name)
+    if isinstance(x, np.ndarray):
+        assert x.dtype == y.dtype and np.array_equal(x, y)
+    else:
+        assert type(x) is type(y) and x == y
+
 
 GENERATORS = {
     "random_sparse": ("random_sparse", (300, 200, 0.03), {"seed": 5}),
