@@ -110,7 +110,23 @@ its time:
    its plain version, a library call where one exists, and its bound (B1
    also beside the read-pattern route, its bound counted as the work's:
    g, A and B^T read once, dA and dB^T written once, the six bf16 products
-   of each cell on the tensor cores).
+   of each cell on the tensor cores);
+12. the entry points a user runs, in this process: the bench route
+   (``sddmm_tpu_torch.bench.main``, the five-matrix suite at K=128 on the
+   committed configs, one session each; its JSON printed, its keys, every
+   cell above 0 GFLOPS, ``roofline_fraction`` null, ``sol_fraction`` at
+   most 1.05, its launch counts zeroed before and read after); the
+   measured shoot-out (``autotune(measure=True)``) on banded at K=128, each
+   finalist's time and host set-up printed, the winner in CSR order
+   against the fp64 golden; the CLI (``cli.main``) on banded written to an
+   .mtx file, once with ``--validate`` and once with ``--tune``, each log
+   parsed (the card's name, GFLOPS above 0, no failed check), and ``-t 1``
+   on a 256x256 matrix (140 logs); and ``utils.profiling.trace`` around
+   one call, whose Chrome trace must name the tile kernel; last, each
+   bench cell's packed time must lie between 75 % of its tile kernel's
+   time in phase 6 and 125 % of the slowest event sample of the same call
+   timed again (host-bound calls read the host, which moves between
+   phases).
 
 It then prints one JSON line with the kernels' record (per kernel: its
 launches on its path, max abs error against its plain version, and the
@@ -184,6 +200,18 @@ GRAD_FP64_TOL = 1e-4
 # within about one fp32 rounding, the gradients summed in another order
 LOSS_REL_TOL = 1e-5
 TRAIN = dict(k=128, lr=1e-2, steps=20)
+# the entry points phase: the bench JSON's keys, its sol_fraction's ceiling
+# (above 1.0 only by L2 residency), the margin of a bench cell's packed time
+# outside its tile kernel's time and the same call's slowest sample, and
+# the -t 1 sweep's logs (5 alphas x 7 deltas x 4 K)
+BENCH_KEYS = ("metric", "value", "value_4matrix", "vs_baseline", "backend",
+              "device", "stream_gbps", "per_matrix", "per_matrix_csr_order",
+              "geomean_csr_order", "speedup_vs_csr_same_chip",
+              "geomean_vs_csr", "sol_fraction", "roofline_fraction",
+              "timing_sessions_ms", "tuning_s", "warnings")
+SOL_MAX = 1.05
+BENCH_AGREE = 0.25
+SWEEP_LOGS = 140
 # the card's published peaks (H100 SXM, NVIDIA's data sheet), for bounds
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12     # dense bf16 on the tensor cores
@@ -216,41 +244,14 @@ class Phase:
 
 def suite():
     """bench.py's full suite, with its generator calls."""
-    from sddmm_tpu_torch.data import generate
-    return {
-        "clustered16": lambda: generate.block_clustered(
-            1024, 1024, block_prob=0.008, block_density=0.65,
-            noise_density=0.00001, seed=42),
-        "clustered128": lambda: generate.block_clustered(
-            128, 128, group_rows=128, group_cols=128, block_prob=0.025,
-            block_density=0.3, noise_density=0.00001, seed=43),
-        "powerlaw": lambda: generate.powerlaw_graph(
-            32768, avg_degree=40, seed=44),
-        "banded": lambda: generate.banded(
-            24576, 24576, bandwidth=45, fill=0.55, seed=45),
-        "dlmc": lambda: generate.random_sparse(
-            4096, 4096, density=0.2, seed=46),
-    }
+    from sddmm_tpu_torch import bench
+    return bench.suite(quick=False)
 
 
 def tuned(csr, k, cfg):
     """from_params on a committed config, mapped as bench.py maps it."""
-    from sddmm_tpu_torch.reorder.autotune import from_params
-    t = from_params(
-        csr, k, alpha=cfg["alpha"], delta=cfg["delta"],
-        group_size=cfg.get("g", 1), k_chunks=cfg.get("c", 1),
-        merge_superpanels=cfg.get("merge", True),
-        hub_cols=cfg.get("hub", 0),
-        compute_dtype=cfg.get("dtype", "tf32"),
-        window_dp=cfg.get("window_dp", True),
-        sort_runs=cfg.get("sort_runs", "cid"),
-        sort_res=cfg.get("sort_res", "csr"),
-        b_cost_scale=cfg.get("b_cost_scale", 1.0),
-        hot_rows=cfg.get("rowslab_pre", 0) or cfg.get("rowslab", 0),
-        hot_rows_pre=bool(cfg.get("rowslab_pre", 0)))
-    t.use_pallas = bool(cfg.get("pallas", False))
-    t.a_layout = cfg.get("a_layout", "rows")
-    return t
+    from sddmm_tpu_torch.bench import fold_config
+    return fold_config(csr, k, cfg, cfg.get("dtype", "tf32"))
 
 
 def max_rel(got, want) -> float:
@@ -1712,6 +1713,154 @@ def run_training(torch, sm, card, graph, x_graph, block, x_block, mask,
     return model_bwd, train_launches, rec
 
 
+def run_entry_points(torch, card, kind, cells, passes, goldens):
+    """Phase 12, the entry points a user runs: the bench route, the
+    shoot-out, the CLI (single run, --tune, -t 1) and the profiler, then
+    the bench's times against the same calls' (``passes``: phase 6's
+    ``kernel_pass`` per cell)."""
+    import contextlib
+    import io as io_std
+    from sddmm_tpu_torch import _kernels, bench, cli
+    from sddmm_tpu_torch.data import generate, io
+    from sddmm_tpu_torch.ops.dense import DenseSDDMM
+    from sddmm_tpu_torch.reorder.autotune import autotune
+    from sddmm_tpu_torch.utils import profiling
+    from sddmm_tpu_torch.utils.check import check_values
+    from sddmm_tpu_torch.utils.logger import parse_log
+    from sddmm_tpu_torch.utils.timing import cuda_time_ms
+
+    # 1. the bench route: the full suite at K=128, committed configs
+    _kernels.launches.clear()
+    t0 = time.perf_counter()
+    out = bench.main(["--k", "128", "--sessions", "1"])
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launches)
+    say(f"[bench] python -m sddmm_tpu_torch.bench --k 128 --sessions 1: "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    missing = [k for k in BENCH_KEYS if k not in out]
+    if missing:
+        fail(f"bench JSON lacks {missing}")
+    names = list(suite())
+    if sorted(out["per_matrix"]) != sorted(names) or not all(
+            v > 0 for v in out["per_matrix"].values()):
+        fail(f"bench per_matrix {out['per_matrix']}: want 5 cells > 0")
+    if any(v is not None for v in out["roofline_fraction"].values()):
+        fail(f"bench roofline_fraction {out['roofline_fraction']} not null")
+    if not all(v is not None and v <= SOL_MAX
+               for v in out["sol_fraction"].values()):
+        fail(f"bench sol_fraction {out['sol_fraction']} above {SOL_MAX}")
+    for kname in ("sddmm_tile_dot_tf32", "sddmm_gather_dot_float32_float32"):
+        if not launches.get(kname):
+            fail(f"the bench route did not launch {kname}")
+    # 2. the shoot-out on banded at bench scale, timed on the card
+    csr, _, _, a, b = cells[("banded", 128)]
+    t0 = time.perf_counter()
+    win = autotune(csr, k=128, measure=True)
+    say(f"[shootout] banded@K128: {len(win.shootout)} finalists in "
+        f"{time.perf_counter() - t0:.1f} s on {card}:")
+    for f in win.shootout:
+        say(f"[shootout]   {bench.config_of(f, 'tf32')}: {f.measured_ms:.4f}"
+            f" ms (set-up {f.setup_s:.2f} s, score {f.est_ms:.4f})"
+            + ("; pallas=True runs the same tile kernel as its twin"
+               if f.use_pallas else ""))
+        if not f.measured_ms > 0:
+            fail(f"shoot-out finalist {bench.config_of(f, 'tf32')} not "
+                 "timed")
+    if win.dense:
+        runner = DenseSDDMM.from_csr(csr, compute_dtype="tf32", device=DEVICE)
+    else:
+        runner = hybrid_runner(win.packed, win, "tf32")
+    res = check_values(goldens[("banded", 128)],
+                       runner(a, b, order="csr").cpu().numpy())
+    say(f"[shootout] winner {bench.config_of(win, 'tf32')} "
+        f"({win.measured_ms:.4f} ms) in CSR order vs fp64 golden: {res}")
+    if not res.passed or res.num_errors:
+        fail(f"shoot-out winner: {res.num_errors} values outside the "
+             "contract")
+    del runner
+
+    # 3. the CLI: a single run with --validate, --tune, and -t 1
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        path = tmp / "banded.mtx"
+        io.save_mtx(path, csr)
+        small = tmp / "small.mtx"
+        io.save_mtx(small, generate.block_clustered(16, 16, block_prob=0.2,
+                                                    seed=31))
+        for label, argv, log_name in (
+                ("single run", ["-f", str(path), "-k", "128", "--validate",
+                                "-l", str(tmp / "one")], "one"),
+                ("--tune", ["-f", str(path), "-k", "128", "--tune",
+                            "--validate", "-l", str(tmp / "tune")], "tune")):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io_std.StringIO()):
+                rc = cli.main(argv)
+            entries = parse_log((tmp / log_name / "BSMR_torch_k_128.log")
+                                .read_text())
+            say(f"[cli] {label} on banded.mtx K=128: rc {rc}, "
+                f"[Device : {entries.get('Device')}], bsmr_gflops "
+                f"{float(entries['bsmr_gflops']):.1f}, bsmr_sddmm "
+                f"{float(entries['bsmr_sddmm']):.4f} ms, "
+                f"{time.perf_counter() - t0:.1f} s")
+            if (rc != 0 or entries.get("Device") != f"cuda:{kind}"
+                    or not float(entries["bsmr_gflops"]) > 0
+                    or "checkResults" in entries):
+                fail(f"cli {label}: rc {rc}, log {entries}")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io_std.StringIO()):
+            rc = cli.main(["-f", str(small), "-t", "1", "-l",
+                           str(tmp / "sweep")])
+        logs = sorted((tmp / "sweep").glob("*.log"))
+        say(f"[cli] -t 1 on a 256x256 block_clustered matrix: rc {rc}, "
+            f"{len(logs)} logs in {time.perf_counter() - t0:.1f} s")
+        if rc != 0 or len(logs) != SWEEP_LOGS or not all(
+                float(parse_log(p.read_text())["bsmr_gflops"]) > 0
+                for p in logs):
+            fail(f"cli -t 1: rc {rc}, {len(logs)} logs (want {SWEEP_LOGS}, "
+                 "each > 0 GFLOPS)")
+
+        # 4. the profiler around one call of a bench cell
+        _, runner, ops, _, _ = cells[("banded", 128)]
+        with profiling.trace(tmp / "trace") as prof:
+            with profiling.annotate("banded@K128 packed call"):
+                runner.run_padded(*ops)
+        traces = list((tmp / "trace").glob("*.pt.trace.json"))
+        text = traces[0].read_text() if len(traces) == 1 else ""
+        kernels = sorted({e.key for e in prof.key_averages()
+                          if "tile_table" in e.key or "gather_dot" in e.key})
+        say(f"[profile] {len(traces)} trace file, {len(text)} bytes; "
+            f"kernels named: {kernels}")
+        if "tile_table_kernel" not in text or "banded@K128" not in text:
+            fail("the profiler's trace does not name the tile kernel and "
+                 "the annotation")
+
+    # 5. one program, two timers: each cell's packed time in the bench
+    # (measure_kernel_ms) lies between 75 % of its tile kernel's event time
+    # in phase 6 (the call runs that launch and more) and 125 % of the
+    # slowest event sample of the same call, timed now on phase 5's runner
+    # as the bench calls it (host-bound calls read the host's enqueue, which
+    # moves between phases)
+    for name in names:
+        got = out["timing_sessions_ms"][name][0]
+        _, runner, ops, _, _ = cells[(name, 128)]
+        tile_ms = next(t["ms"] for k, t in passes[(name, 128)].items()
+                       if k.startswith("sddmm_tile_dot_"))
+
+        def call():
+            with torch.no_grad():
+                runner.run_padded(*ops)
+
+        t = cuda_time_ms(call, 20)
+        lo, hi = (1 - BENCH_AGREE) * tile_ms, (1 + BENCH_AGREE) * t["max_ms"]
+        say(f"[bench] {name}@K128 packed: bench {got:.4f} ms; the same call "
+            f"now {t['median_ms']:.4f} ms (min {t['min_ms']:.4f}, max "
+            f"{t['max_ms']:.4f}); its tile kernel alone {tile_ms:.4f} ms "
+            f"(phase 6) on {card}")
+        if not lo <= got <= hi:
+            fail(f"{name}: the bench's {got:.4f} ms lies outside "
+                 f"[{lo:.4f}, {hi:.4f}] ms")
+
+
 def main() -> None:
     if not (ROOT / "sddmm_tpu_torch" / "__init__.py").is_file() or not (
             ROOT / "results" / "tuned_configs.json").is_file():
@@ -1887,7 +2036,7 @@ def main() -> None:
     del outs
 
     # -- 6. per-kernel checks and timing --
-    call_ms = {}
+    call_ms, passes = {}, {}
     with Phase("time the main path"):
         for (name, k), (csr, runner, ops, _, _) in cells.items():
             label = f"{name}@K{k}"
@@ -1907,9 +2056,10 @@ def main() -> None:
                     f"n {tm[lab]['n']}) = {flops / ms / 1e6:.1f} GFLOPS on "
                     f"{card}")
             call_ms[(name, k)] = tm
+            passes[(name, k)] = kernel_pass(torch, td, runner, ops, iters,
+                                            label, card)
             # the record's times sum the K=128 cells, one call each
-            add_times(rec, kernel_pass(torch, td, runner, ops, iters, label,
-                                       card), with_ms=k == 128)
+            add_times(rec, passes[(name, k)], with_ms=k == 128)
 
     # -- 7. the CSR baseline on each K=128 cell --
     with Phase("CSR baseline"):
@@ -2088,6 +2238,10 @@ def main() -> None:
         rec[_kernels.SPMM_ENTRY]["max_abs_err"], abs3)
     rec[_kernels.SOFTMAX_ENTRY]["max_abs_err"] = max(
         rec[_kernels.SOFTMAX_ENTRY]["max_abs_err"], abs4)
+
+    # -- 12. the entry points: bench route, shoot-out, CLI, profiler --
+    with Phase("entry points"):
+        run_entry_points(torch, card, kind, cells, passes, goldens)
 
     if "jax" in sys.modules:
         fail("jax was imported")

@@ -23,7 +23,9 @@ backward's tile-grad kernel and its reduction, the gather-dot, the segment
 softmax, the SpMM, cuBLAS, and every other kernel: torch ops, cuSPARSE),
 the launches of a call per group, the device busy share (device time over
 host wall), and the largest kernels of the "other" group by name
-(``other_top``: [name, ms a call, launches a call]).  Where the checkout
+(``other_top``: [name, ms a call, launches a call]); a packed call's record
+also holds the runner's ``measure_kernel_ms`` (event time) where the
+checkout has it.  Where the checkout
 has the training path (``models.factorization``), it adds the training
 cells: one factorization train step on clustered16 at K=128 (forward,
 backward, Adam), the two models' forward and backward of sum(out^2), and
@@ -260,8 +262,11 @@ def main() -> None:
             a = generate.make_dense(csr.m, K, seed=1)
             b = generate.make_dense(K, csr.n, seed=2)
             ops = runner.prepare_operands(a, b=b)
-            emit(f"{name}@K{K} packed", profile(
-                torch, lambda: runner.run_padded(*ops), args.calls))
+            rec = profile(torch, lambda: runner.run_padded(*ops), args.calls)
+            if hasattr(runner, "measure_kernel_ms"):
+                # the runner's own timer (event time), beside device time
+                rec["measure_kernel_ms"] = runner.measure_kernel_ms(*ops)
+            emit(f"{name}@K{K} packed", rec)
             del runner, ops
             emit(f"{name}@K{K} CSR baseline", profile(
                 torch, csr_baseline(torch, csr, a, b), args.calls))

@@ -23,6 +23,13 @@ find:
   and binds them with ctypes.
 - ``interop`` carries a ``PackedMatrix``, the operands and the models'
   weights across from the JAX package, for the parity tests.
+- The user's entry points: ``bench`` (``python -m sddmm_tpu_torch.bench``,
+  the suite's JSON line), ``cli`` (``python -m sddmm_tpu_torch.cli``, the
+  reference executable's flags and logs), ``reorder.autotune`` (the layout
+  model's search and the shoot-out timed on the card), and
+  ``utils.timing`` (CUDA-event timers, the runners' ``measure_kernel_ms``),
+  ``utils.logger`` (the ``[key : value]`` run log), ``utils.profiling``
+  (``torch.profiler`` traces and annotations) and ``utils.util``.
 
 Every committed ``results/tuned_configs.json`` configuration runs (any G
 and C, hub and hot-row slabs, the five compute modes, the dense class, any

@@ -34,8 +34,8 @@ with a head stride.  ``plain=True`` runs the per-segment route
 (``tile_calls``: torch gathers and ``tile_dot_plain`` per segment and
 chunk), the reference the kernel is held to.  The residual is one exact
 fp32 dot per entry over all chunks (``residual_gather_dot``, a CUDA kernel
-on the card, one launch for all heads), walking a plan built once in
-``__init__`` (``res_plan``: residual rows that share group rows read each
+on the card, one launch for all heads), walking a plan built once, at the
+first call (``res_plan``: residual rows that share group rows read each
 of them once).  Slots that are not nnz hold garbage, as in the reference;
 compare real slots only, or CSR order.  CSR order is one gather,
 ``flat[inv_idx]``.
@@ -593,12 +593,6 @@ class HybridSDDMM:
         # at G = 1 every member is 0: the kernel skips the select
         self._res_member = (put(packed.res_member, torch.int32) if G > 1
                             else None)
-        #: the residual gather-dot's plan (``gather_plan``), its rows
-        #: grouped in the packing's clustered row order
-        self.res_plan = gather_plan(
-            packed.res_rows, np.asarray(packed.res_gids, np.int64) * G
-            + (np.asarray(packed.res_member) if G > 1 else 0),
-            packing_row_order(packed)).to(self.device)
         if offset + len(packed.res_rows) != packed.packed_size:
             raise ValueError(
                 f"packing layout mismatch: segments, slabs {offset} + "
@@ -620,6 +614,23 @@ class HybridSDDMM:
                              if packed.packed_rows is not None else None)
         self._packed_cols = (put(packed.packed_cols)
                              if packed.packed_cols is not None else None)
+
+    @functools.cached_property
+    def res_plan(self) -> GatherPlan:
+        """The residual gather-dot's plan (``gather_plan``), its rows
+        grouped in the packing's clustered row order: built at the first
+        call that needs it, not in ``__init__``, since on a large residual
+        it is most of a runner's host set-up (a shoot-out builds a runner
+        per finalist)."""
+        p = self.packed
+        G = p.group_size
+        # kept across calls, so not an inference tensor even when a call
+        # under inference_mode makes it
+        with torch.inference_mode(False):
+            return gather_plan(
+                p.res_rows, np.asarray(p.res_gids, np.int64) * G
+                + (np.asarray(p.res_member) if G > 1 else 0),
+                packing_row_order(p)).to(self.device)
 
     @property
     def packed_rows(self) -> torch.Tensor:
@@ -859,6 +870,29 @@ class HybridSDDMM:
                                None if a_panels is None else [a_panels],
                                a_pad[None], bt_phys[None])[0]
         return self.to_csr_order(flat) if order == "csr" else flat
+
+    def measure_kernel_ms(self, a_ops, bt_phys: torch.Tensor,
+                          iterations: int = 50, repeats: int = 3,
+                          order: str = "packed") -> float:
+        """ms per call of ``run_padded(a_ops, bt_phys, order=order)`` (the
+        JAX runner's signature): ``repeats`` sessions, each the median of
+        ``iterations`` calls between CUDA events after warm-ups, and the
+        median session (``utils.timing.session_median_ms``; the host clock
+        on a CPU runner).
+
+        This is event time: the device timeline between events around
+        back-to-back calls, so it includes any gap in which the host has
+        not yet enqueued the next call.  Where a call's kernels outlast its
+        enqueue (the bench cells) it reads as device time; where they do
+        not, it reads as the enqueue (a bare residual gather-dot of 3 us
+        shows about 0.05 ms)."""
+        from sddmm_tpu_torch.utils.timing import session_median_ms
+
+        def call():
+            with torch.no_grad():
+                self.run_padded(a_ops, bt_phys, order=order)
+
+        return session_median_ms(call, self.device, iterations, repeats)
 
     def run_heads(self, a_pad: torch.Tensor, bt_phys: torch.Tensor,
                   order: Optional[str] = None, plain: bool = False

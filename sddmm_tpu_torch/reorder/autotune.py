@@ -1,24 +1,30 @@
-"""Explicit-configuration packing: ``from_params`` and the layout cost model.
+"""Configuration search for the hybrid SDDMM: the layout cost model,
+``from_params`` and the shoot-out.
 
-Counterpart of ``sddmm_tpu/reorder/autotune.py``, cut to what the main path
-runs: ``TunedConfig``, ``estimate_ms`` with its constants, ``_ELEM_BYTES``
-and ``from_params`` (the deterministic path ``bench.py`` takes with the
-committed per-matrix configs).  ``autotune``, ``autotune_multi`` and the
-measured shoot-out are not ported yet.
+Counterpart of ``sddmm_tpu/reorder/autotune.py``: ``TunedConfig``,
+``estimate_ms``, ``mxu_ms``, ``estimate_dense_ms``, ``_candidate_layouts``,
+``hub_candidates``, ``autotune_multi``, ``autotune``, the shoot-out
+(``shootout_finalists`` picks the finalists, ``_shootout`` times them) and
+``from_params`` (the deterministic path the bench takes with a committed
+per-matrix config).
 
 The constants are the JAX package's layout-model constants, copied
 unchanged so that ``pack`` (which reads ``_DOT_G16_MS``) builds the identical
-``PackedMatrix``.  They were measured on a TPU, choose the layout only, and
-say nothing about the speed of this port's card; re-tuning them for the
-H100 is ROADMAP Queue 1: 'Autotune on the H100'.  The calibration and
-gather-grid loaders of the JAX module are not copied: the constants here
-stay fixed.
+``PackedMatrix`` and the estimate-only search ranks the candidates, and
+picks the finalists, exactly as the JAX package does.  They were measured
+on a TPU and say nothing about the speed of this port's card: on the card
+only the measured mode ranks, timing every finalist with the port's
+runners (``measure_kernel_ms``).  Measuring the model's constants on the
+H100 is a later ROADMAP item.  Not copied: the calibration and gather-grid
+loaders and ``descriptor_floor_ms``, which model the TPU's gather engine.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Optional
+import time
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -95,6 +101,13 @@ class TunedConfig:
     # "panels": A pre-relayouted to reordered panel-major order
     a_layout: str = "rows"
     dense: bool = False
+    # not in the JAX package: the shoot-out's host seconds to build this
+    # finalist's runner and operands, and on its winner every finalist
+    # timed, fastest first
+    setup_s: Optional[float] = dataclasses.field(default=None,
+                                                 compare=False)
+    shootout: Optional[list] = dataclasses.field(default=None, repr=False,
+                                                 compare=False)
 
 
 def estimate_ms(packed: PackedMatrix, k: int,
@@ -173,6 +186,79 @@ def mxu_ms(packed: PackedMatrix, k: int,
     return t_mxu
 
 
+def estimate_dense_ms(m: int, n: int, k: int,
+                      compute_dtype: str = "tf32") -> float:
+    """The layout model's score (ms, TPU units) for the dense-tiling class:
+    one (M, K) x (K, N) product with the full (M, N) fp32 output.
+    Streaming is the A + B read plus the (M, N) write; the matrix-unit term
+    uses the 128-tall rate.  One large product overlaps its operand
+    streaming, so the score is the max of the two, not the sum."""
+    a_el, b_el = _ELEM_BYTES[compute_dtype]
+    stream = m * k * a_el + n * k * b_el + m * n * 4
+    t_stream = stream / (STREAM_GBPS * 1e6)
+    rate128 = _DOT_G16_MS.get((compute_dtype, 128), 54.0e6)
+    t_mxu = (m / 16.0) * (n / 128.0) / rate128 * 1e3 * (k / 128.0)
+    return max(t_stream, t_mxu)
+
+
+def _candidate_layouts(n: int, k: int, compute_dtype: str):
+    """(G, C) candidates: the group widths whose B^T rows come nearest 256
+    and 512 bytes, and, where the grouped B^T exceeds 12 MB, the chunk
+    counts that bring a chunk nearest 8 MB (the layout model's sweet
+    spots)."""
+    el = _ELEM_BYTES[compute_dtype][1]  # B-side storage drives the layout
+    gs = {1}
+    for target in (256, 512):
+        g = max(1, target // (k * el))
+        if g > 1:
+            gs.add(1 << int(np.floor(np.log2(g))))
+    cs = {1}
+    src_mb = n * k * el / 1e6
+    if src_mb > 12.0:
+        for c in (1 << int(np.floor(np.log2(src_mb / 8.0))),
+                  1 << int(np.ceil(np.log2(src_mb / 8.0)))):
+            while c > 1 and k % c:
+                c //= 2
+            if 1 < c <= 8:
+                cs.add(c)
+    return sorted(gs), sorted(cs)
+
+
+def hub_candidates(csr: CSR, k: int, compute_dtype: str = "tf32",
+                   cell_cap: int = 32_000_000) -> list:
+    """Hub-slab widths worth trying for this matrix, by the layout model:
+    the largest H (multiple of 128) such that even the H-th-degree column
+    saves more gather time than its slab column costs (one m-row lane strip
+    of the product plus the slab write), capped so the slab stays a bounded
+    share of the packed output; also H/2 and 2H where they differ.  []
+    when no column clears the bar (block-structured matrices)."""
+    a_el, b_el = _ELEM_BYTES[compute_dtype]
+    deg = np.sort(np.bincount(csr.col_idx, minlength=csr.n))[::-1]
+    m_eff = int(np.count_nonzero(csr.row_nnz())) or 1
+    num_panels = max(-(-m_eff // 16), 1)
+    rate128 = _DOT_G16_MS.get((compute_dtype, 128), 54.0e6)
+    # ns per slab column: write m cells + the (m x K) x (K x 1) strip
+    slab_ns = (m_eff * 4 / (STREAM_GBPS)
+               + (m_eff / 16.0) * (k / 128.0) / 128.0 / rate128 * 1e9)
+    # ns saved per hub column: one gather per panel it appears in
+    desc_ns = 1e9 / _row_rate(max(k * b_el, 1), 8.0)
+    save_ns = np.minimum(deg, num_panels) * desc_ns
+    h_star = int(np.count_nonzero(save_ns > slab_ns))
+    if h_star <= 0:
+        return []
+    h_star = min(-(-h_star // 128) * 128, cell_cap // max(csr.m, 1),
+                 csr.n // 128 * 128)
+    if h_star <= 0:
+        return []
+    out = [h_star]
+    if h_star >= 512:
+        out.append(h_star // 2 // 128 * 128)
+    twice = min(2 * h_star, cell_cap // max(csr.m, 1), csr.n) // 128 * 128
+    if twice > h_star:
+        out.append(twice)
+    return out
+
+
 def from_params(csr: CSR, k: int, alpha: float, delta: float,
                 group_size: int = 1, k_chunks: int = 1,
                 merge_superpanels: bool = True,
@@ -231,3 +317,248 @@ def from_params(csr: CSR, k: int, alpha: float, delta: float,
                        k_chunks, estimate_ms(packed, k, compute_dtype,
                                              k_chunks), packed, bsmr,
                        hub_cols=hub_cols)
+
+
+def autotune_multi(csr: CSR, ks: Sequence[int],
+                   alphas: Sequence[float] = (0.1, 0.3, 0.5),
+                   deltas: Sequence[float] = (0.0, 0.05, 0.3),
+                   merges: Sequence[bool] = (False, True),
+                   compute_dtype: str = "tf32",
+                   method: str = "auto",
+                   measure: bool = False,
+                   measure_top: int = 3,
+                   measure_iterations: int = 30,
+                   allow_dense: bool = True,
+                   verbose: bool = False,
+                   device="cuda") -> dict:
+    """Pick (alpha, delta, merge, G, C, hub, hot rows, dense) for every K
+    in ``ks`` at once: by the layout model's score alone, or with
+    ``measure=True`` by timing the shoot-out's finalists
+    (``shootout_finalists``) with the port's runners on ``device`` (the
+    card unless the caller asks for the CPU; the reference's empirical
+    sweep, src/sddmm.cu:62-118, guided by the model).
+
+    Packing is K-independent, so candidate packs are built once per
+    (alpha, G, delta, merge, hub) and shared across Ks; row reordering is
+    computed once per alpha and reused across deltas (the reference's test
+    mode trick).  Returns {k: TunedConfig}; in the measured mode each
+    winner's ``shootout`` lists every finalist timed, fastest first."""
+    layouts = {k: _candidate_layouts(csr.n, k, compute_dtype) for k in ks}
+    all_gs = sorted({g for k in ks for g in layouts[k][0]})
+    col_order_cache: dict[float, np.ndarray] = {}  # keyed by alpha
+    packs: list[tuple] = []  # (alpha, g, delta, merge, hub, packed, bsmr)
+    hubs_all = sorted({h for k in ks
+                       for h in hub_candidates(csr, k, compute_dtype)})
+
+    from sddmm_tpu_torch.reorder.cols import cluster_columns, hub_first_rank
+    for alpha in alphas:
+        base = BSMR(alpha, 0.0, csr, method=method, compute=False)
+        base.run_row_reordering(csr)
+        for g in all_gs:
+            if g > 1 and alpha not in col_order_cache:
+                col_order_cache[alpha] = cluster_columns(csr, alpha,
+                                                         method=method)
+            base_order = col_order_cache.get(alpha) if g > 1 else None
+            for hc in [0] + [h for h in hubs_all if h % g == 0]:
+                if hc > 0:
+                    rank = hub_first_rank(csr, hc, base_order=base_order)
+                elif base_order is not None:
+                    rank = np.empty(csr.n, dtype=np.int64)
+                    rank[base_order] = np.arange(csr.n)
+                else:
+                    rank = None
+                bsmr = BSMR(alpha, 0.0, csr, method=method, compute=False,
+                            group_size=g, col_rank=rank, hub_cols=hc)
+                bsmr.reordered_rows = base.reordered_rows
+                bsmr.cluster_ids = base.cluster_ids
+                bsmr.num_clusters = base.num_clusters
+                bsmr.row_reordering_ms = base.row_reordering_ms
+                # hub slab and superpanel merging interact weakly: the hub
+                # packs take merge=True only
+                merges_hc = merges if hc == 0 else (True,)
+                for delta in deltas:
+                    bsmr.run_col_reordering(csr, delta=delta)
+                    for merge in merges_hc:
+                        # light pack: the winner is packed again with full
+                        # metadata below
+                        packed = pack(csr, bsmr, merge_superpanels=merge,
+                                      compute_dtype=compute_dtype,
+                                      full_metadata=False)
+                        packs.append((alpha, g, delta, merge, hc, packed,
+                                      copy.copy(bsmr)))
+
+    # Hot-row slab candidate: on matrices with skewed row degrees the carve
+    # otherwise covers the hot rows' scattered tail with nearly empty
+    # tiles; one pre-tiling slab pack enters (K-independent, built once).
+    rowslab_pack = None
+    deg = np.diff(csr.row_ptr)
+    R_slab = 1024
+    if csr.m > 2 * R_slab and csr.nnz:
+        share = float(np.sort(deg)[::-1][:R_slab].sum()) / csr.nnz
+        if share >= 0.3:
+            hc0 = max([h for h in hubs_all] or [0])
+            try:
+                t0 = from_params(
+                    csr, ks[0], alpha=alphas[0], delta=0.05,
+                    hub_cols=hc0, compute_dtype=compute_dtype,
+                    method=method, hot_rows=R_slab, hot_rows_pre=True)
+                rowslab_pack = (alphas[0], hc0, t0.packed, t0.bsmr)
+            except Exception as e:  # noqa: BLE001 — a candidate only
+                import warnings as _w
+                _w.warn(f"rowslab candidate skipped: {e}")
+
+    out = {}
+    for k in ks:
+        gs_k, cs_k = layouts[k]
+        candidates: list[TunedConfig] = []
+        if rowslab_pack is not None:
+            a0, hc0, pk0, bs0 = rowslab_pack
+            candidates.append(TunedConfig(
+                a0, 0.05, True, 1, 1,
+                estimate_ms(pk0, k, compute_dtype, 1), pk0, bs0,
+                hub_cols=hc0, hot_rows=R_slab))
+        for (alpha, g, delta, merge, hc, packed, bsmr) in packs:
+            if g not in gs_k:
+                continue
+            for c in cs_k:
+                est = estimate_ms(packed, k, compute_dtype, c)
+                if verbose:
+                    print(f"  k={k} a={alpha} d={delta} G={g} C={c} "
+                          f"merge={merge} H={hc}: nS={packed.num_super} "
+                          f"nG={packed.num_groups} "
+                          f"res={packed.nnz_res} est={est:.3f}")
+                candidates.append(TunedConfig(
+                    alpha, delta, merge, g, c, est, packed, bsmr,
+                    hub_cols=hc))
+        candidates.sort(key=lambda t: t.est_ms)
+        # The dense class enters only at DLMC densities, and when the
+        # model puts it within 2x of the best packed candidate.
+        density = csr.nnz / float(max(csr.m * csr.n, 1))
+        d_est = estimate_dense_ms(csr.m, csr.n, k, compute_dtype)
+        if allow_dense and density >= 0.05 and candidates \
+                and d_est < 2.0 * candidates[0].est_ms:
+            candidates.append(TunedConfig(0.0, 0.0, False, 1, 1, d_est,
+                                          None, None, dense=True))
+            candidates.sort(key=lambda t: t.est_ms)
+        if not measure:
+            out[k] = candidates[0]
+        else:
+            out[k] = _shootout(csr, k, candidates, compute_dtype,
+                               measure_top, measure_iterations, verbose,
+                               device)
+        win = out[k]
+        if win.packed is not None and win.packed.packed_rows is None:
+            # pack the winner again with full (CSR-order) metadata
+            win.packed = pack(csr, win.bsmr,
+                              merge_superpanels=win.merge_superpanels,
+                              compute_dtype=compute_dtype)
+    return out
+
+
+def autotune(csr: CSR, k: int = 128,
+             alphas: Sequence[float] = (0.1, 0.3, 0.5),
+             deltas: Sequence[float] = (0.0, 0.05, 0.3),
+             merges: Sequence[bool] = (False, True),
+             compute_dtype: str = "tf32",
+             method: str = "auto",
+             measure: bool = False,
+             measure_top: int = 3,
+             measure_iterations: int = 30,
+             allow_dense: bool = True,
+             verbose: bool = False,
+             device="cuda") -> TunedConfig:
+    """Single-K convenience wrapper over autotune_multi."""
+    return autotune_multi(
+        csr, (k,), alphas=alphas, deltas=deltas, merges=merges,
+        compute_dtype=compute_dtype, method=method, measure=measure,
+        measure_top=measure_top, measure_iterations=measure_iterations,
+        allow_dense=allow_dense, verbose=verbose, device=device)[k]
+
+
+def shootout_finalists(candidates, compute_dtype: str,
+                       measure_top: int) -> list:
+    """The shoot-out's finalists among ``candidates`` (sorted by score):
+    the model's top ``measure_top`` plus the best candidate of every
+    distinct (merge, G, C, hub, hot rows, dense) class, delta and alpha, up
+    to ``measure_top + 6``; then, in "tf32", a ``use_pallas`` twin of the
+    best packed finalist (at G = 1, no hub) and ``a_layout="panels"`` twins
+    of it and its pallas twin where the packing has container topology.
+    The JAX package's selection exactly.  Here a ``use_pallas`` twin runs
+    the same tile kernel as its base (``HybridSDDMM``): it is timed all the
+    same, so the list is JAX's."""
+    finalists: list[TunedConfig] = []
+    seen_cls: set = set()
+    seen_delta: set = set()
+    seen_alpha: set = set()
+    for cand in candidates:
+        cls = (cand.merge_superpanels, cand.group_size, cand.k_chunks,
+               cand.hub_cols, cand.hot_rows, cand.dense)
+        take_it = (len(finalists) < measure_top or cls not in seen_cls
+                   or cand.delta not in seen_delta
+                   or cand.alpha not in seen_alpha)
+        if take_it and cand not in finalists:
+            finalists.append(cand)
+            seen_cls.add(cls)
+            seen_delta.add(cand.delta)
+            seen_alpha.add(cand.alpha)
+        if len(finalists) >= measure_top + 6:
+            break
+    # twins attach to the best packed finalist (the dense class has none)
+    twin_base = [f for f in finalists if not f.dense][:1]
+    if compute_dtype == "tf32" and twin_base and \
+            twin_base[0].group_size == 1 and not twin_base[0].hub_cols:
+        twin = copy.copy(twin_base[0])
+        twin.use_pallas = True
+        finalists.append(twin)
+        twin_base.append(twin)
+    for cand in twin_base:
+        if cand.a_layout == "rows" and \
+                cand.packed.cont_panel_off is not None:
+            twin = copy.copy(cand)
+            twin.a_layout = "panels"
+            finalists.append(twin)
+    return finalists
+
+
+def _shootout(csr, k, candidates, compute_dtype, measure_top,
+              measure_iterations, verbose, device="cuda"):
+    """Time every finalist (``shootout_finalists``) with the port's runner
+    on ``device``: the runner and operands built (``setup_s``, host
+    seconds), then ``measure_kernel_ms`` (event time on the card).  The
+    fastest wins; its ``shootout`` lists all, fastest first."""
+    from sddmm_tpu_torch.data import generate
+    from sddmm_tpu_torch.ops.dense import DenseSDDMM
+    from sddmm_tpu_torch.ops.hybrid import HybridSDDMM
+    a = generate.make_dense(csr.m, k, seed=1)
+    b = generate.make_dense(k, csr.n, seed=2)
+    out = []
+    for cand in shootout_finalists(candidates, compute_dtype, measure_top):
+        t0 = time.perf_counter()
+        if cand.dense:
+            runner = DenseSDDMM.from_csr(csr, compute_dtype=compute_dtype,
+                                         device=device)
+        else:
+            runner = HybridSDDMM(cand.packed, compute_dtype=compute_dtype,
+                                 k_chunks=cand.k_chunks,
+                                 use_pallas=cand.use_pallas,
+                                 a_layout=cand.a_layout, device=device)
+        a_pad, bt_phys = runner.prepare_operands(a, b=b)
+        cand = copy.copy(cand)
+        cand.setup_s = time.perf_counter() - t0
+        cand.measured_ms = runner.measure_kernel_ms(
+            a_pad, bt_phys, iterations=measure_iterations, repeats=6)
+        del runner, a_pad, bt_phys
+        out.append(cand)
+        if verbose:
+            print(f"  measured a={cand.alpha} d={cand.delta} "
+                  f"G={cand.group_size} C={cand.k_chunks} "
+                  f"H={cand.hub_cols} hot={cand.hot_rows} "
+                  f"pallas={cand.use_pallas}"
+                  f"{' (the same tile kernel here)' if cand.use_pallas else ''}"
+                  f" aL={cand.a_layout} dense={cand.dense} "
+                  f"merge={cand.merge_superpanels}: "
+                  f"{cand.measured_ms:.4f} ms (score {cand.est_ms:.3f}; "
+                  f"set-up {cand.setup_s:.2f} s)")
+    out.sort(key=lambda t: t.measured_ms)
+    out[0].shootout = list(out)
+    return out[0]

@@ -1005,3 +1005,62 @@ def test_runner_gr16_residual_plan_at_k4096(cuda_device):
     torch.cuda.synchronize()
     res = check_values(sddmm_reference(a, b, csr), got.cpu().numpy())
     assert res.passed and res.num_errors == 0, str(res)
+
+
+@pytest.mark.parametrize("kind", ["hybrid", "dense"])
+def test_measure_kernel_ms_agrees_with_cuda_time_ms(kind, cuda_device):
+    """The runners' ``measure_kernel_ms`` (the median of sessions of event
+    medians) lies within the spread of ``cuda_time_ms`` of the same
+    ``run_padded`` call (10 % each side: two sets of samples)."""
+    from sddmm_tpu_torch.utils.timing import cuda_time_ms
+    csr = _quick_clustered()
+    if kind == "dense":
+        runner = DenseSDDMM.from_csr(csr, device=cuda_device)
+    else:
+        runner = hy.HybridSDDMM(from_params(csr, 128, 0.3, 0.05).packed,
+                                device=cuda_device)
+    ops = runner.prepare_operands(generate.make_dense(csr.m, 128, seed=1),
+                                  b=generate.make_dense(128, csr.n, seed=2))
+    got = runner.measure_kernel_ms(*ops, iterations=30, repeats=3)
+    t = cuda_time_ms(lambda: runner.run_padded(*ops), 30)
+    assert 0.9 * t["min_ms"] <= got <= 1.1 * t["max_ms"], (got, t)
+
+
+def test_bench_quick_on_card(cuda_device, capsys):
+    """``python -m sddmm_tpu_torch.bench --quick`` on the card: one JSON
+    line, the retuned (shoot-out) configs, every cell timed."""
+    from sddmm_tpu_torch import bench
+    out = bench.main(["--quick", "--sessions", "1", "--iterations", "5"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == out
+    assert out["backend"] == "torch-cuda" and out["stream_gbps"] > 0
+    assert sorted(out["per_matrix"]) == ["clustered16", "powerlaw"]
+    assert all(v > 0 for v in out["per_matrix"].values())
+    assert all(v > 0 for v in out["per_matrix_csr_order"].values())
+    assert all(v is not None for v in out["sol_fraction"].values())
+    assert all(v is None for v in out["roofline_fraction"].values())
+
+
+def test_shootout_times_every_finalist_on_card(cuda_device):
+    """``autotune(measure=True)`` builds every finalist on the card and
+    times it; the winner is the fastest and delivers correct values."""
+    from sddmm_tpu_torch.bench import config_of
+    from sddmm_tpu_torch.reorder.autotune import autotune
+    csr = _quick_clustered()
+    win = autotune(csr, k=64, measure=True, measure_iterations=5,
+                   device=cuda_device)
+    assert len(win.shootout) >= 3
+    assert all(f.measured_ms > 0 and f.setup_s >= 0 for f in win.shootout)
+    assert win.measured_ms == min(f.measured_ms for f in win.shootout)
+    assert win is win.shootout[0]
+    if win.dense:
+        runner = DenseSDDMM.from_csr(csr, device=cuda_device)
+    else:
+        runner = hy.HybridSDDMM(win.packed, k_chunks=win.k_chunks,
+                                a_layout=win.a_layout, device=cuda_device)
+    a = generate.make_dense(csr.m, 64, seed=1)
+    b = generate.make_dense(64, csr.n, seed=2)
+    res = check_values(sddmm_reference(a, b, csr),
+                       runner(a, b).cpu().numpy())
+    assert res.passed and res.num_errors == 0, (config_of(win, "tf32"),
+                                                 str(res))

@@ -35,6 +35,22 @@ def test_import_does_not_load_jax():
     assert res.returncode == 0 and "clean" in res.stdout, res.stderr
 
 
+def test_entry_point_modules_do_not_load_jax():
+    """The bench route, the CLI, the logger, the profiler, the timers and
+    the search import neither jax nor the JAX package."""
+    res = _python(
+        "import sys\n"
+        "import sddmm_tpu_torch.bench, sddmm_tpu_torch.cli\n"
+        "import sddmm_tpu_torch.utils.logger, sddmm_tpu_torch.utils.util\n"
+        "import sddmm_tpu_torch.utils.profiling\n"
+        "import sddmm_tpu_torch.utils.timing\n"
+        "import sddmm_tpu_torch.reorder.autotune\n"
+        "assert 'jax' not in sys.modules, 'jax loaded'\n"
+        "assert 'sddmm_tpu' not in sys.modules, 'sddmm_tpu loaded'\n"
+        "print('clean')\n")
+    assert res.returncode == 0 and "clean" in res.stdout, res.stderr
+
+
 def test_no_jax_import_in_sources():
     for path in (ROOT / "sddmm_tpu_torch").rglob("*.py"):
         for line in path.read_text().splitlines():
@@ -140,10 +156,10 @@ def _entry_points():
     # modules from sys.modules: ``sddmm_tpu_torch.ops.csr_sddmm`` is also a
     # function of ``sddmm_tpu_torch.ops``
     from importlib import import_module
-    entry, batch, csr_sddmm, dense, hybrid, softmax, spmm = (
+    entry, batch, csr_sddmm, dense, hybrid, softmax, spmm, autotune = (
         import_module(f"sddmm_tpu_torch.{name}") for name in (
             "entry", "ops.batch", "ops.csr_sddmm", "ops.dense", "ops.hybrid",
-            "ops.softmax", "ops.spmm"))
+            "ops.softmax", "ops.spmm", "reorder.autotune"))
     from sddmm_tpu_torch.models import (BlockSparseAttention,
                                         GraphAttentionLayer,
                                         SparseFactorizationModel)
@@ -164,6 +180,8 @@ def _entry_points():
         "SparseFactorizationModel": SparseFactorizationModel.__init__,
         "SparseFactorizationModel.from_csr":
             SparseFactorizationModel.from_csr,
+        "autotune": autotune.autotune,
+        "autotune_multi": autotune.autotune_multi,
     }
 
 
@@ -172,7 +190,8 @@ ENTRY_POINTS = ("HybridSDDMM", "HybridSDDMM.from_csr", "sddmm_hybrid",
                 "csr_sddmm", "csr_spmm", "csr_softmax", "batched_csr_sddmm",
                 "GraphAttentionLayer", "BlockSparseAttention", "entry",
                 "SparseFactorizationModel",
-                "SparseFactorizationModel.from_csr")
+                "SparseFactorizationModel.from_csr", "autotune",
+                "autotune_multi")
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -186,7 +205,8 @@ def test_entry_point_defaults_to_the_card(name):
 
 @pytest.mark.parametrize("name", ["HybridSDDMM", "DenseSDDMM",
                                   "GraphAttentionLayer", "entry",
-                                  "csr_softmax", "SparseFactorizationModel"])
+                                  "csr_softmax", "SparseFactorizationModel",
+                                  "autotune measured"])
 def test_default_device_raises_without_a_card(name):
     """Without a card the default raises; it never falls back to the
     CPU."""
@@ -199,7 +219,7 @@ def test_default_device_raises_without_a_card(name):
     from sddmm_tpu_torch.ops.dense import DenseSDDMM
     from sddmm_tpu_torch.ops.hybrid import HybridSDDMM
     from sddmm_tpu_torch.ops.softmax import csr_softmax
-    from sddmm_tpu_torch.reorder.autotune import from_params
+    from sddmm_tpu_torch.reorder.autotune import autotune, from_params
     csr = generate.block_clustered(8, 8, block_prob=0.3, seed=1)
     calls = {
         "HybridSDDMM": lambda: HybridSDDMM(
@@ -210,6 +230,26 @@ def test_default_device_raises_without_a_card(name):
         "csr_softmax": lambda: csr_softmax(csr, np.ones(csr.nnz)),
         "SparseFactorizationModel": lambda: SparseFactorizationModel.from_csr(
             csr, 8),
+        "autotune measured": lambda: autotune(csr, 32, measure=True),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[name]()
+
+
+@pytest.mark.parametrize("name", ["bench", "cli"])
+def test_bench_and_cli_raise_without_a_card(name, tmp_path):
+    """``python -m sddmm_tpu_torch.bench`` and ``.cli`` run on the card
+    unless ``--device cpu`` is given: without one they raise, and nothing
+    runs on the CPU in its place."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from sddmm_tpu_torch import bench, cli
+    from sddmm_tpu_torch.data import generate, io
+    path = tmp_path / "m.mtx"
+    io.save_mtx(path, generate.block_clustered(4, 4, block_prob=0.3, seed=1))
+    argv = {"bench": ["--quick"], "cli": ["-f", str(path), "-k", "16"]}
+    main = {"bench": bench.main, "cli": cli.main}[name]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(argv[name])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(argv[name] + ["--device", "cuda"])

@@ -602,3 +602,19 @@ def test_inv_idx32_names_the_int32_limit(cases):
     ok = hy.HybridSDDMM(packed_from_reference(packed), device="cpu")
     assert ok.inv_idx32.dtype == torch.int32
     assert np.array_equal(ok.inv_idx32.numpy(), packed.inv_idx)
+
+
+@pytest.mark.parametrize("name", ["G1", "G4C2"])
+def test_residual_plan_built_at_first_call(name):
+    """The runner builds its residual's plan at the first call, not in
+    ``__init__``, and the values are those of a runner whose plan was
+    built before the call (the same plan: fp32, exactly equal)."""
+    csr, t, a, b = _res_case(name)
+    p = packed_from_reference(t.packed)
+    lazy = hy.HybridSDDMM(p, k_chunks=t.k_chunks, device="cpu")
+    eager = hy.HybridSDDMM(p, k_chunks=t.k_chunks, device="cpu")
+    assert "res_plan" not in lazy.__dict__
+    assert eager.res_plan.n == p.nnz_res
+    got = lazy(a, b)
+    assert "res_plan" in lazy.__dict__
+    assert torch.equal(got, eager(a, b))
