@@ -126,7 +126,31 @@ its time:
    bench cell's packed time must lie between 75 % of its tile kernel's
    time in phase 6 and 125 % of the slowest event sample of the same call
    timed again (host-bound calls read the host, which moves between
-   phases).
+   phases);
+13. device row clustering: on the probe matrix of the JAX package's
+   ``scripts/probe_cluster.py`` (``block_clustered(6400, 2048,
+   block_prob=0.004, ...)``, 102,400 rows, 2,048 column blocks, alpha 0.3)
+   ``batched_cluster_device`` with the kernel (``csrc/cluster_round.cu``,
+   its two launches counted a round, the counts zeroed just before) against
+   the plain round on the card, exactly (the same ``cluster_of``); the
+   rounds, the kernel's device time a round (CUDA events), the host wall a
+   round, the plain round's, the bound, the native host greedy's time on
+   the same matrix and the routing constant (seconds a cell) printed; on a
+   mid matrix (16,384 rows) the kernel, the plain round and the host's
+   ``rows._batched_cluster(hat_dtype=np.float32)`` equal; and
+   ``HybridSDDMM.from_csr(method="device")`` on clustered16 with 0 errors
+   against fp64;
+14. the multi-device path (``parallel``): ``dryrun_multichip`` over a
+   (2, 2) mesh of 4 ranks (NCCL with a card a rank where there are 4, else
+   gloo over CUDA tensors on the one card) and over (1, 1) on NCCL: its
+   checks (every real slot bit-equal to the single-device runner, or each
+   feat partial bit-equal and the sum within one rounding; the loss; one
+   all-reduce over 'feat' and no all-gather in the packed step) and each
+   rank's launches; then clustered16 at K=128 over (2, 2) on its committed
+   config: CSR order with 0 errors against fp64, each rank's step, its
+   local kernels and its all-reduce timed (CUDA events), the dense class on
+   dlmc with 0 errors, and 5 steps of the distributed trainer within 1e-5
+   of the single-device model's losses.
 
 It then prints one JSON line with the kernels' record (per kernel: its
 launches on its path, max abs error against its plain version, and the
@@ -213,6 +237,20 @@ SOL_MAX = 1.05
 BENCH_AGREE = 0.25
 SWEEP_LOGS = 140
 # the card's published peaks (H100 SXM, NVIDIA's data sheet), for bounds
+# the device clustering phase: the probe matrix of the JAX package's
+# scripts/probe_cluster.py (102,400 rows, 2,048 column blocks of 16) and a
+# mid matrix the host's numpy batched clustering takes in seconds
+PROBE = dict(num_row_groups=6400, num_col_groups=2048, block_prob=0.004,
+             block_density=0.6, noise_density=0.0, seed=71)
+MID = dict(num_row_groups=1024, num_col_groups=512, block_prob=0.004,
+           block_density=0.6, noise_density=0.0, seed=72)
+CLUSTER_ALPHA = 0.3
+# the multi-device phase: the full-size mesh, its cell and its timing
+MESH_SCALE = (2, 2)
+ONE_RANK_BACKEND = "nccl"
+SCALE_CELL = ("clustered16", 128)
+SCALE_ITERS = 10
+FACT_STEPS = 5
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12     # dense bf16 on the tensor cores
 FP32_FLOPS = 67e12      # fp32 outside the tensor cores
@@ -1861,6 +1899,275 @@ def run_entry_points(torch, card, kind, cells, passes, goldens):
                  f"[{lo:.4f}, {hi:.4f}] ms")
 
 
+def cluster_args(csr, col_block_size=16):
+    """(order, block_ptr, block_idx, block_cnt, num_blocks) as the JAX
+    package's probe builds them."""
+    import numpy as np
+    from sddmm_tpu_torch.reorder import rows
+    bp, bi, bc, nb = rows.row_encodings(csr, col_block_size)
+    disp = rows.dispersion_scores(csr, bp, bc, col_block_size)
+    nonempty = np.nonzero(disp > 0)[0]
+    order = nonempty[np.argsort(disp[nonempty], kind="stable")]
+    return order, bp, bi, bc, nb
+
+
+def cluster_round_bytes(args, cluster_of, record) -> float:
+    """Mean bytes a kernel round must read: the encodings of the rows live
+    in it (8 bytes a block, 16 a row), leaders among them, once."""
+    import numpy as np
+    order, bp = args[0], args[1]
+    made = np.asarray(record["clusters"])
+    n = len(made)
+    # a row is live in the rounds up to the one that made its cluster
+    live = np.minimum(np.searchsorted(made, cluster_of[order],
+                                      side="right") + 1, n)
+    lens = np.diff(bp)[order]
+    return float(((8 * lens + 16) * live).sum()) / max(n, 1)
+
+
+def run_device_clustering(torch, card, cells, goldens):
+    """Phase 13: the clustering kernel on the probe matrix against its
+    plain round (exact), the mid matrix against the host's batched
+    clustering, the native greedy's time beside it, the routing constant,
+    and HybridSDDMM.from_csr(method="device") on clustered16."""
+    import numpy as np
+    from sddmm_tpu_torch import _kernels, native
+    from sddmm_tpu_torch.data import generate
+    from sddmm_tpu_torch.ops.hybrid import HybridSDDMM
+    from sddmm_tpu_torch.reorder import device_cluster as dc
+    from sddmm_tpu_torch.reorder import rows
+    from sddmm_tpu_torch.utils.check import check_values
+
+    names = (_kernels.CLUSTER_LEADERS_ENTRY, _kernels.CLUSTER_ASSIGN_ENTRY)
+    probe = generate.block_clustered(**PROBE)
+    args = cluster_args(probe)
+    m, nb = probe.m, args[4]
+    say(f"[cluster] probe {probe.m}x{probe.n} nnz {probe.nnz}: "
+        f"{len(args[0])} rows to cluster, {nb} blocks, "
+        f"{len(args[2])} occupied (row, block) pairs, alpha {CLUSTER_ALPHA}")
+    _kernels.launches.clear()
+    rec = {}
+    got, n_got = dc.batched_cluster_device(*args, CLUSTER_ALPHA,
+                                           device=DEVICE, record=rec)
+    torch.cuda.synchronize()
+    launches = {k: _kernels.launches[k] for k in names}
+    n_kernel = len(rec["round_ms"])
+    if launches != {k: n_kernel for k in names}:
+        fail(f"device clustering: launches {launches}, want {n_kernel} "
+             "of each kernel")
+    rec_p = {}
+    plain, n_plain = dc.batched_cluster_device(
+        *args, CLUSTER_ALPHA, device=DEVICE, plain=True, record=rec_p)
+    diff = int(np.count_nonzero(got != plain))
+    if n_got != n_plain or diff:
+        fail(f"device clustering on the probe: kernel {n_got} clusters, "
+             f"plain round {n_plain}; {diff} rows differ")
+    round_ms = statistics.mean(rec["round_ms"]) if n_kernel else 0.0
+    wall_round = rec["seconds"] / max(rec["rounds"], 1) * 1e3
+    plain_round = rec_p["seconds"] / max(rec_p["rounds"], 1) * 1e3
+    t0 = time.perf_counter()
+    nat = native.greedy_cluster(args[1], args[2], args[3], args[0], m, nb,
+                                CLUSTER_ALPHA)
+    t_native = time.perf_counter() - t0
+    if nat is None:
+        fail("the native host greedy clustering is not available")
+    m_pad = -(-m // 2048) * 2048
+    per_cell = rec["seconds"] / (m_pad * nb)
+    bytes_round = cluster_round_bytes(args, got, rec)
+    say(f"[cluster] probe: kernel = plain round exactly ({n_got} clusters, "
+        f"{rec['rounds']} rounds, {n_kernel} on the card); kernel "
+        f"{round_ms:.4f} ms a round (CUDA events, both launches), host wall "
+        f"{wall_round:.4f} ms a round, {rec['seconds']:.3f} s in all; plain "
+        f"round {plain_round:.4f} ms a round ({rec_p['seconds']:.3f} s); "
+        f"bound {bytes_round / HBM_BYTES_PER_S * 1e3:.4f} ms a round "
+        f"({bytes_round / 1e6:.2f} MB read); native host greedy "
+        f"{t_native:.3f} s ({nat[1]} clusters) on {card}")
+    say(f"[cluster] routing constant DEVICE_CLUSTER_S_PER_CELL: "
+        f"{rec['seconds']:.3f} s / ({m_pad} x {nb} cells) = {per_cell:.3e} "
+        f"s a cell (the port's rows.py holds "
+        f"{rows.DEVICE_CLUSTER_S_PER_CELL:.3e}) on {card}")
+    mid = generate.block_clustered(**MID)
+    margs = cluster_args(mid)
+    k_mid = dc.batched_cluster_device(*margs, CLUSTER_ALPHA, device=DEVICE)
+    p_mid = dc.batched_cluster_device(*margs, CLUSTER_ALPHA, device=DEVICE,
+                                      plain=True)
+    t0 = time.perf_counter()
+    h_mid = rows._batched_cluster(*margs, CLUSTER_ALPHA,
+                                  hat_dtype=np.float32)
+    t_host = time.perf_counter() - t0
+    for label, other in (("plain round", p_mid), ("host batched", h_mid)):
+        if other[1] != k_mid[1] or not np.array_equal(other[0], k_mid[0]):
+            fail(f"device clustering on the mid matrix: kernel {k_mid[1]} "
+                 f"clusters, {label} {other[1]}")
+    say(f"[cluster] mid {mid.m}x{mid.n} nnz {mid.nnz}: kernel = plain round "
+        f"= host batched (fp32 hats) exactly, {k_mid[1]} clusters; host "
+        f"batched {t_host:.3f} s")
+    csr, _, _, a, b = cells[SCALE_CELL]
+    t0 = time.perf_counter()
+    runner = HybridSDDMM.from_csr(csr, method="device", device=DEVICE)
+    t_pack = time.perf_counter() - t0
+    res = check_values(goldens[SCALE_CELL], runner(a, b=b).cpu().numpy())
+    say(f"[check] clustered16@K128 HybridSDDMM.from_csr(method='device') "
+        f"(packed in {t_pack:.1f} s) vs fp64 golden: {res}")
+    if not res.passed or res.num_errors:
+        fail(f"method='device' runner: {res.num_errors} values outside the "
+             "contract")
+    r = new_record(0.0)
+    r.update(ms=round_ms, plain_ms=plain_round,
+             bytes_ms=bytes_round / HBM_BYTES_PER_S * 1e3,
+             bound_ms=bytes_round / HBM_BYTES_PER_S * 1e3, library_ms=None)
+    return launches, r
+
+
+def scale_rank(rank, world, packed, t_info, a, b, golden, dense_case,
+               fact, backend, device):
+    """One rank of the full-size (2, 2) check: CSR order against the fp64
+    golden, the packed step timed (and its local part and all-reduce
+    alone), the dense class on dlmc, and the trainer's steps."""
+    import torch
+    import torch.distributed as dist
+    from sddmm_tpu_torch import _kernels
+    from sddmm_tpu_torch.models import DistributedSparseFactorizationModel
+    from sddmm_tpu_torch.parallel import (DistributedDenseSDDMM,
+                                          DistributedHybridSDDMM, make_mesh)
+    from sddmm_tpu_torch.utils.check import check_values
+    from sddmm_tpu_torch.utils.timing import cuda_time_ms
+
+    mesh = make_mesh(MESH_SCALE, backend=backend, device=device)
+    mode, a_layout = t_info
+    d = DistributedHybridSDDMM(packed, mesh, compute_dtype=mode,
+                               a_layout=a_layout, device=device)
+    ops = d.prepare_operands(a, b=b)
+    _kernels.launches.clear()
+    d.collectives.clear()
+    with torch.no_grad():
+        flat = d.run_padded(*ops)
+        torch.cuda.synchronize()
+        launches = dict(_kernels.launches)
+        log = list(d.collectives)
+        vals = d.to_csr_order(flat).cpu().numpy()
+        res = check_values(golden, vals)
+        step = cuda_time_ms(lambda: d.run_padded(*ops), SCALE_ITERS)
+        local = cuda_time_ms(lambda: d.run_local(*ops), SCALE_ITERS)
+        plain = cuda_time_ms(lambda: d.run_local(*ops, plain=True), 3, 1)
+        buf = flat.clone()
+        ar = cuda_time_ms(lambda: dist.all_reduce(
+            buf, group=mesh.groups["feat"]), SCALE_ITERS)
+    dcsr, da, db, dgolden = dense_case
+    dd = DistributedDenseSDDMM.from_csr(dcsr, mesh, device=device)
+    with torch.no_grad():
+        dres = check_values(dgolden, dd(da, b=db).cpu().numpy())
+    fpacked, k, targets = fact
+    model = DistributedSparseFactorizationModel(fpacked, mesh, k,
+                                                device=device)
+    model.init(torch.Generator().manual_seed(0))
+    stepf = model.make_train_step()
+    tp, mask = model.pack_targets(targets)
+    _kernels.launches.clear()
+    losses = [float(stepf(tp, mask)) for _ in range(FACT_STEPS)]
+    torch.cuda.synchronize()
+    # the shard's bound: its A rows, B^T and output once each over the
+    # card's memory rate; the feat sum: the F partials read, one written
+    a_loc = ops[0][0] if isinstance(ops[0], tuple) else ops[0]
+    shard = sum(x.numel() * x.element_size() for x in (a_loc, ops[1], flat))
+    reduce_bytes = (mesh.shape["feat"] + 1) * flat.numel() * 4
+    return dict(coords=mesh.coords, mesh=str(mesh), errors=res.num_errors,
+                res=str(res), dense=str(dres), dense_errors=dres.num_errors,
+                launches=launches, log=log, step=step, local=local, ar=ar,
+                plain=plain, bound_ms=(shard + reduce_bytes)
+                / HBM_BYTES_PER_S * 1e3, shard_mb=shard / 1e6,
+                reduce_mb=reduce_bytes / 1e6,
+                flat_local=d.plan.flat_local, losses=losses,
+                train_launches=dict(_kernels.launches))
+
+
+def run_multi_device(torch, card, cells, packs, goldens):
+    """Phase 14: the dry run over (2, 2) (NCCL with a card a rank where
+    there are 4, else gloo over CUDA tensors on the one card) and over
+    (1, 1) on NCCL; then the full-size (2, 2) check on clustered16 at
+    K=128, the dense class on dlmc and the distributed trainer against
+    the single-device one."""
+    from sddmm_tpu_torch.models import SparseFactorizationModel
+    from sddmm_tpu_torch.parallel.dist import _ShardPlan
+    from sddmm_tpu_torch.parallel.dryrun import dryrun_multichip
+    from sddmm_tpu_torch.parallel.launch import spawn
+
+    backend = "nccl" if torch.cuda.device_count() >= 4 else "gloo"
+    say(f"[mesh] {torch.cuda.device_count()} card(s): the 4-rank meshes run "
+        f"over {backend}" + (" with CUDA tensors, all ranks on card 0"
+                             if backend == "gloo" else ", a card a rank"))
+    out = {}
+    for n, be in ((4, backend), (1, ONE_RANK_BACKEND)):
+        t0 = time.perf_counter()
+        s = dryrun_multichip(n, backend=be, device=DEVICE, verbose=False)
+        want = {"sddmm_tile_dot_float32": 1,
+                "sddmm_gather_dot_float32_float32": 1}
+        for r in s["ranks"]:
+            got = {k: r["launches"].get(k, 0) for k in want}
+            if got != want:
+                fail(f"dry run rank {r['coords']}: forward launches "
+                     f"{r['launches']}, want {want} and B1's")
+        say(f"[dryrun] {n} rank(s) over {be}: {s['ranks'][0]['mesh']}; "
+            f"units {s['units']}, weight spread {s['weight_spread']:.3f} "
+            f"(equal counts {s['naive_spread']:.3f}); loss {s['loss']:.6f} "
+            f"(single device {s['loss_single']:.6f}); single vs multi: "
+            f"{s['bits']} ({s['bit_equal']}/{s['real_slots']} real slots "
+            f"bit-equal, worst {s['worst_ulps']:.1f} ulps); rank 0 "
+            f"launches {s['ranks'][0]['launches']}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        out[n] = s
+    csr, runner, _, a, b = cells[SCALE_CELL]
+    packed = packs[SCALE_CELL][0]
+    dcsr, _, _, da, db = cells[("dlmc", 128)]
+    single = SparseFactorizationModel.from_csr(csr, 128, device=DEVICE)
+    single.init(torch.Generator().manual_seed(0))
+    stepf = single.make_train_step()
+    tp = single.pack_targets(csr.values)
+    want_losses = [float(stepf(tp)) for _ in range(FACT_STEPS)]
+    t0 = time.perf_counter()
+    ranks = spawn(MESH_SCALE[0] * MESH_SCALE[1], scale_rank, (
+        packed, (runner.compute_dtype, runner.a_layout), a, b,
+        goldens[SCALE_CELL], (dcsr, da, db, goldens[("dlmc", 128)]),
+        (single.packed, 128, csr.values), backend, DEVICE),
+        backend=backend, timeout_s=600)
+    plan = _ShardPlan(packed, MESH_SCALE[0])
+    n = plan.flat_local
+    tile = f"sddmm_tile_dot_{runner.compute_dtype}"
+    for r in ranks:
+        if r["launches"].get(tile) != 1 or not r["train_launches"].get(
+                "sddmm_tile_grad_float32"):
+            fail(f"full-size rank {r['coords']}: launches {r['launches']} "
+                 f"(want one {tile}), training {r['train_launches']}")
+        if r["errors"] or r["dense_errors"]:
+            fail(f"full-size rank {r['coords']}: {r['res']}; dense "
+                 f"{r['dense']}")
+        if r["log"] != [dict(kind="all_reduce", group="feat", numel=n,
+                             bytes=4 * n)]:
+            fail(f"rank {r['coords']}: the packed step issued {r['log']}")
+        rel = max(abs(x - y) / abs(y) for x, y in zip(r["losses"],
+                                                      want_losses))
+        if not rel <= 1e-5:
+            fail(f"rank {r['coords']}: losses {r['losses']} vs single "
+                 f"{want_losses} (max rel {rel:.2e})")
+        share = r["ar"]["median_ms"] / r["step"]["median_ms"]
+        say(f"[scale] {SCALE_CELL[0]}@K{SCALE_CELL[1]} rank {r['coords']} "
+            f"({r['mesh']}): CSR order vs fp64 golden {r['res']}; dlmc "
+            f"dense class {r['dense']}; launches {r['launches']}; step "
+            f"{r['step']['median_ms']:.4f} ms (local kernels "
+            f"{r['local']['median_ms']:.4f} ms, their plain versions "
+            f"{r['plain']['median_ms']:.4f} ms; all-reduce of {n} floats "
+            f"{r['ar']['median_ms']:.4f} ms = {share:.1%} of the step); "
+            f"bound {r['bound_ms']:.4f} ms ({r['shard_mb']:.1f} MB of the "
+            f"shard's operands and output, {r['reduce_mb']:.1f} MB of the "
+            f"feat sum, over 3.35 TB/s) on {card}; {FACT_STEPS} trainer "
+            f"losses {r['losses']} (single "
+            f"{want_losses}, max rel {rel:.2e}), launches "
+            f"{r['train_launches']}")
+    say(f"[scale] {len(ranks)} ranks over {backend}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out, ranks
+
+
 def main() -> None:
     if not (ROOT / "sddmm_tpu_torch" / "__init__.py").is_file() or not (
             ROOT / "results" / "tuned_configs.json").is_file():
@@ -2243,6 +2550,15 @@ def main() -> None:
     with Phase("entry points"):
         run_entry_points(torch, card, kind, cells, passes, goldens)
 
+    # -- 13. device row clustering --
+    with Phase("device clustering"):
+        cluster_launches, cluster_rec = run_device_clustering(
+            torch, card, cells, goldens)
+
+    # -- 14. the multi-device path --
+    with Phase("multi-device"):
+        run_multi_device(torch, card, cells, packs, goldens)
+
     if "jax" in sys.modules:
         fail("jax was imported")
     # each kernel's launches on its path: the SpMM and the "float32" tile
@@ -2311,6 +2627,13 @@ def main() -> None:
              "csr_sddmm backward (clustered16 K=128)")):
         record.append(record_entry(name, f"sddmm_tpu_torch/csrc/{source}",
                                    replaces, launches, path, train_rec[key]))
+    # the clustering kernel (this slice): both launches a round
+    record.append(record_entry(
+        f"{_kernels.CLUSTER_LEADERS_ENTRY} + {_kernels.CLUSTER_ASSIGN_ENTRY} "
+        "(one clustering round K9)", "sddmm_tpu_torch/csrc/cluster_round.cu",
+        "sddmm_tpu/reorder/device_cluster.py:51",
+        cluster_launches[_kernels.CLUSTER_LEADERS_ENTRY],
+        "device clustering (probe matrix, 102400 rows)", cluster_rec))
     for r in record:
         if not r["launches"]:
             fail(f"{r['name']} was not launched on its path")

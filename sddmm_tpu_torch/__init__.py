@@ -30,6 +30,11 @@ find:
   ``utils.timing`` (CUDA-event timers, the runners' ``measure_kernel_ms``),
   ``utils.logger`` (the ``[key : value]`` run log), ``utils.profiling``
   (``torch.profiler`` traces and annotations) and ``utils.util``.
+- ``reorder.device_cluster`` clusters rows on the card
+  (``csrc/cluster_round.cu``, ``method="device"``); ``parallel`` shards the
+  hybrid SDDMM, the dense class and (``models``) the factorization trainer
+  over a rows×feat mesh of ``torch.distributed`` ranks (``make_mesh``,
+  ``parallel.launch.spawn``, ``parallel.dryrun.dryrun_multichip``).
 
 Every committed ``results/tuned_configs.json`` configuration runs (any G
 and C, hub and hot-row slabs, the five compute modes, the dense class, any
@@ -46,6 +51,8 @@ from sddmm_tpu_torch.ops.csr_sddmm import csr_sddmm
 from sddmm_tpu_torch.reorder.bsmr import BSMR
 from sddmm_tpu_torch.reorder.pack import PackedMatrix, pack
 from sddmm_tpu_torch.ops.hybrid import sddmm_hybrid, HybridSDDMM
+from sddmm_tpu_torch.parallel import (DistributedDenseSDDMM,
+                                      DistributedHybridSDDMM, make_mesh)
 
 __version__ = "0.1.0"
 
@@ -59,6 +66,9 @@ __all__ = [
     "csr_sddmm",
     "sddmm_hybrid",
     "HybridSDDMM",
+    "DistributedHybridSDDMM",
+    "DistributedDenseSDDMM",
+    "make_mesh",
     "config",
     "__version__",
 ]

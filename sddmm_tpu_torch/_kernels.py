@@ -110,6 +110,10 @@ SOFTMAX_BWD_ENTRY = "sddmm_segment_softmax_backward_float32"
 #: (``csrc/tile_grad.cu``): the per-unit products, then their reduction
 TILE_GRAD_ENTRY = "sddmm_tile_grad_float32"
 TILE_GRAD_REDUCE_ENTRY = "sddmm_tile_grad_reduce_float32"
+#: C entry points of a device row-clustering round
+#: (``csrc/cluster_round.cu``): the leaders, then the rows
+CLUSTER_LEADERS_ENTRY = "sddmm_cluster_leaders"
+CLUSTER_ASSIGN_ENTRY = "sddmm_cluster_assign"
 
 
 def gather_dot_entry(adt, bdt) -> str:
@@ -123,7 +127,8 @@ def _entry_points() -> dict:
     """C entry point name -> ctypes argtypes, for every kernel instance:
     the tile dot per compute mode, the gather-dot per (A, B) storage pair
     of the modes, the CSR SpMM, the segment softmax and its backward, and
-    the tile-grad kernel and its reduction."""
+    the tile-grad kernel and its reduction, and the clustering round's two
+    kernels."""
     from sddmm_tpu_torch.ops.tile_dot import MODES, STORAGE
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     tile = [p, i64, i64, p, i64, i64, i64, p, i64, p, p, p, i64, i32, i32,
@@ -139,6 +144,7 @@ def _entry_points() -> dict:
                  i64, p, p, i64, i32, i32, i32, i32, p]
     tile_grad_reduce = [p, i64, i32, p, p, i64, i64, p, i64, p, i64, i64,
                         i32, i32, i32, p]
+    cluster = [p, p, p, p, p, p, p, p, i64, i32, ctypes.c_float, p]
     eps = {f"sddmm_tile_dot_{m}": tile for m in MODES}
     eps[TILE_GRAD_ENTRY] = tile_grad
     eps[TILE_GRAD_REDUCE_ENTRY] = tile_grad_reduce
@@ -146,6 +152,8 @@ def _entry_points() -> dict:
     eps[SPMM_ENTRY] = spmm
     eps[SOFTMAX_ENTRY] = softmax
     eps[SOFTMAX_BWD_ENTRY] = softmax_bwd
+    eps[CLUSTER_LEADERS_ENTRY] = cluster
+    eps[CLUSTER_ASSIGN_ENTRY] = cluster
     return eps
 
 

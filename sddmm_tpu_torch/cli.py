@@ -122,7 +122,7 @@ def run_once(csr, k, alpha, delta, args, input_file, device):
     from sddmm_tpu_torch.utils.logger import RunLog, device_name
     from sddmm_tpu_torch.utils.timing import Timer
 
-    bsmr = BSMR(alpha, delta, csr, method=args.method)
+    bsmr = BSMR(alpha, delta, csr, method=args.method, device=device)
     with Timer() as t_pack:
         packed = pack(csr, bsmr)
     runner = HybridSDDMM(packed, compute_dtype=args.compute_dtype,
@@ -225,7 +225,8 @@ def main(argv=None) -> int:
     # Test mode: alpha x delta x K sweep, reusing the row reordering per
     # alpha (reference src/sddmm.cu:64-89 reuses bsmr.rowReordering).
     for alpha in SWEEP_ALPHAS:
-        shared = BSMR(alpha, 0.0, csr, method=args.method, compute=False)
+        shared = BSMR(alpha, 0.0, csr, method=args.method, compute=False,
+                      device=device)
         shared.run_row_reordering(csr)
         for delta in SWEEP_DELTAS:
             for k in SWEEP_KS:

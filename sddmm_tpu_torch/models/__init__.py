@@ -4,8 +4,9 @@ and training) and the factorization trainer."""
 from sddmm_tpu_torch.models.block_sparse_attention import (
     BlockSparseAttention, BlockSparseAttentionParams,
     dense_reference_attention, make_attention_mask)
-from sddmm_tpu_torch.models.factorization import (FactorizationParams,
-                                                  SparseFactorizationModel)
+from sddmm_tpu_torch.models.factorization import (
+    DistributedSparseFactorizationModel, FactorizationParams,
+    SparseFactorizationModel)
 from sddmm_tpu_torch.models.graph_attention import (GraphAttentionLayer,
                                                     GraphAttentionParams,
                                                     segment_softmax)
@@ -13,4 +14,5 @@ from sddmm_tpu_torch.models.graph_attention import (GraphAttentionLayer,
 __all__ = ["GraphAttentionLayer", "GraphAttentionParams", "segment_softmax",
            "BlockSparseAttention", "BlockSparseAttentionParams",
            "dense_reference_attention", "make_attention_mask",
-           "FactorizationParams", "SparseFactorizationModel"]
+           "FactorizationParams", "SparseFactorizationModel",
+           "DistributedSparseFactorizationModel"]

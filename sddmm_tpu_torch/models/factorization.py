@@ -14,8 +14,14 @@ The optimizer is ``torch.optim.Adam`` with optax's defaults (beta
 
 The factors are ``nn.Parameter``s on the model's device; torch cannot draw
 ``jax.random``'s numbers, so ``interop.factorization_params_from_reference``
-carries the JAX model's factors across.  ``DistributedSparseFactorizationModel``
-waits for the port of ``parallel`` (ROADMAP Queue 1).
+carries the JAX model's factors across.
+
+``DistributedSparseFactorizationModel`` is the same trainer over a ('rows',
+'feat') mesh of ranks (``parallel``): each rank holds the K slice of the
+factors of its feat coordinate, computes its rows block's share of the
+packed-target loss (one all-reduce of the packed output over 'feat'), and
+its gradients are summed over 'rows' in the backward, so every rank's Adam
+takes the same step.  The total loss is the sum of the rows ranks' shares.
 """
 
 from __future__ import annotations
@@ -185,3 +191,117 @@ class SparseFactorizationModel(nn.Module):
         constructor."""
         return SparseFactorizationModel(pack(csr, BSMR(alpha, delta, csr)),
                                         k, device=device, **kwargs)
+
+
+class DistributedSparseFactorizationModel(nn.Module):
+    """The factorization trainer over a ('rows', 'feat') mesh: this rank's
+    part (``parallel.dist.DistributedHybridSDDMM``, the packed-target loss
+    kept sharded on 'rows', the factors K-sliced on 'feat').  ``a`` and
+    ``bt`` are this rank's slices (M, K/F) and (N, K/F); ``init`` and
+    ``load_params`` take the whole factors and keep the slice."""
+
+    def __init__(self, packed: PackedMatrix, mesh, k: int,
+                 learning_rate: float = 1e-2,
+                 compute_dtype: str = "float32", device="cuda"):
+        from sddmm_tpu_torch.parallel.dist import DistributedHybridSDDMM
+
+        super().__init__()
+        self.packed = packed
+        self.k = int(k)
+        self.learning_rate = learning_rate
+        self.dist = DistributedHybridSDDMM(packed, mesh,
+                                           compute_dtype=compute_dtype,
+                                           device=device)
+        if self.k % self.dist.k_chunks:
+            raise ValueError(f"K={k} not divisible by C={self.dist.k_chunks}")
+        self.mesh = mesh
+        self.device = self.dist.device
+        kf = self.k // self.dist.F
+        self.a = nn.Parameter(torch.zeros((packed.m, kf), device=self.device))
+        self.bt = nn.Parameter(torch.zeros((packed.n, kf),
+                                           device=self.device))
+        self.optimizer = self._adam()
+
+    def _adam(self) -> torch.optim.Adam:
+        return torch.optim.Adam(self.parameters(), lr=self.learning_rate,
+                                betas=(0.9, 0.999), eps=1e-8)
+
+    @torch.no_grad()
+    def init(self, generator: Optional[torch.Generator] = None) -> None:
+        """N(0, 1/K) factors drawn whole from the CPU ``generator`` as
+        ``SparseFactorizationModel.init`` draws them (so every rank, and a
+        single-device model from the same seed, start alike), this rank's
+        slice kept; a fresh optimizer state."""
+        scale = 1.0 / np.sqrt(self.k)
+        full = [torch.randn((n, self.k), generator=generator) * scale
+                for n in (self.packed.m, self.packed.n)]
+        self.load_params(FactorizationParams(*full))
+
+    @torch.no_grad()
+    def load_params(self, params: FactorizationParams) -> None:
+        """Set the factors from the whole (M, K) and (N, K) ones (and start
+        a fresh optimizer state)."""
+        for w, p in zip((self.a, self.bt), params):
+            w.copy_(self.dist.feat_slice(
+                torch.as_tensor(np.array(p, dtype=np.float32))))
+        self.optimizer = self._adam()
+
+    def forward(self, order: str = "packed") -> torch.Tensor:
+        """This rank's predicted packed values (flat_local,), or with
+        ``order="csr"`` all values in CSR order."""
+        zero = self.a.new_zeros((1, self.a.shape[1]))
+        a_pad = torch.cat([self.a, zero])
+        bt_pad = torch.cat([self.bt, zero])
+        return self.dist.run_padded(*self.dist.device_prepare(a_pad, bt_pad),
+                                    order=order)
+
+    def pack_targets(self, targets):
+        """(targets, mask) in this rank's packed layout (flat_local,)."""
+        return self.dist.make_packed_targets(targets)
+
+    def loss(self, targets: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+        """This rows rank's share of the loss: the squared error over its
+        real slots, over nnz."""
+        err = torch.where(mask, self() - targets, 0.0) ** 2
+        return err.sum() / self.packed.nnz
+
+    def make_train_step(self):
+        """``step(targets, mask) -> loss``: one forward, backward (the
+        gradients summed over 'rows') and Adam update; the loss returned is
+        the total before the update (the rows ranks' shares summed)."""
+        def train_step(targets: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+            import torch.distributed as dist
+
+            self.optimizer.zero_grad(set_to_none=True)
+            part = self.loss(targets, mask)
+            part.backward()
+            self.optimizer.step()
+            total = part.detach().clone()
+            dist.all_reduce(total, group=self.mesh.groups["rows"])
+            return total
+
+        return train_step
+
+    def fit(self, targets, generator: Optional[torch.Generator] = None,
+            steps: int = 50):
+        """Train from ``init(generator)`` (default: a generator seeded 0)
+        for ``steps`` steps -> (this rank's factor slices, the losses)."""
+        self.init(generator if generator is not None
+                  else torch.Generator().manual_seed(0))
+        step = self.make_train_step()
+        tp, mask = self.pack_targets(targets)
+        losses = [float(step(tp, mask)) for _ in range(steps)]
+        return FactorizationParams(self.a.detach(), self.bt.detach()), losses
+
+    @staticmethod
+    def from_csr(csr: CSR, mesh, k: int, alpha: float = config.DEFAULT_ALPHA,
+                 delta: float = config.DEFAULT_DELTA, device="cuda",
+                 **kwargs) -> "DistributedSparseFactorizationModel":
+        """Pack ``csr`` with the BSMR defaults, as the JAX model does."""
+        from sddmm_tpu_torch.ops.hybrid import check_device
+        check_device(device)
+        return DistributedSparseFactorizationModel(
+            pack(csr, BSMR(alpha, delta, csr)), mesh, k, device=device,
+            **kwargs)

@@ -4,9 +4,9 @@ Counterpart of ``sddmm_tpu/ops/hybrid.py`` (``HybridSDDMM``,
 ``_hybrid_packed_jit``, ``device_bt_phys``, ``sddmm_hybrid``) for every
 packing the JAX package builds: any gather-group size G, any number C of K
 chunks, the hub slab and the hot-row slab, the five compute modes
-(``tile_dot.MODES``) and ``a_layout`` ``"rows"`` or ``"panels"``.  Device
-row clustering (``method="device"``) is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP item (``check_slice``).
+(``tile_dot.MODES``) and ``a_layout`` ``"rows"`` or ``"panels"``.
+``from_csr(..., method="device")`` clusters the rows on the runner's
+device (``reorder/device_cluster.py``).
 
 The packed flat vector has the JAX package's layout exactly:
 ``[super ++ quad ++ pair ++ group segments ++ hub ++ hot-row slab ++
@@ -355,21 +355,13 @@ def device_bt_phys(bt_pad: torch.Tensor, col_order: torch.Tensor, g: int,
     return torch.cat([arr, sent], dim=-2)
 
 
-def check_slice(compute_dtype: str, k_chunks: int,
-                method: str = "auto") -> None:
-    """Raise ValueError for an unknown compute mode or chunk count, and
-    NotImplementedError for what the port does not run yet, naming the
-    ROADMAP Queue 1 item that brings it."""
+def check_slice(compute_dtype: str, k_chunks: int) -> None:
+    """Raise ValueError for an unknown compute mode or chunk count."""
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"unknown compute_dtype {compute_dtype!r}; one of "
                          f"{COMPUTE_DTYPES}")
     if int(k_chunks) < 1:
         raise ValueError(f"k_chunks={k_chunks} must be >= 1")
-    if method == "device":
-        raise NotImplementedError(
-            "sddmm_tpu_torch does not run method='device' row clustering "
-            "yet (ROADMAP Queue 1: 'Device clustering'); use 'auto', "
-            "'greedy' or 'batched'")
 
 
 @dataclasses.dataclass
@@ -572,11 +564,14 @@ class HybridSDDMM:
                            seg.lanes)
                 offset += seg.size
         self._hub_offset = offset
+        # the hub slab's rows: all of A's, except in a rank's share of a
+        # sharded packing (parallel/dist.py), where they are its panel rows
+        self._hub_rows = getattr(packed, "hub_nrows", packed.m)
         if packed.hub_cols:
-            add_blocks(np.arange(packed.m)[None],
+            add_blocks(np.arange(self._hub_rows)[None],
                        np.arange(packed.hub_cols // G)[None], [offset],
                        packed.hub_cols)
-        offset += packed.m * packed.hub_cols
+        offset += self._hub_rows * packed.hub_cols
         self._rowslab_offset = offset
         self._rowslab_rows = (put(packed.rowslab_rows)
                               if packed.rowslab_rows is not None else None)
@@ -798,10 +793,10 @@ class HybridSDDMM:
                 a_run, lambda c, s=seg: bt_phys[c][s.gids].view(
                     s.n_runs, s.lanes, kc), out)
         if p.hub_cols:
-            H = p.hub_cols
-            out = flat[self._hub_offset:self._hub_offset + p.m * H].view(
-                1, p.m, H)
-            yield from chunks(a_pad[None, :p.m], lambda c: bt_phys[
+            H, hm = p.hub_cols, self._hub_rows
+            out = flat[self._hub_offset:self._hub_offset + hm * H].view(
+                1, hm, H)
+            yield from chunks(a_pad[None, :hm], lambda c: bt_phys[
                 c, :H // G].reshape(1, H, kc), out)
         if self._rowslab_rows is not None:
             S = p.rowslab_width
@@ -1113,8 +1108,9 @@ class HybridSDDMM:
                  delta: float = config.DEFAULT_DELTA,
                  compute_dtype: str = "tf32", method: str = "auto",
                  device="cuda") -> "HybridSDDMM":
-        check_slice(compute_dtype, 1, method)
-        bsmr = BSMR(alpha, delta, csr, method=method)
+        check_slice(compute_dtype, 1)
+        check_device(device)
+        bsmr = BSMR(alpha, delta, csr, method=method, device=device)
         return HybridSDDMM(pack(csr, bsmr), compute_dtype=compute_dtype,
                            device=device)
 

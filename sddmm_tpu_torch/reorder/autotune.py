@@ -270,15 +270,18 @@ def from_params(csr: CSR, k: int, alpha: float, delta: float,
                 sort_res: str = "csr",
                 b_cost_scale: float = 1.0,
                 hot_rows: int = 0,
-                hot_rows_pre: bool = False) -> TunedConfig:
+                hot_rows_pre: bool = False,
+                device="cuda") -> TunedConfig:
     """Build a TunedConfig for an explicit (alpha, delta, G, C, merge)
     choice — the deterministic path bench.py uses with the committed
-    per-matrix configs (results/tuned_configs.json)."""
+    per-matrix configs (results/tuned_configs.json).  ``device``: where
+    ``method="device"`` clusters."""
     rank = None
     base_order = None
     if group_size > 1:
         from sddmm_tpu_torch.reorder.cols import cluster_columns
-        base_order = cluster_columns(csr, alpha, method=method)
+        base_order = cluster_columns(csr, alpha, method=method,
+                                    device=device)
     if hub_cols > 0:
         from sddmm_tpu_torch.reorder.cols import hub_first_rank
         rank = hub_first_rank(csr, hub_cols, base_order=base_order)
@@ -306,7 +309,8 @@ def from_params(csr: CSR, k: int, alpha: float, delta: float,
                           csr.col_idx[keep].astype(np.int64),
                           csr.values[keep]).to_csr()
     bsmr = BSMR(alpha, delta, cluster_csr, method=method,
-                group_size=group_size, col_rank=rank, hub_cols=hub_cols)
+                group_size=group_size, col_rank=rank, hub_cols=hub_cols,
+                device=device)
     packed = pack(csr, bsmr, k_hint=k, merge_superpanels=merge_superpanels,
                   compute_dtype=compute_dtype, window_dp=window_dp,
                   sort_runs=sort_runs, sort_res=sort_res,
@@ -352,12 +356,13 @@ def autotune_multi(csr: CSR, ks: Sequence[int],
 
     from sddmm_tpu_torch.reorder.cols import cluster_columns, hub_first_rank
     for alpha in alphas:
-        base = BSMR(alpha, 0.0, csr, method=method, compute=False)
+        base = BSMR(alpha, 0.0, csr, method=method, compute=False,
+                    device=device)
         base.run_row_reordering(csr)
         for g in all_gs:
             if g > 1 and alpha not in col_order_cache:
-                col_order_cache[alpha] = cluster_columns(csr, alpha,
-                                                         method=method)
+                col_order_cache[alpha] = cluster_columns(
+                    csr, alpha, method=method, device=device)
             base_order = col_order_cache.get(alpha) if g > 1 else None
             for hc in [0] + [h for h in hubs_all if h % g == 0]:
                 if hc > 0:
@@ -401,7 +406,8 @@ def autotune_multi(csr: CSR, ks: Sequence[int],
                 t0 = from_params(
                     csr, ks[0], alpha=alphas[0], delta=0.05,
                     hub_cols=hc0, compute_dtype=compute_dtype,
-                    method=method, hot_rows=R_slab, hot_rows_pre=True)
+                    method=method, hot_rows=R_slab, hot_rows_pre=True,
+                    device=device)
                 rowslab_pack = (alphas[0], hc0, t0.packed, t0.bsmr)
             except Exception as e:  # noqa: BLE001 — a candidate only
                 import warnings as _w

@@ -29,11 +29,14 @@ class BSMR:
                  col_rank: Optional[np.ndarray] = None,
                  cluster_cols: bool = False,
                  hub_cols: int = 0,
-                 compute: bool = True):
+                 compute: bool = True,
+                 device="cuda"):
         self.alpha = float(alpha)
         self.delta = float(delta)
         self._method = method
         self._col_block_size = col_block_size
+        # where method="device" clusters rows (and columns)
+        self._device = device
         self.group_size = int(group_size)
         self.hub_cols = int(hub_cols)
         if self.hub_cols > 0 and col_rank is None:
@@ -43,7 +46,8 @@ class BSMR:
         if col_rank is None and cluster_cols:
             from sddmm_tpu_torch.reorder.cols import cluster_columns
             t0 = time.perf_counter()
-            order = cluster_columns(csr, alpha, method=method)
+            order = cluster_columns(csr, alpha, method=method,
+                                    device=device)
             col_rank = np.empty(csr.n, dtype=np.int64)
             col_rank[order] = np.arange(csr.n)
             self.col_clustering_ms = (time.perf_counter() - t0) * 1e3
@@ -73,7 +77,8 @@ class BSMR:
             self.alpha = float(alpha)
         t0 = time.perf_counter()
         rr = row_reordering(csr, self.alpha, method=self._method,
-                            col_block_size=self._col_block_size)
+                            col_block_size=self._col_block_size,
+                            device=self._device)
         self.row_reordering_ms = (time.perf_counter() - t0) * 1e3
         self.reordered_rows = rr.reordered_rows
         self.cluster_ids = rr.cluster_ids

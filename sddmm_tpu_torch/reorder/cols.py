@@ -39,7 +39,7 @@ class ColReorderResult:
 
 
 def cluster_columns(csr: CSR, alpha: float = 0.3,
-                    method: str = "auto") -> np.ndarray:
+                    method: str = "auto", device="cuda") -> np.ndarray:
     """Global column-similarity ordering: BSMR's row clustering applied to
     S^T, so columns that occupy the same row panels become adjacent.
 
@@ -48,7 +48,8 @@ def cluster_columns(csr: CSR, alpha: float = 0.3,
     per gather descriptor (one physical row of the grouped B^T layout) with
     minimal wasted lanes, which is what makes small-K SDDMM on TPU
     descriptor-rate-viable.  Returns a permutation of [0, n): column ->
-    position (columns with no nonzeros go last).
+    position (columns with no nonzeros go last).  ``device``: where
+    ``method="device"`` clusters.
     """
     from sddmm_tpu_torch.data.sparse import COO
     from sddmm_tpu_torch.reorder.rows import row_reordering
@@ -56,7 +57,7 @@ def cluster_columns(csr: CSR, alpha: float = 0.3,
     coo = csr.to_coo()
     csc = COO((csr.n, csr.m), coo.cols, coo.rows,
               coo.values).sorted_by_row().to_csr()
-    rr = row_reordering(csc, alpha, method=method)
+    rr = row_reordering(csc, alpha, method=method, device=device)
     ordered = rr.reordered_rows.astype(np.int64)
     missing = np.setdiff1d(np.arange(csr.n, dtype=np.int64), ordered,
                            assume_unique=False)

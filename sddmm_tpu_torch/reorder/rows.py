@@ -238,28 +238,71 @@ def _batched_cluster(order, block_ptr, block_idx, block_cnt, num_blocks,
     return cluster_of, num_clusters
 
 
+#: device memory the clustering's encodings may take (bytes) for auto
+#: routing to put them on the card (``_device_cluster_bytes``)
+DEVICE_CLUSTER_HAT_BUDGET = 2 << 30
+
+
+def _device_cluster_bytes(m: int, num_blocks: int, n_pairs=None,
+                          leaders: int = 32) -> int:
+    """Device bytes of ``device_cluster.batched_cluster_device``: 8 per
+    occupied (row, block) pair (its int32 block id and fp32 hat), 16 per
+    row (pointer, hat sum, cluster id) and the (B, L) fp32 leader table.
+    ``n_pairs`` None takes the most there can be, m * B.  JAX's dense
+    encodings took 4 * m_pad * B."""
+    nb = max(num_blocks, 1)
+    pairs = m * nb if n_pairs is None else int(n_pairs)
+    return 8 * pairs + 16 * (m + 1) + 4 * nb * leaders
+
+
+def _device_cluster_viable(m: int, num_blocks: int, n_pairs=None) -> bool:
+    """True when auto row clustering should run on the card: a CUDA card
+    is there, the env kill-switch ``SDDMM_TPU_DEVICE_CLUSTER`` (the JAX
+    package's: "0" never, "1" whenever it fits) allows it, and the
+    encodings fit ``DEVICE_CLUSTER_HAT_BUDGET``."""
+    import os
+
+    env = os.environ.get("SDDMM_TPU_DEVICE_CLUSTER", "").strip()
+    if env == "0":
+        return False
+    fits = (_device_cluster_bytes(m, num_blocks, n_pairs)
+            <= DEVICE_CLUSTER_HAT_BUDGET)
+    if env == "1":
+        return fits
+    import torch
+
+    return fits and torch.cuda.is_available()
+
+
 #: seconds of estimated host-greedy time above which auto routing
-#: prefers the multi-leader path.  Override with
+#: prefers the device / multi-leader path.  Override with
 #: SDDMM_TPU_HOST_CLUSTER_BUDGET_S.
 HOST_CLUSTER_BUDGET_S = 5.0
 #: measured speedup of the native C++ greedy loop over the numpy
 #: _greedy_cluster the routing sample is timed with (probe:
 #: results/probe_device_cluster_mid_r4.log).
 NATIVE_GREEDY_SPEEDUP = 15.0
+#: device clustering's cost per (padded row x block) cell, the port's own:
+#: the probe matrix (block_clustered(6400, 2048, block_prob=0.004, ...),
+#: 102400 x 2048 cells, 237 rounds) clustered by the kernel in 0.099 s of
+#: host wall on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, "device
+#: clustering"; the native host greedy took 48.5 s there).  A round's cost
+#: follows its live rows' blocks, not m x B, so this prices large matrices
+#: only roughly.
+DEVICE_CLUSTER_S_PER_CELL = 4.707e-10
 
 
 def _route_by_cost(t_sample_s: float, n_order: int, m: int,
-                   num_blocks: int) -> str:
-    """Pick greedy vs batched from the measured sample time.
+                   num_blocks: int, n_pairs=None) -> str:
+    """Pick greedy vs device vs batched from the measured sample time.
 
     Greedy cost ~ rows x clusters x support; with cluster count roughly
     proportional to rows on clusterable matrices, full-matrix host time
     extrapolates as t_sample * (rows/2048)^2, discounted by the native
-    C++ loop's measured speedup when it will actually run.  The JAX
-    package may also route to device clustering here; that path is not
-    ported yet (ROADMAP Queue 1: 'Device clustering'), and its router
-    never picks it on a CPU backend, so the two packages route alike in
-    the tests."""
+    C++ loop's measured speedup when it will actually run.  The device
+    path is priced by DEVICE_CLUSTER_S_PER_CELL and must beat the host
+    estimate; it is viable only with a card (``_device_cluster_viable``),
+    so on the CPU both packages route alike."""
     import os
 
     from sddmm_tpu_torch import native
@@ -271,6 +314,11 @@ def _route_by_cost(t_sample_s: float, n_order: int, m: int,
                                        if native.available() else 1.0)
     if est_host_s <= budget:
         return "greedy"
+    m_pad = -(-m // 2048) * 2048
+    est_device_s = DEVICE_CLUSTER_S_PER_CELL * m_pad * max(num_blocks, 1)
+    if (_device_cluster_viable(m, num_blocks, n_pairs)
+            and est_device_s < est_host_s):
+        return "device"
     # the numpy batched path measured ~3x native greedy at m=65k —
     # over budget but finite, and strictly better than numpy greedy
     return "greedy" if native.available() else "batched"
@@ -279,8 +327,11 @@ def _route_by_cost(t_sample_s: float, n_order: int, m: int,
 def row_reordering(csr: CSR, alpha: float = config.DEFAULT_ALPHA,
                    method: str = "auto",
                    col_block_size: Optional[int] = None,
-                   budget_bytes: int = 1 << 30) -> RowReorderResult:
-    """Full BSMR row reordering pipeline."""
+                   budget_bytes: int = 1 << 30,
+                   device="cuda") -> RowReorderResult:
+    """Full BSMR row reordering pipeline.  ``device`` is where
+    ``method="device"`` clusters (the card unless the caller asks for
+    "cpu")."""
     m = csr.m
     if col_block_size is None:
         col_block_size = choose_col_block_size(csr.n, m, budget_bytes)
@@ -327,7 +378,7 @@ def row_reordering(csr: CSR, alpha: float = config.DEFAULT_ALPHA,
                 method = "unclusterable"
             else:
                 method = _route_by_cost(t_sample, len(order), m,
-                                        num_blocks)
+                                        num_blocks, len(block_idx))
     if method == "unclusterable":
         cluster_of = np.full(m, -1, dtype=np.int64)
         cluster_of[order] = np.arange(len(order), dtype=np.int64)
@@ -346,10 +397,13 @@ def row_reordering(csr: CSR, alpha: float = config.DEFAULT_ALPHA,
         cluster_of, num_clusters = _batched_cluster(
             order, block_ptr, block_idx, block_cnt, num_blocks, alpha)
     elif method == "device":
-        raise NotImplementedError(
-            "device row clustering is not ported to sddmm_tpu_torch yet "
-            "(ROADMAP Queue 1: 'Device clustering'); use method='greedy' "
-            "or 'batched'")
+        # multi-leader clustering on the card (the reference runs its
+        # clustering on the GPU, src/rowReordering.cu:1027-1095)
+        from sddmm_tpu_torch.reorder.device_cluster import \
+            batched_cluster_device
+        cluster_of, num_clusters = batched_cluster_device(
+            order, block_ptr, block_idx, block_cnt, num_blocks, alpha,
+            device=device)
     elif method == "none":
         # no clustering: identity order over non-empty rows
         cluster_of = np.full(m, -1, dtype=np.int64)

@@ -1064,3 +1064,71 @@ def test_shootout_times_every_finalist_on_card(cuda_device):
                        runner(a, b).cpu().numpy())
     assert res.passed and res.num_errors == 0, (config_of(win, "tf32"),
                                                  str(res))
+
+
+def _cluster_args(csr, col_block_size=16):
+    from sddmm_tpu_torch.reorder import rows
+    bp, bi, bc, nb = rows.row_encodings(csr, col_block_size)
+    disp = rows.dispersion_scores(csr, bp, bc, col_block_size)
+    nonempty = np.nonzero(disp > 0)[0]
+    order = nonempty[np.argsort(disp[nonempty], kind="stable")]
+    return order, bp, bi, bc, nb
+
+
+def test_cluster_round_kernel_matches_plain(cuda_device):
+    """The clustering kernel K9 against its plain round on the card and the
+    host batched clustering at fp32: the same clusters exactly, two
+    launches a round."""
+    from sddmm_tpu_torch.reorder import device_cluster as dc
+    from sddmm_tpu_torch.reorder import rows
+    csr = generate.block_clustered(256, 256, block_prob=0.01,
+                                   block_density=0.6, noise_density=1e-4,
+                                   seed=72)
+    args = _cluster_args(csr)
+    _kernels.launches.clear()
+    record = {}
+    got = dc.batched_cluster_device(*args, 0.3, device=cuda_device,
+                                    record=record)
+    launches = dict(_kernels.launches)
+    plain = dc.batched_cluster_device(*args, 0.3, device=cuda_device,
+                                      plain=True)
+    host = rows._batched_cluster(*args, 0.3, hat_dtype=np.float32)
+    assert got[1] == plain[1] == host[1]
+    assert np.array_equal(got[0], plain[0])
+    assert np.array_equal(got[0], host[0])
+    n = len(record["round_ms"])
+    assert launches == {_kernels.CLUSTER_LEADERS_ENTRY: n,
+                        _kernels.CLUSTER_ASSIGN_ENTRY: n}
+
+
+def test_two_rank_mesh_bit_equal(cuda_device):
+    """Two ranks on the one card (gloo over CUDA tensors), mesh (2, 1):
+    every real slot of each rank's packed output equals the single-device
+    runner's bit for bit; each rank one tile and one gather-dot launch and
+    one all-reduce."""
+    import torch_parallel_worker as worker
+    from sddmm_tpu_torch.parallel import launch
+    _kernels.load()      # built once here, not by both ranks at once
+    csr = generate.block_clustered(48, 48, block_prob=0.08,
+                                   block_density=0.6, noise_density=0.002,
+                                   seed=3)
+    packed = from_params(csr, 64, alpha=0.3, delta=0.3).packed
+    a = generate.make_dense(csr.m, 64, seed=1)
+    b = generate.make_dense(64, csr.n, seed=2)
+    ranks = launch.spawn(2, worker.card_rows_mesh, (packed, a, b),
+                         backend="gloo", timeout_s=300)
+    single = hy.HybridSDDMM(packed, "float32", device=cuda_device)
+    flat_1 = single.run_padded(*single.prepare_operands(a, b=b)).cpu().numpy()
+    from sddmm_tpu_torch.parallel.dist import _ShardPlan
+    plan = _ShardPlan(packed, 2)
+    n_real = 0
+    for r in ranks:
+        dest = plan.csr_dest[r["row"]]
+        real = dest < packed.nnz
+        want = flat_1[packed.inv_idx[dest[real]]]
+        assert np.array_equal(want.view(np.uint32),
+                              r["flat"][real].view(np.uint32))
+        n_real += int(real.sum())
+        assert r["launches"]["sddmm_tile_dot_float32"] == 1
+        assert [e["kind"] for e in r["log"]] == ["all_reduce"]
+    assert n_real == packed.nnz

@@ -29,6 +29,8 @@ def test_import_does_not_load_jax():
         "import sddmm_tpu_torch.reorder.validate, sddmm_tpu_torch.data.io\n"
         "import sddmm_tpu_torch.models.factorization\n"
         "import sddmm_tpu_torch.utils.checkpoint\n"
+        "import sddmm_tpu_torch.reorder.device_cluster\n"
+        "import sddmm_tpu_torch.parallel, sddmm_tpu_torch.parallel.dryrun\n"
         "assert 'jax' not in sys.modules, 'jax loaded'\n"
         "assert 'sddmm_tpu' not in sys.modules, 'sddmm_tpu loaded'\n"
         "print('clean')\n")
@@ -52,7 +54,13 @@ def test_entry_point_modules_do_not_load_jax():
 
 
 def test_no_jax_import_in_sources():
-    for path in (ROOT / "sddmm_tpu_torch").rglob("*.py"):
+    paths = list((ROOT / "sddmm_tpu_torch").rglob("*.py"))
+    # the multi-device path and the clustering are among them
+    names = {p.relative_to(ROOT / "sddmm_tpu_torch").as_posix()
+             for p in paths}
+    assert {"parallel/dist.py", "parallel/mesh.py", "parallel/launch.py",
+            "parallel/dryrun.py", "reorder/device_cluster.py"} <= names
+    for path in paths:
         for line in path.read_text().splitlines():
             s = line.strip()
             assert not (s.startswith("import jax") or s.startswith("from jax")
@@ -95,7 +103,7 @@ def test_library_name_tracks_sources():
     assert p == _kernels.lib_path()
     assert {s.name for s in _kernels._sources()} == {
         "tile_dot.cu", "gather_dot.cu", "spmm.cu", "segment_softmax.cu",
-        "tile_grad.cu"}
+        "tile_grad.cu", "cluster_round.cu"}
 
 
 def test_build_runs_commands_together_and_raises():
@@ -126,6 +134,10 @@ def test_build_runs_commands_together_and_raises():
     # 16 arguments, stream last)
     assert len(eps[_kernels.TILE_GRAD_ENTRY]) == 23
     assert len(eps[_kernels.TILE_GRAD_REDUCE_ENTRY]) == 16
+    # the clustering round's two kernels: 12 arguments, alpha a float
+    for name in (_kernels.CLUSTER_LEADERS_ENTRY,
+                 _kernels.CLUSTER_ASSIGN_ENTRY):
+        assert len(eps[name]) == 12 and eps[name][10] is ctypes.c_float
 
 
 def test_cuda_device_raises_without_cuda():
@@ -161,8 +173,13 @@ def _entry_points():
             "entry", "ops.batch", "ops.csr_sddmm", "ops.dense", "ops.hybrid",
             "ops.softmax", "ops.spmm", "reorder.autotune"))
     from sddmm_tpu_torch.models import (BlockSparseAttention,
+                                        DistributedSparseFactorizationModel,
                                         GraphAttentionLayer,
                                         SparseFactorizationModel)
+    from sddmm_tpu_torch.parallel import (DistributedDenseSDDMM,
+                                          DistributedHybridSDDMM, make_mesh)
+    from sddmm_tpu_torch.parallel.dryrun import dryrun_multichip
+    from sddmm_tpu_torch.reorder.device_cluster import batched_cluster_device
     return {
         "HybridSDDMM": hybrid.HybridSDDMM.__init__,
         "HybridSDDMM.from_csr": hybrid.HybridSDDMM.from_csr,
@@ -182,6 +199,16 @@ def _entry_points():
             SparseFactorizationModel.from_csr,
         "autotune": autotune.autotune,
         "autotune_multi": autotune.autotune_multi,
+        "batched_cluster_device": batched_cluster_device,
+        "make_mesh": make_mesh,
+        "DistributedHybridSDDMM": DistributedHybridSDDMM.__init__,
+        "DistributedDenseSDDMM": DistributedDenseSDDMM.__init__,
+        "DistributedDenseSDDMM.from_csr": DistributedDenseSDDMM.from_csr,
+        "DistributedSparseFactorizationModel":
+            DistributedSparseFactorizationModel.__init__,
+        "DistributedSparseFactorizationModel.from_csr":
+            DistributedSparseFactorizationModel.from_csr,
+        "dryrun_multichip": dryrun_multichip,
     }
 
 
@@ -191,7 +218,12 @@ ENTRY_POINTS = ("HybridSDDMM", "HybridSDDMM.from_csr", "sddmm_hybrid",
                 "GraphAttentionLayer", "BlockSparseAttention", "entry",
                 "SparseFactorizationModel",
                 "SparseFactorizationModel.from_csr", "autotune",
-                "autotune_multi")
+                "autotune_multi", "batched_cluster_device", "make_mesh",
+                "DistributedHybridSDDMM", "DistributedDenseSDDMM",
+                "DistributedDenseSDDMM.from_csr",
+                "DistributedSparseFactorizationModel",
+                "DistributedSparseFactorizationModel.from_csr",
+                "dryrun_multichip")
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -206,7 +238,13 @@ def test_entry_point_defaults_to_the_card(name):
 @pytest.mark.parametrize("name", ["HybridSDDMM", "DenseSDDMM",
                                   "GraphAttentionLayer", "entry",
                                   "csr_softmax", "SparseFactorizationModel",
-                                  "autotune measured"])
+                                  "autotune measured",
+                                  "batched_cluster_device",
+                                  "HybridSDDMM.from_csr device clustering",
+                                  "DistributedHybridSDDMM",
+                                  "DistributedDenseSDDMM",
+                                  "DistributedSparseFactorizationModel",
+                                  "dryrun_multichip"])
 def test_default_device_raises_without_a_card(name):
     """Without a card the default raises; it never falls back to the
     CPU."""
@@ -220,7 +258,14 @@ def test_default_device_raises_without_a_card(name):
     from sddmm_tpu_torch.ops.hybrid import HybridSDDMM
     from sddmm_tpu_torch.ops.softmax import csr_softmax
     from sddmm_tpu_torch.reorder.autotune import autotune, from_params
+    from sddmm_tpu_torch.models import DistributedSparseFactorizationModel
+    from sddmm_tpu_torch.parallel import (DistributedDenseSDDMM,
+                                          DistributedHybridSDDMM)
+    from sddmm_tpu_torch.parallel.dryrun import dryrun_multichip
+    from sddmm_tpu_torch.reorder.device_cluster import batched_cluster_device
+    from sddmm_tpu_torch.reorder.rows import row_encodings
     csr = generate.block_clustered(8, 8, block_prob=0.3, seed=1)
+    enc = row_encodings(csr, 16)
     calls = {
         "HybridSDDMM": lambda: HybridSDDMM(
             from_params(csr, 32, alpha=0.3, delta=0.05).packed),
@@ -231,6 +276,18 @@ def test_default_device_raises_without_a_card(name):
         "SparseFactorizationModel": lambda: SparseFactorizationModel.from_csr(
             csr, 8),
         "autotune measured": lambda: autotune(csr, 32, measure=True),
+        "batched_cluster_device": lambda: batched_cluster_device(
+            np.arange(csr.m), *enc, 0.3),
+        "HybridSDDMM.from_csr device clustering":
+            lambda: HybridSDDMM.from_csr(csr, method="device"),
+        # the device is checked before the mesh is read
+        "DistributedHybridSDDMM": lambda: DistributedHybridSDDMM(
+            from_params(csr, 32, alpha=0.3, delta=0.05).packed, None),
+        "DistributedDenseSDDMM": lambda: DistributedDenseSDDMM(4, 4, None),
+        "DistributedSparseFactorizationModel":
+            lambda: DistributedSparseFactorizationModel.from_csr(csr, None,
+                                                                 8),
+        "dryrun_multichip": lambda: dryrun_multichip(4),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[name]()
@@ -253,3 +310,17 @@ def test_bench_and_cli_raise_without_a_card(name, tmp_path):
         main(argv[name])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(argv[name] + ["--device", "cuda"])
+
+
+def test_spawned_rank_does_not_load_jax():
+    """A rank started by ``launch.spawn`` (a fresh interpreter) that
+    imports the whole port, the multi-device path and the clustering
+    among it, has neither jax nor the JAX package in sys.modules."""
+    from sddmm_tpu_torch.parallel import launch
+    import torch_parallel_worker as worker
+    (mods,) = launch.spawn(1, worker.imported_modules, (), backend="gloo",
+                           timeout_s=120)
+    assert "sddmm_tpu_torch.parallel.dist" in mods
+    assert "sddmm_tpu_torch.reorder.device_cluster" in mods
+    assert not [m for m in mods if m == "jax" or m.startswith("jax.")
+                or m == "sddmm_tpu" or m.startswith("sddmm_tpu.")]

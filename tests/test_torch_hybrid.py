@@ -406,12 +406,20 @@ def test_rows_runner_ignores_panels(cases):
 
 
 def test_unported_clustering_raises():
-    """check_slice still raises for what stays unported, naming its ROADMAP
-    item; an unknown mode is a ValueError."""
+    """method="device" on the CPU clusters as the JAX package's device
+    clustering does (the same row order, so the same packing), and the
+    runner agrees with the JAX one; an unknown mode is a ValueError."""
     csr = _powerlaw()
     tcsr = TCSR(csr.shape, csr.row_ptr, csr.col_idx, csr.values)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hy.HybridSDDMM.from_csr(tcsr, 0.3, 0.05, method="device")
+    got = hy.HybridSDDMM.from_csr(tcsr, 0.3, 0.05, method="device",
+                                  device="cpu")
+    want = JaxHybrid.from_csr(csr, 0.3, 0.05, method="device")
+    assert np.array_equal(got.packed.a_row_gather, want.packed.a_row_gather)
+    assert got.packed.packed_size == want.packed.packed_size
+    a = jgen.make_dense(csr.m, 32, seed=1)
+    b = jgen.make_dense(32, csr.n, seed=2)
+    res = check_values(sddmm_reference(a, b, tcsr), got(a, b=b).numpy())
+    assert res.passed and not res.num_errors, res
     with pytest.raises(ValueError, match="compute_dtype"):
         hy.check_slice("tf16", 1)
 
