@@ -25,10 +25,14 @@ its time:
    clustered entries (rows sharing keys) sorted and unsorted, walked with
    a plan and without; the CSR SpMM kernel against its plain version on
    random patterns with empty rows and one very long row, at K in (8, 64,
-   128); the segment softmax kernel against its plain version on random
-   patterns (every 7th row empty, one row of 200,000 entries) at H in
-   (1, 12), from packed scores through an ``inv_idx`` and from CSR-order
-   scores;
+   128); the segment softmax kernel and its backward against their plain
+   versions (the split rows also against the split-row combine's plain
+   counterpart; the backward entry by entry, each to the size of its
+   terms, and 0 in the padding slots) on random patterns (every 7th row empty, one row of
+   200,000 entries) at H in (1, 12), from packed scores through an
+   ``inv_idx`` and from CSR-order scores, two runs bit-equal, and at 12
+   heads each row class of the kernel's plan (8-lane groups, warps, split
+   rows) timed alone, forward and backward;
 5. the main path at full bench scale: every K=128 cell of ``bench.py``'s
    suite (clustered16, clustered128, powerlaw with its hub and hot-row
    slabs, banded, and dlmc through ``DenseSDDMM``) plus clustered16 at K=32
@@ -78,7 +82,8 @@ its time:
    kernel's plain version; both forwards, the SpMM at the models' shapes
    (beside ``torch.sparse.mm`` on a CSR tensor and its bound) and the
    segment softmax at the models' shapes (beside ``torch.sparse.softmax``
-   on a COO tensor of the same scaled scores and its bound) are timed.
+   on a COO tensor of the same scaled scores and its bound, and by row
+   class) are timed.
 
 10. the backward passes at the main path's shapes: the hybrid's (B1: the
    tile-grad kernel over the work table's units and its reduction, one
@@ -123,19 +128,25 @@ its time:
    parsed (the card's name, GFLOPS above 0, no failed check), and ``-t 1``
    on a 256x256 matrix (140 logs); and ``utils.profiling.trace`` around
    one call, whose Chrome trace must name the tile kernel; last, each
-   bench cell's packed time must lie between 75 % of its tile kernel's
-   time in phase 6 and 125 % of the slowest event sample of the same call
-   timed again (host-bound calls read the host, which moves between
-   phases);
+   bench cell's packed time must be at least 75 % of the device time of
+   the kernels its call launches (the profiler's, timed now), and the
+   bench's own timer (``measure_kernel_ms``) on the same call, timed now
+   between two event samples, must lie between that floor and 125 % of
+   the slowest sample (a host-bound call reads the host's enqueue, which
+   moves by up to 2x between phases, so only the device floor holds the
+   bench's number from the start of the phase);
 13. device row clustering: on the probe matrix of the JAX package's
    ``scripts/probe_cluster.py`` (``block_clustered(6400, 2048,
    block_prob=0.004, ...)``, 102,400 rows, 2,048 column blocks, alpha 0.3)
    ``batched_cluster_device`` with the kernel (``csrc/cluster_round.cu``,
-   its two launches counted a round, the counts zeroed just before) against
-   the plain round on the card, exactly (the same ``cluster_of``); the
-   rounds, the kernel's device time a round (CUDA events), the host wall a
-   round, the plain round's, the bound, the native host greedy's time on
-   the same matrix and the routing constant (seconds a cell) printed; on a
+   its two launches counted a round enqueued, the counts zeroed just
+   before) against the plain round on the card, exactly (the same
+   ``cluster_of``); the rounds, the launches a clustering, the kernel's
+   device time a round (CUDA events around each batch of rounds), the
+   leaders' and the rows' launches timed apart (events around every
+   launch, a second run, bit-equal), the host wall a round, the plain
+   round's, the bound and its share, the native host greedy's time on the
+   same matrix and the routing constant (seconds a cell) printed; on a
    mid matrix (16,384 rows) the kernel, the plain round and the host's
    ``rows._batched_cluster(hat_dtype=np.float32)`` equal; and
    ``HybridSDDMM.from_csr(method="device")`` on clustered16 with 0 errors
@@ -226,7 +237,8 @@ LOSS_REL_TOL = 1e-5
 TRAIN = dict(k=128, lr=1e-2, steps=20)
 # the entry points phase: the bench JSON's keys, its sol_fraction's ceiling
 # (above 1.0 only by L2 residency), the margin of a bench cell's packed time
-# outside its tile kernel's time and the same call's slowest sample, and
+# below its kernels' device time and of the bench's timer above the same
+# call's slowest event sample, and
 # the -t 1 sweep's logs (5 alphas x 7 deltas x 4 K)
 BENCH_KEYS = ("metric", "value", "value_4matrix", "vs_baseline", "backend",
               "device", "stream_gbps", "per_matrix", "per_matrix_csr_order",
@@ -257,7 +269,9 @@ FP32_FLOPS = 67e12      # fp32 outside the tensor cores
 
 
 def fail(msg: str) -> None:
+    # on both streams: a caller that keeps only one of them still reads why
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -512,26 +526,56 @@ def softmax_case(torch, rng, heads):
             torch.tensor(inv, dtype=torch.int32, device=DEVICE), flat)
 
 
-def check_softmax(torch, sm, rng):
-    """The segment softmax kernel against its plain version, from packed
-    scores through inv_idx and from CSR-order scores, at SOFTMAX_HEADS.
-    Returns (max |kernel - plain| / plain, max abs)."""
+def check_softmax(torch, sm, rng, card):
+    """The segment softmax kernel and its backward against their plain
+    versions (the split rows also against the split-row combine's plain
+    counterpart), from packed scores through inv_idx and from CSR-order
+    scores, at SOFTMAX_HEADS; a second run bit-equal; at 12 heads each row
+    class timed alone, forward and backward.  Returns (max |kernel -
+    plain| / plain, max abs)."""
     worst_rel = worst_abs = 0.0
     for heads in SOFTMAX_HEADS:
         row_ptr, inv, flat = softmax_case(torch, rng, heads)
+        plan = sm.softmax_plan(row_ptr.cpu().numpy(), DEVICE)
         for packed in (True, False):
             x, idx = ((flat, inv) if packed
                       else (flat[:, inv.long()].contiguous(), None))
-            got = sm.segment_softmax_torch(x, row_ptr, 0.125, idx)
+            got = sm.segment_softmax_torch(x, row_ptr, 0.125, idx, plan)
+            again = sm.segment_softmax_torch(x, row_ptr, 0.125, idx, plan)
             want = sm.segment_softmax_plain(x, row_ptr, 0.125, idx)
+            split = sm.segment_softmax_split_plain(x, row_ptr, 0.125, idx)
+            g = torch.randn(got.shape, device=DEVICE)
+            d = sm.segment_softmax_backward(got, g, row_ptr, 0.125, idx,
+                                            x.shape[1], plan)
+            d2 = sm.segment_softmax_backward(got, g, row_ptr, 0.125, idx,
+                                             x.shape[1], plan)
+            want_d = sm.segment_softmax_backward_plain(got, g, row_ptr,
+                                                       0.125, idx, x.shape[1])
             torch.cuda.synchronize()
             rel = float(((got - want).abs() / want).max())
+            rel_s = float(((got - split).abs() / split).max())
+            rel_d = backward_rel(sm, d, want_d, got, g, row_ptr, 0.125, idx)
             worst_rel = max(worst_rel, rel)
             worst_abs = max(worst_abs, float((got - want).abs().max()))
-            if not rel <= SOFTMAX_REL_TOL:
+            if not max(rel, rel_s, rel_d) <= SOFTMAX_REL_TOL:
                 fail(f"segment_softmax H={heads} "
                      f"{'packed' if packed else 'CSR order'}: max rel "
-                     f"{rel:.3e} vs plain > {SOFTMAX_REL_TOL}")
+                     f"{rel:.3e} vs plain, {rel_s:.3e} vs the split "
+                     f"combine, backward {rel_d:.3e} (the worst entry to "
+                     f"its terms) > {SOFTMAX_REL_TOL}")
+            if not (torch.equal(got, again) and torch.equal(d, d2)):
+                fail(f"segment_softmax H={heads}: two runs differ")
+            if heads == max(SOFTMAX_HEADS) and packed:
+                label = f"softmax case H={heads}"
+                class_times(f"{label} forward",
+                            lambda pl: sm.segment_softmax_torch(
+                                x, row_ptr, 0.125, idx, pl, out=got),
+                            plan, card)
+                class_times(f"{label} backward",
+                            lambda pl: sm.segment_softmax_backward(
+                                got, g, row_ptr, 0.125, idx, x.shape[1],
+                                pl), plan, card)
+            del got, again, want, split, d, d2, want_d
         del row_ptr, inv, flat
     return worst_rel, worst_abs
 
@@ -652,6 +696,37 @@ def bound_times(nbytes, flops, peak):
             "ops_ms": flops / peak * 1e3}
 
 
+def backward_rel(sm, d, want, p, g, row_ptr, scale, inv):
+    """The softmax backward ``d`` against ``want``, both (H, F) at the
+    packed slots ``inv`` (or (H, nnz) in CSR order where ``inv`` is None),
+    from the output ``p`` and the cotangent ``g`` (H, nnz): the largest
+    entry's |d - want| over the size of its terms (``backward_rel_err``;
+    inf if a padding slot of ``d`` is not 0)."""
+    if inv is None:
+        return sm.backward_rel_err(d, want, p, g, row_ptr, scale)
+    slots = inv.long()
+    pad = d.clone()
+    pad[:, slots] = 0
+    if bool(pad.any()):
+        return float("inf")
+    return sm.backward_rel_err(d[:, slots], want[:, slots], p, g, row_ptr,
+                               scale)
+
+
+def class_times(label, run, plan, card):
+    """Times ``run(plan)`` (one launch of a softmax entry) on each row
+    class of ``plan`` alone, and prints them: {class: (rows, ms)}."""
+    from sddmm_tpu_torch.utils.timing import cuda_time_ms
+    times = {name: (part.rows.numel(),
+                    cuda_time_ms(lambda part=part: run(part), 20)[
+                        "median_ms"])
+             for name, part in plan.by_class().items()}
+    say(f"[time] {label} by row class: " + ", ".join(
+        f"{name} {n} rows {ms:.4f} ms" for name, (n, ms) in times.items())
+        + f" on {card}")
+    return times
+
+
 def time_spmm(torch, sp, label, agg, d, card):
     """The SpMM kernel against its plain version at one model's shapes
     (its aggregation's CSR and plan, random positive weights, V of width
@@ -718,9 +793,9 @@ def time_softmax(torch, sm, label, model, d, card):
                        device=DEVICE) * 4
     inv, scale = runner.inv_idx32, 1.0 / d ** 0.5
 
-    def kernel():
+    def kernel(plan=agg.softmax_plan):
         return sm.segment_softmax_torch(flat, agg.head_row_ptr, scale, inv,
-                                        agg.long_rows)
+                                        plan)
 
     def plain():
         return sm.segment_softmax_plain(flat, agg.head_row_ptr, scale, inv)
@@ -755,6 +830,8 @@ def time_softmax(torch, sm, label, model, d, card):
         f"{max(bnd.values()):.4f} ms ({nbytes / 1e6:.1f} MB read once + "
         f"written once) = {100 * max(bnd.values()) / tk['median_ms']:.1f} % "
         f"of it on {card}")
+    class_times(f"{label} {_kernels.SOFTMAX_ENTRY}", kernel,
+                agg.softmax_plan, card)
     return {"err": err, "ms": tk["median_ms"], "plain_ms": tp["median_ms"],
             "library_ms": tl["median_ms"], **bnd}
 
@@ -1392,12 +1469,12 @@ def time_softmax_backward(torch, sm, label, model, d, card):
     flat = torch.randn((H, F), generator=gen, device=DEVICE) * 4
     inv, scale = runner.inv_idx32, 1.0 / d ** 0.5
     p = sm.segment_softmax_torch(flat, agg.head_row_ptr, scale, inv,
-                                 agg.long_rows)
+                                 agg.softmax_plan)
     g = torch.randn(p.shape, generator=gen, device=DEVICE)
 
-    def kernel():
+    def kernel(plan=agg.softmax_plan):
         return sm.segment_softmax_backward(p, g, agg.head_row_ptr, scale,
-                                           inv, F, agg.long_rows)
+                                           inv, F, plan)
 
     def plain():
         return sm.segment_softmax_backward_plain(p, g, agg.head_row_ptr,
@@ -1405,10 +1482,10 @@ def time_softmax_backward(torch, sm, label, model, d, card):
 
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    rel = float((got - want).abs().max() / want.abs().max())
+    rel = backward_rel(sm, got, want, p, g, agg.head_row_ptr, scale, inv)
     if not rel <= SOFTMAX_REL_TOL:
-        fail(f"{label} softmax backward: max |kernel - plain| / max |plain|"
-             f" {rel:.3e}")
+        fail(f"{label} softmax backward: |kernel - plain| over its terms "
+             f"{rel:.3e} at the worst entry")
     err = float((got - want).abs().max())
 
     def coo(x):
@@ -1437,12 +1514,14 @@ def time_softmax_backward(torch, sm, label, model, d, card):
     nbytes = 8 * H * nnz + 4 * nnz + 8 * agg.head_row_ptr.numel() + 4 * H * F
     bnd = bound_times(nbytes, 4.0 * H * nnz, FP32_FLOPS)
     say(f"[time] {label} sddmm_segment_softmax_backward_float32 ({H} "
-        f"head(s) x {nnz} entries into {F} slots, max |kernel - plain| / "
-        f"max |plain| {rel:.3e}): kernel {tk['median_ms']:.4f} ms, plain "
+        f"head(s) x {nnz} entries into {F} slots, |kernel - plain| over "
+        f"its terms {rel:.3e} at the worst entry): kernel {tk['median_ms']:.4f} ms, plain "
         f"{tp['median_ms']:.4f} ms, torch._sparse_softmax_backward_data "
         f"{tl['median_ms']:.4f} ms (max |diff| / max |kernel| "
         f"{lib_rel:.3e}), bound {max(bnd.values()):.4f} ms = "
         f"{100 * max(bnd.values()) / tk['median_ms']:.1f} % of it on {card}")
+    class_times(f"{label} sddmm_segment_softmax_backward_float32",
+                kernel, agg.softmax_plan, card)
     return {"err": err, "ms": tk["median_ms"], "plain_ms": tp["median_ms"],
             "library_ms": tl["median_ms"], **bnd}
 
@@ -1872,12 +1951,14 @@ def run_entry_points(torch, card, kind, cells, passes, goldens):
             fail("the profiler's trace does not name the tile kernel and "
                  "the annotation")
 
-    # 5. one program, two timers: each cell's packed time in the bench
-    # (measure_kernel_ms) lies between 75 % of its tile kernel's event time
-    # in phase 6 (the call runs that launch and more) and 125 % of the
-    # slowest event sample of the same call, timed now on phase 5's runner
-    # as the bench calls it (host-bound calls read the host's enqueue, which
-    # moves between phases)
+    # 5. one program, two timers.  The bench's packed time of each cell is
+    # at least 75 % of the device time of the kernels its call launches
+    # (the profiler's, now).  The bench's own timer (measure_kernel_ms, as
+    # the bench calls it) on the same call, timed now between two samples
+    # of events around single calls, lies between that floor and 125 % of
+    # the slowest sample.  A host-bound call reads the host's enqueue, which
+    # moves by up to 2x between phases, so the bench's number from the start
+    # of this phase is held only to the device floor.
     for name in names:
         got = out["timing_sessions_ms"][name][0]
         _, runner, ops, _, _ = cells[(name, 128)]
@@ -1888,15 +1969,44 @@ def run_entry_points(torch, card, kind, cells, passes, goldens):
             with torch.no_grad():
                 runner.run_padded(*ops)
 
-        t = cuda_time_ms(call, 20)
-        lo, hi = (1 - BENCH_AGREE) * tile_ms, (1 + BENCH_AGREE) * t["max_ms"]
-        say(f"[bench] {name}@K128 packed: bench {got:.4f} ms; the same call "
-            f"now {t['median_ms']:.4f} ms (min {t['min_ms']:.4f}, max "
-            f"{t['max_ms']:.4f}); its tile kernel alone {tile_ms:.4f} ms "
-            f"(phase 6) on {card}")
-        if not lo <= got <= hi:
-            fail(f"{name}: the bench's {got:.4f} ms lies outside "
-                 f"[{lo:.4f}, {hi:.4f}] ms")
+        floor = device_ms(torch, call, 20)
+        if not floor > 0:
+            fail(f"{name}: the profiler saw no device time in 20 calls")
+        before = cuda_time_ms(call, 20)
+        timer = runner.measure_kernel_ms(*ops, iterations=40, repeats=4,
+                                         order="packed")
+        after = cuda_time_ms(call, 20)
+        slowest = max(before["max_ms"], after["max_ms"])
+        lo, hi = (1 - BENCH_AGREE) * floor, (1 + BENCH_AGREE) * slowest
+        say(f"[bench] {name}@K128 packed: bench {got:.4f} ms; its kernels' "
+            f"device time now {floor:.4f} ms (profiler); the bench's timer "
+            f"now {timer:.4f} ms between event samples of medians "
+            f"{before['median_ms']:.4f} and {after['median_ms']:.4f} ms "
+            f"(slowest {slowest:.4f}); its tile kernel alone {tile_ms:.4f} "
+            f"ms (phase 6) on {card}")
+        if not got >= lo:
+            fail(f"{name}: the bench's {got:.4f} ms lies below 75 % of its "
+                 f"kernels' device time {floor:.4f} ms")
+        if not lo <= timer <= hi:
+            fail(f"{name}: the bench's timer reads {timer:.4f} ms now, "
+                 f"outside [{lo:.4f}, {hi:.4f}] ms")
+
+
+def device_ms(torch, fn, calls):
+    """Device ms of one ``fn()``: the profiler's device time of every
+    kernel and copy it launches, over ``calls`` calls after 3 warm-ups."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum((getattr(e, "device_time_total", None) or e.cuda_time_total)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / calls / 1e3
 
 
 def cluster_args(csr, col_block_size=16):
@@ -1925,6 +2035,32 @@ def cluster_round_bytes(args, cluster_of, record) -> float:
     return float(((8 * lens + 16) * live).sum()) / max(n, 1)
 
 
+def launch_events(torch, kernels, names, run):
+    """``run()`` with CUDA events recorded around every launch of the C
+    entries ``names`` (``kernels.launch`` wrapped meanwhile): (its result,
+    {name: [ms of each launch]})."""
+    events = {k: [] for k in names}
+    launch = kernels.launch
+
+    def timed(name, *args):
+        if name not in events:
+            return launch(name, *args)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        launch(name, *args)
+        ev[1].record()
+        events[name].append(ev)
+
+    kernels.launch = timed
+    try:
+        res = run()
+    finally:
+        kernels.launch = launch
+    torch.cuda.synchronize()
+    return res, {k: [a.elapsed_time(b) for a, b in evs]
+                 for k, evs in events.items()}
+
+
 def run_device_clustering(torch, card, cells, goldens):
     """Phase 13: the clustering kernel on the probe matrix against its
     plain round (exact), the mid matrix against the host's batched
@@ -1951,10 +2087,18 @@ def run_device_clustering(torch, card, cells, goldens):
                                            device=DEVICE, record=rec)
     torch.cuda.synchronize()
     launches = {k: _kernels.launches[k] for k in names}
-    n_kernel = len(rec["round_ms"])
+    n_kernel = rec["rounds_enqueued"]
     if launches != {k: n_kernel for k in names}:
         fail(f"device clustering: launches {launches}, want {n_kernel} "
              "of each kernel")
+    ran = len(rec["clusters"])
+    # the leaders' and the rows' launches timed apart, in a second run with
+    # CUDA events around every launch
+    again, phase_ms = launch_events(torch, _kernels, names, lambda: (
+        dc.batched_cluster_device(*args, CLUSTER_ALPHA, device=DEVICE)))
+    if again[1] != n_got or not np.array_equal(again[0], got):
+        fail("device clustering: a second run differs from the first")
+    lead_ms, rows_ms = (sum(phase_ms[k]) / max(ran, 1) for k in names)
     rec_p = {}
     plain, n_plain = dc.batched_cluster_device(
         *args, CLUSTER_ALPHA, device=DEVICE, plain=True, record=rec_p)
@@ -1962,8 +2106,8 @@ def run_device_clustering(torch, card, cells, goldens):
     if n_got != n_plain or diff:
         fail(f"device clustering on the probe: kernel {n_got} clusters, "
              f"plain round {n_plain}; {diff} rows differ")
-    round_ms = statistics.mean(rec["round_ms"]) if n_kernel else 0.0
-    wall_round = rec["seconds"] / max(rec["rounds"], 1) * 1e3
+    round_ms = rec["device_ms"] / max(ran, 1)
+    wall_round = rec["seconds"] / max(ran, 1) * 1e3
     plain_round = rec_p["seconds"] / max(rec_p["rounds"], 1) * 1e3
     t0 = time.perf_counter()
     nat = native.greedy_cluster(args[1], args[2], args[3], args[0], m, nb,
@@ -1974,14 +2118,22 @@ def run_device_clustering(torch, card, cells, goldens):
     m_pad = -(-m // 2048) * 2048
     per_cell = rec["seconds"] / (m_pad * nb)
     bytes_round = cluster_round_bytes(args, got, rec)
+    bound_round = bytes_round / HBM_BYTES_PER_S * 1e3
     say(f"[cluster] probe: kernel = plain round exactly ({n_got} clusters, "
-        f"{rec['rounds']} rounds, {n_kernel} on the card); kernel "
-        f"{round_ms:.4f} ms a round (CUDA events, both launches), host wall "
-        f"{wall_round:.4f} ms a round, {rec['seconds']:.3f} s in all; plain "
-        f"round {plain_round:.4f} ms a round ({rec_p['seconds']:.3f} s); "
-        f"bound {bytes_round / HBM_BYTES_PER_S * 1e3:.4f} ms a round "
-        f"({bytes_round / 1e6:.2f} MB read); native host greedy "
+        f"{rec['rounds']} rounds, {ran} ran; {n_kernel} enqueued on the "
+        f"card in {rec['fetches']} batches, {2 * n_kernel} launches a "
+        f"clustering); kernel {round_ms:.4f} ms a round (CUDA events around "
+        f"each batch), host wall {wall_round:.4f} ms a round, "
+        f"{rec['seconds']:.4f} s in all; plain round {plain_round:.4f} ms a "
+        f"round ({rec_p['seconds']:.3f} s); bound {bound_round:.4f} ms a "
+        f"round ({bytes_round / 1e6:.2f} MB read) = "
+        f"{100 * bound_round / round_ms:.2f} % of it; native host greedy "
         f"{t_native:.3f} s ({nat[1]} clusters) on {card}")
+    say(f"[cluster] probe, phases apart (events around every launch, a "
+        f"second run): leaders {lead_ms:.4f} ms a round, rows "
+        f"{rows_ms:.4f} ms a round ({sum(phase_ms[names[0]]):.3f} + "
+        f"{sum(phase_ms[names[1]]):.3f} ms over {ran} rounds, "
+        f"{len(phase_ms[names[0]])} launches each) on {card}")
     say(f"[cluster] routing constant DEVICE_CLUSTER_S_PER_CELL: "
         f"{rec['seconds']:.3f} s / ({m_pad} x {nb} cells) = {per_cell:.3e} "
         f"s a cell (the port's rows.py holds "
@@ -2013,9 +2165,8 @@ def run_device_clustering(torch, card, cells, goldens):
         fail(f"method='device' runner: {res.num_errors} values outside the "
              "contract")
     r = new_record(0.0)
-    r.update(ms=round_ms, plain_ms=plain_round,
-             bytes_ms=bytes_round / HBM_BYTES_PER_S * 1e3,
-             bound_ms=bytes_round / HBM_BYTES_PER_S * 1e3, library_ms=None)
+    r.update(ms=round_ms, plain_ms=plain_round, bytes_ms=bound_round,
+             bound_ms=bound_round, library_ms=None)
     return launches, r
 
 
@@ -2253,10 +2404,11 @@ def main() -> None:
             f"|terms| vs plain {rel3:.3e} (tol {SPMM_REL_TOL}), max abs "
             f"{abs3:.3e}; empty rows exact zeros")
     with Phase("segment softmax vs plain"):
-        rel4, abs4 = check_softmax(torch, sm, rng)
+        rel4, abs4 = check_softmax(torch, sm, rng, card)
         say(f"[softmax] 20000 rows (every 7th empty, row 3 with 200000 "
             f"entries), H in {SOFTMAX_HEADS}, packed scores through inv_idx "
-            "and CSR-order scores: max |kernel - plain| / plain "
+            "and CSR-order scores, forward and backward, two runs "
+            "bit-equal: max |kernel - plain| / plain "
             f"{rel4:.3e} (tol {SOFTMAX_REL_TOL}), max abs {abs4:.3e}")
 
     # every kernel instance's record; "launches" is from the named path

@@ -137,14 +137,17 @@ def _entry_points() -> dict:
               i32, p, i64, i64, i32, i32, i32, i32, i32, p]
     spmm = [p, i64, p, p, i32, p, p, p, p, i64, p, i64, i64, i64, p, i64,
             i64, i64, i32, i32, i32, i32, p]
-    softmax = [p, i64, p, p, i64, p, i64, ctypes.c_float, p, i64, i32, p]
-    softmax_bwd = [p, i64, p, i64, p, p, i64, p, i64, ctypes.c_float, p,
-                   i64, i32, p]
+    softmax = [p, i64, p, p, p, i64, i64, i64, ctypes.c_float, p, i64, i32,
+               i32, p]
+    softmax_bwd = [p, i64, p, i64, p, p, p, i64, i64, i64, ctypes.c_float, p,
+                   i64, i32, i32, p]
     tile_grad = [p, i64, i64, p, i64, i64, i64, p, i64, p, p, p, p, i64,
                  i64, p, p, i64, i32, i32, i32, i32, p]
     tile_grad_reduce = [p, i64, i32, p, p, i64, i64, p, i64, p, i64, i64,
                         i32, i32, i32, p]
-    cluster = [p, p, p, p, p, p, p, p, i64, i32, ctypes.c_float, p]
+    cluster_leaders = [p, p, p, p, p, p, p, p, p, i64, i32, ctypes.c_float,
+                       i32, ctypes.c_double, i64, p]
+    cluster_assign = [p, p, p, p, p, p, p, p, p, i64, i32, ctypes.c_float, p]
     eps = {f"sddmm_tile_dot_{m}": tile for m in MODES}
     eps[TILE_GRAD_ENTRY] = tile_grad
     eps[TILE_GRAD_REDUCE_ENTRY] = tile_grad_reduce
@@ -152,8 +155,8 @@ def _entry_points() -> dict:
     eps[SPMM_ENTRY] = spmm
     eps[SOFTMAX_ENTRY] = softmax
     eps[SOFTMAX_BWD_ENTRY] = softmax_bwd
-    eps[CLUSTER_LEADERS_ENTRY] = cluster
-    eps[CLUSTER_ASSIGN_ENTRY] = cluster
+    eps[CLUSTER_LEADERS_ENTRY] = cluster_leaders
+    eps[CLUSTER_ASSIGN_ENTRY] = cluster_assign
     return eps
 
 

@@ -14,21 +14,39 @@
 // with head stride o_head.  So neither the CSR-order copy of the scores nor
 // the scaled copy is ever written.  expf (not __expf); the divide is IEEE.
 //
-// Design.  One launch for all rows and heads (grid.y = head).  A block of
-// 8 warps takes 8 consecutive rows, a warp each: a row of up to 640
-// entries (20 a lane) lives in registers, so each entry is read once
-// (its inv_idx and its score) and written once; the warp takes the max and
-// the sum of the exps with xor-shuffle trees.  A longer row (the global
-// token's 4096 entries, a graph hub) is skipped there and is its own block
-// (listed in long_rows): 256 threads each keep an online (max, sum) over
-// their strided entries, the warps combine them in a fixed tree and then
-// in warp order, and a second pass writes.  Every sum is taken in a fixed
-// order, with no atomics: the result is deterministic.  An empty row
-// writes nothing.
-//
 // What bounds it.  Bytes: each real score is read once (gathered through
-// inv_idx, which is read once a head) and each probability written once;
-// the arithmetic is a few operations an entry.
+// inv_idx), inv_idx and row_ptr once, each probability written once; a
+// few operations an entry.
+//
+// Design.  One launch for all rows and all heads; the grid runs over rows
+// and groups of heads (grid.y), and a row's group walks the heads of its
+// group at the head stride.  The rows come in a plan built once per
+// pattern (ops/softmax.py::softmax_plan), by length:
+//   short rows (<= 128 entries, the graph's 86 on average): a group of 8
+//     lanes, four rows a warp;
+//   rows up to 640 entries: a warp;
+//   longer rows (a global token's 4096, a graph hub's 200,000): split over
+//     a thread block cluster of 8 blocks, one piece each; each block's
+//     (max, sum) is combined with the others' through distributed shared
+//     memory, every block taking the 8 in rank order, so no block walks a
+//     hub row alone and no second launch is needed.  Only a plan with
+//     split rows is launched as clusters (cudaLaunchKernelEx with a cluster
+//     dimension); the others take a plain launch, their grid not rounded
+//     to whole clusters.
+// The forward's lane holds its entries' scores in registers, each read
+// once; a warp's lanes take consecutive entries, so its loads of inv_idx
+// and its stores are whole 128-byte lines and the gathers through inv_idx
+// stay as coalesced as the packing allows; it reads inv_idx again for each
+// head (holding it, or taking 16-byte chunks of 4 entries a lane, made the
+// Longformer forward 1.4-2.5x slower on the card: 120-208 registers, and
+// gathers 4x less coalesced; PERF.md §6).  The backward's lane takes
+// 16-byte chunks: p and g load as float4, and its entries' inv_idx (int4)
+// stay in registers for every head of its group.  A forward's group walks
+// every head, a backward's half of them (ops/softmax.py::head_group, the
+// fastest on the card).
+// Every sum is taken in a fixed order (a lane's entries in order, an xor
+// tree, a block's warps in order, a cluster's blocks in rank order), with
+// no atomics: the result is deterministic.  An empty row writes nothing.
 //
 // Backward (a second entry point, sddmm_segment_softmax_backward_float32).
 // Replaces the VJP that jax.value_and_grad builds of segment_softmax as the
@@ -37,28 +55,34 @@
 //   d scores[h, inv_idx[e]] = scale * p_e * (g_e - sum_row p * g)
 // written straight into the packed gradient (H, F), which the wrapper has
 // zeroed, at inv_idx (the transpose of the forward's fused gather: the
-// padding slots keep 0), or at e without inv_idx.  The same shape as the
-// forward: one launch for all rows and heads, a warp per row of up to 640
-// entries (p and g held in registers, each read once), a block per longer
-// row (a strided pass for the sum, a second pass that writes).  Sums in a
-// fixed order (a lane's entries in order, an xor tree, the warps in
-// order): deterministic.  Bytes: p and g read once, one value written per
-// entry; a few operations an entry.
+// padding slots keep 0), or at e without inv_idx.  The same plan and the
+// same shape as the forward: a lane's p and g in registers, the row sum of
+// p * g by the same fixed trees (a cluster for a split row, in two passes),
+// the writes at inv_idx.
+// Bytes: p and g read once, one value written per entry.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kPer = 20;  // entries a lane holds: rows up to 32 * kPer
+constexpr int kThreads = kWarps * 32;
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float score(const float* __restrict__ s,
-                                       const int* __restrict__ inv_idx,
-                                       long long e, float scale) {
-  return scale * s[inv_idx ? (long long)inv_idx[e] : e];
-}
+constexpr int kSubLanes = 8;     // a short row's group
+constexpr int kSubSlots = 128;   // entries a short row's group takes
+constexpr int kWarpSlots = 640;  // entries a warp takes
+// the backward's 4-entry chunks a lane: room for the slots and a partial
+// first chunk's 3
+constexpr int kSubChunks = (kSubSlots + 3 + 4 * kSubLanes - 1) /
+                           (4 * kSubLanes);
+constexpr int kWarpChunks = (kWarpSlots + 3 + 4 * 32 - 1) / (4 * 32);
+constexpr int kCluster = 8;      // blocks a split row
+constexpr int kSubRows = kWarps * (32 / kSubLanes);  // short rows a block
 
 // (m, s) := the softmax state of both: max, and the sum of exp(x - max)
 __device__ __forceinline__ void combine(float& m, float& s, float m2,
@@ -69,147 +93,419 @@ __device__ __forceinline__ void combine(float& m, float& s, float m2,
   m = mx;
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-segment_softmax_kernel(const float* __restrict__ scores, long long s_head,
-                       const int* __restrict__ inv_idx,
-                       const long long* __restrict__ row_ptr, long long m,
-                       long long n_row_blocks,
-                       const long long* __restrict__ long_rows, float scale,
-                       float* __restrict__ out, long long o_head) {
-  scores += blockIdx.y * s_head;
-  out += blockIdx.y * o_head;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if ((long long)blockIdx.x < n_row_blocks) {
-    const long long r = (long long)blockIdx.x * kWarps + warp;
-    if (r >= m) return;
-    const long long e0 = row_ptr[r], e1 = row_ptr[r + 1];
-    const long long n = e1 - e0;
-    if (n <= 0 || n > 32LL * kPer) return;  // empty, or its own block
-    float x[kPer];
+// The block's part of a split row: [a, b) of [e0, e1), 8 blocks in rank
+// order each taking ceil(n / 8) entries.
+__device__ __forceinline__ void piece(long long e0, long long e1, int rank,
+                                      long long& a, long long& b) {
+  const long long ps = (e1 - e0 + kCluster - 1) / kCluster;
+  a = min(e0 + rank * ps, e1);
+  b = min(a + ps, e1);
+}
+
+// A row's plan: the rows of each class, in one int64 array, and where a
+// block finds its work.
+struct Plan {
+  const long long* rows;
+  long long n_sub, n_warp, n_split;
+};
+
+// The sum of v over a group of G lanes, by an xor tree.
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o, G);
+  return v;
+}
+
+// The forward of one row for heads [h0, h1), by a group of G lanes (the
+// whole warp calls it together; an empty row [e0, e0) writes nothing):
+// lane `lane` takes entries e0 + i * G + lane (i < C), so a warp's loads
+// and stores take consecutive entries; its scores in registers, each read
+// once; the group's max and sum by xor trees.
+template <int G, int C>
+__device__ void softmax_row(const float* __restrict__ scores,
+                            long long s_head, const int* __restrict__ inv_idx,
+                            long long e0, long long e1, float scale,
+                            float* __restrict__ out, long long o_head,
+                            int h0, int h1, int lane) {
+  const int n = (int)(e1 - e0);
+  for (int h = h0; h < h1; ++h) {
+    const float* sh = scores + h * s_head;
+    float* oh = out + h * o_head;
+    float x[C];
     float mx = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const long long e = e0 + i * 32 + lane;
+    for (int i = 0; i < C; ++i) {
+      const int k = i * G + lane;
       x[i] = -INFINITY;
-      if (i * 32 < n && e < e1) x[i] = score(scores, inv_idx, e, scale);
+      if (i * G < n && k < n) {
+        const long long e = e0 + k;
+        x[i] = scale * sh[inv_idx ? (long long)inv_idx[e] : e];
+      }
       mx = fmaxf(mx, x[i]);
     }
-    for (int o = 16; o > 0; o >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o, G));
     float sum = 0.0f;
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      if (i * 32 < n && e0 + i * 32 + lane < e1) {
+    for (int i = 0; i < C; ++i) {
+      if (i * G < n && i * G + lane < n) {
         x[i] = expf(x[i] - mx);
         sum += x[i];
       }
     }
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
+    sum = group_sum<G>(sum);
     const float denom = fmaxf(sum, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const long long e = e0 + i * 32 + lane;
-      if (i * 32 < n && e < e1) out[e] = x[i] / denom;
-    }
-    return;
-  }
-  // one long row: an online (max, sum) pass, then a write pass
-  __shared__ float part_m[kWarps], part_s[kWarps], total[2];
-  const long long r = long_rows[blockIdx.x - n_row_blocks];
-  const long long e0 = row_ptr[r], e1 = row_ptr[r + 1];
-  float mx = -INFINITY, sum = 0.0f;
-  for (long long e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
-    const float v = score(scores, inv_idx, e, scale);
-    if (v > mx) {
-      sum = sum * expf(mx - v) + 1.0f;
-      mx = v;
-    } else {
-      sum += expf(v - mx);
+    for (int i = 0; i < C; ++i) {
+      const int k = i * G + lane;
+      if (i * G < n && k < n) oh[e0 + k] = x[i] / denom;
     }
   }
-  for (int o = 16; o > 0; o >>= 1) {
-    const float m2 = __shfl_xor_sync(kFull, mx, o);
-    const float s2 = __shfl_xor_sync(kFull, sum, o);
-    combine(mx, sum, m2, s2);
-  }
-  if (lane == 0) {
-    part_m[warp] = mx;
-    part_s[warp] = sum;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float m_all = part_m[0], s_all = part_s[0];
-    for (int w = 1; w < kWarps; ++w) combine(m_all, s_all, part_m[w], part_s[w]);
-    total[0] = m_all;
-    total[1] = fmaxf(s_all, 1e-30f);
-  }
-  __syncthreads();
-  const float m_all = total[0], denom = total[1];
-  for (long long e = e0 + threadIdx.x; e < e1; e += blockDim.x)
-    out[e] = expf(score(scores, inv_idx, e, scale) - m_all) / denom;
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+// The backward's chunks: a lane's entries are whole 4-entry chunks
+// aligned to 16 bytes (the row's first and last may be partial), so p and
+// g load as float4, and a lane keeps its entries' inv_idx (loaded as int4)
+// in registers for every head of its group.
+__device__ __forceinline__ bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+}
+
+// The inv_idx of a row's entries in its chunks, read once.
+template <int G, int C>
+__device__ __forceinline__ void load_index(const int* __restrict__ inv_idx,
+                                           long long e0, long long e1,
+                                           int lane, int (&ix)[C][4]) {
+  const long long base = e0 & ~3LL;
+  const bool vec = aligned16(inv_idx);
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    const long long eb = base + 4LL * (i * G + lane);
+    if (vec && eb >= e0 && eb + 4 <= e1) {
+      const int4 v = *reinterpret_cast<const int4*>(inv_idx + eb);
+      ix[i][0] = v.x;
+      ix[i][1] = v.y;
+      ix[i][2] = v.z;
+      ix[i][3] = v.w;
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const long long e = eb + c;
+        ix[i][c] = (e >= e0 && e < e1) ? inv_idx[e] : 0;
+      }
+    }
+  }
+}
+
+// The backward of one row for heads [h0, h1), by a group of G lanes, chunk
+// i * G + lane of the row's chunks from e0 & ~3 a lane's i-th: p and g in
+// registers, each read once, the row sum of p * g by an xor tree, written
+// at inv_idx.
+template <int G, int C>
+__device__ void softmax_bwd_row(const float* __restrict__ p, long long p_head,
+                                const float* __restrict__ g, long long g_head,
+                                const int* __restrict__ inv_idx, long long e0,
+                                long long e1, float scale,
+                                float* __restrict__ out, long long o_head,
+                                int h0, int h1, int lane) {
+  const long long base = e0 & ~3LL;
+  int ix[C][4];
+  if (inv_idx) load_index<G, C>(inv_idx, e0, e1, lane, ix);
+  for (int h = h0; h < h1; ++h) {
+    const float* ph = p + h * p_head;
+    const float* gh = g + h * g_head;
+    float* oh = out + h * o_head;
+    const bool vec_in = aligned16(ph) && aligned16(gh);
+    float pv[C][4], gv[C][4];
+    float dot = 0.0f;
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      const long long eb = base + 4LL * (i * G + lane);
+      if (vec_in && eb >= e0 && eb + 4 <= e1) {
+        const float4 a = *reinterpret_cast<const float4*>(ph + eb);
+        const float4 b = *reinterpret_cast<const float4*>(gh + eb);
+        pv[i][0] = a.x;
+        pv[i][1] = a.y;
+        pv[i][2] = a.z;
+        pv[i][3] = a.w;
+        gv[i][0] = b.x;
+        gv[i][1] = b.y;
+        gv[i][2] = b.z;
+        gv[i][3] = b.w;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const long long e = eb + c;
+          const bool in = e >= e0 && e < e1;
+          pv[i][c] = in ? ph[e] : 0.0f;
+          gv[i][c] = in ? gh[e] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dot = fmaf(pv[i][c], gv[i][c], dot);
+    }
+    dot = group_sum<G>(dot);
+    const bool vec_out = !inv_idx && aligned16(oh);
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      const long long eb = base + 4LL * (i * G + lane);
+      float d[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) d[c] = scale * (pv[i][c] * (gv[i][c] - dot));
+      if (vec_out && eb >= e0 && eb + 4 <= e1) {
+        *reinterpret_cast<float4*>(oh + eb) = make_float4(d[0], d[1], d[2],
+                                                          d[3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const long long e = eb + c;
+          if (e >= e0 && e < e1) oh[inv_idx ? (long long)ix[i][c] : e] = d[c];
+        }
+      }
+    }
+  }
+}
+
+// The short rows' and the warp rows' passes of one block: kSubLanes lanes
+// and kSubSlots / kSubLanes entries a lane for a short row, 32 lanes and
+// kWarpSlots / 32 for a warp row.
+__device__ void forward_rows(const float* __restrict__ scores,
+                             long long s_head, const int* __restrict__ inv_idx,
+                             const long long* __restrict__ row_ptr,
+                             const Plan& plan, long long b,
+                             long long sub_blocks, float scale,
+                             float* __restrict__ out, long long o_head,
+                             int h0, int h1) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (b < sub_blocks) {  // short rows: a group of 8 lanes each
+    const long long k = b * kSubRows + warp * (32 / kSubLanes) +
+                        lane / kSubLanes;
+    long long e0 = 0, e1 = 0;
+    if (k < plan.n_sub) {
+      const long long r = plan.rows[k];
+      e0 = row_ptr[r];
+      e1 = row_ptr[r + 1];
+    }
+    softmax_row<kSubLanes, kSubSlots / kSubLanes>(
+        scores, s_head, inv_idx, e0, e1, scale, out, o_head, h0, h1,
+        lane % kSubLanes);
+    return;
+  }
+  const long long k = (b - sub_blocks) * kWarps + warp;
+  if (k >= plan.n_warp) return;  // the whole warp
+  const long long r = plan.rows[plan.n_sub + k];
+  softmax_row<32, kWarpSlots / 32>(scores, s_head, inv_idx, row_ptr[r],
+                                   row_ptr[r + 1], scale, out, o_head, h0, h1,
+                                   lane);
+}
+
+__device__ void backward_rows(const float* __restrict__ p, long long p_head,
+                              const float* __restrict__ g, long long g_head,
+                              const int* __restrict__ inv_idx,
+                              const long long* __restrict__ row_ptr,
+                              const Plan& plan, long long b,
+                              long long sub_blocks, float scale,
+                              float* __restrict__ out, long long o_head,
+                              int h0, int h1) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (b < sub_blocks) {
+    const long long k = b * kSubRows + warp * (32 / kSubLanes) +
+                        lane / kSubLanes;
+    long long e0 = 0, e1 = 0;
+    if (k < plan.n_sub) {
+      const long long r = plan.rows[k];
+      e0 = row_ptr[r];
+      e1 = row_ptr[r + 1];
+    }
+    softmax_bwd_row<kSubLanes, kSubChunks>(
+        p, p_head, g, g_head, inv_idx, e0, e1, scale, out, o_head, h0, h1,
+        lane % kSubLanes);
+    return;
+  }
+  const long long k = (b - sub_blocks) * kWarps + warp;
+  if (k >= plan.n_warp) return;
+  const long long r = plan.rows[plan.n_sub + k];
+  softmax_bwd_row<32, kWarpChunks>(
+      p, p_head, g, g_head, inv_idx, row_ptr[r], row_ptr[r + 1], scale, out,
+      o_head, h0, h1, lane);
+}
+
+__global__ void __launch_bounds__(kThreads)
+segment_softmax_kernel(const float* __restrict__ scores, long long s_head,
+                       const int* __restrict__ inv_idx,
+                       const long long* __restrict__ row_ptr, Plan plan,
+                       float scale, float* __restrict__ out, long long o_head,
+                       int heads, int head_group) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int h0 = blockIdx.y * head_group, h1 = min(heads, h0 + head_group);
+  const long long split_blocks = plan.n_split * kCluster;
+  const long long sub_blocks = (plan.n_sub + kSubRows - 1) / kSubRows;
+  const long long bx = blockIdx.x;
+  if (bx >= split_blocks) {
+    forward_rows(scores, s_head, inv_idx, row_ptr, plan, bx - split_blocks,
+                 sub_blocks, scale, out, o_head, h0, h1);
+    return;
+  }
+  // a split row over the cluster
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ float part[2][2];  // this block's (max, sum), by head parity
+  __shared__ float wm[kWarps], ws[kWarps], total[2];
+  const int rank = (int)cluster.block_rank();
+  const long long r = plan.rows[plan.n_sub + plan.n_warp + bx / kCluster];
+  long long a, b;
+  piece(row_ptr[r], row_ptr[r + 1], rank, a, b);
+  for (int h = h0; h < h1; ++h) {
+    const float* sh = scores + h * s_head;
+    float* oh = out + h * o_head;
+    float mx = -INFINITY, sum = 0.0f;
+    for (long long e = a + threadIdx.x; e < b; e += kThreads) {
+      const float v = scale * sh[inv_idx ? (long long)inv_idx[e] : e];
+      if (v > mx) {
+        sum = sum * expf(mx - v) + 1.0f;
+        mx = v;
+      } else {
+        sum += expf(v - mx);
+      }
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      const float m2 = __shfl_xor_sync(kFull, mx, o);
+      const float s2 = __shfl_xor_sync(kFull, sum, o);
+      combine(mx, sum, m2, s2);
+    }
+    if (lane == 0) {
+      wm[warp] = mx;
+      ws[warp] = sum;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float m_b = wm[0], s_b = ws[0];
+      for (int w = 1; w < kWarps; ++w) combine(m_b, s_b, wm[w], ws[w]);
+      part[h & 1][0] = m_b;
+      part[h & 1][1] = s_b;
+    }
+    cluster.sync();
+    if (threadIdx.x == 0) {
+      float m_all = -INFINITY, s_all = 0.0f;
+      for (int k = 0; k < kCluster; ++k) {
+        const float* rp = cluster.map_shared_rank(&part[h & 1][0], k);
+        combine(m_all, s_all, rp[0], rp[1]);
+      }
+      total[0] = m_all;
+      total[1] = fmaxf(s_all, 1e-30f);
+    }
+    __syncthreads();
+    const float m_all = total[0], denom = total[1];
+    for (long long e = a + threadIdx.x; e < b; e += kThreads)
+      oh[e] = expf(scale * sh[inv_idx ? (long long)inv_idx[e] : e] - m_all) /
+              denom;
+  }
+  cluster.sync();  // no block leaves while another reads its part
+}
+
+__global__ void __launch_bounds__(kThreads)
 segment_softmax_backward_kernel(const float* __restrict__ p, long long p_head,
                                 const float* __restrict__ g, long long g_head,
                                 const int* __restrict__ inv_idx,
                                 const long long* __restrict__ row_ptr,
-                                long long m, long long n_row_blocks,
-                                const long long* __restrict__ long_rows,
-                                float scale, float* __restrict__ out,
-                                long long o_head) {
-  p += blockIdx.y * p_head;
-  g += blockIdx.y * g_head;
-  out += blockIdx.y * o_head;
+                                Plan plan, float scale,
+                                float* __restrict__ out, long long o_head,
+                                int heads, int head_group) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if ((long long)blockIdx.x < n_row_blocks) {
-    const long long r = (long long)blockIdx.x * kWarps + warp;
-    if (r >= m) return;
-    const long long e0 = row_ptr[r], e1 = row_ptr[r + 1];
-    const long long n = e1 - e0;
-    if (n <= 0 || n > 32LL * kPer) return;  // empty, or its own block
-    float pv[kPer], gv[kPer];
-    float dot = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const long long e = e0 + i * 32 + lane;
-      pv[i] = gv[i] = 0.0f;
-      if (i * 32 < n && e < e1) {
-        pv[i] = p[e];
-        gv[i] = g[e];
-        dot = fmaf(pv[i], gv[i], dot);
-      }
-    }
-    for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(kFull, dot, o);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const long long e = e0 + i * 32 + lane;
-      if (i * 32 < n && e < e1)
-        out[inv_idx ? (long long)inv_idx[e] : e] =
-            scale * (pv[i] * (gv[i] - dot));
-    }
+  const int h0 = blockIdx.y * head_group, h1 = min(heads, h0 + head_group);
+  const long long split_blocks = plan.n_split * kCluster;
+  const long long sub_blocks = (plan.n_sub + kSubRows - 1) / kSubRows;
+  const long long bx = blockIdx.x;
+  if (bx >= split_blocks) {
+    backward_rows(p, p_head, g, g_head, inv_idx, row_ptr, plan,
+                  bx - split_blocks, sub_blocks, scale, out, o_head, h0, h1);
     return;
   }
-  // one long row: a strided pass for sum p * g, then a write pass
-  __shared__ float part[kWarps];
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ float part[2];
+  __shared__ float wsum[kWarps];
   __shared__ float total;
-  const long long r = long_rows[blockIdx.x - n_row_blocks];
-  const long long e0 = row_ptr[r], e1 = row_ptr[r + 1];
-  float dot = 0.0f;
-  for (long long e = e0 + threadIdx.x; e < e1; e += blockDim.x)
-    dot = fmaf(p[e], g[e], dot);
-  for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(kFull, dot, o);
-  if (lane == 0) part[warp] = dot;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = part[0];
-    for (int w = 1; w < kWarps; ++w) s += part[w];
-    total = s;
+  const int rank = (int)cluster.block_rank();
+  const long long r = plan.rows[plan.n_sub + plan.n_warp + bx / kCluster];
+  long long a, b;
+  piece(row_ptr[r], row_ptr[r + 1], rank, a, b);
+  for (int h = h0; h < h1; ++h) {
+    const float* ph = p + h * p_head;
+    const float* gh = g + h * g_head;
+    float* oh = out + h * o_head;
+    float dot = 0.0f;
+    for (long long e = a + threadIdx.x; e < b; e += kThreads)
+      dot = fmaf(ph[e], gh[e], dot);
+    for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(kFull, dot, o);
+    if (lane == 0) wsum[warp] = dot;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float s = wsum[0];
+      for (int w = 1; w < kWarps; ++w) s += wsum[w];
+      part[h & 1] = s;
+    }
+    cluster.sync();
+    if (threadIdx.x == 0) {
+      float s = 0.0f;
+      for (int k = 0; k < kCluster; ++k)
+        s += *cluster.map_shared_rank(&part[h & 1], k);
+      total = s;
+    }
+    __syncthreads();
+    const float s = total;
+    for (long long e = a + threadIdx.x; e < b; e += kThreads)
+      oh[inv_idx ? (long long)inv_idx[e] : e] = scale * (ph[e] * (gh[e] - s));
   }
-  __syncthreads();
-  const float s = total;
-  for (long long e = e0 + threadIdx.x; e < e1; e += blockDim.x)
-    out[inv_idx ? (long long)inv_idx[e] : e] = scale * (p[e] * (g[e] - s));
+  cluster.sync();
+}
+
+// blocks of a launch over the plan: a cluster a split row, then the short
+// rows' and the other rows' blocks, rounded up to whole clusters where
+// there are split rows; -1 if the grid is too large
+long long plan_blocks(long long n_sub, long long n_warp, long long n_split) {
+  const long long blocks = n_split * kCluster +
+                           (n_sub + kSubRows - 1) / kSubRows +
+                           (n_warp + kWarps - 1) / kWarps;
+  const long long whole =
+      n_split ? (blocks + kCluster - 1) / kCluster * kCluster : blocks;
+  return whole > 2147483647LL ? -1 : whole;
+}
+
+// Launches `kernel` over the plan's grid: as clusters of kCluster blocks
+// where the plan has split rows, else a plain launch.  Returns the
+// launch's error code (cudaErrorInvalidValue for a grid over 2^31 - 1
+// blocks or over 65535 groups of heads), the error state cleared.
+template <typename... Params, typename... Args>
+int launch_plan(void (*kernel)(Params...), long long n_sub, long long n_warp,
+                long long n_split, int heads, int head_group, void* stream,
+                Args... args) {
+  const long long blocks = plan_blocks(n_sub, n_warp, n_split);
+  const int groups = head_group > 0 ? (heads + head_group - 1) / head_group
+                                    : 0;
+  if (blocks < 0 || n_sub < 0 || n_warp < 0 || n_split < 0 || groups < 1 ||
+      groups > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, (unsigned)groups);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!n_split) {
+    kernel<<<grid, kThreads, 0, st>>>(args...);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 }  // namespace
@@ -218,46 +514,38 @@ segment_softmax_backward_kernel(const float* __restrict__ p, long long p_head,
 // has checked shapes, dtypes and devices: scores (heads, *) fp32 with head
 // stride s_head and, where inv_idx is null, the entries in CSR order;
 // inv_idx (nnz,) int32 or null; row_ptr (m+1,) int64, non-decreasing;
-// long_rows (n_long,) int64, every row longer than 640 entries (and no
-// other); out (heads, nnz) fp32 with head stride o_head.  Returns the
-// launch's cudaGetLastError() code.
+// plan_rows int64, the plan's short rows (n_sub, 1..128 entries), then the
+// rows of 129..640 entries (n_warp), then the longer rows (n_split), every
+// non-empty row once; out (heads, nnz) fp32 with head stride o_head;
+// head_group the heads a row's group walks (grid.y: their groups).
+// Returns launch_plan's error code.
 extern "C" int sddmm_segment_softmax_float32(
     const float* scores, long long s_head, const int* inv_idx,
-    const long long* row_ptr, long long m, const long long* long_rows,
-    long long n_long, float scale, float* out, long long o_head, int heads,
-    void* stream) {
-  if (m <= 0 || heads <= 0) return 0;
-  const long long row_blocks = (m + kWarps - 1) / kWarps;
-  if (heads > 65535 || row_blocks + n_long > 2147483647LL)
-    return (int)cudaErrorInvalidValue;
-  segment_softmax_kernel<<<dim3((unsigned)(row_blocks + n_long),
-                                (unsigned)heads),
-                           kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      scores, s_head, inv_idx, row_ptr, m, row_blocks, long_rows, scale, out,
-      o_head);
-  return (int)cudaGetLastError();
+    const long long* row_ptr, const long long* plan_rows, long long n_sub,
+    long long n_warp, long long n_split, float scale, float* out,
+    long long o_head, int heads, int head_group, void* stream) {
+  if (heads <= 0 || n_sub + n_warp + n_split <= 0) return 0;
+  return launch_plan(segment_softmax_kernel, n_sub, n_warp, n_split, heads,
+                     head_group, stream, scores, s_head, inv_idx, row_ptr,
+                     Plan{plan_rows, n_sub, n_warp, n_split}, scale, out,
+                     o_head, heads, head_group);
 }
 
 // C interface of the backward (ctypes), checked by the wrapper
 // (ops/softmax.py::segment_softmax_backward): p and g (heads, nnz) fp32 in
 // CSR order with head strides p_head and g_head; inv_idx (nnz,) int32 or
-// null; row_ptr and long_rows as in the forward; out fp32 with head stride
+// null; row_ptr and the plan as in the forward; out fp32 with head stride
 // o_head, (heads, F) and zeroed where inv_idx is given, else (heads, nnz).
-// Returns the launch's cudaGetLastError() code.
+// Returns launch_plan's error code.
 extern "C" int sddmm_segment_softmax_backward_float32(
     const float* p, long long p_head, const float* g, long long g_head,
-    const int* inv_idx, const long long* row_ptr, long long m,
-    const long long* long_rows, long long n_long, float scale, float* out,
-    long long o_head, int heads, void* stream) {
-  if (m <= 0 || heads <= 0) return 0;
-  const long long row_blocks = (m + kWarps - 1) / kWarps;
-  if (heads > 65535 || row_blocks + n_long > 2147483647LL)
-    return (int)cudaErrorInvalidValue;
-  segment_softmax_backward_kernel<<<dim3((unsigned)(row_blocks + n_long),
-                                         (unsigned)heads),
-                                    kWarps * 32, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      p, p_head, g, g_head, inv_idx, row_ptr, m, row_blocks, long_rows,
-      scale, out, o_head);
-  return (int)cudaGetLastError();
+    const int* inv_idx, const long long* row_ptr, const long long* plan_rows,
+    long long n_sub, long long n_warp, long long n_split, float scale,
+    float* out, long long o_head, int heads, int head_group,
+    void* stream) {
+  if (heads <= 0 || n_sub + n_warp + n_split <= 0) return 0;
+  return launch_plan(segment_softmax_backward_kernel, n_sub, n_warp, n_split,
+                     heads, head_group, stream, p, p_head, g, g_head, inv_idx,
+                     row_ptr, Plan{plan_rows, n_sub, n_warp, n_split}, scale,
+                     out, o_head, heads, head_group);
 }

@@ -35,8 +35,8 @@ from torch import nn
 
 from sddmm_tpu_torch.data.sparse import CSR
 from sddmm_tpu_torch.ops.hybrid import HybridSDDMM, packing_row_order
-from sddmm_tpu_torch.ops.softmax import (find_long_rows, segment_softmax,
-                                         segment_softmax_torch)
+from sddmm_tpu_torch.ops.softmax import (segment_softmax,
+                                         segment_softmax_torch, softmax_plan)
 from sddmm_tpu_torch.ops.spmm import (GradPattern, csr_spmm_plain,
                                       csr_spmm_torch, spmm_plan)
 from sddmm_tpu_torch.ops.tile_dot import full_fp32_matmul
@@ -68,7 +68,8 @@ def stacked(csr: CSR, heads: int) -> CSR:
 class CSRAggregation:
     """A pattern's CSR index on one device, for H heads' row softmax and
     SpMM in CSR entry order.  The softmax kernel reads the pattern's row
-    pointers (``head_row_ptr``) and its long rows for all heads at once;
+    pointers (``head_row_ptr``) and its plan of rows by length
+    (``softmax_plan``) for all heads at once;
     the SpMM runs over the block-diagonal CSR of H copies of the pattern
     (``stacked``: row ids, row pointers, column ids) with its kernel's plan
     (``spmm_plan``, built once here, its row groups taken in ``row_order``
@@ -82,8 +83,7 @@ class CSRAggregation:
         self.heads = heads
         self.head_row_ptr = torch.as_tensor(csr.row_ptr, dtype=torch.int64,
                                             device=device)
-        self.long_rows = torch.as_tensor(find_long_rows(csr.row_ptr),
-                                         device=device)
+        self.softmax_plan = softmax_plan(csr.row_ptr, device)
         agg = stacked(csr, heads) if heads > 1 else csr
         self.num_rows = agg.m
         self.rows = torch.as_tensor(agg.row_indices(), dtype=torch.int64,
@@ -105,7 +105,7 @@ class CSRAggregation:
         one SpMM launch (a backward: one launch of the softmax's backward,
         one gather-dot, one SpMM)."""
         attn = segment_softmax_torch(flat, self.head_row_ptr, scale,
-                                     inv_idx, self.long_rows).reshape(-1)
+                                     inv_idx, self.softmax_plan).reshape(-1)
         return csr_spmm_torch(attn, self.rows, self.cols, v, self.num_rows,
                               row_ptr=self.row_ptr, plan=self.plan)
 

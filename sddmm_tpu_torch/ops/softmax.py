@@ -28,6 +28,7 @@ gather; the padding slots get 0).  On CUDA tensors it is a second entry of
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -38,9 +39,14 @@ from sddmm_tpu_torch import _kernels
 from sddmm_tpu_torch.data.sparse import CSR
 from sddmm_tpu_torch.ops.hybrid import check_device
 
-#: rows with more entries than this are a block of their own in the kernel
-#: (csrc/segment_softmax.cu: 32 lanes x kPer entries in registers)
+#: rows of up to this many entries are a group of 8 lanes in the kernel
+#: (csrc/segment_softmax.cu: 16 entries a lane)
+SOFTMAX_SUB_ROW = 128
+#: rows with more entries than this are split over a cluster of blocks
+#: (the others are a warp each: 20 entries a lane)
 SOFTMAX_LONG_ROW = 640
+#: blocks a split row's cluster takes, one piece each
+SOFTMAX_SPLIT = 8
 
 
 def segment_softmax(scores: torch.Tensor, rows: torch.Tensor,
@@ -65,9 +71,137 @@ def segment_softmax(scores: torch.Tensor, rows: torch.Tensor,
 
 
 def find_long_rows(row_ptr) -> np.ndarray:
-    """(n,) int64: the rows longer than ``SOFTMAX_LONG_ROW`` entries."""
+    """(n,) int64: the rows longer than ``SOFTMAX_LONG_ROW`` entries (the
+    kernel's split rows)."""
     return np.flatnonzero(np.diff(np.asarray(row_ptr, dtype=np.int64))
                           > SOFTMAX_LONG_ROW).astype(np.int64)
+
+
+@dataclasses.dataclass
+class SoftmaxPlan:
+    """The kernel's rows by class, built once per pattern
+    (``softmax_plan``): ``rows`` int64 on the device, the short rows (1 to
+    ``SOFTMAX_SUB_ROW`` entries, ``n_sub``), then those up to
+    ``SOFTMAX_LONG_ROW`` (``n_warp``), then the longer ones (``n_split``);
+    empty rows are in none."""
+    rows: torch.Tensor
+    n_sub: int
+    n_warp: int
+    n_split: int
+
+    def by_class(self) -> dict:
+        """The plan cut into its row classes, each a plan of that class's
+        rows alone: {"short": .., "warp": .., "split": ..} (a class with no
+        rows left out)."""
+        parts, o = {}, 0
+        for i, (name, n) in enumerate((("short", self.n_sub),
+                                       ("warp", self.n_warp),
+                                       ("split", self.n_split))):
+            if n:
+                counts = [0, 0, 0]
+                counts[i] = n
+                parts[name] = SoftmaxPlan(self.rows[o:o + n].contiguous(),
+                                          *counts)
+            o += n
+        return parts
+
+
+def head_group(heads: int, backward: bool) -> int:
+    """The heads a row's group walks in the kernel (the launch's second
+    grid dimension takes the groups of heads): every head in the forward,
+    half of them in the backward, the fastest of 1, 2, 3, 4, 6 and 12 at
+    the Longformer shape on an H100 (``scripts/torch_kernel_cmp.py``;
+    PERF.md §6)."""
+    return max(1, -(-heads // 2) if backward else heads)
+
+
+def softmax_plan(row_ptr, device) -> SoftmaxPlan:
+    """The kernel's plan of the pattern ``row_ptr`` (m+1,) on ``device``
+    (its rows contiguous int64, as the kernel reads them)."""
+    lens = np.diff(np.asarray(row_ptr, dtype=np.int64))
+    sub = np.flatnonzero((lens > 0) & (lens <= SOFTMAX_SUB_ROW))
+    warp = np.flatnonzero((lens > SOFTMAX_SUB_ROW)
+                          & (lens <= SOFTMAX_LONG_ROW))
+    split = find_long_rows(row_ptr)
+    rows = np.concatenate([sub, warp, split]).astype(np.int64)
+    return SoftmaxPlan(torch.as_tensor(rows, device=device), len(sub),
+                       len(warp), len(split))
+
+
+def _pieces(n: int):
+    """The kernel's pieces of a split row of ``n`` entries: ``SOFTMAX_SPLIT``
+    (start, stop) ranges of ceil(n / SOFTMAX_SPLIT) entries, in rank
+    order (the last ones may be short or empty)."""
+    ps = -(-n // SOFTMAX_SPLIT)
+    return [(min(k * ps, n), min((k + 1) * ps, n))
+            for k in range(SOFTMAX_SPLIT)]
+
+
+def split_softmax_plain(x: torch.Tensor) -> torch.Tensor:
+    """The split rows' softmax of ``x`` (H, n), one row of H heads, as the
+    kernel's cluster takes it: each piece's (max, sum of exp(x - max)),
+    combined in rank order, ``exp(x - max) / max(sum, 1e-30)``."""
+    m_all = torch.full(x.shape[:1], -torch.inf, dtype=x.dtype,
+                       device=x.device)
+    s_all = torch.zeros_like(m_all)
+    for a, b in _pieces(x.shape[1]):
+        if a == b:
+            continue
+        m_k = x[:, a:b].amax(dim=1)
+        s_k = torch.exp(x[:, a:b] - m_k[:, None]).sum(dim=1)
+        mx = torch.maximum(m_all, m_k)
+        live = mx > -torch.inf
+        s_new = (s_all * torch.exp(m_all - mx) + s_k * torch.exp(m_k - mx))
+        s_all = torch.where(live, s_new, s_all)
+        m_all = torch.where(live, mx, m_all)
+    return torch.exp(x - m_all[:, None]) / s_all.clamp_min(1e-30)[:, None]
+
+
+def split_softmax_backward_plain(p: torch.Tensor, g: torch.Tensor,
+                                 scale: float) -> torch.Tensor:
+    """The split rows' backward of one row (H, n): each piece's sum of
+    p * g, added in rank order, then ``scale * p * (g - sum)``."""
+    dot = torch.zeros(p.shape[:1], dtype=p.dtype, device=p.device)
+    for a, b in _pieces(p.shape[1]):
+        dot = dot + (p[:, a:b] * g[:, a:b]).sum(dim=1)
+    return scale * (p * (g - dot[:, None]))
+
+
+def segment_softmax_split_plain(flat: torch.Tensor, row_ptr: torch.Tensor,
+                                scale: float = 1.0,
+                                inv_idx: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """``segment_softmax_plain`` with the split rows (longer than
+    ``SOFTMAX_LONG_ROW``) taken piece by piece as the kernel's cluster
+    combines them (``split_softmax_plain``): the plain counterpart of the
+    split-row combine."""
+    out = segment_softmax_plain(flat, row_ptr, scale, inv_idx)
+    x = _csr_scores(flat, inv_idx) * scale
+    rp = row_ptr.tolist()
+    for r in find_long_rows(rp).tolist():
+        out[:, rp[r]:rp[r + 1]] = split_softmax_plain(x[:, rp[r]:rp[r + 1]])
+    return out
+
+
+def segment_softmax_backward_split_plain(p: torch.Tensor, g: torch.Tensor,
+                                         row_ptr: torch.Tensor,
+                                         scale: float = 1.0,
+                                         inv_idx: Optional[torch.Tensor]
+                                         = None,
+                                         size: Optional[int] = None
+                                         ) -> torch.Tensor:
+    """``segment_softmax_backward_plain`` with the split rows' sums taken
+    piece by piece in rank order (``split_softmax_backward_plain``)."""
+    d = segment_softmax_backward_plain(p, g, row_ptr, scale)
+    rp = row_ptr.tolist()
+    for r in find_long_rows(rp).tolist():
+        a, b = rp[r], rp[r + 1]
+        d[:, a:b] = split_softmax_backward_plain(p[:, a:b], g[:, a:b], scale)
+    if inv_idx is None:
+        return d
+    out = torch.zeros((p.shape[0], size), dtype=d.dtype, device=d.device)
+    out[:, inv_idx.long()] = d
+    return out
 
 
 def _csr_scores(flat, inv_idx):
@@ -83,6 +217,32 @@ def _head_rows(row_ptr, heads, device):
                                    row_ptr.diff().long())
     return (torch.arange(heads, device=device)[:, None] * m
             + rows[None]).reshape(-1)
+
+
+def backward_rel_err(d: torch.Tensor, want: torch.Tensor, p: torch.Tensor,
+                     g: torch.Tensor, row_ptr: torch.Tensor,
+                     scale: float) -> float:
+    """The largest, over the entries, of ``|d - want|`` over the size of
+    the terms that make the entry, ``|scale| * p * (|g| + sum_row |p *
+    g|)``: the backward ``d`` held to its reference ``want``, all (H, nnz)
+    in CSR order, beside the softmax output ``p`` and the cotangent ``g``
+    it was computed from.  Each entry is held to its own terms, so a wrong
+    row sum shows in a hub row whose values are small, and a row whose
+    ``g - sum`` cancels is not held to its cancelled value (an entry with
+    no terms must be exact; inf if it is not)."""
+    heads, nnz = want.shape
+    if not nnz:
+        return 0.0
+    m = row_ptr.shape[0] - 1
+    rows = _head_rows(row_ptr, heads, want.device)
+    pg = (p * g).abs().reshape(-1).double()
+    row_abs = torch.zeros(heads * m, dtype=torch.float64,
+                          device=want.device).index_add_(0, rows, pg)
+    terms = (abs(scale) * p.double().reshape(-1)
+             * (g.double().abs().reshape(-1) + row_abs[rows]))
+    err = (d.double() - want.double()).abs().reshape(-1)
+    rel = torch.where(err > 0, err / terms, torch.zeros_like(err))
+    return float(rel.max())
 
 
 def segment_softmax_plain(flat: torch.Tensor, row_ptr: torch.Tensor,
@@ -127,14 +287,14 @@ def segment_softmax_backward(p: torch.Tensor, g: torch.Tensor,
                              row_ptr: torch.Tensor, scale: float = 1.0,
                              inv_idx: Optional[torch.Tensor] = None,
                              size: Optional[int] = None,
-                             long_rows: Optional[torch.Tensor] = None
+                             plan: Optional[SoftmaxPlan] = None
                              ) -> torch.Tensor:
     """The scores' cotangent of ``segment_softmax_torch`` from its output
     ``p`` and that output's cotangent ``g``, both (H, nnz) fp32 in CSR
     order: (H, ``size``) with ``inv_idx`` (the packed slots; the others
     0), else (H, nnz).  CUDA tensors go through the kernel's backward entry
-    (one launch, or raise), CPU tensors through
-    ``segment_softmax_backward_plain``."""
+    (one launch, or raise) over ``plan`` (``softmax_plan(row_ptr)``, found
+    here if None), CPU tensors through ``segment_softmax_backward_plain``."""
     heads, nnz = p.shape
     if g.shape != p.shape or p.dtype != torch.float32 or (
             g.dtype != torch.float32):
@@ -149,9 +309,9 @@ def segment_softmax_backward(p: torch.Tensor, g: torch.Tensor,
                                               size)
     if p.device.type != "cuda":
         raise ValueError(f"segment_softmax: unsupported device {p.device}")
-    if long_rows is None:
-        long_rows = torch.as_tensor(find_long_rows(row_ptr.cpu().numpy()),
-                                    device=p.device)
+    if plan is None:
+        plan = softmax_plan(row_ptr.cpu().numpy(), p.device)
+    _check_plan(plan, p.device)
     p, g = p.contiguous(), g.contiguous()
     out = (torch.zeros((heads, size), dtype=torch.float32, device=p.device)
            if inv_idx is not None else torch.empty_like(p))
@@ -164,9 +324,10 @@ def segment_softmax_backward(p: torch.Tensor, g: torch.Tensor,
         _kernels.launch(_kernels.SOFTMAX_BWD_ENTRY, p.data_ptr(),
                         p.stride(0), g.data_ptr(), g.stride(0),
                         inv_idx.data_ptr() if inv_idx is not None else None,
-                        row_ptr.data_ptr(), m, long_rows.data_ptr(),
-                        long_rows.shape[0], float(scale), out.data_ptr(),
-                        out.stride(0), heads,
+                        row_ptr.data_ptr(), plan.rows.data_ptr(), plan.n_sub,
+                        plan.n_warp, plan.n_split, float(scale),
+                        out.data_ptr(), out.stride(0), heads,
+                        head_group(heads, backward=True),
                         torch.cuda.current_stream().cuda_stream)
     return out
 
@@ -175,27 +336,27 @@ class _SoftmaxFn(torch.autograd.Function):
     """segment_softmax_torch on (H, F) scores as an autograd op (B2)."""
 
     @staticmethod
-    def forward(ctx, flat, row_ptr, scale, inv_idx, long_rows, out):
-        p = _softmax_forward(flat, row_ptr, scale, inv_idx, long_rows, out)
+    def forward(ctx, flat, row_ptr, scale, inv_idx, plan, out):
+        p, plan = _softmax_forward(flat, row_ptr, scale, inv_idx, plan, out)
         if out is not None:
             ctx.mark_dirty(out)
-        ctx.save_for_backward(p, row_ptr, inv_idx, long_rows)
-        ctx.scale, ctx.size = scale, flat.shape[1]
+        ctx.save_for_backward(p, row_ptr, inv_idx)
+        ctx.scale, ctx.size, ctx.plan = scale, flat.shape[1], plan
         return p
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        p, row_ptr, inv_idx, long_rows = ctx.saved_tensors
+        p, row_ptr, inv_idx = ctx.saved_tensors
         d = segment_softmax_backward(p, g.to(torch.float32), row_ptr,
-                                     ctx.scale, inv_idx, ctx.size, long_rows)
+                                     ctx.scale, inv_idx, ctx.size, ctx.plan)
         return d, None, None, None, None, None
 
 
 def segment_softmax_torch(flat: torch.Tensor, row_ptr: torch.Tensor,
                           scale: float = 1.0,
                           inv_idx: Optional[torch.Tensor] = None,
-                          long_rows: Optional[torch.Tensor] = None,
+                          plan: Optional[SoftmaxPlan] = None,
                           out: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """Row softmax of ``scale * scores`` over the CSR pattern ``row_ptr``
@@ -203,9 +364,9 @@ def segment_softmax_torch(flat: torch.Tensor, row_ptr: torch.Tensor,
     ``inv_idx`` (nnz,) int32 the packed slot of each CSR entry (the
     runner's ``inv_idx32``), or ``flat`` (H, nnz) already in CSR order and
     ``inv_idx`` None; a 1-D ``flat`` is one head.  -> (H, nnz) (or (nnz,))
-    in CSR order.  ``long_rows``: ``find_long_rows(row_ptr)`` as an int64
-    tensor on the device, when the caller keeps it (else it is found here,
-    which reads the row pointers back to the host).  ``out``: an (H, nnz)
+    in CSR order.  ``plan``: ``softmax_plan(row_ptr, device)``, the
+    kernel's rows by class, when the caller keeps it (else it is built
+    here, which reads the row pointers back to the host).  ``out``: an (H, nnz)
     fp32 tensor to write into (last dimension contiguous).  CUDA tensors go
     through the kernel (or raise); CPU tensors through
     ``segment_softmax_plain``.
@@ -214,13 +375,23 @@ def segment_softmax_torch(flat: torch.Tensor, row_ptr: torch.Tensor,
     An ``out`` that autograd tracks is written in place."""
     if flat.dim() == 1:
         return segment_softmax_torch(
-            flat[None], row_ptr, scale, inv_idx, long_rows,
+            flat[None], row_ptr, scale, inv_idx, plan,
             None if out is None else out[None])[0]
-    return _SoftmaxFn.apply(flat, row_ptr, scale, inv_idx, long_rows, out)
+    return _SoftmaxFn.apply(flat, row_ptr, scale, inv_idx, plan, out)
 
 
-def _softmax_forward(flat, row_ptr, scale, inv_idx, long_rows, out):
-    """segment_softmax_torch's forward on a 2-D ``flat``, checked."""
+def _check_plan(plan, device):
+    if not isinstance(plan, SoftmaxPlan):
+        raise TypeError("segment_softmax: plan must be a SoftmaxPlan "
+                        f"(softmax_plan), got {type(plan).__name__}")
+    if plan.rows.device != device:
+        raise ValueError(f"segment_softmax: the plan is on "
+                         f"{plan.rows.device}, the scores on {device}")
+
+
+def _softmax_forward(flat, row_ptr, scale, inv_idx, plan, out):
+    """segment_softmax_torch's forward on a 2-D ``flat``, checked: (the
+    probabilities, the plan the kernel took or None)."""
     if flat.dim() != 2 or flat.dtype != torch.float32:
         raise ValueError(f"segment_softmax: want flat (H, F) float32, got "
                          f"{tuple(flat.shape)} {flat.dtype}")
@@ -232,8 +403,7 @@ def _softmax_forward(flat, row_ptr, scale, inv_idx, long_rows, out):
                                 or inv_idx.dtype != torch.int32):
         raise TypeError(f"segment_softmax: inv_idx must be (nnz,) int32, "
                         f"got {tuple(inv_idx.shape)} {inv_idx.dtype}")
-    for name, t in (("row_ptr", row_ptr), ("inv_idx", inv_idx),
-                    ("long_rows", long_rows)):
+    for name, t in (("row_ptr", row_ptr), ("inv_idx", inv_idx)):
         if t is not None and t.device != flat.device:
             raise ValueError(f"segment_softmax: {name} is on {t.device}, "
                              f"flat on {flat.device}")
@@ -247,23 +417,20 @@ def _softmax_forward(flat, row_ptr, scale, inv_idx, long_rows, out):
                          f"{nnz}) float32 rows on {flat.device}")
     if flat.device.type == "cpu":
         res = segment_softmax_plain(flat, row_ptr, scale, inv_idx)
-        return res if out is None else out.copy_(res)
+        return (res if out is None else out.copy_(res)), plan
     if flat.device.type != "cuda":
         raise ValueError(f"segment_softmax: unsupported device {flat.device}")
     if flat.shape[1] > 1 and flat.stride(1) != 1:
         raise ValueError("segment_softmax: flat's rows must be contiguous")
-    if long_rows is None:
-        long_rows = torch.as_tensor(find_long_rows(row_ptr.cpu().numpy()),
-                                     device=flat.device)
-    if long_rows.dtype != torch.int64 or not long_rows.is_contiguous():
-        raise TypeError("segment_softmax: long_rows must be contiguous "
-                        "int64")
+    if plan is None:
+        plan = softmax_plan(row_ptr.cpu().numpy(), flat.device)
+    _check_plan(plan, flat.device)
     if out is None:
         out = torch.empty((heads, nnz), dtype=torch.float32,
                           device=flat.device)
     m = row_ptr.shape[0] - 1
     if heads == 0 or m == 0 or nnz == 0:
-        return out
+        return out, plan
     row_ptr = row_ptr.contiguous()
     inv_idx = inv_idx.contiguous() if inv_idx is not None else None
     with torch.cuda.device(flat.device):
@@ -271,10 +438,11 @@ def _softmax_forward(flat, row_ptr, scale, inv_idx, long_rows, out):
         _kernels.launch(_kernels.SOFTMAX_ENTRY, flat.data_ptr(),
                         flat.stride(0),
                         inv_idx.data_ptr() if inv_idx is not None else None,
-                        row_ptr.data_ptr(), m, long_rows.data_ptr(),
-                        long_rows.shape[0], float(scale), out.data_ptr(),
-                        out.stride(0), heads, stream)
-    return out
+                        row_ptr.data_ptr(), plan.rows.data_ptr(), plan.n_sub,
+                        plan.n_warp, plan.n_split, float(scale),
+                        out.data_ptr(), out.stride(0), heads,
+                        head_group(heads, backward=False), stream)
+    return out, plan
 
 
 def csr_softmax(s: CSR, scores, scale: float = 1.0,

@@ -13,15 +13,22 @@ host ``rows._batched_cluster``, each round on the device:
 - with the host version's early bail (rounds that stop clustering leave
   the rest as singleton clusters).
 
-The round loop stays on the host, with one fetch of two scalars a round
-(clusters so far and live rows).  A round is two launches of the hand
-kernel ``csrc/cluster_round.cu`` (``cluster_round``) on a CUDA device, or
-its plain PyTorch version (``_round_step_plain``) on the CPU.
+The round loop runs on the device: the host enqueues rounds in batches
+(``ROUNDS_PER_FETCH``) and reads the state once a batch, and each round
+tests the early bail and ``max_rounds`` itself, so a round after the end
+does nothing.  A round is two launches of the hand kernel
+``csrc/cluster_round.cu`` (``cluster_round``) on a CUDA device: the
+leaders (their dedup as L x L similarity bits resolved with bit
+operations) and the rows (a warp a live row of a compacted list).  On the
+CPU a round is its plain version ``_round_step_plain`` (the sequential
+dedup, as the host does it) behind ``_round_gate_plain``, the kernel's
+test at the top of a round; ``_round_step_bitmask`` is the kernel's
+organisation of a round in torch ops, with the same results.
 
 Where JAX densifies the encodings to (m, B) and reads all of them every
 round, the rows keep their sparse encodings here (``encodings``: the
 occupied column blocks of each row, in dispersion order), and only the
-accepted leaders' hats are dense, a (B, L) table.  The arithmetic is
+round's leader candidates' hats are dense, a (B, L) table.  The arithmetic is
 ``rows._batched_cluster(..., hat_dtype=np.float32)``'s, bit for bit: the
 same fp32 hats, norms and hat sums (``_sparse_hats``), each min-sum as
 numpy's pairwise sum over the row's blocks, the leaders compared with
@@ -41,10 +48,18 @@ import torch
 
 from sddmm_tpu_torch import _kernels
 
-#: state words of a round on the device (``csrc/cluster_round.cu``)
-CLUSTERS, LIVE, START, ACCEPTED, BASE = range(5)
-#: leaders a round the kernel takes at most (its table's leading dimension)
-MAX_LEADERS = 1024
+#: state words of a clustering on the device (``csrc/cluster_round.cu``):
+#: clusters so far, live rows, the first live position, the last round's
+#: candidates and first cluster id, rounds (counted as the host counts
+#: them), done (0 running, 1 no live rows, 2 bailed), the accepted mask's
+#: two halves, and the live positions in each of the two lists
+(CLUSTERS, LIVE, START, CANDS, BASE, ROUNDS, DONE, MASK_LO, MASK_HI, COUNT0,
+ COUNT1) = range(11)
+#: leader candidates a round the kernel takes at most (its accepted mask is
+#: one 64-bit word); the plain rounds take any number
+MAX_LEADERS = 64
+#: rounds the host enqueues between two reads of the state
+ROUNDS_PER_FETCH = 32
 
 
 def _sparse_hats(block_ptr, block_idx, block_cnt, num_rows):
@@ -105,26 +120,34 @@ def encodings(order, block_ptr, block_idx, block_cnt, num_blocks,
 @dataclasses.dataclass
 class RoundState:
     """A clustering's state on its device: ``cluster`` (n,) int32, -1 while
-    a position is live, else its cluster id; ``state`` int32 (5,) (clusters
-    so far, live positions, the first live one, the last round's accepted
-    leaders and its first cluster id); ``lead`` (B, L) fp32, the accepted
-    leaders' dense hats, leader a in column a; ``acc_pos`` (L,) int32 their
-    positions."""
+    a position is live, else its cluster id; ``state`` int32 (11,) (the
+    words ``CLUSTERS`` .. ``COUNT1``); ``lead`` (B, L) fp32, the round's
+    candidates' dense hats, candidate j in column j; ``cand_pos`` (L,)
+    int32 their positions; ``made`` (n+1,) int32, the clusters made by the
+    end of each round; ``lists`` (2, n) int32, the live positions of the
+    rounds (the kernel's compacted lists, ``lists[0]`` all at the start)."""
     cluster: torch.Tensor
     state: torch.Tensor
     lead: torch.Tensor
-    acc_pos: torch.Tensor
+    cand_pos: torch.Tensor
+    made: torch.Tensor
+    lists: torch.Tensor
 
     @staticmethod
     def start(enc: ClusterEncodings, L: int) -> "RoundState":
         dev = enc.ptr.device
-        state = torch.tensor([0, enc.n, 0, 0, 0], dtype=torch.int32,
-                             device=dev)
+        n = enc.n
+        state = torch.zeros(11, dtype=torch.int32, device=dev)
+        state[LIVE] = n
+        state[COUNT0] = n
+        lists = torch.empty((2, n), dtype=torch.int32, device=dev)
+        lists[0] = torch.arange(n, dtype=torch.int32, device=dev)
         return RoundState(
-            torch.full((enc.n,), -1, dtype=torch.int32, device=dev), state,
+            torch.full((n,), -1, dtype=torch.int32, device=dev), state,
             torch.zeros((max(enc.num_blocks, 1), L), dtype=torch.float32,
                         device=dev),
-            torch.zeros(L, dtype=torch.int32, device=dev))
+            torch.zeros(L, dtype=torch.int32, device=dev),
+            torch.zeros(n + 1, dtype=torch.int32, device=dev), lists)
 
 
 def thresholds(alpha: float):
@@ -163,102 +186,257 @@ def pairwise_sum(v: torch.Tensor) -> torch.Tensor:
     return pairwise_sum(v[..., :n2]) + pairwise_sum(v[..., n2:])
 
 
-def _first_leader_plain(enc, lead, acc, q, ln, alpha):
-    """For positions ``q`` whose encodings all have ``ln`` blocks: the first
-    accepted leader (columns of ``lead``, positions ``acc``) each is
-    similar to, or -1; the kernel's arithmetic in torch ops."""
+def _hits_plain(enc, lead, col_sums, q, ln, alpha):
+    """(nq, n_cols) bool: whether each position of ``q`` (whose encodings
+    all have ``ln`` blocks) is similar to each column of ``lead`` (a dense
+    hat a column, their hat sums ``col_sums``); the kernel's arithmetic in
+    torch ops."""
     k = enc.ptr[q][:, None] + torch.arange(ln, device=q.device)
-    v = torch.minimum(lead[enc.idx[k].long(), :len(acc)],
-                      enc.hat[k][..., None])           # (nq, ln, n_acc)
-    ms = pairwise_sum(v.transpose(1, 2))                  # (nq, n_acc)
-    sim = ms / torch.clamp((enc.hat_sum[acc][None, :]
-                            + enc.hat_sum[q][:, None]) - ms, min=1e-30)
-    hit = sim > alpha
+    v = torch.minimum(lead[enc.idx[k].long()],
+                      enc.hat[k][..., None])           # (nq, ln, n_cols)
+    ms = pairwise_sum(v.transpose(1, 2))                  # (nq, n_cols)
+    sim = ms / torch.clamp((col_sums[None, :] + enc.hat_sum[q][:, None])
+                           - ms, min=1e-30)
+    return sim > alpha
+
+
+def _first_hit(hit):
+    """The first True column of each row of ``hit``, or -1."""
     first = hit.to(torch.int32).argmax(dim=1)
     return torch.where(hit.any(dim=1), first, torch.full_like(first, -1))
+
+
+def _round_gate_plain(st: RoundState, n: int, L: int, bail_after: int,
+                      bail_yield: float, max_rounds) -> bool:
+    """The kernel's test at the top of a round, on ``st``: False (and the
+    clustering marked done) when no row is live, or when the host loop
+    would bail or pass ``max_rounds``; else the round is counted and
+    runs."""
+    words = st.state.tolist()
+    if words[DONE]:
+        return False
+    if words[LIVE] == 0:
+        st.state[DONE] = 1
+        return False
+    rounds = words[ROUNDS] + 1
+    st.state[ROUNDS] = rounds
+    assigned = n - words[LIVE]
+    bail = rounds > bail_after and assigned < bail_yield * L * rounds
+    if bail or (max_rounds is not None and rounds > max_rounds):
+        st.state[DONE] = 2
+        return False
+    return True
+
+
+def _finish_round(st, base, n_live, cand, n_acc, mask, assigned):
+    """The state words a round leaves, as the kernel writes them."""
+    dev = st.cluster.device
+    words = st.state.tolist()
+    words[CLUSTERS] = base + n_acc
+    words[LIVE] = n_live - assigned
+    words[START] = int(cand[0])
+    words[CANDS] = len(cand)
+    words[BASE] = base
+    words[MASK_LO] = int(np.uint32(mask & 0xffffffff).view(np.int32))
+    words[MASK_HI] = int(np.uint32((mask >> 32) & 0xffffffff).view(np.int32))
+    st.state.copy_(torch.tensor(words, dtype=torch.int32))
+    st.made[words[ROUNDS] - 1] = base + n_acc
+    st.cand_pos[:len(cand)] = torch.as_tensor(cand, dtype=torch.int32,
+                                              device=dev)
+
+
+def _assign_rows(enc, st, lead, col_sums, take, base, alpha_row, chunk):
+    """The rows' pass in torch ops: every live row joins the first column
+    of ``lead`` it is similar to, its cluster ``base + take[column]``
+    (``take`` (n_cols,) int64, -1 for a column no row may join).  Returns
+    the rows assigned."""
+    cluster = st.cluster
+    rows = torch.nonzero(cluster < 0).flatten()
+    assigned = 0
+    if not len(rows) or not bool((take >= 0).any()):
+        return 0
+    ok = take >= 0
+    n_cols = lead.shape[1]
+    lens = enc.ptr[rows + 1] - enc.ptr[rows]
+    for ln in torch.unique(lens).tolist():
+        sel = rows[lens == ln]
+        step = max(1, min(chunk, (1 << 22) // (ln * n_cols)))
+        for c0 in range(0, len(sel), step):
+            q = sel[c0:c0 + step]
+            first = _first_hit(_hits_plain(enc, lead, col_sums, q, ln,
+                                           alpha_row) & ok[None, :])
+            got = first >= 0
+            cluster[q[got]] = base + take[first[got]].to(torch.int32)
+            assigned += int(got.sum())
+    return assigned
 
 
 def _round_step_plain(enc: ClusterEncodings, st: RoundState, L: int,
                       alpha_lead: float, alpha_row: float,
                       chunk: int = 2048) -> None:
-    """One round in torch ops (any device), updating ``st`` as the kernel
-    does: the plain version the kernel is held to, and the CPU's round.
-    ``chunk`` bounds the rows taken at once (and their (rows, blocks,
-    leaders) temporary to about 2^22 floats)."""
+    """One round in torch ops (any device) with the host's sequential
+    dedup, updating the state words, ``cluster`` and ``made`` as the kernel
+    does (its own leader table, not ``st.lead``): the plain version the
+    kernel is held to, and the CPU's round.  ``chunk`` bounds the rows
+    taken at once (and their (rows, blocks, leaders) temporary to about
+    2^22 floats)."""
     cluster = st.cluster
     dev = cluster.device
     base, n_live = (int(x) for x in st.state[:2].tolist())
     lead = torch.zeros_like(st.lead)
-    cand = torch.nonzero(cluster < 0).flatten()[:L]
-    acc = []
-    for p in cand.tolist():
+    cand = torch.nonzero(cluster < 0).flatten()[:L].tolist()
+    acc, mask = [], 0
+    for i, p in enumerate(cand):
         s, e = int(enc.ptr_host[p]), int(enc.ptr_host[p + 1])
         first = -1
         if acc:
-            first = int(_first_leader_plain(
-                enc, lead, torch.tensor(acc, device=dev),
-                torch.tensor([p], device=dev), e - s, alpha_lead)[0])
+            first = int(_first_hit(_hits_plain(
+                enc, lead[:, :len(acc)],
+                enc.hat_sum[torch.tensor(acc, device=dev)],
+                torch.tensor([p], device=dev), e - s, alpha_lead))[0])
         if first >= 0:
             cluster[p] = base + first
         else:
             lead[enc.idx[s:e].long(), len(acc)] = enc.hat[s:e]
             cluster[p] = base + len(acc)
             acc.append(p)
-    assigned = len(cand)
-    rows = torch.nonzero(cluster < 0).flatten()
-    if acc and len(rows):
-        acc_t = torch.tensor(acc, device=dev)
-        lens = enc.ptr[rows + 1] - enc.ptr[rows]
-        for ln in torch.unique(lens).tolist():
-            sel = rows[lens == ln]
-            step = max(1, min(chunk, (1 << 22) // (ln * len(acc))))
-            for c0 in range(0, len(sel), step):
-                q = sel[c0:c0 + step]
-                first = _first_leader_plain(enc, lead, acc_t, q, ln, alpha_row)
-                got = first >= 0
-                cluster[q[got]] = base + first[got].to(torch.int32)
-                assigned += int(got.sum())
-    st.lead.copy_(lead)
-    st.acc_pos[:len(acc)] = torch.tensor(acc, dtype=torch.int32, device=dev)
-    st.state.copy_(torch.tensor(
-        [base + len(acc), n_live - assigned,
-         int(cand[0]) if len(cand) else int(st.state[START]), len(acc), base],
-        dtype=torch.int32))
+            mask |= 1 << i
+    take = torch.arange(L, device=dev)
+    take[len(acc):] = -1
+    assigned = len(cand) + _assign_rows(
+        enc, st, lead, enc.hat_sum[torch.tensor(acc + [0] * (L - len(acc)),
+                                                device=dev)],
+        take, base, alpha_row, chunk)
+    _finish_round(st, base, n_live, cand, len(acc), mask, assigned)
 
 
-def cluster_round(enc: ClusterEncodings, st: RoundState, L: int,
-                  alpha: float, plain: bool = False,
-                  chunk: int = 2048) -> None:
-    """One clustering round on ``st``: on a CUDA device two launches of
-    ``csrc/cluster_round.cu`` (the leaders, then the rows; nothing synced),
-    on the CPU (or with ``plain``) ``_round_step_plain``."""
-    if not 1 <= L <= MAX_LEADERS or st.lead.shape[1] != L:
-        raise ValueError(f"cluster_round: L={L} leaders, want 1.."
-                         f"{MAX_LEADERS} and the table's {st.lead.shape[1]}")
-    alpha_lead, alpha_row = thresholds(alpha)
+def dedup_bitmask(sim):
+    """The kernel's dedup of a round's candidates from their similarity
+    bits: ``sim[i]`` an int whose bit j (j < i) says candidate i is
+    similar to candidate j.  In order, i is accepted iff ``sim[i] &
+    accepted`` is empty, else it joins the lowest set bit of it; a
+    candidate's cluster offset is the rank of its leader among the
+    accepted.  Returns (accepted mask, offsets)."""
+    acc, cid = 0, []
+    for i, bits in enumerate(sim):
+        hits = bits & acc
+        if not hits:
+            cid.append(bin(acc).count("1"))
+            acc |= 1 << i
+        else:
+            j = (hits & -hits).bit_length() - 1
+            cid.append(bin(acc & ((1 << j) - 1)).count("1"))
+    return acc, cid
+
+
+def _round_step_bitmask(enc: ClusterEncodings, st: RoundState, L: int,
+                        alpha_lead: float, alpha_row: float,
+                        chunk: int = 2048) -> None:
+    """One round organised as the kernel's, in torch ops: every candidate's
+    hat in its own column of ``st.lead``, the similarity bits of every
+    (candidate, earlier candidate) pair, ``dedup_bitmask``, then the rows
+    against the candidates' columns under the accepted mask.  Same results
+    as ``_round_step_plain``."""
+    cluster = st.cluster
+    dev = cluster.device
+    base, n_live = (int(x) for x in st.state[:2].tolist())
+    st.lead.zero_()
+    cand = torch.nonzero(cluster < 0).flatten()[:L].tolist()
+    for j, p in enumerate(cand):
+        s, e = int(enc.ptr_host[p]), int(enc.ptr_host[p + 1])
+        st.lead[enc.idx[s:e].long(), j] = enc.hat[s:e]
+    cand_t = torch.tensor(cand, device=dev)
+    sums = enc.hat_sum[cand_t]
+    sim = [0]
+    for i in range(1, len(cand)):
+        p = cand[i]
+        ln = int(enc.ptr_host[p + 1] - enc.ptr_host[p])
+        hit = _hits_plain(enc, st.lead[:, :i], sums[:i], cand_t[i:i + 1], ln,
+                          alpha_lead)[0].tolist()
+        sim.append(sum(1 << j for j, h in enumerate(hit) if h))
+    mask, cid = dedup_bitmask(sim)
+    cluster[cand_t] = base + torch.tensor(cid, dtype=torch.int32,
+                                          device=dev)
+    rank = [bin(mask & ((1 << j) - 1)).count("1") if (mask >> j) & 1 else -1
+            for j in range(len(cand))]
+    assigned = len(cand) + _assign_rows(
+        enc, st, st.lead[:, :len(cand)], sums,
+        torch.tensor(rank, device=dev), base, alpha_row, chunk)
+    _finish_round(st, base, n_live, cand, bin(mask).count("1"), mask,
+                  assigned)
+
+
+
+def _kernel_round(enc: ClusterEncodings, st: RoundState, L: int,
+                  alpha: float, bail_after: int, bail_yield: float,
+                  max_rounds):
+    """A round's two launches of ``csrc/cluster_round.cu`` on ``st``'s
+    CUDA device, checked once: a function that enqueues one round (the
+    leaders, then the rows; nothing synced) each time it is called."""
     dev = st.cluster.device
-    if plain or dev.type == "cpu":
-        _round_step_plain(enc, st, L, alpha_lead, alpha_row, chunk)
-        return
-    if dev.type != "cuda":
-        raise ValueError(f"cluster_round: unsupported device {dev}")
+    if L > MAX_LEADERS:
+        raise ValueError(f"cluster_round: L={L} leaders, the kernel takes "
+                         f"at most MAX_LEADERS={MAX_LEADERS} (its accepted "
+                         "mask is one 64-bit word)")
     if enc.n >= 2 ** 31 - 1:
         raise ValueError(f"cluster_round: {enc.n} rows do not fit int32")
     for t in (enc.ptr, enc.idx, enc.hat, enc.hat_sum, st.cluster, st.state,
-              st.lead, st.acc_pos):
+              st.lead, st.cand_pos, st.made, st.lists):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("cluster_round: encodings and state must be "
                              f"contiguous on {dev}")
-    args = (enc.ptr.data_ptr(), enc.idx.data_ptr(), enc.hat.data_ptr(),
+    alpha_lead, alpha_row = thresholds(alpha)
+    head = (enc.ptr.data_ptr(), enc.idx.data_ptr(), enc.hat.data_ptr(),
             enc.hat_sum.data_ptr(), st.cluster.data_ptr(),
-            st.state.data_ptr(), st.lead.data_ptr(), st.acc_pos.data_ptr(),
-            enc.n, L)
+            st.state.data_ptr(), st.lead.data_ptr(), st.cand_pos.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        _kernels.launch(_kernels.CLUSTER_LEADERS_ENTRY, *args, alpha_lead,
-                        stream)
-        _kernels.launch(_kernels.CLUSTER_ASSIGN_ENTRY, *args, alpha_row,
-                        stream)
+    leaders = (*head, st.made.data_ptr(), enc.n, L, alpha_lead,
+               min(int(bail_after), 2 ** 31 - 1), float(bail_yield),
+               -1 if max_rounds is None else int(max_rounds), stream)
+    rows = (*head, st.lists.data_ptr(), enc.n, L, alpha_row, stream)
+
+    def run():
+        _kernels.launch(_kernels.CLUSTER_LEADERS_ENTRY, *leaders)
+        _kernels.launch(_kernels.CLUSTER_ASSIGN_ENTRY, *rows)
+
+    return run
+
+
+def cluster_round(enc: ClusterEncodings, st: RoundState, L: int,
+                  alpha: float, plain: bool = False, chunk: int = 2048,
+                  bail_after: int = 48, bail_yield: float = 1.5,
+                  max_rounds=None) -> None:
+    """One clustering round on ``st``, which first tests the host loop's
+    end (no live row), bail and ``max_rounds`` and does nothing past it: on
+    a CUDA device two launches of ``csrc/cluster_round.cu`` (the leaders,
+    then the rows; nothing synced), on the CPU (or with ``plain``) the
+    plain round ``_round_step_plain``."""
+    _round_fn(enc, st, L, alpha, plain, chunk, bail_after, bail_yield,
+              max_rounds)()
+
+
+def _round_fn(enc, st, L, alpha, plain, chunk, bail_after, bail_yield,
+              max_rounds):
+    """``cluster_round``'s round as a function of no arguments, its checks
+    and the kernel's arguments settled once."""
+    if L < 1 or st.lead.shape[1] != L:
+        raise ValueError(f"cluster_round: L={L} leaders, want at least 1 "
+                         f"and the table's {st.lead.shape[1]}")
+    dev = st.cluster.device
+    if plain or dev.type == "cpu":
+        alpha_lead, alpha_row = thresholds(alpha)
+
+        def run():
+            if _round_gate_plain(st, enc.n, L, bail_after, bail_yield,
+                                 max_rounds):
+                _round_step_plain(enc, st, L, alpha_lead, alpha_row, chunk)
+
+        return run
+    if dev.type != "cuda":
+        raise ValueError(f"cluster_round: unsupported device {dev}")
+    return _kernel_round(enc, st, L, alpha, bail_after, bail_yield,
+                         max_rounds)
 
 
 def batched_cluster_device(order, block_ptr, block_idx, block_cnt,
@@ -271,11 +449,17 @@ def batched_cluster_device(order, block_ptr, block_idx, block_cnt,
     """Counterpart of ``rows._batched_cluster`` (same arguments, same
     return: ``(cluster_of (m,) int64, num_clusters)``) with every round on
     ``device``: the card unless the caller asks for ``"cpu"``, where the
-    rounds are the plain version.  ``plain`` takes the plain version on
-    the card too; ``chunk`` bounds its rows at once.  ``record``, a dict,
-    receives ``rounds``, ``clusters`` (the clusters made by the end of each
-    round that ran), ``round_ms`` (device time of each round's launches,
-    by CUDA events, on the card) and ``seconds`` (host wall)."""
+    rounds are plain.  ``plain`` takes the plain round on the card too;
+    ``chunk`` bounds its rows at once.  Rounds are enqueued
+    ``ROUNDS_PER_FETCH`` at a time, the state read once a batch.
+    ``record``, a dict, receives ``rounds`` (counted as the host loop
+    counts them), ``clusters`` (the clusters made by the end of each
+    round that ran, read once at the end), ``rounds_enqueued``,
+    ``fetches``, ``round_ms`` (on the card: each batch's device time by
+    CUDA events around it, over the rounds it ran), ``device_ms`` (their
+    sum), and host wall: ``setup_seconds`` (the encodings and the state
+    on the device), ``loop_seconds`` (the rounds, from the first enqueue
+    to the last read of the state) and ``seconds`` (all of it)."""
     from sddmm_tpu_torch.ops.hybrid import check_device
 
     dev = check_device(device)
@@ -287,35 +471,46 @@ def batched_cluster_device(order, block_ptr, block_idx, block_cnt,
     L = int(leaders_per_round)
     enc = encodings(order, block_ptr, block_idx, block_cnt, num_blocks, dev)
     st = RoundState.start(enc, L)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t_loop = time.perf_counter()
+    one_round = _round_fn(enc, st, L, alpha, plain, chunk, bail_after,
+                          bail_yield, max_rounds)
     timed = record is not None and dev.type == "cuda"
-    round_ms, made = [], []
-    num_clusters, n_live = 0, enc.n
-    rounds = 0
-    while n_live:
-        rounds += 1
-        assigned_so_far = enc.n - n_live
-        bail = (rounds > bail_after
-                and assigned_so_far < bail_yield * L * rounds)
-        if bail or (max_rounds is not None and rounds > max_rounds):
-            # the rest become singleton clusters in dispersion order
-            live = st.cluster < 0
-            st.cluster[live] = num_clusters + torch.arange(
-                n_live, dtype=torch.int32, device=dev)
-            num_clusters += n_live
-            break
+    batch_ms, batch_rounds, enqueued, ran = [], [], 0, 0
+    while True:
         if timed:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
-        cluster_round(enc, st, L, alpha, plain=plain, chunk=chunk)
+        for _ in range(ROUNDS_PER_FETCH):
+            one_round()
+        enqueued += ROUNDS_PER_FETCH
         if timed:
             ev[1].record()
-        # the round's one fetch: clusters so far and live rows
-        num_clusters, n_live = (int(x) for x in st.state[:2].tolist())
-        made.append(num_clusters)
+        # the batch's one fetch
+        words = st.state.tolist()
+        before, ran = ran, words[ROUNDS] - (words[DONE] == 2)
+        batch_rounds.append(ran - before)
         if timed:
-            round_ms.append(ev[0].elapsed_time(ev[1]))
+            batch_ms.append(ev[0].elapsed_time(ev[1]))
+        if words[DONE]:
+            break
+    loop_seconds = time.perf_counter() - t_loop
+    num_clusters, n_live = words[CLUSTERS], words[LIVE]
+    if words[DONE] == 2:
+        # the rest become singleton clusters in dispersion order
+        live = st.cluster < 0
+        st.cluster[live] = num_clusters + torch.arange(
+            n_live, dtype=torch.int32, device=dev)
+        num_clusters += n_live
     cluster_of[np.asarray(order, dtype=np.int64)] = st.cluster.cpu().numpy()
     if record is not None:
-        record.update(rounds=rounds, clusters=made, round_ms=round_ms,
+        record.update(rounds=words[ROUNDS],
+                      clusters=st.made[:ran].cpu().tolist(),
+                      rounds_enqueued=enqueued, fetches=len(batch_rounds),
+                      round_ms=[ms / max(r, 1) for ms, r in
+                                zip(batch_ms, batch_rounds)],
+                      device_ms=sum(batch_ms),
+                      setup_seconds=t_loop - t0, loop_seconds=loop_seconds,
                       seconds=time.perf_counter() - t0)
     return cluster_of, int(num_clusters)

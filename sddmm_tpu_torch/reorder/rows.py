@@ -284,12 +284,15 @@ HOST_CLUSTER_BUDGET_S = 5.0
 NATIVE_GREEDY_SPEEDUP = 15.0
 #: device clustering's cost per (padded row x block) cell, the port's own:
 #: the probe matrix (block_clustered(6400, 2048, block_prob=0.004, ...),
-#: 102400 x 2048 cells, 237 rounds) clustered by the kernel in 0.099 s of
-#: host wall on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, "device
-#: clustering"; the native host greedy took 48.5 s there).  A round's cost
-#: follows its live rows' blocks, not m x B, so this prices large matrices
-#: only roughly.
-DEVICE_CLUSTER_S_PER_CELL = 4.707e-10
+#: 102400 x 2048 cells, 237 rounds) clustered by the kernel in 0.0487 and
+#: 0.0387 s of host wall in two runs on an NVIDIA H100 80GB HBM3 at
+#: 700.00 W (chip_smoke.py, "device clustering"; this is their mean).  The
+#: rounds run in batches on the card, so most of it is the encodings'
+#: set-up on the host (0.024-0.026 s by scripts/torch_kernel_cmp.py); the
+#: native host greedy took 12.2-21.8 s there.  A round's cost follows its
+#: live rows' blocks, not m x B, so this prices large matrices only
+#: roughly.
+DEVICE_CLUSTER_S_PER_CELL = 2.084e-10
 
 
 def _route_by_cost(t_sample_s: float, n_order: int, m: int,

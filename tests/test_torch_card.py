@@ -583,6 +583,103 @@ def test_softmax_kernel_matches_plain(packed, heads, cuda_device):
     assert ((got - want).abs() / want).max().item() <= SOFTMAX_REL
 
 
+def _boundary_case(rng, heads, device):
+    """Rows about the kernel's class boundaries (8-lane groups up to 128
+    entries, a warp up to 640, a cluster of 8 blocks above), each after
+    0 to 3 empty rows, and one 200,000-entry row:
+    (row_ptr, inv_idx, packed scores, lengths)."""
+    lens = []
+    for n in (1, 3, 4, 5, 127, 128, 129, 130, 639, 640, 641, 642, 4096):
+        for pad in range(4):
+            lens += [pad, n]
+    lens += [200000, 7]
+    deg = np.array(lens)
+    row_ptr = np.r_[0, np.cumsum(deg)]
+    nnz = int(row_ptr[-1])
+    inv = rng.permutation(nnz + 1000)[:nnz]
+    flat = torch.tensor(rng.standard_normal((heads, nnz + 1000)) * 4,
+                        dtype=torch.float32, device=device)
+    return (torch.tensor(row_ptr, device=device),
+            torch.tensor(inv, dtype=torch.int32, device=device), flat, deg)
+
+
+@pytest.mark.parametrize("heads", [1, 12])
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "csr"])
+def test_softmax_class_boundaries_match_plain(packed, heads, cuda_device,
+                                              monkeypatch):
+    """Forward and backward at the row classes' boundaries: kernel against
+    the plain versions (the split rows also against the split-row
+    combine's plain counterpart; the backward entry by entry, each to the
+    size of its terms, and 0 in the padding slots), one launch each, two
+    runs bit-equal, and any grouping of the heads bit-equal; the plan's
+    classes as the wrapper builds them."""
+    rng = np.random.default_rng(30 + heads)
+    row_ptr, inv, flat, deg = _boundary_case(rng, heads, cuda_device)
+    if not packed:
+        flat, inv = flat[:, inv.long()].contiguous(), None
+    plan = sm.softmax_plan(row_ptr.cpu().numpy(), cuda_device)
+    assert plan.n_split == int((deg > sm.SOFTMAX_LONG_ROW).sum())
+    assert plan.n_sub == int(((deg > 0)
+                              & (deg <= sm.SOFTMAX_SUB_ROW)).sum())
+    n = dict(_kernels.launches)
+    got = sm.segment_softmax_torch(flat, row_ptr, 0.125, inv, plan)
+    again = sm.segment_softmax_torch(flat, row_ptr, 0.125, inv, plan)
+    g = torch.randn(got.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(3), device=cuda_device)
+    d = sm.segment_softmax_backward(got, g, row_ptr, 0.125, inv,
+                                    flat.shape[1], plan)
+    d2 = sm.segment_softmax_backward(got, g, row_ptr, 0.125, inv,
+                                     flat.shape[1], plan)
+    assert _launched(n) == {_kernels.SOFTMAX_ENTRY: 2,
+                            _kernels.SOFTMAX_BWD_ENTRY: 2}
+    want = sm.segment_softmax_plain(flat, row_ptr, 0.125, inv)
+    split = sm.segment_softmax_split_plain(flat, row_ptr, 0.125, inv)
+    want_d = sm.segment_softmax_backward_plain(got, g, row_ptr, 0.125, inv,
+                                               flat.shape[1])
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(d, d2)
+    # any grouping of the heads computes each head alike, bit for bit
+    for hg in (2, 5, heads):
+        monkeypatch.setattr(sm, "head_group",
+                            lambda heads, backward, hg=hg: min(hg, heads))
+        assert torch.equal(sm.segment_softmax_torch(flat, row_ptr, 0.125,
+                                                    inv, plan), got)
+        assert torch.equal(sm.segment_softmax_backward(
+            got, g, row_ptr, 0.125, inv, flat.shape[1], plan), d)
+    assert ((got - want).abs() / want).max().item() <= SOFTMAX_REL
+    assert ((got - split).abs() / split).max().item() <= SOFTMAX_REL
+    if inv is None:
+        assert sm.backward_rel_err(d, want_d, got, g, row_ptr,
+                                   0.125) <= SOFTMAX_REL
+    else:
+        slots = inv.long()
+        assert sm.backward_rel_err(d[:, slots], want_d[:, slots], got, g,
+                                   row_ptr, 0.125) <= SOFTMAX_REL
+        d[:, slots] = 0
+        assert not d.any()
+
+
+def test_softmax_refused_launch_raises(cuda_device):
+    """A plan whose grid the card cannot take (over 2^31 - 1 blocks): the
+    C entry refuses the launch, the wrapper raises and counts nothing."""
+    rng = np.random.default_rng(4)
+    row_ptr, inv, flat, _ = _softmax_case(rng, 1, cuda_device)
+    out = torch.empty((1, inv.numel()), device=cuda_device)
+    plan = sm.softmax_plan(row_ptr.cpu().numpy(), cuda_device)
+    n = _kernels.launches[_kernels.SOFTMAX_ENTRY]
+    with pytest.raises(RuntimeError, match="cudaError"):
+        _kernels.launch(_kernels.SOFTMAX_ENTRY, flat.data_ptr(),
+                        flat.stride(0), inv.data_ptr(), row_ptr.data_ptr(),
+                        plan.rows.data_ptr(), 0, 0, 2 ** 31, 1.0,
+                        out.data_ptr(), out.stride(0), 1, 1,
+                        torch.cuda.current_stream().cuda_stream)
+    assert _kernels.launches[_kernels.SOFTMAX_ENTRY] == n
+    with pytest.raises(TypeError, match="SoftmaxPlan"):
+        sm.segment_softmax_torch(flat, row_ptr, 1.0, inv,
+                                 torch.zeros(1, dtype=torch.int64,
+                                             device=cuda_device))
+
+
 def test_softmax_empty_rows_write_nothing(cuda_device):
     """Empty rows (every 7th, and a run at the end) write nothing: the
     output, a view into a sentinel-filled buffer, is written exactly on
@@ -1096,9 +1193,69 @@ def test_cluster_round_kernel_matches_plain(cuda_device):
     assert got[1] == plain[1] == host[1]
     assert np.array_equal(got[0], plain[0])
     assert np.array_equal(got[0], host[0])
-    n = len(record["round_ms"])
+    # two launches a round enqueued (rounds past the end return at once)
+    n = record["rounds_enqueued"]
+    assert n >= record["rounds"] and record["fetches"] >= 1
     assert launches == {_kernels.CLUSTER_LEADERS_ENTRY: n,
                         _kernels.CLUSTER_ASSIGN_ENTRY: n}
+
+
+@pytest.mark.parametrize("per_fetch", [1, 5, 64])
+@pytest.mark.parametrize("case", ["bail", "max_rounds", "L=64"])
+def test_cluster_round_device_loop_matches_plain(case, per_fetch,
+                                                 cuda_device, monkeypatch):
+    """The bail, max_rounds and the kernel's largest L tested on the card
+    inside the rounds: the same clusters, rounds and clusters a round as
+    the plain rounds, at any batch size; a second run bit-equal."""
+    from sddmm_tpu_torch.reorder import device_cluster as dc
+    if case == "bail":
+        csr = generate.powerlaw_graph(2048, avg_degree=6, seed=55)
+        kw = dict(leaders_per_round=8, bail_after=3, bail_yield=4.0)
+    elif case == "max_rounds":
+        csr = generate.banded(512, 512, bandwidth=12, fill=0.6, seed=52)
+        kw = dict(leaders_per_round=4, max_rounds=5)
+    else:
+        csr = generate.hypersparse_dense_mix(512, 4096, density=2e-3,
+                                             num_dense_rows=6,
+                                             num_dense_cols=4, seed=57)
+        kw = dict(leaders_per_round=dc.MAX_LEADERS)
+    args = _cluster_args(csr)
+    rec_k, rec_p = {}, {}
+    monkeypatch.setattr(dc, "ROUNDS_PER_FETCH", per_fetch)
+    got = dc.batched_cluster_device(*args, 0.5, device=cuda_device,
+                                    record=rec_k, **kw)
+    again = dc.batched_cluster_device(*args, 0.5, device=cuda_device, **kw)
+    plain = dc.batched_cluster_device(*args, 0.5, device=cuda_device,
+                                      plain=True, record=rec_p, **kw)
+    assert got[1] == plain[1] == again[1]
+    assert np.array_equal(got[0], plain[0])
+    assert np.array_equal(got[0], again[0])
+    assert rec_k["rounds"] == rec_p["rounds"]
+    assert rec_k["clusters"] == rec_p["clusters"]
+
+
+def test_cluster_round_refuses_what_it_cannot_take(cuda_device):
+    """More candidates a round than the kernel's 64-bit accepted mask holds:
+    the wrapper raises naming the limit, and the C entry refuses the launch
+    (cudaErrorInvalidValue), which raises; nothing falls back."""
+    from sddmm_tpu_torch.reorder import device_cluster as dc
+    csr = generate.block_clustered(16, 16, block_prob=0.1, seed=3)
+    args = _cluster_args(csr)
+    L = dc.MAX_LEADERS + 1
+    with pytest.raises(ValueError, match="MAX_LEADERS"):
+        dc.batched_cluster_device(*args, 0.3, leaders_per_round=L,
+                                  device=cuda_device)
+    enc = dc.encodings(*args, cuda_device)
+    st = dc.RoundState.start(enc, L)
+    n = _kernels.launches[_kernels.CLUSTER_LEADERS_ENTRY]
+    with pytest.raises(RuntimeError, match="cudaError"):
+        _kernels.launch(
+            _kernels.CLUSTER_LEADERS_ENTRY, enc.ptr.data_ptr(),
+            enc.idx.data_ptr(), enc.hat.data_ptr(), enc.hat_sum.data_ptr(),
+            st.cluster.data_ptr(), st.state.data_ptr(), st.lead.data_ptr(),
+            st.cand_pos.data_ptr(), st.made.data_ptr(), enc.n, L, 0.3, 48,
+            1.5, -1, torch.cuda.current_stream().cuda_stream)
+    assert _kernels.launches[_kernels.CLUSTER_LEADERS_ENTRY] == n
 
 
 def test_two_rank_mesh_bit_equal(cuda_device):

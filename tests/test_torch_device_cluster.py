@@ -208,3 +208,132 @@ def test_route_by_cost_picks_device_when_cheaper(monkeypatch):
     assert trows._route_by_cost(50.0, 200_000, 200_000, 512) == "device"
     monkeypatch.setattr(trows, "DEVICE_CLUSTER_S_PER_CELL", 1.0)
     assert trows._route_by_cost(50.0, 200_000, 200_000, 512) != "device"
+
+
+@pytest.mark.parametrize("alpha", [0.3, 0.5])
+@pytest.mark.parametrize("gen", list(GENERATORS))
+def test_bitmask_round_matches_sequential(gen, alpha, monkeypatch):
+    """The kernel's organisation of a round in torch ops (every candidate
+    in its own column, the pairs' similarity bits, ``dedup_bitmask``), put
+    in place of the plain round, gives the sequential dedup's clusters and
+    the host's."""
+    args = _prep(GENERATORS[gen]())
+    host_cl, host_n = jrows._batched_cluster(*args, alpha,
+                                             hat_dtype=np.float32)
+    rec_s, rec_b = {}, {}
+    seq = dc.batched_cluster_device(*args, alpha, chunk=256, device="cpu",
+                                    record=rec_s)
+    monkeypatch.setattr(dc, "_round_step_plain", dc._round_step_bitmask)
+    bit = dc.batched_cluster_device(*args, alpha, chunk=256, device="cpu",
+                                    record=rec_b)
+    assert bit[1] == seq[1] == host_n
+    assert np.array_equal(bit[0], seq[0]) and np.array_equal(bit[0], host_cl)
+    assert rec_b["rounds"] == rec_s["rounds"]
+    assert rec_b["clusters"] == rec_s["clusters"]
+
+
+@pytest.mark.parametrize("L", [4, 32, 40])
+def test_bitmask_round_leaders_per_round(L, monkeypatch):
+    """The bitmask round, in place of the plain round, at candidate counts
+    below, at and above a warp's 32 lanes, on dense rows (the pairwise
+    sum's halves)."""
+    csr = jgen.hypersparse_dense_mix(512, 4096, density=2e-3,
+                                     num_dense_rows=6, num_dense_cols=4,
+                                     seed=57)
+    args = _prep(csr)
+    host_cl, host_n = jrows._batched_cluster(*args, 0.3,
+                                             leaders_per_round=L,
+                                             hat_dtype=np.float32)
+    monkeypatch.setattr(dc, "_round_step_plain", dc._round_step_bitmask)
+    got_cl, got_n = dc.batched_cluster_device(*args, 0.3,
+                                              leaders_per_round=L,
+                                              device="cpu")
+    assert got_n == host_n and np.array_equal(got_cl, host_cl)
+
+
+def _sequential_dedup(sim_rows):
+    """JAX's fori dedup (``_round_step``'s ``dedup``) on an (n, n) bool
+    matrix: (accepted, cluster offset of each candidate)."""
+    n = len(sim_rows)
+    accepted = np.zeros(n, dtype=bool)
+    offset = np.zeros(n, dtype=np.int64)
+    for i in range(n):
+        hits = sim_rows[i] & accepted & (np.arange(n) < i)
+        accepted[i] = not hits.any()
+        lead = i if accepted[i] else int(np.argmax(hits))
+        offset[i] = int(accepted[:lead].sum())
+    return accepted, offset
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 32, 40, 64])
+def test_dedup_bitmask_matches_sequential(n):
+    """The bit operations' dedup equals the sequential one on random
+    similarity matrices, dense and sparse."""
+    rng = np.random.default_rng(n)
+    for p in (0.05, 0.3, 0.8):
+        sim = rng.random((n, n)) < p
+        bits = [sum(1 << j for j in range(i) if sim[i, j]) for i in range(n)]
+        mask, cid = dc.dedup_bitmask(bits)
+        accepted, offset = _sequential_dedup(sim)
+        assert [(mask >> i) & 1 for i in range(n)] == accepted.tolist()
+        assert cid == offset.tolist()
+
+
+def _todays_loop(args, alpha, L=32, max_rounds=None, bail_after=48,
+                 bail_yield=1.5):
+    """The host round loop as it stood with one fetch a round (the test a
+    round on the host, the plain round after it): (cluster_of, clusters,
+    rounds, clusters made by each round)."""
+    order, bp, bi, bc, nb = args
+    enc = dc.encodings(order, bp, bi, bc, nb, torch.device("cpu"))
+    st = dc.RoundState.start(enc, L)
+    lead, row = dc.thresholds(alpha)
+    made, rounds, n_live, num = [], 0, enc.n, 0
+    while n_live:
+        rounds += 1
+        assigned = enc.n - n_live
+        if ((rounds > bail_after and assigned < bail_yield * L * rounds)
+                or (max_rounds is not None and rounds > max_rounds)):
+            live = st.cluster < 0
+            st.cluster[live] = num + torch.arange(n_live, dtype=torch.int32)
+            num += n_live
+            break
+        st.state[dc.ROUNDS] = rounds
+        dc._round_step_plain(enc, st, L, lead, row, 256)
+        num, n_live = st.state[:2].tolist()
+        made.append(num)
+    cluster_of = np.full(bp.shape[0] - 1, -1, dtype=np.int64)
+    cluster_of[order] = st.cluster.numpy()
+    return cluster_of, num, rounds, made
+
+
+@pytest.mark.parametrize("case", ["runs out", "bail", "max_rounds"])
+@pytest.mark.parametrize("per_fetch", [1, 3, 32])
+def test_batched_round_loop_matches_todays(case, per_fetch, monkeypatch):
+    """Rounds enqueued in batches, each testing the end, the bail and
+    max_rounds itself, give today's loop's cluster_of, rounds and clusters
+    a round, whatever the batch size; rounds past the end do nothing."""
+    if case == "runs out":
+        args = _prep(GENERATORS["block_clustered"]())
+        kw = dict(L=32)
+    elif case == "bail":
+        args = _prep(jgen.powerlaw_graph(2048, avg_degree=6, seed=55))
+        kw = dict(L=8, bail_after=3, bail_yield=4.0)
+    else:
+        args = _prep(GENERATORS["banded"]())
+        kw = dict(L=4, max_rounds=5)
+    want_cl, want_n, want_rounds, want_made = _todays_loop(args, 0.5, **kw)
+    record = {}
+    L = kw.pop("L")
+    monkeypatch.setattr(dc, "ROUNDS_PER_FETCH", per_fetch)
+    got_cl, got_n = dc.batched_cluster_device(
+        *args, 0.5, leaders_per_round=L, chunk=256, device="cpu",
+        record=record, **kw)
+    assert got_n == want_n and np.array_equal(got_cl, want_cl)
+    assert record["rounds"] == want_rounds
+    assert record["clusters"] == want_made
+    assert record["fetches"] == -(-record["rounds_enqueued"] // per_fetch)
+    assert record["rounds_enqueued"] >= len(want_made)
+    if case != "runs out":
+        assert len(want_made) < want_rounds  # the loop ended early
+

@@ -125,8 +125,12 @@ def test_build_runs_commands_together_and_raises():
     # the segment softmax and its backward bind too, so a build or bind
     # failure raises
     assert _kernels.SOFTMAX_ENTRY in eps
-    assert eps[_kernels.SOFTMAX_ENTRY][7] is ctypes.c_float
-    assert eps[_kernels.SOFTMAX_BWD_ENTRY][9] is ctypes.c_float
+    # (14 and 16 arguments since they take the plan of rows by class: its
+    # rows and three counts, and the heads a group walks; stream last)
+    assert len(eps[_kernels.SOFTMAX_ENTRY]) == 14
+    assert len(eps[_kernels.SOFTMAX_BWD_ENTRY]) == 16
+    assert eps[_kernels.SOFTMAX_ENTRY][8] is ctypes.c_float
+    assert eps[_kernels.SOFTMAX_BWD_ENTRY][10] is ctypes.c_float
     # the SpMM takes a value index and head and chunk strides (23
     # arguments, stream last)
     assert len(eps[_kernels.SPMM_ENTRY]) == 23
@@ -134,10 +138,14 @@ def test_build_runs_commands_together_and_raises():
     # 16 arguments, stream last)
     assert len(eps[_kernels.TILE_GRAD_ENTRY]) == 23
     assert len(eps[_kernels.TILE_GRAD_REDUCE_ENTRY]) == 16
-    # the clustering round's two kernels: 12 arguments, alpha a float
-    for name in (_kernels.CLUSTER_LEADERS_ENTRY,
-                 _kernels.CLUSTER_ASSIGN_ENTRY):
-        assert len(eps[name]) == 12 and eps[name][10] is ctypes.c_float
+    # the clustering round's two kernels, alpha a float: the leaders take
+    # the clusters-a-round array and the host loop's bail_after, bail_yield
+    # (a double) and max_rounds (16 arguments), the rows the live lists (13)
+    lead = eps[_kernels.CLUSTER_LEADERS_ENTRY]
+    assert len(lead) == 16 and lead[11] is ctypes.c_float
+    assert lead[13] is ctypes.c_double
+    rows = eps[_kernels.CLUSTER_ASSIGN_ENTRY]
+    assert len(rows) == 13 and rows[11] is ctypes.c_float
 
 
 def test_cuda_device_raises_without_cuda():

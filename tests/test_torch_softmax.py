@@ -12,6 +12,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -170,6 +171,144 @@ def test_find_long_rows_and_rejects():
     assert out.grad_fn is not None
     out.sum().backward()
     assert torch.allclose(x.grad, torch.zeros_like(x), atol=1e-7)
+
+
+# row lengths about the kernel's classes: empty, one entry, the graph's
+# average, the last warp row, the first split row, and a hub
+SPLIT_CASE_LENGTHS = (0, 1, 86, 640, 641, 5000)
+
+
+def _split_case(heads, seed):
+    """(row_ptr, inv_idx into packed scores with spare slots, packed
+    scores (heads, F), cotangent (heads, nnz)) over rows of
+    SPLIT_CASE_LENGTHS entries each, numpy-seeded."""
+    rng = np.random.default_rng(seed)
+    lens = np.array(SPLIT_CASE_LENGTHS + SPLIT_CASE_LENGTHS[::-1])
+    row_ptr = np.r_[0, np.cumsum(lens)].astype(np.int64)
+    nnz = int(row_ptr[-1])
+    inv = rng.permutation(nnz + 300)[:nnz].astype(np.int32)
+    flat = (rng.standard_normal((heads, nnz + 300)) * 4).astype(np.float32)
+    g = rng.standard_normal((heads, nnz)).astype(np.float32)
+    return row_ptr, inv, flat, g
+
+
+@pytest.mark.parametrize("heads", [1, 3])
+def test_split_row_combine_matches_jax(heads):
+    """The split rows' plain counterpart (each of the cluster's pieces'
+    (max, sum) combined in rank order; the backward's sums of p * g by
+    piece) against JAX's segment_softmax and its jax.vjp, head by head, on
+    rows of 0, 1, 86, 640, 641 and 5000 entries."""
+    row_ptr, inv, flat, g = _split_case(heads, seed=heads)
+    scale = 0.125
+    m = len(row_ptr) - 1
+    rows = jnp.asarray(np.repeat(np.arange(m), np.diff(row_ptr)))
+    rp, idx = torch.from_numpy(row_ptr), torch.from_numpy(inv)
+    assert sm.find_long_rows(row_ptr).tolist() == [4, 5, 6, 7]
+    got = sm.segment_softmax_split_plain(torch.from_numpy(flat), rp, scale,
+                                         idx)
+    d = sm.segment_softmax_backward_split_plain(
+        got, torch.from_numpy(g), rp, scale, idx, flat.shape[1])
+    for h in range(heads):
+        def f(s):
+            return j_segment_softmax(jnp.take(s, jnp.asarray(inv)) * scale,
+                                     rows, m)
+        want, vjp = jax.vjp(f, jnp.asarray(flat[h]))
+        np.testing.assert_allclose(got[h].numpy(), np.asarray(want),
+                                   rtol=RTOL, atol=ATOL)
+        (want_d,) = vjp(jnp.asarray(g[h]))
+        np.testing.assert_allclose(d[h].numpy(), np.asarray(want_d),
+                                   rtol=RTOL, atol=ATOL)
+    # the split rows alone, piece by piece, against the one-piece softmax
+    for r in (4, 5):
+        x = torch.from_numpy(flat[:, inv[row_ptr[r]:row_ptr[r + 1]]]) * scale
+        np.testing.assert_allclose(sm.split_softmax_plain(x).numpy(),
+                                   torch.softmax(x, dim=1).numpy(),
+                                   rtol=RTOL, atol=ATOL)
+
+
+def test_softmax_plan_classes():
+    """The kernel's plan: every non-empty row once, by class (8-lane
+    groups up to SOFTMAX_SUB_ROW entries, a warp up to SOFTMAX_LONG_ROW,
+    a cluster above), and the pieces of a split row cover it in order."""
+    row_ptr, _, _, _ = _split_case(1, seed=0)
+    plan = sm.softmax_plan(row_ptr, "cpu")
+    lens = np.diff(row_ptr)
+    assert (plan.n_sub, plan.n_warp, plan.n_split) == (4, 2, 4)
+    rows = plan.rows.numpy()
+    assert sorted(rows.tolist()) == np.flatnonzero(lens).tolist()
+    assert (lens[rows[:plan.n_sub]] <= sm.SOFTMAX_SUB_ROW).all()
+    warp = lens[rows[plan.n_sub:plan.n_sub + plan.n_warp]]
+    assert ((warp > sm.SOFTMAX_SUB_ROW) & (warp <= sm.SOFTMAX_LONG_ROW)).all()
+    assert (lens[rows[plan.n_sub + plan.n_warp:]]
+            > sm.SOFTMAX_LONG_ROW).all()
+    for n in (641, 5000, 8, 9):
+        pieces = sm._pieces(n)
+        assert len(pieces) == sm.SOFTMAX_SPLIT
+        assert pieces[0][0] == 0 and pieces[-1][1] == n
+        assert all(a == b0 for (_, a), (b0, _) in zip(pieces, pieces[1:]))
+
+
+def test_softmax_plan_by_class():
+    """The plan cut by class: each part holds that class's rows alone, in
+    the plan's order, and a class with no rows is left out."""
+    row_ptr, _, _, _ = _split_case(1, seed=0)
+    plan = sm.softmax_plan(row_ptr, "cpu")
+    parts = plan.by_class()
+    assert list(parts) == ["short", "warp", "split"]
+    assert torch.equal(torch.cat([p.rows for p in parts.values()]),
+                       plan.rows)
+    for name, i in (("short", 0), ("warp", 1), ("split", 2)):
+        counts = [parts[name].n_sub, parts[name].n_warp, parts[name].n_split]
+        assert counts[i] == parts[name].rows.numel()
+        assert sum(counts) == counts[i]
+    short = sm.softmax_plan(np.array([0, 3, 3, 10]), "cpu").by_class()
+    assert list(short) == ["short"]
+
+
+@pytest.mark.parametrize("heads", [1, 3])
+def test_backward_rel_err_holds_each_entry_to_its_terms(heads):
+    """``backward_rel_err`` scales an entry's error by the size of its
+    terms: a wrong row sum in the 5000-entry row, whose values are small,
+    passes a check scaled by the largest value of all rows and fails this
+    one; a row sum taken in fp32 where ``g - sum`` cancels (a 2-entry row
+    with equal cotangents) passes it, though it fails a check scaled by
+    the row's own values; an entry with no terms must be exact."""
+    row_ptr, _, flat, g = _split_case(heads, seed=7)
+    x = torch.as_tensor(flat[:, :int(row_ptr[-1])])
+    rp = torch.as_tensor(row_ptr)
+    g = torch.as_tensor(g)
+    p = sm.segment_softmax_plain(x, rp, 0.125)
+    d = sm.segment_softmax_backward_plain(p, g, rp, 0.125)
+    assert sm.backward_rel_err(d, d, p, g, rp, 0.125) == 0.0
+    lens = np.diff(row_ptr)
+    hub = int(np.argmax(lens))
+    a, b = int(row_ptr[hub]), int(row_ptr[hub + 1])
+    wrong = d.clone()
+    # the hub's row sum off by 1e-4 of the sum of its |p * g|
+    delta = 1e-4 * (p[:, a:b] * g[:, a:b]).abs().sum(dim=1, keepdim=True)
+    wrong[:, a:b] -= 0.125 * p[:, a:b] * delta
+    assert float((wrong - d).abs().max() / d.abs().max()) < 1e-5
+    assert sm.backward_rel_err(wrong, d, p, g, rp, 0.125) > 1e-5
+    # a 2-entry row whose cotangents agree to 1e-4, its row sum one fp32
+    # rounding off (as a sum in another order may be)
+    r = int(np.flatnonzero(lens == 86)[0])
+    rp2 = torch.tensor([0, 2], dtype=torch.int64)
+    p2 = p[:, row_ptr[r]:row_ptr[r] + 2]
+    p2 = p2 / p2.sum(dim=1, keepdim=True)
+    g2 = torch.full_like(p2, 0.7)
+    g2[:, 1] += 1e-4
+    want = sm.segment_softmax_backward_plain(p2, g2, rp2, 0.125)
+    dot = (p2 * g2).double().sum(dim=1, keepdim=True).float()
+    dot = torch.nextafter(dot, torch.full_like(dot, 2.0))
+    got = 0.125 * (p2 * (g2 - dot))
+    assert float((got - want).abs().max() / want.abs().max()) > 1e-5
+    assert sm.backward_rel_err(got, want, p2, g2, rp2, 0.125) <= 1e-5
+    bad = got.clone()
+    bad[:, 0] += 0.125 * p2[:, 0] * 1e-3
+    assert sm.backward_rel_err(bad, want, p2, g2, rp2, 0.125) > 1e-5
+    none = torch.zeros((1, 1))
+    assert sm.backward_rel_err(none + 1e-30, none, none, none,
+                               torch.tensor([0, 1]), 0.125) == float("inf")
 
 
 def test_softmax_module_imports_no_jax():
