@@ -148,7 +148,9 @@ its time:
    round's, the bound and its share, the native host greedy's time on the
    same matrix and the routing constant (seconds a cell) printed; on a
    mid matrix (16,384 rows) the kernel, the plain round and the host's
-   ``rows._batched_cluster(hat_dtype=np.float32)`` equal; and
+   ``rows._batched_cluster(hat_dtype=np.float32)`` equal, and the kernel
+   at 96 leaders a round (the accepted mask over three 32-bit words) equal
+   to the plain round at 96; and
    ``HybridSDDMM.from_csr(method="device")`` on clustered16 with 0 errors
    against fp64;
 14. the multi-device path (``parallel``): ``dryrun_multichip`` over a
@@ -161,7 +163,25 @@ its time:
    config: CSR order with 0 errors against fp64, each rank's step, its
    local kernels and its all-reduce timed (CUDA events), the dense class on
    dlmc with 0 errors, and 5 steps of the distributed trainer within 1e-5
-   of the single-device model's losses.
+   of the single-device model's losses;
+15. the harness on the card, each script through its ``main`` in a
+   temporary directory: ``scripts/torch_make_synth_suite.py`` writes
+   three full-size matrices of three regimes (planted blocks
+   fineblock_mid, the hub rows of powerlaw40, and dlmc_dense_10 of the
+   DLMC density class); ``torch_run_baselines.py`` runs all five tools on
+   them at K=128 with ``--measure --validate`` (every check PASS, every
+   GFLOPS above 0, the tile kernel's and the gather-dot's launch counts
+   moved; the shoot-out's strategy printed: on the DLMC class the dense
+   class and the hybrid's packing time within the card's noise of each
+   other, so either may win);
+   ``torch_analyze_results.py`` tabulates the logs (its table and the
+   geomean speed-ups of bsmr over csr and dense printed);
+   ``torch_run_bench_suite.py`` runs the CLI on fineblock_mid at K = 32
+   and 128 (each log names the card, GFLOPS above 0); and
+   ``torch_scaling_bench.py --devices 1 2 4`` runs the sharded runner over
+   1, 2 and 4 ranks (gloo on one card, NCCL with a card a rank) within
+   1e-5 of the single-device runner, no all-gather, one all-reduce over
+   'feat' at (2, 2).
 
 It then prints one JSON line with the kernels' record (per kernel: its
 launches on its path, max abs error against its plain version, and the
@@ -263,6 +283,18 @@ ONE_RANK_BACKEND = "nccl"
 SCALE_CELL = ("clustered16", 128)
 SCALE_ITERS = 10
 FACT_STEPS = 5
+# the harness phase: its matrices (of torch_make_synth_suite.py's corpus),
+# K, the baselines' tools, the bench suite's Ks, the scaling run's rank
+# counts and the sharded runner's tolerance against one device
+HARNESS_MATRICES = ("fineblock_mid", "powerlaw40", "dlmc_dense_10")
+HARNESS_K = 128
+HARNESS_TOOLS = ("csr", "dense", "bsmr", "bsmr_dense_only",
+                 "bsmr_residual_only")
+HARNESS_SUITE_KS = (32, 128)
+HARNESS_RANKS = (1, 2, 4)
+SCALING_REL = 1e-5
+# the device clustering phase's leaders a round past one 64-bit word
+WIDE_LEADERS = 96
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12     # dense bf16 on the tensor cores
 FP32_FLOPS = 67e12      # fp32 outside the tensor cores
@@ -2154,6 +2186,21 @@ def run_device_clustering(torch, card, cells, goldens):
     say(f"[cluster] mid {mid.m}x{mid.n} nnz {mid.nnz}: kernel = plain round "
         f"= host batched (fp32 hats) exactly, {k_mid[1]} clusters; host "
         f"batched {t_host:.3f} s")
+    wide = {}
+    for plain in (False, True):
+        rec_w = {}
+        wide[plain] = (dc.batched_cluster_device(
+            *margs, CLUSTER_ALPHA, leaders_per_round=WIDE_LEADERS,
+            device=DEVICE, plain=plain, record=rec_w), rec_w)
+    (k_w, rec_w), (p_w, rec_pw) = wide[False], wide[True]
+    if (k_w[1] != p_w[1] or not np.array_equal(k_w[0], p_w[0])
+            or rec_w["clusters"] != rec_pw["clusters"]):
+        fail(f"device clustering at L={WIDE_LEADERS} on the mid matrix: "
+             f"kernel {k_w[1]} clusters, plain round {p_w[1]}")
+    say(f"[cluster] mid at {WIDE_LEADERS} leaders a round: kernel = plain "
+        f"round exactly, {k_w[1]} clusters in {rec_w['rounds']} rounds; "
+        f"kernel {rec_w['device_ms'] / max(len(rec_w['clusters']), 1):.4f} "
+        f"ms a round on {card}")
     csr, _, _, a, b = cells[SCALE_CELL]
     t0 = time.perf_counter()
     runner = HybridSDDMM.from_csr(csr, method="device", device=DEVICE)
@@ -2317,6 +2364,124 @@ def run_multi_device(torch, card, cells, packs, goldens):
     say(f"[scale] {len(ranks)} ranks over {backend}: "
         f"{time.perf_counter() - t0:.1f} s")
     return out, ranks
+
+
+def harness_script(name):
+    """The module of ``scripts/<name>.py`` (scripts/ on the path, so that
+    the ranks the scaling script spawns import it too)."""
+    import importlib
+    scripts = str(ROOT / "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return importlib.import_module(name)
+
+
+def run_harness(torch, card, kind):
+    """Phase 15: the harness scripts through their ``main`` on the card, in
+    a temporary directory: the synthetic corpus's three matrices, the five
+    tools at K=128 measured and validated, their table, the CLI suite and
+    the scaling run."""
+    import contextlib
+    import io as io_mod
+    from sddmm_tpu_torch import _kernels
+    from sddmm_tpu_torch.utils.logger import parse_log
+
+    synth = harness_script("torch_make_synth_suite")
+    baselines = harness_script("torch_run_baselines")
+    analyze = harness_script("torch_analyze_results")
+    bench_suite = harness_script("torch_run_bench_suite")
+    scaling = harness_script("torch_scaling_bench")
+    with tempfile.TemporaryDirectory(prefix="sddmm_harness_") as tmp:
+        tmp = Path(tmp)
+        mats, logs = tmp / "mats", tmp / "logs"
+        t0 = time.perf_counter()
+        if synth.main([str(mats), "--only", *HARNESS_MATRICES]) != 0:
+            fail("torch_make_synth_suite.py failed")
+        say(f"[harness] corpus: {len(HARNESS_MATRICES)} matrices in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        _kernels.launches.clear()
+        if baselines.main([str(mats), str(logs), "--ks", str(HARNESS_K),
+                           "--tools", *HARNESS_TOOLS, "--measure",
+                           "--validate"]) != 0:
+            fail("torch_run_baselines.py failed")
+        torch.cuda.synchronize()
+        moved = dict(_kernels.launches)
+        tile = sum(v for k, v in moved.items()
+                   if k.startswith("sddmm_tile_dot_"))
+        gather = sum(v for k, v in moved.items()
+                     if k.startswith("sddmm_gather_dot_"))
+        if not tile or not gather:
+            fail(f"the baselines launched the tile kernel {tile} and the "
+                 f"gather-dot {gather} times")
+        say(f"[harness] baselines: {len(HARNESS_MATRICES)} matrices x "
+            f"{len(HARNESS_TOOLS)} tools at K={HARNESS_K}, measured and "
+            f"validated, in {time.perf_counter() - t0:.1f} s; tile kernel "
+            f"{tile} launches, gather-dot {gather}")
+        for name in HARNESS_MATRICES:
+            log = parse_log((logs / f"{name}_k{HARNESS_K}.log").read_text())
+            bad = [t for t in HARNESS_TOOLS
+                   if log.get(f"{t}_check") != "PASS"
+                   or not float(log.get(f"{t}_gflops", 0)) > 0]
+            if bad or not float(log["bsmr_gflops"]) > 0:
+                fail(f"{name}: tools {bad} did not PASS with GFLOPS > 0")
+            if log["Device"] != "cuda:" + kind:
+                fail(f"{name}: the log's device is {log['Device']}")
+            strategy = log.get("bsmr_strategy", "hybrid")
+            say(f"[harness] {name}@K{HARNESS_K} ({log['NNZ']} nnz, bsmr "
+                f"{strategy}): " + ", ".join(
+                    f"{t} {float(log[t + '_gflops']):.1f}"
+                    for t in ("bsmr", "bsmr_csr_order") + HARNESS_TOOLS[:2]
+                    + HARNESS_TOOLS[3:]) + f" GFLOPS, every check PASS, on "
+                f"{card}")
+        table = analyze.collect(logs, HARNESS_K)
+        if analyze.main([str(logs), "--k", str(HARNESS_K), "--hybrid"]) != 0:
+            fail("torch_analyze_results.py failed")
+        speedups = analyze.geomean_speedups(table)
+        say("[harness] geomean speed-ups of bsmr at K="
+            f"{HARNESS_K}: over csr {speedups[('bsmr', 'csr')]:.3f}x, over "
+            f"dense {speedups[('bsmr', 'dense')]:.3f}x on {card}")
+        one = tmp / "one"
+        one.mkdir()
+        (mats / f"{HARNESS_MATRICES[0]}.mtx").rename(
+            one / f"{HARNESS_MATRICES[0]}.mtx")
+        t0 = time.perf_counter()
+        if bench_suite.main([str(one), str(tmp / "suite"), "--ks",
+                             *map(str, HARNESS_SUITE_KS)]) != 0:
+            fail("torch_run_bench_suite.py failed")
+        for k in HARNESS_SUITE_KS:
+            log = parse_log((tmp / "suite" / HARNESS_MATRICES[0]
+                             / f"BSMR_torch_k_{k}.log").read_text())
+            if log["Device"] != "cuda:" + kind or not (
+                    float(log["bsmr_gflops"]) > 0):
+                fail(f"bench suite K={k}: device {log['Device']}, "
+                     f"{log['bsmr_gflops']} GFLOPS")
+            say(f"[harness] bench suite {HARNESS_MATRICES[0]}@K{k} (CLI, "
+                f"float32): {float(log['bsmr_gflops']):.1f} GFLOPS on "
+                f"{card}")
+        say(f"[harness] bench suite: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out = io_mod.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = scaling.main(["--devices", *map(str, HARNESS_RANKS)])
+        except RuntimeError as e:
+            fail(f"torch_scaling_bench.py: {e}")
+        for line in out.getvalue().splitlines()[:-1]:
+            say(f"[harness] scaling {line}")
+        if rc != 0:
+            fail("torch_scaling_bench.py failed")
+        res = json.loads(out.getvalue().strip().splitlines()[-1])
+        for r in res["results"]:
+            coll = r["collectives"]
+            if not r["max_rel_err"] < SCALING_REL or coll["all-gather"] or (
+                    r["mesh"][1] == 2 and coll["all-reduce"] != 1):
+                fail(f"scaling at {r['devices']} ranks: {r}")
+        say(f"[harness] scaling over {res['backend']} at "
+            f"{[r['mesh'] for r in res['results']]}: max rel err "
+            f"{max(r['max_rel_err'] for r in res['results']):.2e} (tol "
+            f"{SCALING_REL}), no all-gather, one all-reduce over 'feat' at "
+            f"(2, 2); {time.perf_counter() - t0:.1f} s on {card}")
 
 
 def main() -> None:
@@ -2710,6 +2875,11 @@ def main() -> None:
     # -- 14. the multi-device path --
     with Phase("multi-device"):
         run_multi_device(torch, card, cells, packs, goldens)
+
+    # -- 15. the harness scripts --
+    with Phase("harness"):
+        say(f"[harness] on {card}")
+        run_harness(torch, card, kind)
 
     if "jax" in sys.modules:
         fail("jax was imported")

@@ -14,8 +14,9 @@
 // int32 block ids and hat fp32 values, hsum (n,) fp32 the row sums of hat.
 // cluster (n,) int32 is -1 while a row is live, else its cluster id.
 // state int32[kWords] carries the clustering's scalars on the card (see the
-// enum).  lead (nb, L) fp32 holds the round's candidates' dense hats,
-// candidate j in column j, zero elsewhere; cand_pos (L,) their positions;
+// enum) and the last round's accepted mask, ceil(L/32) words from kMask.
+// lead (nb, L) fp32 holds the round's candidates' dense hats, candidate j
+// in column j, zero elsewhere; cand_pos (L,) their positions;
 // made (n+1,) the clusters made by the end of each round; lists (2, n)
 // int32 the live positions, rebuilt each round (any order).
 //
@@ -39,14 +40,20 @@
 //     order with bit operations (i is accepted iff sim_i & accepted is
 //     empty, else it joins the lowest set bit), and cluster ids are the
 //     ranks among the accepted.  The serial chain of 32 candidates x 16
-//     dependent loads becomes one pass of independent ones.
+//     dependent loads becomes one pass of independent ones.  The bits are
+//     ceil(L/32) 32-bit words a candidate (dynamic shared memory, L x W
+//     words, with the stage), so L goes up to kMaxLeaders.
 //   assign (a grid sized to the card, rows by grid stride): a warp a live
 //     row of the round's compacted list, so no warp walks 32 rows and the
 //     grid never visits dead positions.  A row of up to 32 blocks is read
 //     once, one (block, hat) a lane, and shuffled to the lanes, so the
 //     leader-table reads (lane a: candidate column a, one 128-byte line a
 //     block) are the only gathered loads, and independent; a ballot ANDed
-//     with the accepted mask gives the first accepted leader.  Survivors
+//     with the accepted candidates gives the first accepted leader (each
+//     candidate's hat sum and cluster offset, -1 where it was not
+//     accepted, are staged in shared memory once a block from the mask
+//     words, the first 32 candidates' in registers).  Four blocks an SM at
+//     most 64 registers a thread, one wave.  Survivors
 //     are appended to the next round's list through a warp's shared
 //     buffer, one atomic per 32 rows.
 //   No host fetch a round: the host enqueues rounds in batches and reads
@@ -74,7 +81,9 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kLeadThreads = 1024;
 constexpr int kAssignWarps = 8;
-constexpr int kMaxLeaders = 64;   // the accepted mask is one 64-bit word
+constexpr int kAssignBlocksPerSm = 4;  // 64 registers a thread at most
+constexpr int kMaxLeaders = 512;  // candidates a round (mask words below)
+constexpr int kMaskWords = kMaxLeaders / 32;
 constexpr int kStage = 4096;      // candidate encodings staged in shared
 
 enum {
@@ -85,11 +94,18 @@ enum {
   kBase = 4,      // the last round's first cluster id
   kRounds = 5,    // rounds counted as the host counts them
   kDone = 6,      // 0 running, 1 no live rows, 2 bailed (or max_rounds)
-  kMaskLo = 7,    // the last round's accepted candidates (64-bit mask)
-  kMaskHi = 8,
-  kCount0 = 9,    // live positions in lists[0] and lists[1]
-  kWords = 11
+  kCount0 = 7,    // live positions in lists[0] and lists[1]
+  kMask = 9,      // the last round's accepted candidates, 32 a word
+  kWords = kMask + kMaskWords
 };
+
+// words of a candidate's similarity bits, and the leaders' dynamic shared
+// memory: those bits for L candidates, then the stage
+__host__ __device__ constexpr int sim_words(int L) { return (L + 31) / 32; }
+constexpr size_t leaders_smem(int L) {
+  return sizeof(unsigned) * L * sim_words(L) +
+         (sizeof(int) + sizeof(float)) * kStage;
+}
 
 // numpy's pairwise_sum (float32) of min(lead[idx[k] * ld], hat[k]), k < n;
 // idx and hat may point to shared or global memory
@@ -164,16 +180,19 @@ cluster_leaders_kernel(const long long* __restrict__ ptr,
                        int* state, float* lead, int* cand_pos, int* made,
                        long long n, int L, float alpha, int bail_after,
                        double bail_yield, long long max_rounds) {
+  extern __shared__ unsigned s_dyn[];
   __shared__ int s_cand[kMaxLeaders];
   __shared__ int s_len[kMaxLeaders];
   __shared__ int s_cid[kMaxLeaders];
   __shared__ const int* s_ip[kMaxLeaders];
   __shared__ const float* s_hp[kMaxLeaders];
-  __shared__ unsigned long long s_sim[kMaxLeaders];
-  __shared__ int s_stage_idx[kStage];
-  __shared__ float s_stage_hat[kStage];
+  __shared__ unsigned s_acc[kMaskWords];
   __shared__ int s_warp[kLeadThreads / 32];
   __shared__ int s_count, s_go, s_base;
+  const int W = sim_words(L);
+  unsigned* s_sim = s_dyn;  // (L, W): bit j of row i, i similar to j
+  int* s_stage_idx = reinterpret_cast<int*>(s_dyn + L * W);
+  float* s_stage_hat = reinterpret_cast<float*>(s_stage_idx + kStage);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_warps = blockDim.x >> 5;
   // the host loop's test at the top of a round
@@ -235,8 +254,9 @@ cluster_leaders_kernel(const long long* __restrict__ ptr,
   if (tid < n_lead) {
     const int p = s_cand[tid];
     s_len[tid] = (int)(ptr[p + 1] - ptr[p]);
-    s_sim[tid] = 0ull;
   }
+  for (int t = tid; t < n_lead * W; t += blockDim.x) s_sim[t] = 0u;
+  if (tid < W) s_acc[tid] = 0u;
   __syncthreads();
   if (tid == 0) {  // stage the candidates' encodings while they fit
     int off = 0;
@@ -278,27 +298,42 @@ cluster_leaders_kernel(const long long* __restrict__ ptr,
                                       s_len[i]);
     const float sim =
         ms / fmaxf((hsum[s_cand[j]] + hsum[s_cand[i]]) - ms, 1e-30f);
-    if (sim > alpha) atomicOr(&s_sim[i], 1ull << j);
+    if (sim > alpha) atomicOr(&s_sim[i * W + (j >> 5)], 1u << (j & 31));
   }
   __syncthreads();
   if (tid == 0) {  // acceptance in order, with bit operations
-    unsigned long long acc = 0ull;
-    for (int i = 0; i < n_lead; ++i) {
-      const unsigned long long hits = s_sim[i] & acc;
-      if (!hits) {
-        s_cid[i] = __popcll(acc);
-        acc |= 1ull << i;
-      } else {
-        const int j = __ffsll((long long)hits) - 1;
-        s_cid[i] = __popcll(acc & ((1ull << j) - 1ull));
+    int n_acc = 0;
+    for (int c = 0; c * 32 < n_lead; ++c) {
+      // word c of the accepted mask in a register; the words before it
+      // are final in s_acc
+      unsigned acc = 0u;
+      const int first_id = n_acc;
+      const int end = min(n_lead, (c + 1) * 32);
+      for (int i = c * 32; i < end; ++i) {
+        int j = -1;  // the lowest accepted j < i that i is similar to
+        for (int w = 0; w < c && j < 0; ++w) {
+          const unsigned hits = s_sim[i * W + w] & s_acc[w];
+          if (hits) j = (w << 5) + __ffs(hits) - 1;
+        }
+        if (j >= 0) {
+          s_cid[i] = s_cid[j];  // j is accepted: its id is its rank
+          continue;
+        }
+        const unsigned hits = s_sim[i * W + c] & acc;
+        if (!hits) {
+          s_cid[i] = n_acc++;
+          acc |= 1u << (i & 31);
+        } else {
+          s_cid[i] = first_id + __popc(acc & ((1u << (__ffs(hits) - 1)) - 1u));
+        }
       }
+      s_acc[c] = acc;
     }
     const int base = s_base;
-    const int made_now = base + __popcll(acc);
+    const int made_now = base + n_acc;
     state[kBase] = base;
     state[kCands] = n_lead;
-    state[kMaskLo] = (int)(unsigned)(acc & 0xffffffffull);
-    state[kMaskHi] = (int)(unsigned)(acc >> 32);
+    for (int w = 0; w < W; ++w) state[kMask + w] = (int)s_acc[w];
     state[kClusters] = made_now;
     state[kLive] -= n_lead;
     state[kStart] = s_cand[0];
@@ -311,7 +346,7 @@ cluster_leaders_kernel(const long long* __restrict__ ptr,
   }
 }
 
-__global__ void __launch_bounds__(kAssignWarps * 32)
+__global__ void __launch_bounds__(kAssignWarps * 32, kAssignBlocksPerSm)
 cluster_assign_kernel(const long long* __restrict__ ptr,
                       const int* __restrict__ idx,
                       const float* __restrict__ hat,
@@ -321,6 +356,8 @@ cluster_assign_kernel(const long long* __restrict__ ptr,
                       long long n, int L, float alpha) {
   __shared__ int s_done;
   __shared__ int s_buf[kAssignWarps][32];
+  __shared__ float s_cs[kMaxLeaders];  // the candidates' hat sums
+  __shared__ int s_rank[kMaxLeaders];  // rank among the accepted, or -1
   if (state[kDone] != 0) return;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rounds = state[kRounds];
@@ -330,14 +367,23 @@ cluster_assign_kernel(const long long* __restrict__ ptr,
   const long long count = state[kCount0 + ((rounds - 1) & 1)];
   const int n_cand = state[kCands];
   const int base = state[kBase];
-  const unsigned long long mask =
-      (unsigned long long)(unsigned)state[kMaskLo] |
-      ((unsigned long long)(unsigned)state[kMaskHi] << 32);
-  // lane a's candidates: a = lane and a = 32 + lane, their hat sums
-  const float cs0 = lane < n_cand ? hsum[cand_pos[lane]] : 0.0f;
-  const float cs1 = 32 + lane < n_cand ? hsum[cand_pos[32 + lane]] : 0.0f;
+  // candidate a's hat sum and its cluster offset from the accepted mask
+  for (int a = tid; a < n_cand; a += blockDim.x) {
+    const unsigned word = (unsigned)state[kMask + (a >> 5)];
+    int rank = -1;
+    if ((word >> (a & 31)) & 1u) {
+      rank = __popc(word & ((1u << (a & 31)) - 1u));
+      for (int w = 0; w < (a >> 5); ++w)
+        rank += __popc((unsigned)state[kMask + w]);
+    }
+    s_rank[a] = rank;
+    s_cs[a] = hsum[cand_pos[a]];
+  }
   if (tid == 0) s_done = 0;
   __syncthreads();
+  // the first 32 candidates (all of them up to L = 32) in registers
+  const int rank0 = lane < n_cand ? s_rank[lane] : -1;
+  const float cs0 = s_cs[min(lane, n_cand - 1)];
   int done = 0, nbuf = 0;
   const long long n_w = (long long)gridDim.x * kAssignWarps;
   for (long long w = (long long)blockIdx.x * kAssignWarps + warp; w < count;
@@ -353,25 +399,25 @@ cluster_assign_kernel(const long long* __restrict__ ptr,
       my_idx = idx[s + lane];
       my_hat = hat[s + lane];
     }
-    int first = -1;
+    int first = -1;  // the first accepted leader's cluster offset
     for (int a0 = 0; a0 < n_cand; a0 += 32) {
       const int a = a0 + lane;
-      const bool ok = a < n_cand && ((mask >> a) & 1ull);
+      const int rank = a0 == 0 ? rank0 : (a < n_cand ? s_rank[a] : -1);
+      const bool ok = rank >= 0;
       const float* col = lead + min(a, L - 1);
       const float ms = len <= 32
                            ? reg_min_sum(my_idx, my_hat, col, L, len)
                            : pairwise_min_sum(idx + s, hat + s, col, L, len);
-      const float cs = a0 == 0 ? cs0 : cs1;
+      const float cs = a0 == 0 ? cs0 : s_cs[min(a, n_cand - 1)];
       const bool hit = ok && ms / fmaxf((cs + hs) - ms, 1e-30f) > alpha;
       const unsigned b = __ballot_sync(kFull, hit);
       if (b) {
-        first = a0 + __ffs(b) - 1;
+        first = __shfl_sync(kFull, rank, __ffs(b) - 1);
         break;
       }
     }
     if (first >= 0) {
-      if (lane == 0)
-        cluster[q] = base + __popcll(mask & ((1ull << first) - 1ull));
+      if (lane == 0) cluster[q] = base + first;
       ++done;
     } else {
       if (lane == 0) s_buf[warp][nbuf] = q;
@@ -408,7 +454,7 @@ int assign_blocks(long long n) {
       sms = 132;
   }
   const long long want = (n + kAssignWarps - 1) / kAssignWarps;
-  const long long full = 8LL * sms;  // 64 warps an SM
+  const long long full = (long long)kAssignBlocksPerSm * sms;  // one wave
   return (int)(want < full ? want : full);
 }
 
@@ -416,10 +462,10 @@ int assign_blocks(long long n) {
 
 // C interface (ctypes), checked by the wrapper
 // (reorder/device_cluster.py::cluster_round): the encodings and the state
-// described above, n positions (< 2^31), L candidates a round (<= 64, the
-// table's leading dimension), alpha the leaders' threshold (float32 of the
-// host's alpha), the host loop's bail_after, bail_yield and max_rounds
-// (-1: none).  Returns the launch's cudaGetLastError() code, or
+// described above, n positions (< 2^31), L candidates a round (<=
+// kMaxLeaders, the table's leading dimension), alpha the leaders' threshold
+// (float32 of the host's alpha), the host loop's bail_after, bail_yield and
+// max_rounds (-1: none).  Returns the launch's cudaGetLastError() code, or
 // cudaErrorInvalidValue for an L or n it does not take.
 extern "C" int sddmm_cluster_leaders(const long long* ptr, const int* idx,
                                      const float* hat, const float* hsum,
@@ -431,7 +477,20 @@ extern "C" int sddmm_cluster_leaders(const long long* ptr, const int* idx,
   if (n <= 0) return 0;
   if (L < 1 || L > kMaxLeaders || n >= 2147483647LL)
     return (int)cudaErrorInvalidValue;
-  cluster_leaders_kernel<<<1, kLeadThreads, 0,
+  // above 48 KB of shared memory a kernel must opt in, once a device
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!opted[dev]) {
+    err = cudaFuncSetAttribute(cluster_leaders_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)leaders_smem(kMaxLeaders));
+    if (err != cudaSuccess) return (int)err;
+    opted[dev] = true;
+  }
+  cluster_leaders_kernel<<<1, kLeadThreads, leaders_smem(L),
                            static_cast<cudaStream_t>(stream)>>>(
       ptr, idx, hat, hsum, cluster, state, lead, cand_pos, made, n, L, alpha,
       bail_after, bail_yield, max_rounds);

@@ -51,13 +51,17 @@ from sddmm_tpu_torch import _kernels
 #: state words of a clustering on the device (``csrc/cluster_round.cu``):
 #: clusters so far, live rows, the first live position, the last round's
 #: candidates and first cluster id, rounds (counted as the host counts
-#: them), done (0 running, 1 no live rows, 2 bailed), the accepted mask's
-#: two halves, and the live positions in each of the two lists
-(CLUSTERS, LIVE, START, CANDS, BASE, ROUNDS, DONE, MASK_LO, MASK_HI, COUNT0,
- COUNT1) = range(11)
-#: leader candidates a round the kernel takes at most (its accepted mask is
-#: one 64-bit word); the plain rounds take any number
-MAX_LEADERS = 64
+#: them), done (0 running, 1 no live rows, 2 bailed), and the live
+#: positions in each of the two lists; from ``MASK`` on, the last round's
+#: accepted mask, 32 candidates a word
+(CLUSTERS, LIVE, START, CANDS, BASE, ROUNDS, DONE, COUNT0, COUNT1,
+ MASK) = range(10)
+#: leader candidates a round the kernel takes at most (``kMaxLeaders``: its
+#: accepted mask is MAX_LEADERS / 32 words); the plain rounds take any
+#: number
+MAX_LEADERS = 512
+#: int32 words of a clustering's state
+STATE_WORDS = MASK + MAX_LEADERS // 32
 #: rounds the host enqueues between two reads of the state
 ROUNDS_PER_FETCH = 32
 
@@ -120,8 +124,9 @@ def encodings(order, block_ptr, block_idx, block_cnt, num_blocks,
 @dataclasses.dataclass
 class RoundState:
     """A clustering's state on its device: ``cluster`` (n,) int32, -1 while
-    a position is live, else its cluster id; ``state`` int32 (11,) (the
-    words ``CLUSTERS`` .. ``COUNT1``); ``lead`` (B, L) fp32, the round's
+    a position is live, else its cluster id; ``state`` int32
+    (``STATE_WORDS``,) (the words ``CLUSTERS`` .. ``COUNT1`` and the mask
+    from ``MASK``); ``lead`` (B, L) fp32, the round's
     candidates' dense hats, candidate j in column j; ``cand_pos`` (L,)
     int32 their positions; ``made`` (n+1,) int32, the clusters made by the
     end of each round; ``lists`` (2, n) int32, the live positions of the
@@ -137,7 +142,7 @@ class RoundState:
     def start(enc: ClusterEncodings, L: int) -> "RoundState":
         dev = enc.ptr.device
         n = enc.n
-        state = torch.zeros(11, dtype=torch.int32, device=dev)
+        state = torch.zeros(STATE_WORDS, dtype=torch.int32, device=dev)
         state[LIVE] = n
         state[COUNT0] = n
         lists = torch.empty((2, n), dtype=torch.int32, device=dev)
@@ -237,8 +242,11 @@ def _finish_round(st, base, n_live, cand, n_acc, mask, assigned):
     words[START] = int(cand[0])
     words[CANDS] = len(cand)
     words[BASE] = base
-    words[MASK_LO] = int(np.uint32(mask & 0xffffffff).view(np.int32))
-    words[MASK_HI] = int(np.uint32((mask >> 32) & 0xffffffff).view(np.int32))
+    # the mask's words (a plain round of more candidates than the kernel
+    # takes keeps those that fit)
+    for w in range(min(-(-len(cand) // 32), STATE_WORDS - MASK)):
+        words[MASK + w] = int(np.uint32((mask >> (32 * w)) & 0xffffffff)
+                              .view(np.int32))
     st.state.copy_(torch.tensor(words, dtype=torch.int32))
     st.made[words[ROUNDS] - 1] = base + n_acc
     st.cand_pos[:len(cand)] = torch.as_tensor(cand, dtype=torch.int32,
@@ -367,6 +375,15 @@ def _round_step_bitmask(enc: ClusterEncodings, st: RoundState, L: int,
 
 
 
+def check_leaders(L: int) -> None:
+    """Raises ``ValueError`` naming the kernel's cap when it cannot take
+    ``L`` candidates a round (the C entry refuses the launch too)."""
+    if L > MAX_LEADERS:
+        raise ValueError(f"cluster_round: L={L} leaders, the kernel takes "
+                         f"at most MAX_LEADERS={MAX_LEADERS} (its accepted "
+                         f"mask is {MAX_LEADERS // 32} words of 32)")
+
+
 def _kernel_round(enc: ClusterEncodings, st: RoundState, L: int,
                   alpha: float, bail_after: int, bail_yield: float,
                   max_rounds):
@@ -374,10 +391,7 @@ def _kernel_round(enc: ClusterEncodings, st: RoundState, L: int,
     CUDA device, checked once: a function that enqueues one round (the
     leaders, then the rows; nothing synced) each time it is called."""
     dev = st.cluster.device
-    if L > MAX_LEADERS:
-        raise ValueError(f"cluster_round: L={L} leaders, the kernel takes "
-                         f"at most MAX_LEADERS={MAX_LEADERS} (its accepted "
-                         "mask is one 64-bit word)")
+    check_leaders(L)
     if enc.n >= 2 ** 31 - 1:
         raise ValueError(f"cluster_round: {enc.n} rows do not fit int32")
     for t in (enc.ptr, enc.idx, enc.hat, enc.hat_sum, st.cluster, st.state,

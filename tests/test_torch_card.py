@@ -1234,10 +1234,35 @@ def test_cluster_round_device_loop_matches_plain(case, per_fetch,
     assert rec_k["clusters"] == rec_p["clusters"]
 
 
+@pytest.mark.parametrize("L", [65, 96, 256])
+def test_cluster_round_many_leaders_matches_plain(L, cuda_device):
+    """More than 64 candidates a round (the accepted mask over several
+    32-bit words, the rows' pass over several warp-wide chunks of
+    candidates): the same cluster_of, rounds and clusters a round as the
+    plain round on the card, on dense rows and on a power law."""
+    from sddmm_tpu_torch.reorder import device_cluster as dc
+    for csr in (generate.hypersparse_dense_mix(512, 4096, density=2e-3,
+                                               num_dense_rows=6,
+                                               num_dense_cols=4, seed=57),
+                generate.powerlaw_graph(4096, avg_degree=8, seed=58)):
+        args = _cluster_args(csr)
+        rec_k, rec_p = {}, {}
+        got = dc.batched_cluster_device(*args, 0.3, leaders_per_round=L,
+                                        device=cuda_device, record=rec_k)
+        plain = dc.batched_cluster_device(*args, 0.3, leaders_per_round=L,
+                                          device=cuda_device, plain=True,
+                                          record=rec_p)
+        assert got[1] == plain[1]
+        assert np.array_equal(got[0], plain[0])
+        assert rec_k["rounds"] == rec_p["rounds"]
+        assert rec_k["clusters"] == rec_p["clusters"]
+
+
 def test_cluster_round_refuses_what_it_cannot_take(cuda_device):
-    """More candidates a round than the kernel's 64-bit accepted mask holds:
-    the wrapper raises naming the limit, and the C entry refuses the launch
-    (cudaErrorInvalidValue), which raises; nothing falls back."""
+    """More candidates a round than the kernel's accepted mask holds
+    (MAX_LEADERS / 32 words): the wrapper raises naming the limit, and the
+    C entry refuses the launch (cudaErrorInvalidValue), which raises;
+    nothing falls back."""
     from sddmm_tpu_torch.reorder import device_cluster as dc
     csr = generate.block_clustered(16, 16, block_prob=0.1, seed=3)
     args = _cluster_args(csr)

@@ -117,6 +117,45 @@ def test_leaders_per_round_and_dense_rows(L):
     assert got_n == host_n and np.array_equal(got_cl, host_cl)
 
 
+def test_kernel_leader_cap():
+    """The kernel takes up to MAX_LEADERS (at least 512) candidates a round,
+    the C entry's kMaxLeaders; above it the card's round raises naming the
+    cap, and nothing routes it to the plain round."""
+    import re
+    from pathlib import Path
+    src = (Path(dc.__file__).parents[1] / "csrc" / "cluster_round.cu"
+           ).read_text()
+    assert int(re.search(r"kMaxLeaders = (\d+);", src).group(1)) \
+        == dc.MAX_LEADERS >= 512
+    assert dc.STATE_WORDS == dc.MASK + dc.MAX_LEADERS // 32
+    for L in (1, 64, 65, 96, 256, dc.MAX_LEADERS):
+        dc.check_leaders(L)
+    with pytest.raises(ValueError, match=f"MAX_LEADERS={dc.MAX_LEADERS}"):
+        dc.check_leaders(dc.MAX_LEADERS + 1)
+
+
+@pytest.mark.parametrize("L", [65, 96])
+def test_mask_words_of_a_round(L):
+    """A round of more than 64 candidates leaves its accepted mask in the
+    state's words from MASK, 32 candidates a word, as the kernel does."""
+    args = _prep(GENERATORS["powerlaw"]())
+    enc = dc.encodings(*args, torch.device("cpu"))
+    st = dc.RoundState.start(enc, L)
+    lead, row = dc.thresholds(0.5)
+    st.state[dc.ROUNDS] = 1
+    dc._round_step_plain(enc, st, L, lead, row)
+    words = st.state.tolist()
+    cand = st.cand_pos[:words[dc.CANDS]].tolist()
+    cl = st.cluster[cand].tolist()
+    # a candidate is accepted iff its cluster id is new among those before
+    accepted = [c not in cl[:i] for i, c in enumerate(cl)]
+    mask = sum(int(np.int32(words[dc.MASK + w]).view(np.uint32)) << (32 * w)
+               for w in range(-(-L // 32)))
+    assert len(cand) == L
+    assert [(mask >> i) & 1 == 1 for i in range(L)] == accepted
+    assert words[dc.CLUSTERS] == sum(accepted)
+
+
 def test_pairwise_sum_is_numpys():
     """The plain round's sum takes numpy's float32 pairwise order, add for
     add, at every length the kernel may meet."""
@@ -232,7 +271,7 @@ def test_bitmask_round_matches_sequential(gen, alpha, monkeypatch):
     assert rec_b["clusters"] == rec_s["clusters"]
 
 
-@pytest.mark.parametrize("L", [4, 32, 40])
+@pytest.mark.parametrize("L", [4, 32, 40, 96])
 def test_bitmask_round_leaders_per_round(L, monkeypatch):
     """The bitmask round, in place of the plain round, at candidate counts
     below, at and above a warp's 32 lanes, on dense rows (the pairwise
@@ -265,7 +304,7 @@ def _sequential_dedup(sim_rows):
     return accepted, offset
 
 
-@pytest.mark.parametrize("n", [1, 2, 7, 32, 40, 64])
+@pytest.mark.parametrize("n", [1, 2, 7, 32, 40, 64, 96])
 def test_dedup_bitmask_matches_sequential(n):
     """The bit operations' dedup equals the sequential one on random
     similarity matrices, dense and sparse."""

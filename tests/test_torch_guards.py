@@ -53,13 +53,30 @@ def test_entry_point_modules_do_not_load_jax():
     assert res.returncode == 0 and "clean" in res.stdout, res.stderr
 
 
+#: the harness scripts of the port, one per JAX script
+HARNESS_SCRIPTS = ("torch_make_synth_suite", "torch_convert_mtx_to_npz",
+                   "torch_fetch_datasets", "torch_run_bench_suite",
+                   "torch_run_baselines", "torch_analyze_results",
+                   "torch_plot_results", "torch_make_matched_clones",
+                   "torch_matched_clone_report", "torch_scaling_bench")
+
+
 def test_no_jax_import_in_sources():
-    paths = list((ROOT / "sddmm_tpu_torch").rglob("*.py"))
-    # the multi-device path and the clustering are among them
-    names = {p.relative_to(ROOT / "sddmm_tpu_torch").as_posix()
-             for p in paths}
-    assert {"parallel/dist.py", "parallel/mesh.py", "parallel/launch.py",
-            "parallel/dryrun.py", "reorder/device_cluster.py"} <= names
+    """The port's package, the smoke run and the port's scripts import
+    neither jax nor the JAX package."""
+    paths = (list((ROOT / "sddmm_tpu_torch").rglob("*.py"))
+             + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "scripts").glob("torch_*.py")))
+    # the multi-device path, the clustering, the smoke run and the harness
+    # scripts are among them
+    names = {p.relative_to(ROOT).as_posix() for p in paths}
+    assert {"sddmm_tpu_torch/parallel/dist.py",
+            "sddmm_tpu_torch/parallel/mesh.py",
+            "sddmm_tpu_torch/parallel/launch.py",
+            "sddmm_tpu_torch/parallel/dryrun.py",
+            "sddmm_tpu_torch/reorder/device_cluster.py",
+            "chip_smoke.py"} <= names
+    assert {f"scripts/{s}.py" for s in HARNESS_SCRIPTS} <= names
     for path in paths:
         for line in path.read_text().splitlines():
             s = line.strip()
@@ -332,3 +349,46 @@ def test_spawned_rank_does_not_load_jax():
     assert "sddmm_tpu_torch.reorder.device_cluster" in mods
     assert not [m for m in mods if m == "jax" or m.startswith("jax.")
                 or m == "sddmm_tpu" or m.startswith("sddmm_tpu.")]
+
+
+def _jax_all(subpackage: str) -> list:
+    """The names in ``sddmm_tpu/<subpackage>/__init__.py``'s ``__all__``,
+    read with ``ast`` (nothing of the JAX package imported)."""
+    import ast
+    tree = ast.parse((ROOT / "sddmm_tpu" / subpackage / "__init__.py")
+                     .read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return list(ast.literal_eval(node.value))
+    return []
+
+
+#: a JAX name whose counterpart in the port has another name
+COUNTERPART = {"time_jax_fn": "time_fn", "csr_sddmm_jax": "csr_sddmm_torch"}
+
+
+@pytest.mark.parametrize("subpackage", ["data", "models", "ops", "parallel",
+                                        "reorder", "utils"])
+def test_subpackage_exports_match_jax(subpackage):
+    """Every name a subpackage of the JAX package exports (``__all__``), or
+    its named counterpart, imports from the port's subpackage of the same
+    name."""
+    from importlib import import_module
+    names = _jax_all(subpackage)
+    assert names, subpackage
+    mod = import_module(f"sddmm_tpu_torch.{subpackage}")
+    missing = [n for n in names if not hasattr(mod, COUNTERPART.get(n, n))]
+    assert not missing, (subpackage, missing)
+
+
+def test_utils_exports_timers_and_log():
+    res = _python(
+        "import sys\n"
+        "from sddmm_tpu_torch.utils import Timer, RunLog, time_fn\n"
+        "from sddmm_tpu_torch.utils import timing, logger\n"
+        "assert Timer is timing.Timer and time_fn is timing.time_fn\n"
+        "assert RunLog is logger.RunLog\n"
+        "assert 'jax' not in sys.modules, 'jax loaded'\n"
+        "print('clean')\n")
+    assert res.returncode == 0 and "clean" in res.stdout, res.stderr
