@@ -181,7 +181,18 @@ its time:
    ``torch_scaling_bench.py --devices 1 2 4`` runs the sharded runner over
    1, 2 and 4 ranks (gloo on one card, NCCL with a card a rank) within
    1e-5 of the single-device runner, no all-gather, one all-reduce over
-   'feat' at (2, 2).
+   'feat' at (2, 2);
+16. the layout model's calibration: ``scripts/torch_calibrate.py``'s
+   ``main`` at full size into a temporary file (the launch counts zeroed
+   just before): every rate finite and above 0, its footprints and its 20
+   mode x height keys there, and each mode's tile-kernel instance launched
+   by every timed or warm-up call of its four dot probes; the file loaded
+   into the port's ``autotune`` and its constants checked against it; the
+   measured shoot-out on banded and powerlaw at K=128 with the shipped
+   constants and calibrated, each finalist's score and time, the Spearman
+   correlation of the two and both winners printed, the calibrated
+   winners' CSR-order output against the fp64 golden with 0 errors; the
+   shipped constants put back at the end.
 
 It then prints one JSON line with the kernels' record (per kernel: its
 launches on its path, max abs error against its plain version, and the
@@ -295,6 +306,8 @@ HARNESS_RANKS = (1, 2, 4)
 SCALING_REL = 1e-5
 # the device clustering phase's leaders a round past one 64-bit word
 WIDE_LEADERS = 96
+# the calibration phase: the shoot-outs' cells, shipped and calibrated
+CALIBRATION_CELLS = (("banded", 128), ("powerlaw", 128))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12     # dense bf16 on the tensor cores
 FP32_FLOPS = 67e12      # fp32 outside the tensor cores
@@ -2484,6 +2497,131 @@ def run_harness(torch, card, kind):
             f"(2, 2); {time.perf_counter() - t0:.1f} s on {card}")
 
 
+def run_calibration(torch, card, cells, goldens):
+    """Phase 16: ``torch_calibrate.py`` at full size, its file loaded into
+    the port's layout model, and the measured shoot-out on
+    ``CALIBRATION_CELLS`` with the shipped constants and calibrated; the
+    shipped constants put back at the end."""
+    import contextlib
+    import io as io_mod
+    import math
+    from sddmm_tpu_torch import _kernels, bench
+    from sddmm_tpu_torch.ops.dense import DenseSDDMM
+    from sddmm_tpu_torch.ops.tile_dot import MODES
+    from sddmm_tpu_torch.reorder import autotune as at
+    from sddmm_tpu_torch.utils.check import check_values
+
+    calib = harness_script("torch_calibrate")
+    fit = harness_script("torch_calibration_fit")
+    shipped = fit.snapshot()
+    with tempfile.TemporaryDirectory(prefix="sddmm_calibration_") as tmp:
+        path = Path(tmp) / "calibration.json"
+        t0 = time.perf_counter()
+        _kernels.launches.clear()
+        with contextlib.redirect_stdout(io_mod.StringIO()):
+            rc = calib.main(["-o", str(path)])
+        torch.cuda.synchronize()
+        launches = dict(_kernels.launches)
+        cal = json.loads(path.read_text())
+    if rc != 0:
+        fail(f"torch_calibrate.py exited {rc}")
+    say(f"[calibration] torch_calibrate.py at full size: "
+        f"{time.perf_counter() - t0:.1f} s on {cal['card']}")
+    say(f"[calibration] stream {cal['stream_gbps']} GB/s (read-reduce); "
+        f"gather M rows/s at 8 MB by row bytes {cal['row_rate_8mb']}; "
+        f"512 B factor by footprint (MB) {cal['src_factor']}")
+    say("[calibration] tile kernel M 16-row groups/s: " + "; ".join(
+        f"{mode} " + "/".join(str(cal["dot_g16_ms"][f"{mode},{m}"])
+                              for m in calib.DOT_HEIGHTS)
+        for mode in MODES) + f" at m = {calib.DOT_HEIGHTS}")
+    if cal["card"] != card:
+        fail(f"the calibration names {cal['card']!r}, the card is {card!r}")
+    keys = {"row_rate_8mb": {str(rb) for rb in calib.ROW_BYTES},
+            "src_factor": {str(mb) for mb in calib.SRC_MB},
+            "dot_g16_ms": {f"{mode},{m}" for mode in MODES
+                           for m in calib.DOT_HEIGHTS}}
+    for field, want in keys.items():
+        if set(cal[field]) != want:
+            fail(f"calibration {field}: keys {sorted(cal[field])}, want "
+                 f"{sorted(want)}")
+    rates = [cal["stream_gbps"]] + [v for field in keys
+                                    for v in cal[field].values()]
+    if not all(math.isfinite(r) and r > 0 for r in rates):
+        fail(f"calibration rates not all finite and above 0: {cal}")
+    # each probe raises unless every one of its calls launched the kernel;
+    # a session whose stream hold the host outran times its calls again
+    per_mode = len(calib.DOT_HEIGHTS) * calib.dot_calls()
+    got = {k: v for k, v in launches.items()
+           if k.startswith("sddmm_tile_dot_")}
+    if sorted(got) != sorted(f"sddmm_tile_dot_{m}" for m in MODES) or not \
+            all(v >= per_mode for v in got.values()):
+        fail(f"the dot probes launched the tile kernel {got}, want at least "
+             f"{per_mode} a mode ({len(calib.DOT_HEIGHTS)} probes x "
+             f"{calib.dot_calls()} calls)")
+    say(f"[calibration] tile kernel launches by the 20 dot probes: {got} "
+        f"(at least {calib.dot_calls()} calls a probe)")
+
+    try:
+        at.load_calibration(cal)
+        wrong = [f"row_rate_8mb {rb}" for rb, r in cal["row_rate_8mb"].items()
+                 if at._ROW_RATE_8MB[int(rb)] != r]
+        wrong += [f"dot_g16_ms {key}" for key, r in cal["dot_g16_ms"].items()
+                  if at._DOT_G16_MS[(key.split(",")[0],
+                                     int(key.split(",")[1]))] != r * 1e6]
+        pts = dict(zip(at._SRC_MB.tolist(), at._SRC_F.tolist()))
+        wrong += [f"src_factor {mb}" for mb, f in cal["src_factor"].items()
+                  if pts.get(float(mb)) != f]
+        if at.STREAM_GBPS != cal["stream_gbps"] or pts.get(8.0) != 1.0:
+            wrong.append("stream_gbps or the 8 MB anchor")
+        if wrong:
+            fail(f"the loaded constants differ from the file: {wrong}")
+        say("[calibration] loaded into reorder.autotune: every constant "
+            "equals the file's")
+        for name, k in CALIBRATION_CELLS:
+            csr, _, _, a, b = cells[(name, k)]
+            for label in ("shipped", "calibrated"):
+                fit.restore(shipped)
+                if label == "calibrated":
+                    at.load_calibration(cal)
+                t0 = time.perf_counter()
+                win = at.autotune(csr, k=k, measure=True)
+                secs = time.perf_counter() - t0
+                fins = [{"config": bench.config_of(f, "tf32"),
+                         "est_ms": f.est_ms, "measured_ms": f.measured_ms}
+                        for f in win.shootout]
+                stats = fit.fit_stats(fins)
+                say(f"[calibration] {name}@K{k} {label}: "
+                    f"{len(fins)} finalists in {secs:.1f} s on {card}: "
+                    + "; ".join(f"{f['config']} est {f['est_ms']:.4f} / "
+                                f"measured {f['measured_ms']:.4f} ms"
+                                for f in fins))
+                say(f"[calibration] {name}@K{k} {label}: spearman "
+                    f"{stats['spearman']:+.3f}, median |log(est/measured)| "
+                    f"{stats['median_abs_log']:.3f}, worst "
+                    f"{stats['worst_abs_log']:.3f}; winner {stats['winner']}"
+                    f" {stats['winner_ms']:.4f} ms, the model's top "
+                    f"{stats['top']} {stats['top_ms']:.4f} ms")
+                if label != "calibrated":
+                    continue
+                if win.dense:
+                    runner = DenseSDDMM.from_csr(csr, compute_dtype="tf32",
+                                                 device=DEVICE)
+                else:
+                    runner = hybrid_runner(win.packed, win, "tf32")
+                res = check_values(goldens[(name, k)],
+                                   runner(a, b, order="csr").cpu().numpy())
+                say(f"[calibration] {name}@K{k} calibrated winner in CSR "
+                    f"order vs fp64 golden: {res}")
+                if not res.passed or res.num_errors:
+                    fail(f"{name}@K{k}: the calibrated winner has "
+                         f"{res.num_errors} values outside the contract")
+                del runner
+    finally:
+        fit.restore(shipped)
+    if at.STREAM_GBPS != shipped["STREAM_GBPS"]:
+        fail("the shipped constants were not put back")
+
+
 def main() -> None:
     if not (ROOT / "sddmm_tpu_torch" / "__init__.py").is_file() or not (
             ROOT / "results" / "tuned_configs.json").is_file():
@@ -2880,6 +3018,10 @@ def main() -> None:
     with Phase("harness"):
         say(f"[harness] on {card}")
         run_harness(torch, card, kind)
+
+    # -- 16. the layout model's calibration --
+    with Phase("calibration"):
+        run_calibration(torch, card, cells, goldens)
 
     if "jax" in sys.modules:
         fail("jax was imported")

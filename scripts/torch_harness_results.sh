@@ -8,19 +8,30 @@
 #                             (--measure --validate)
 #   torch_matched_clones.csv  their table against the reference's RTX 4090
 #   torch_scaling.json        the sharded runner at 1, 2 and 4 ranks
+#   torch_calibrated/         stage calibrated: the breadth suite at K=128
+#                             (csr and bsmr --measure --validate, the two
+#                             ablations --validate) with the layout model
+#                             calibrated (SDDMM_TPU_CALIBRATION=CAL, by
+#                             default sddmm_tpu_torch/calibration_h100.json),
+#                             its tables; stage fit: torch_calibration_fit.py
+#                             into torch_calibrated/fit (the bench's
+#                             --retune and three corpus shoot-outs in turns,
+#                             shipped and calibrated, and the suite's summary)
 # Matrices are generated from the seeds in the repo into WORK (default a
 # new temporary directory) and never kept.  Each stage resumes from the
 # logs already under OUT (--resume), so a run cut by a time limit goes on
 # where it stopped; K=128 first, the other Ks last.
 #
 # Usage: bash scripts/torch_harness_results.sh OUT [WORK] [STAGE ...]
-#   STAGE: k128 clones scaling other_ks (default: all four, in that order)
+#   STAGE: k128 clones scaling other_ks (default: all four, in that order),
+#   calibrated, fit
 set -euo pipefail
 OUT=${1:?usage: torch_harness_results.sh OUT [WORK] [STAGE ...]}
 WORK=${2:-$(mktemp -d)}
 shift $(( $# < 2 ? $# : 2 ))
 STAGES=${*:-k128 clones scaling other_ks}
 HERE=$(cd "$(dirname "$0")" && pwd)
+CAL=${CAL:-$HERE/../sddmm_tpu_torch/calibration_h100.json}
 mkdir -p "$OUT" "$WORK"
 
 suite() {
@@ -60,6 +71,23 @@ for stage in $STAGES; do
       python "$HERE/torch_run_baselines.py" "$WORK/synth" \
         "$OUT/torch_synth_suite_logs" --ks 32 64 256 \
         --tools csr dense bsmr --measure --validate --resume
+      ;;
+    calibrated)
+      suite
+      SDDMM_TPU_CALIBRATION=$CAL python "$HERE/torch_run_baselines.py" \
+        "$WORK/synth" "$OUT/torch_calibrated/torch_synth_suite_logs" \
+        --ks 128 --tools csr bsmr --measure --validate --resume
+      SDDMM_TPU_CALIBRATION=$CAL python "$HERE/torch_run_baselines.py" \
+        "$WORK/synth" "$OUT/torch_calibrated/torch_synth_suite_logs" \
+        --ks 128 --tools bsmr_dense_only bsmr_residual_only --validate \
+        --resume
+      python "$HERE/torch_analyze_results.py" \
+        "$OUT/torch_calibrated/torch_synth_suite_logs" --k 128 --hybrid
+      ;;
+    fit)
+      python "$HERE/torch_calibration_fit.py" "$OUT/torch_calibrated/fit" \
+        --calibration "$CAL" \
+        --baselines-logs "$OUT/torch_calibrated/torch_synth_suite_logs"
       ;;
     *)
       echo "unknown stage $stage" >&2

@@ -16,7 +16,12 @@ default; without one it raises, and nothing falls back to the CPU).
   validated first (``validate_tuned_configs``) and folded as ``bench.py``
   folds it, every key honoured (``fold_config``), so both packages run the
   identical packing.  ``--retune`` runs the autotune shoot-out instead,
-  timed on the card; ``--save-tuned`` writes its winners to
+  timed on the card, and adds ``shootout``: per matrix every finalist's
+  config, layout-model score (``est_ms``) and measured ms, fastest first
+  (the input of ``scripts/torch_calibration_fit.py``); the model's
+  constants are the shipped ones unless ``SDDMM_TPU_CALIBRATION`` names a
+  calibration (``reorder.autotune.load_calibration``).
+  ``--save-tuned`` writes its winners to
   ``sddmm_tpu_torch/tuned_configs_h100.json``, whose ``_comment`` names
   the card and its power limit, and which the bench reads only when
   ``--tuned-configs`` names it.
@@ -359,7 +364,7 @@ def main(argv=None) -> dict:
     log(f"device {label}; stream {gbps} GB/s")
     results, results_csr_order = {}, {}
     sols, roofs, csr_ratio = {}, {}, {}
-    sessions_ms, tuning_s, configs = {}, {}, {}
+    sessions_ms, tuning_s, configs, shootouts = {}, {}, {}, {}
     csr_plans = {}   # the CSR baseline's plan, one per pattern
     for name, gen in suite(args.quick).items():
         t0 = time.perf_counter()
@@ -380,6 +385,11 @@ def main(argv=None) -> dict:
             for f in tuned.shootout or ():
                 log(f"  {name} finalist {config_of(f, cdt)}: "
                     f"{f.measured_ms:.4f} ms, set-up {f.setup_s:.2f} s")
+            if tuned.shootout:
+                shootouts[name] = [
+                    {"config": config_of(f, cdt), "est_ms": f.est_ms,
+                     "measured_ms": f.measured_ms}
+                    for f in tuned.shootout]
             dense_sel = tuned.dense
             cfg = config_of(tuned, args.compute_dtype)
             if args.save_tuned and not args.quick:
@@ -493,6 +503,8 @@ def main(argv=None) -> dict:
         "tuning_s": tuning_s,
         "configs": configs,
     }
+    if args.retune:
+        out["shootout"] = shootouts
     if len(base4) == 4:
         out["value_4matrix"] = round(gm(base4), 1)
     out["warnings"] = warnings

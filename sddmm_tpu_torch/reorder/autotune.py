@@ -4,19 +4,24 @@
 Counterpart of ``sddmm_tpu/reorder/autotune.py``: ``TunedConfig``,
 ``estimate_ms``, ``mxu_ms``, ``estimate_dense_ms``, ``_candidate_layouts``,
 ``hub_candidates``, ``autotune_multi``, ``autotune``, the shoot-out
-(``shootout_finalists`` picks the finalists, ``_shootout`` times them) and
+(``shootout_finalists`` picks the finalists, ``_shootout`` times them),
 ``from_params`` (the deterministic path the bench takes with a committed
-per-matrix config).
+per-matrix config) and ``load_calibration`` with its import-time autoload.
 
-The constants are the JAX package's layout-model constants, copied
-unchanged so that ``pack`` (which reads ``_DOT_G16_MS``) builds the identical
-``PackedMatrix`` and the estimate-only search ranks the candidates, and
-picks the finalists, exactly as the JAX package does.  They were measured
-on a TPU and say nothing about the speed of this port's card: on the card
-only the measured mode ranks, timing every finalist with the port's
-runners (``measure_kernel_ms``).  Measuring the model's constants on the
-H100 is a later ROADMAP item.  Not copied: the calibration and gather-grid
-loaders and ``descriptor_floor_ms``, which model the TPU's gather engine.
+The shipped constants are the JAX package's layout-model constants,
+measured on a TPU and copied unchanged, so that ``pack`` (which reads
+``_DOT_G16_MS``) builds the identical ``PackedMatrix`` and the
+estimate-only search ranks the candidates, and picks the finalists,
+exactly as the JAX package does.  They say nothing about the speed of this
+port's card.  ``scripts/torch_calibrate.py`` measures the same constants on
+the card (the stream rate, the row-gather rates and the tile kernel's
+rates, in the JAX schema and units) into
+``sddmm_tpu_torch/calibration_h100.json``; ``load_calibration`` installs
+such a file, or the environment variable ``SDDMM_TPU_CALIBRATION`` (the
+JAX package's name) loads one at import.  Nothing loads it by default.
+With or without it, the measured mode times every finalist with the
+port's runners (``measure_kernel_ms``).  Not copied: the gather-grid
+loader and ``descriptor_floor_ms``, which model the TPU's gather engine.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ from sddmm_tpu_torch.reorder.bsmr import BSMR
 from sddmm_tpu_torch.reorder.pack import (GROUP_CELLS, GROUP_LANES,
                                           SUPER_CELLS, PackedMatrix, pack)
 
-# -- layout-model constants (the JAX package's, unchanged) --
+# -- layout-model constants: the JAX package's TPU constants, unchanged
+# (``load_calibration`` replaces them) --
 STREAM_GBPS = 856.0
 TAKE_PAYLOAD_CAP_GBPS = 500.0
 _ROW_RATE_8MB = {64: 380.0, 128: 374.0, 256: 575.0, 512: 327.0,
@@ -58,6 +64,70 @@ _DOT_G16_MS = {
 # (A bytes, B bytes) per element by compute/storage mode.
 _ELEM_BYTES = {"float32": (4, 4), "tf32": (4, 4), "mixed": (4, 2),
                "float16": (2, 2), "bfloat16": (2, 2)}
+
+
+def load_calibration(path_or_dict) -> None:
+    """Replace the layout model's measured constants with a calibration
+    (a JSON path or a parsed dict in the schema of
+    ``scripts/torch_calibrate.py`` and of the JAX package's
+    ``scripts/calibrate.py``), as the JAX package's ``load_calibration``
+    does: ``stream_gbps`` replaces ``STREAM_GBPS``; ``row_rate_8mb`` (M
+    rows/s by row bytes) updates ``_ROW_RATE_8MB``; ``src_factor`` (the
+    rate at a footprint in MB over the 8 MB rate, any footprints) rebinds
+    ``_SRC_MB`` and ``_SRC_F``, with the 8 MB = 1.0 anchor added and the end
+    factors held below the first and past the last footprint;
+    ``dot_g16_ms`` ("mode,height" -> M 16-row groups/s) updates
+    ``_DOT_G16_MS``, and where a key was not measured "mixed" takes the
+    "tf32" rate and "float16" a third of the "bfloat16" rate.  Other keys
+    are ignored."""
+    global STREAM_GBPS, _SRC_F, _SRC_MB
+    import json
+    from pathlib import Path
+
+    cal = (path_or_dict if isinstance(path_or_dict, dict)
+           else json.loads(Path(path_or_dict).read_text()))
+    if "stream_gbps" in cal:
+        STREAM_GBPS = float(cal["stream_gbps"])
+    for rb, rate in cal.get("row_rate_8mb", {}).items():
+        _ROW_RATE_8MB[int(rb)] = float(rate)
+    if cal.get("src_factor"):
+        # factors are measured relative to the 8 MB base rate, so the
+        # grid must carry the 8 MB = 1.0 anchor explicitly
+        fac = {float(mb): float(f) for mb, f in cal["src_factor"].items()}
+        fac.setdefault(8.0, 1.0)
+        pts = sorted(fac.items())
+        _SRC_F = np.array([pts[0][1]] + [f for _, f in pts]
+                          + [pts[-1][1]])
+        _SRC_MB = np.array([0.0] + [mb for mb, _ in pts] + [1e9])
+    # explicit keys first, then the derived rates only where not measured
+    explicit = {}
+    for key, rate in cal.get("dot_g16_ms", {}).items():
+        dt, m = key.split(",")
+        explicit[(dt, int(m))] = float(rate) * 1e6
+    _DOT_G16_MS.update(explicit)
+    for (dt, m), rate in explicit.items():
+        if dt == "tf32" and ("mixed", m) not in explicit:
+            _DOT_G16_MS[("mixed", m)] = rate
+        if dt == "bfloat16" and ("float16", m) not in explicit:
+            _DOT_G16_MS[("float16", m)] = rate / 3.0
+
+
+def _maybe_autoload():
+    """``load_calibration`` of the file ``SDDMM_TPU_CALIBRATION`` names, at
+    import; a bad path or file warns and keeps the shipped constants."""
+    import os
+    path = os.environ.get("SDDMM_TPU_CALIBRATION")
+    if not path:
+        return
+    try:
+        load_calibration(path)
+    except Exception as e:  # a stale variable must not break imports
+        import warnings
+        warnings.warn(f"SDDMM_TPU_CALIBRATION={path!r} not loaded: {e}; "
+                      "using the shipped constants")
+
+
+_maybe_autoload()
 
 
 def _row_rate(row_bytes: float, src_mb: float) -> float:
@@ -113,8 +183,9 @@ class TunedConfig:
 def estimate_ms(packed: PackedMatrix, k: int,
                 compute_dtype: str = "tf32", k_chunks: int = 1) -> float:
     """The layout model's predicted time (ms) for one hybrid SDDMM call,
-    in the JAX package's TPU units (a ranking score here, not an H100
-    time)."""
+    in the units of the loaded constants: the JAX package's TPU's as
+    shipped (a ranking score here, not an H100 time), the card's under a
+    calibration from ``scripts/torch_calibrate.py``."""
     a_el, b_el = _ELEM_BYTES[compute_dtype]
     G, NG, C = packed.group_size, packed.num_col_groups, int(k_chunks)
     kc = k // C
@@ -188,7 +259,8 @@ def mxu_ms(packed: PackedMatrix, k: int,
 
 def estimate_dense_ms(m: int, n: int, k: int,
                       compute_dtype: str = "tf32") -> float:
-    """The layout model's score (ms, TPU units) for the dense-tiling class:
+    """The layout model's score (ms, in ``estimate_ms``'s units) for the
+    dense-tiling class:
     one (M, K) x (K, N) product with the full (M, N) fp32 output.
     Streaming is the A + B read plus the (M, N) write; the matrix-unit term
     uses the 128-tall rate.  One large product overlaps its operand

@@ -1163,6 +1163,105 @@ def test_shootout_times_every_finalist_on_card(cuda_device):
                                                  str(res))
 
 
+def _calibrate_module():
+    import sys
+    scripts = str(ROOT / "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import torch_calibrate
+    return torch_calibrate
+
+
+@pytest.mark.parametrize("mode", ["tf32", "bfloat16", "float32"])
+def test_calibration_dot_probe_agrees_with_tile_table(mode, cuda_device):
+    """The calibration's dot probe rate (M 16-row groups/s, calls queued
+    behind a held stream) is within 2x of the rate from ``tile_table``
+    event times taken directly, one call at a time, on a batch 16x larger
+    (long enough that the host's enqueue does not set the pace); the probe
+    itself raises unless every call launched the kernel."""
+    from sddmm_tpu_torch.utils.timing import cuda_time_ms
+    calib = _calibrate_module()
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    m = 64
+    rate = calib.probe_dot(cuda_device, gen, mode, m, 1, 50, 3)
+    nb = 16 * calib.DOT_TILES // (m // 16)
+    adt, bdt = td.STORAGE[mode]
+    a = torch.rand((1, nb * m, 128), device=cuda_device).to(adt)
+    b = torch.rand((1, 1, nb * 128, 128), device=cuda_device).to(bdt)
+    out = torch.empty((1, nb * m * 128), device=cuda_device)
+    table = td.identity_table(nb, m, 128, m, 128, m * 128, 128, cuda_device)
+    ms = cuda_time_ms(lambda: td.tile_table(a, b, table, mode, out),
+                      20)["median_ms"]
+    direct = nb * (m // 16) / ms / 1e3
+    assert 0.5 <= rate / direct <= 2.0, (rate, direct)
+
+
+def test_queued_time_reads_the_device(cuda_device):
+    """``queued_time_ms`` agrees with per-call events on a copy long enough
+    to hide the host, and reads less than they do on a call whose host
+    wrapper is slower than its kernel."""
+    from sddmm_tpu_torch.utils.timing import cuda_time_ms, queued_time_ms
+    src = torch.ones(1 << 28, dtype=torch.uint8, device=cuda_device)
+    dst = torch.empty_like(src)
+    big = queued_time_ms(lambda: dst.copy_(src), 20)
+    per_call = cuda_time_ms(lambda: dst.copy_(src), 20)["median_ms"]
+    assert 0.9 * per_call <= big <= 1.1 * per_call, (big, per_call)
+    x = torch.ones(8, device=cuda_device)
+
+    def slow_host():
+        for _ in range(20):
+            x.add_(0.0)
+
+    assert queued_time_ms(slow_host, 50) < cuda_time_ms(
+        slow_host, 50)["median_ms"]
+
+
+def test_committed_calibration_on_card(cuda_device):
+    """``load_calibration`` of the committed ``calibration_h100.json``
+    changes ``estimate_ms`` on a bench packing, and the calibrated
+    shoot-out's winner has 0 errors against fp64; the shipped constants are
+    put back."""
+    import copy
+    from sddmm_tpu_torch import bench
+    from sddmm_tpu_torch.reorder import autotune as at
+    names = ("STREAM_GBPS", "_ROW_RATE_8MB", "_SRC_MB", "_SRC_F",
+             "_DOT_G16_MS")
+    saved = {n: copy.copy(getattr(at, n)) for n in names}
+    path = ROOT / "sddmm_tpu_torch" / "calibration_h100.json"
+    cal = json.loads(path.read_text())
+    assert cal["platform"] == "gpu" and "H100" in cal["card"]
+    csr = bench.suite(quick=True)["clustered16"]()
+    t = bench.fold_config(csr, 128, bench.load_tuned_config(
+        "clustered16", 128) or {"alpha": 0.3, "delta": 0.05}, "tf32")
+    shipped = at.estimate_ms(t.packed, 128, "tf32", t.k_chunks)
+    try:
+        at.load_calibration(path)
+        assert at.estimate_ms(t.packed, 128, "tf32", t.k_chunks) != shipped
+        win = at.autotune(csr, k=128, measure=True, measure_iterations=5,
+                          device=cuda_device)
+        if win.dense:
+            runner = DenseSDDMM.from_csr(csr, device=cuda_device)
+        else:
+            runner = hy.HybridSDDMM(win.packed, k_chunks=win.k_chunks,
+                                    use_pallas=win.use_pallas,
+                                    a_layout=win.a_layout,
+                                    device=cuda_device)
+        a = generate.make_dense(csr.m, 128, seed=1)
+        b = generate.make_dense(128, csr.n, seed=2)
+        res = check_values(sddmm_reference(a, b, csr),
+                           runner(a, b, order="csr").cpu().numpy())
+        assert res.passed and res.num_errors == 0, str(res)
+    finally:
+        for n, v in saved.items():
+            if isinstance(v, dict):
+                getattr(at, n).clear()
+                getattr(at, n).update(v)
+            else:
+                setattr(at, n, v)
+    assert at.STREAM_GBPS == saved["STREAM_GBPS"]
+
+
 def _cluster_args(csr, col_block_size=16):
     from sddmm_tpu_torch.reorder import rows
     bp, bi, bc, nb = rows.row_encodings(csr, col_block_size)

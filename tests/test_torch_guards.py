@@ -58,7 +58,8 @@ HARNESS_SCRIPTS = ("torch_make_synth_suite", "torch_convert_mtx_to_npz",
                    "torch_fetch_datasets", "torch_run_bench_suite",
                    "torch_run_baselines", "torch_analyze_results",
                    "torch_plot_results", "torch_make_matched_clones",
-                   "torch_matched_clone_report", "torch_scaling_bench")
+                   "torch_matched_clone_report", "torch_scaling_bench",
+                   "torch_calibrate")
 
 
 def test_no_jax_import_in_sources():

@@ -401,6 +401,8 @@ PORTED = {  # script -> the arguments of a run that would need a device
     "torch_make_matched_clones": ["OUT"],
     "torch_matched_clone_report": ["CLONES", "LOGS"],
     "torch_scaling_bench": ["--devices", "1"],
+    "torch_calibrate": ["--quick", "-o", "OUT/cal.json"],
+    "torch_calibration_fit": ["OUT"],
 }
 
 

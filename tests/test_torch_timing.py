@@ -54,6 +54,13 @@ def test_cuda_time_ms_needs_a_card():
         tt.cuda_time_ms(lambda: None)
 
 
+def test_queued_time_ms_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tt.queued_time_ms(lambda: None)
+
+
 def test_runner_measure_kernel_ms_on_cpu():
     """Both runners' ``measure_kernel_ms`` time ``run_padded`` in either
     order (the host clock on a CPU runner)."""
