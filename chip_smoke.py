@@ -192,7 +192,23 @@ its time:
    constants and calibrated, each finalist's score and time, the Spearman
    correlation of the two and both winners printed, the calibrated
    winners' CSR-order output against the fp64 golden with 0 errors; the
-   shipped constants put back at the end.
+   shipped constants put back at the end;
+17. the config probes, each script through its ``main`` in a temporary
+   directory, the launch counts zeroed just before each and read just
+   after: ``scripts/torch_probe_configs.py`` on banded at K=128 over the
+   committed config T, phase 12's shoot-out winner S, the card file's
+   entry H and T's first one-factor neighbours, four configs in all
+   (``torch_autofold.grid_specs``), 2 rounds, each config's contract PASS
+   against fp64, event and device times and the winner printed, the tile
+   kernel launched; ``torch_probe_dense_dlmc.py`` at K=128 (the hybrid,
+   the dense class and three cuBLAS yardsticks), the tile kernel launched;
+   then ``torch_autofold.py --validate`` folds both logs into a temporary
+   copy of ``sddmm_tpu_torch/tuned_configs_h100.json``: banded's entry is
+   the one the fold's rule picks from the log (the winner where its
+   margin over H beats both configs' spreads, else H) and dlmc's follows
+   the arbitration, each validated at 0 errors against fp64, the copy
+   passes ``validate_tuned_configs`` and names the card, and neither
+   committed configs file changes.
 
 It then prints one JSON line with the kernels' record (per kernel: its
 launches on its path, max abs error against its plain version, and the
@@ -308,6 +324,10 @@ SCALING_REL = 1e-5
 WIDE_LEADERS = 96
 # the calibration phase: the shoot-outs' cells, shipped and calibrated
 CALIBRATION_CELLS = (("banded", 128), ("powerlaw", 128))
+# the probes phase: the probed cell, its rounds, and the dlmc probe's K
+PROBE_CELL = ("banded", 128)
+PROBE_ROUNDS = 2
+DENSE_PROBE_K = 128
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12     # dense bf16 on the tensor cores
 FP32_FLOPS = 67e12      # fp32 outside the tensor cores
@@ -1879,7 +1899,8 @@ def run_entry_points(torch, card, kind, cells, passes, goldens):
     """Phase 12, the entry points a user runs: the bench route, the
     shoot-out, the CLI (single run, --tune, -t 1) and the profiler, then
     the bench's times against the same calls' (``passes``: phase 6's
-    ``kernel_pass`` per cell)."""
+    ``kernel_pass`` per cell).  Returns the shoot-out's winning config on
+    banded at K=128."""
     import contextlib
     import io as io_std
     from sddmm_tpu_torch import _kernels, bench, cli
@@ -1940,6 +1961,7 @@ def run_entry_points(torch, card, kind, cells, passes, goldens):
         fail(f"shoot-out winner: {res.num_errors} values outside the "
              "contract")
     del runner
+    shootout_winner = bench.config_of(win, "tf32")
 
     # 3. the CLI: a single run with --validate, --tune, and -t 1
     with tempfile.TemporaryDirectory() as tmp:
@@ -2035,6 +2057,7 @@ def run_entry_points(torch, card, kind, cells, passes, goldens):
         if not lo <= timer <= hi:
             fail(f"{name}: the bench's timer reads {timer:.4f} ms now, "
                  f"outside [{lo:.4f}, {hi:.4f}] ms")
+    return shootout_winner
 
 
 def device_ms(torch, fn, calls):
@@ -2622,6 +2645,113 @@ def run_calibration(torch, card, cells, goldens):
         fail("the shipped constants were not put back")
 
 
+def probe_main(torch, script, argv, label):
+    """``script.main(argv)`` with its standard output captured, the launch
+    counts zeroed just before and read just after: ``(output, launches)``;
+    a non-zero exit fails the run."""
+    import contextlib
+    import io as io_mod
+    from sddmm_tpu_torch import _kernels
+    out = io_mod.StringIO()
+    t0 = time.perf_counter()
+    _kernels.launches.clear()
+    with contextlib.redirect_stdout(out):
+        rc = script.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launches)
+    say(f"[probes] {label}: exit {rc}, {time.perf_counter() - t0:.1f} s, "
+        f"launches {launches}")
+    if rc != 0:
+        fail(f"{label} exited {rc}:\n{out.getvalue()[-2000:]}")
+    return out.getvalue(), launches
+
+
+def run_probes(torch, card, shootout_winner):
+    """Phase 17: the config probes through their ``main`` on the card, in a
+    temporary directory: ``torch_probe_configs`` on ``PROBE_CELL`` over T,
+    S (phase 12's shoot-out winner), the card file's entry H and T's first
+    one-factor neighbours (four configs),
+    ``torch_probe_dense_dlmc`` at ``DENSE_PROBE_K``, and their fold by
+    ``torch_autofold --validate`` into a copy of the card's configs file:
+    the entry it writes is the one its rule (``choose``) picks from the
+    log, the winner or H."""
+    import contextlib
+    import hashlib
+    import io as io_mod
+    import shutil
+    from sddmm_tpu_torch import bench
+
+    probe = harness_script("torch_probe_configs")
+    dense = harness_script("torch_probe_dense_dlmc")
+    fold = harness_script("torch_autofold")
+    utc = harness_script("torch_update_tuned_configs")
+    name, k = PROBE_CELL
+    t_cfg = bench.load_tuned_config(name, k)
+    h_cfg = bench.load_tuned_config(name, k, bench.H100_CONFIGS)
+    # T, S and H (unless equal to T or the dense class), T's neighbours
+    specs = fold.grid_specs(name, t_cfg, shootout_winner, h_cfg)[:4]
+    committed = {p: hashlib.sha256(p.read_bytes()).hexdigest()
+                 for p in (bench.TUNED_CONFIGS, bench.H100_CONFIGS)}
+    with tempfile.TemporaryDirectory(prefix="sddmm_probes_") as tmp:
+        logs = Path(tmp) / "probes"
+        logs.mkdir()
+        out, launches = probe_main(
+            torch, probe, ["--matrix", name, "--k", str(k), "--rounds",
+                           str(PROBE_ROUNDS), "--configs", ";".join(specs)],
+            f"torch_probe_configs {name}@K{k} over {len(specs)} configs")
+        tile = launches.get("sddmm_tile_dot_tf32", 0)
+        for line in out.splitlines():
+            if (" tiles=" in line or " contract " in line
+                    or " sessions=" in line or "winner: [" in line):
+                say(f"[probes] {line}")
+        if out.count("contract PASS") != len(specs) or not tile:
+            fail(f"torch_probe_configs: {out.count('contract PASS')} of "
+                 f"{len(specs)} configs PASS, tile kernel {tile} launches")
+        log = logs / f"probe_configs_{name}_k{k}.log"
+        log.write_text(out)
+        out, launches = probe_main(
+            torch, dense, ["--k", str(DENSE_PROBE_K)],
+            f"torch_probe_dense_dlmc K={DENSE_PROBE_K}")
+        tile_dense = launches.get("sddmm_tile_dot_tf32", 0)
+        for line in out.splitlines()[1:]:
+            say(f"[probes] {line}")
+        if "\ndense class: " not in out or not tile_dense:
+            fail(f"torch_probe_dense_dlmc: no dense class line or no tile "
+                 f"launch ({tile_dense})")
+        dense_log = logs / f"probe_dense_dlmc_k{DENSE_PROBE_K}.log"
+        dense_log.write_text(out)
+        cfg_path = Path(tmp) / "tuned_configs_h100.json"
+        shutil.copy(bench.H100_CONFIGS, cfg_path)
+        out, _ = probe_main(torch, fold, [str(logs), "--validate",
+                                          "--configs", str(cfg_path)],
+                            "torch_autofold --validate")
+        for line in out.splitlines():
+            say(f"[probes] {line}")
+        data = json.loads(cfg_path.read_text())
+        want, why = fold.choose(log, utc.winner_of(log), h_cfg)
+        with contextlib.redirect_stdout(io_mod.StringIO()):
+            dense_won = fold.dense_decision(dense_log)
+        old_dlmc = bench.load_tuned_config("dlmc", DENSE_PROBE_K,
+                                           bench.H100_CONFIGS)
+        want_dlmc = {"dense": True} if dense_won else old_dlmc
+        staged = 1 + dense_won
+        if (data[f"k{k}"][name] != want
+                or data[f"k{DENSE_PROBE_K}"].get("dlmc") != want_dlmc
+                or out.count("contract PASS errors=0/") != staged
+                or bench.validate_tuned_configs(cfg_path)
+                or card not in data["_comment"]):
+            fail(f"torch_autofold: {name} {data[f'k{k}'][name]} (want "
+                 f"{want}), dlmc {data[f'k{DENSE_PROBE_K}'].get('dlmc')} "
+                 f"(want {want_dlmc}), comment {data['_comment']!r}")
+    if committed != {p: hashlib.sha256(p.read_bytes()).hexdigest()
+                     for p in committed}:
+        fail("a committed configs file changed")
+    say(f"[probes] {name}@K{k} ({why}): {want} folded and validated (0 "
+        f"errors against fp64); dlmc@K{DENSE_PROBE_K} "
+        f"{'dense class' if dense_won else 'hybrid kept'}; the committed "
+        f"configs files unchanged; on {card}")
+
+
 def main() -> None:
     if not (ROOT / "sddmm_tpu_torch" / "__init__.py").is_file() or not (
             ROOT / "results" / "tuned_configs.json").is_file():
@@ -3003,7 +3133,8 @@ def main() -> None:
 
     # -- 12. the entry points: bench route, shoot-out, CLI, profiler --
     with Phase("entry points"):
-        run_entry_points(torch, card, kind, cells, passes, goldens)
+        shootout_winner = run_entry_points(torch, card, kind, cells, passes,
+                                           goldens)
 
     # -- 13. device row clustering --
     with Phase("device clustering"):
@@ -3022,6 +3153,10 @@ def main() -> None:
     # -- 16. the layout model's calibration --
     with Phase("calibration"):
         run_calibration(torch, card, cells, goldens)
+
+    # -- 17. the config probes --
+    with Phase("probes"):
+        run_probes(torch, card, shootout_winner)
 
     if "jax" in sys.modules:
         fail("jax was imported")

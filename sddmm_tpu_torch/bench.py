@@ -287,15 +287,18 @@ def card_label(device: torch.device) -> str:
     return smi.stdout.strip().splitlines()[0].strip()
 
 
-def save_tuned(path: Path, k: int, name: str, cfg: dict, label: str) -> None:
-    """Write one winner into the H100 configs file, naming the card."""
+def save_tuned(path: Path, k: int, name: str, cfg: dict, label: str,
+               made_by: str = "Shoot-out winners of `python -m "
+                              "sddmm_tpu_torch.bench --retune --save-tuned`"
+               ) -> None:
+    """Write one winner into the H100 configs file, naming the card and
+    what chose the winners (``made_by``)."""
     try:
         data = json.loads(path.read_text())
     except (OSError, json.JSONDecodeError):
         data = {}
     data["_comment"] = (
-        "Shoot-out winners of `python -m sddmm_tpu_torch.bench --retune "
-        f"--save-tuned`, timed on {label} (nvidia-smi name, power.limit). "
+        f"{made_by}, timed on {label} (nvidia-smi name, power.limit). "
         "The bench reads this file only when --tuned-configs names it.")
     data.setdefault(f"k{k}", {})[name] = cfg
     path.write_text(json.dumps(data, indent=4) + "\n")

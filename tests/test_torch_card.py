@@ -1413,3 +1413,81 @@ def test_two_rank_mesh_bit_equal(cuda_device):
         assert r["launches"]["sddmm_tile_dot_float32"] == 1
         assert [e["kind"] for e in r["log"]] == ["all_reduce"]
     assert n_real == packed.nnz
+
+
+def _script(name):
+    """The module of ``scripts/<name>.py``."""
+    import importlib
+    import sys
+    scripts = str(ROOT / "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return importlib.import_module(name)
+
+
+def test_probe_winner_folds_and_validates_on_card(cuda_device, tmp_path,
+                                                  monkeypatch, capsys):
+    """``torch_probe_configs`` on the quick clustered16 at K=64 over the
+    card file's entry and two other configs, timed by events and by
+    ``queued_time_ms``, the tile kernel launched; ``torch_autofold
+    --validate`` folds into a copy of the card's configs file the entry its
+    rule picks (the winner if its margin beats the spreads, else the
+    file's), at 0 errors against fp64, and the file names the card."""
+    import shutil
+    from sddmm_tpu_torch import bench
+    quick = bench.suite(True)
+    monkeypatch.setattr(bench, "suite", lambda q: quick)
+    probe, fold, utc = (_script(n) for n in (
+        "torch_probe_configs", "torch_autofold",
+        "torch_update_tuned_configs"))
+    logs = tmp_path / "logs"
+    logs.mkdir()
+    cfgs = tmp_path / "tuned_configs_h100.json"
+    shutil.copy(bench.H100_CONFIGS, cfgs)
+    entry = bench.load_tuned_config("clustered16", 64, cfgs)
+    _kernels.launches.clear()
+    rc = probe.main(["--matrix", "clustered16", "--k", "64", "--rounds", "2",
+                     "--iterations", "5", "--configs",
+                     fold.cfg_to_spec(entry)
+                     + ";a=0.3,d=0.0,apanels=1;a=0.1,d=0.05,g=2"])
+    torch.cuda.synchronize()
+    out = capsys.readouterr().out
+    assert rc == 0 and _kernels.launches.get("sddmm_tile_dot_tf32")
+    assert out.count("contract PASS") == 3 and out.count(" device ") == 6
+    assert "device winner: [" in out
+    log = logs / "probe_configs_clustered16_k64.log"
+    log.write_text(out)
+    want, _ = fold.choose(log, utc.winner_of(log), entry)
+    assert want in (entry, utc.parse_tag(utc.winner_of(log)))
+    assert fold.main([str(logs), "--validate", "--configs", str(cfgs)]) == 0
+    assert "contract PASS errors=0/" in capsys.readouterr().out
+    data = json.loads(cfgs.read_text())
+    assert data["k64"]["clustered16"] == want
+    assert torch.cuda.get_device_name(0) in data["_comment"]
+    assert bench.validate_tuned_configs(cfgs) == []
+
+
+def test_dense_arbitration_on_card(cuda_device, tmp_path, monkeypatch,
+                                   capsys):
+    """``torch_probe_dense_dlmc`` at dlmc density on 1024 x 1024, K=64:
+    every candidate timed on the card; the fold's arbitration reads its
+    dense class against its hybrid by JAX's rule, and a dense entry
+    validates at 0 errors against fp64."""
+    import re
+    from sddmm_tpu_torch import bench
+    small = {"dlmc": lambda: generate.random_sparse(1024, 1024, density=0.2,
+                                                    seed=46)}
+    monkeypatch.setattr(bench, "suite", lambda q: small)
+    dense, fold = _script("torch_probe_dense_dlmc"), _script("torch_autofold")
+    assert dense.main(["--m", "1024", "--n", "1024", "--k", "64",
+                       "--iterations", "5"]) == 0
+    out = capsys.readouterr().out
+    for key in ("hybrid: ", "dense class: ", "einsum tile-major: ",
+                "plain dot: ", "dot+extract: "):
+        assert f"\n{key}" in out, key
+    log = tmp_path / "probe_dense_dlmc_k64.log"
+    log.write_text(out)
+    d = float(re.search(r"dense class: ([\d.]+) ms", out).group(1))
+    h = float(re.search(r"hybrid: nS=\d+ res=\d+ ([\d.]+) ms", out).group(1))
+    assert fold.dense_decision(log) == (d < fold.DENSE_MARGIN * h)
+    assert fold.Validator(cuda_device).check("dlmc", 64, {"dense": True})

@@ -59,7 +59,12 @@ HARNESS_SCRIPTS = ("torch_make_synth_suite", "torch_convert_mtx_to_npz",
                    "torch_run_baselines", "torch_analyze_results",
                    "torch_plot_results", "torch_make_matched_clones",
                    "torch_matched_clone_report", "torch_scaling_bench",
-                   "torch_calibrate")
+                   "torch_calibrate", "torch_probe_configs",
+                   "torch_update_tuned_configs", "torch_probe_dense_dlmc",
+                   "torch_autofold", "torch_probe_hub", "torch_probe_dtype",
+                   "torch_probe_variance", "torch_probe_breakdown",
+                   "torch_probe_cluster", "torch_probe_csr_order",
+                   "torch_probe_gid_order")
 
 
 def test_no_jax_import_in_sources():

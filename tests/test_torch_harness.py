@@ -403,6 +403,18 @@ PORTED = {  # script -> the arguments of a run that would need a device
     "torch_scaling_bench": ["--devices", "1"],
     "torch_calibrate": ["--quick", "-o", "OUT/cal.json"],
     "torch_calibration_fit": ["OUT"],
+    "torch_probe_configs": ["--configs", "a=0.3,d=0.05"],
+    "torch_update_tuned_configs": ["LOG", "--matrix", "banded", "--k",
+                                   "128"],
+    "torch_probe_dense_dlmc": [],
+    "torch_autofold": ["LOGS", "--validate", "--configs", "OUT/h100.json"],
+    "torch_probe_hub": [],
+    "torch_probe_dtype": [],
+    "torch_probe_variance": [],
+    "torch_probe_breakdown": [],
+    "torch_probe_cluster": [],
+    "torch_probe_csr_order": [],
+    "torch_probe_gid_order": [],
 }
 
 
