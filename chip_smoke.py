@@ -150,7 +150,12 @@ its time:
    mid matrix (16,384 rows) the kernel, the plain round and the host's
    ``rows._batched_cluster(hat_dtype=np.float32)`` equal, and the kernel
    at 96 leaders a round (the accepted mask over three 32-bit words) equal
-   to the plain round at 96; and
+   to the plain round at 96; the native library's path, which must lie under
+   ``sddmm_tpu_torch/`` (``[host] native source``), and on
+   ``powerlaw_graph(8192, avg_degree=16, seed=44)`` at alpha 0.2 the numpy
+   fallback greedy (``rows._greedy_cluster``, native arithmetic) with the
+   native greedy's cluster ids exactly, both host times printed (``[host]
+   greedy fallback == native``); and
    ``HybridSDDMM.from_csr(method="device")`` on clustered16 with 0 errors
    against fp64;
 14. the multi-device path (``parallel``): ``dryrun_multichip`` over a
@@ -304,6 +309,10 @@ PROBE = dict(num_row_groups=6400, num_col_groups=2048, block_prob=0.004,
 MID = dict(num_row_groups=1024, num_col_groups=512, block_prob=0.004,
            block_density=0.6, noise_density=0.0, seed=72)
 CLUSTER_ALPHA = 0.3
+# the host greedy's numpy fallback against the native library (a matrix
+# whose rows fall near alpha, a few seconds in numpy)
+FALLBACK_GRAPH = dict(num_nodes=8192, avg_degree=16, seed=44)
+FALLBACK_ALPHA = 0.2
 # the multi-device phase: the full-size mesh, its cell and its timing
 MESH_SCALE = (2, 2)
 ONE_RANK_BACKEND = "nccl"
@@ -2129,11 +2138,47 @@ def launch_events(torch, kernels, names, run):
                  for k, evs in events.items()}
 
 
+def check_greedy_fallback(card):
+    """The native library is the port's own, and the numpy fallback greedy
+    gives its cluster ids exactly."""
+    import numpy as np
+    from sddmm_tpu_torch import native
+    from sddmm_tpu_torch.data import generate
+    from sddmm_tpu_torch.reorder import rows
+
+    pkg = Path(native.__file__).resolve().parents[1]
+    lib = native.lib_path()
+    if not (native.available() and lib.is_relative_to(pkg)
+            and native._SRC.is_relative_to(pkg)):
+        fail(f"the native library {lib} (from {native._SRC}) is not the "
+             f"port's own, or did not load")
+    say(f"[host] native source: {lib.relative_to(pkg.parent)} built from "
+        f"{native._SRC.relative_to(pkg.parent)}")
+    csr = generate.powerlaw_graph(**FALLBACK_GRAPH)
+    args = cluster_args(csr)
+    t0 = time.perf_counter()
+    nat = native.greedy_cluster(args[1], args[2], args[3], args[0], csr.m,
+                                args[4], FALLBACK_ALPHA)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fb = rows._greedy_cluster(*args, FALLBACK_ALPHA, arith="native")
+    t_fallback = time.perf_counter() - t0
+    diff = int(np.count_nonzero(fb[0] != nat[0]))
+    if fb[1] != nat[1] or diff:
+        fail(f"greedy fallback: {fb[1]} clusters, native {nat[1]}; {diff} "
+             "rows differ")
+    say(f"[host] greedy fallback == native: powerlaw {csr.m} rows nnz "
+        f"{csr.nnz}, alpha {FALLBACK_ALPHA}: {nat[1]} clusters, ids equal; "
+        f"native {t_native:.4f} s, fallback {t_fallback:.4f} s (host) on "
+        f"{card}")
+
+
 def run_device_clustering(torch, card, cells, goldens):
     """Phase 13: the clustering kernel on the probe matrix against its
     plain round (exact), the mid matrix against the host's batched
-    clustering, the native greedy's time beside it, the routing constant,
-    and HybridSDDMM.from_csr(method="device") on clustered16."""
+    clustering, the native greedy's time beside it and its numpy fallback
+    held to it, the routing constant, and
+    HybridSDDMM.from_csr(method="device") on clustered16."""
     import numpy as np
     from sddmm_tpu_torch import _kernels, native
     from sddmm_tpu_torch.data import generate
@@ -2202,6 +2247,7 @@ def run_device_clustering(torch, card, cells, goldens):
         f"{rows_ms:.4f} ms a round ({sum(phase_ms[names[0]]):.3f} + "
         f"{sum(phase_ms[names[1]]):.3f} ms over {ran} rounds, "
         f"{len(phase_ms[names[0]])} launches each) on {card}")
+    check_greedy_fallback(card)
     say(f"[cluster] routing constant DEVICE_CLUSTER_S_PER_CELL: "
         f"{rec['seconds']:.3f} s / ({m_pad} x {nb} cells) = {per_cell:.3e} "
         f"s a cell (the port's rows.py holds "

@@ -1,16 +1,22 @@
 """ctypes loader for the native C++ host accelerators.
 
-Builds ``libsddmm_native.so`` on first use (g++ -O3 -fopenmp) from the
-JAX package's source ``sddmm_tpu/native/src/native.cpp``, read as a file
-(importing ``sddmm_tpu`` would load jax), into the port's own build
-directory ``sddmm_tpu_torch/_build/``.  Every entry point has a pure numpy
-fallback elsewhere in the package with the same results; ``available()``
-is False when no compiler is present, and callers fall back to it.
+Builds the library on first use (g++ -O3 -march=native -fopenmp) from the
+port's own source ``sddmm_tpu_torch/native/src/native.cpp`` (a copy of the
+JAX package's, which stays its reference) into the port's build directory
+``sddmm_tpu_torch/_build/``.  The library's name carries a hash of the
+source, the flags and the host's ``-march=native`` target, so a library
+built from another source or on another host is never loaded.  Every entry
+point has a pure numpy fallback elsewhere in the package with the same
+results (the greedy's is ``reorder.rows._greedy_cluster`` in its native
+arithmetic); ``available()`` is False when no compiler is present, and
+callers fall back to it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import hashlib
 import os
 import subprocess
 import threading
@@ -20,26 +26,47 @@ from typing import Optional
 import numpy as np
 
 _PKG = Path(__file__).resolve().parents[1]
-_SRC = _PKG.parent / "sddmm_tpu" / "native" / "src" / "native.cpp"
-_LIB_PATH = _PKG / "_build" / "libsddmm_native.so"
+_SRC = Path(__file__).resolve().parent / "src" / "native.cpp"
+_BUILD = _PKG / "_build"
+_FLAGS = ["-O3", "-march=native", "-fopenmp", "-shared", "-fPIC"]
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _build_failed = False
 
 
-def _build() -> bool:
+@functools.lru_cache(maxsize=1)
+def _host_target() -> bytes:
+    """What ``-march=native`` resolves to on this host (empty without
+    g++, whose build then fails anyway)."""
+    try:
+        res = subprocess.run(["g++", "-march=native", "-Q", "--help=target"],
+                             capture_output=True, timeout=60)
+        return res.stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return b""
+
+
+def lib_path(src: Path = _SRC) -> Path:
+    """The library built from ``src``: named after a hash of its bytes,
+    the flags and the host's target."""
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    h.update(_host_target())
+    h.update(src.read_bytes())
+    return _BUILD / f"libsddmm_native_{h.hexdigest()[:16]}.so"
+
+
+def _build(out: Path) -> bool:
     # build under a per-process name and rename: concurrent test workers
     # never load a half-written library
-    tmp = _LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
-           str(_SRC), "-o", str(tmp)]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = ["g++", *_FLAGS, str(_SRC), "-o", str(tmp)]
     try:
-        _LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
+        out.parent.mkdir(parents=True, exist_ok=True)
         res = subprocess.run(cmd, capture_output=True, text=True,
                              timeout=300)
         if res.returncode != 0 or not tmp.exists():
             return False
-        os.replace(tmp, _LIB_PATH)
+        os.replace(tmp, out)
         return True
     except (OSError, subprocess.TimeoutExpired):
         return False
@@ -52,14 +79,12 @@ def _load() -> Optional[ctypes.CDLL]:
             return _lib
         if _build_failed:
             return None
-        if not _LIB_PATH.exists() or (
-                _SRC.exists()
-                and _SRC.stat().st_mtime > _LIB_PATH.stat().st_mtime):
-            if not _build():
-                _build_failed = True
-                return None
+        path = lib_path()
+        if not path.exists() and not _build(path):
+            _build_failed = True
+            return None
         try:
-            lib = ctypes.CDLL(str(_LIB_PATH))
+            lib = ctypes.CDLL(str(path))
         except OSError:
             _build_failed = True
             return None

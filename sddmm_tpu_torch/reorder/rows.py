@@ -96,14 +96,27 @@ def dispersion_scores(csr: CSR, block_ptr, block_cnt,
 
 
 def _greedy_cluster(order, block_ptr, block_idx, block_cnt, num_blocks,
-                    alpha: float, grow: int = 256):
+                    alpha: float, grow: int = 256, arith: str = "native"):
     """Exact reference-equivalent greedy clustering, vectorized over the
-    existing clusters for each row.  Returns (m,) cluster ids (1-based; 0
-    unused here) indexed by original row, for the rows in ``order``."""
+    existing clusters for each row.  Returns (m,) cluster ids (-1 for rows
+    not in ``order``) indexed by original row, and the cluster count.
+
+    ``arith`` picks the similarity's arithmetic.  ``"native"`` is the C++
+    greedy's (``native/src/native.cpp``), so this fallback returns its ids
+    and count exactly: each row's normalized encoding rounded to fp32, fp32
+    representatives (integer counts, exact below 2^24), and fp64 sums taken
+    serially in the C++'s order (a ``cumsum``'s last element).  ``"jax"``
+    is the JAX package's numpy greedy: fp64 hats and numpy's pairwise sums,
+    which decide otherwise near ``alpha``; the routing sample uses it to
+    route a matrix as the JAX package does."""
+    if arith not in ("native", "jax"):
+        raise ValueError(f"unknown arith {arith!r}")
+    native = arith == "native"
     num_rows_total = block_ptr.shape[0] - 1
     cluster_of = np.full(num_rows_total, -1, dtype=np.int64)
     # Growing dense representative matrix (C x B) and its norms/sums.
-    reps = np.zeros((grow, num_blocks), dtype=np.float64)
+    reps = np.zeros((grow, num_blocks),
+                    dtype=np.float32 if native else np.float64)
     rep_norm_sq = np.zeros(grow, dtype=np.float64)   # sum of squares
     rep_sum = np.zeros(grow, dtype=np.float64)       # plain sum
     num_clusters = 0
@@ -114,13 +127,19 @@ def _greedy_cluster(order, block_ptr, block_idx, block_cnt, num_blocks,
         vals = block_cnt[s:e].astype(np.float64)
         row_norm = np.sqrt(np.sum(vals * vals))
         row_hat = vals / row_norm
-        row_hat_sum = row_hat.sum()
+        if native:
+            row_hat = row_hat.astype(np.float32).astype(np.float64)
+            row_hat_sum = np.cumsum(row_hat)[-1]
+        else:
+            row_hat_sum = row_hat.sum()
         assigned = -1
         if num_clusters:
             # normalized reps restricted to the row's support
             norms = np.sqrt(rep_norm_sq[:num_clusters])
             rsub = reps[:num_clusters][:, supp] / norms[:, None]
-            min_sum = np.minimum(rsub, row_hat[None, :]).sum(axis=1)
+            mins = np.minimum(rsub, row_hat[None, :])
+            min_sum = (np.cumsum(mins, axis=1)[:, -1] if native
+                       else mins.sum(axis=1))
             max_sum = (rep_sum[:num_clusters] / norms) + row_hat_sum - min_sum
             sims = min_sum / max_sum
             hits = np.nonzero(sims > alpha)[0]
@@ -128,8 +147,7 @@ def _greedy_cluster(order, block_ptr, block_idx, block_cnt, num_blocks,
                 assigned = int(hits[0])
         if assigned < 0:
             if num_clusters == reps.shape[0]:
-                reps = np.vstack(
-                    [reps, np.zeros((reps.shape[0], num_blocks))])
+                reps = np.vstack([reps, np.zeros_like(reps)])
                 rep_norm_sq = np.concatenate(
                     [rep_norm_sq, np.zeros(rep_norm_sq.shape[0])])
                 rep_sum = np.concatenate(
@@ -138,7 +156,7 @@ def _greedy_cluster(order, block_ptr, block_idx, block_cnt, num_blocks,
             num_clusters += 1
         cluster_of[row] = assigned
         # rep += raw row encoding; update cached norm^2 and sum.
-        old = reps[assigned, supp]
+        old = reps[assigned, supp].astype(np.float64)
         reps[assigned, supp] = old + vals
         rep_norm_sq[assigned] += np.sum((old + vals) ** 2 - old ** 2)
         rep_sum[assigned] += vals.sum()
@@ -375,7 +393,7 @@ def row_reordering(csr: CSR, alpha: float = config.DEFAULT_ALPHA,
             t0 = _time.perf_counter()
             _, ncl_s = _greedy_cluster(
                 sample, block_ptr, block_idx, block_cnt, num_blocks,
-                alpha)
+                alpha, arith="jax")
             t_sample = _time.perf_counter() - t0
             if ncl_s > 0.7 * len(sample):
                 method = "unclusterable"
@@ -395,7 +413,8 @@ def row_reordering(csr: CSR, alpha: float = config.DEFAULT_ALPHA,
             cluster_of, num_clusters = native_result
         else:
             cluster_of, num_clusters = _greedy_cluster(
-                order, block_ptr, block_idx, block_cnt, num_blocks, alpha)
+                order, block_ptr, block_idx, block_cnt, num_blocks, alpha,
+                arith="native")
     elif method == "batched":
         cluster_of, num_clusters = _batched_cluster(
             order, block_ptr, block_idx, block_cnt, num_blocks, alpha)

@@ -43,6 +43,7 @@ from sddmm_tpu_torch.ops.csr_sddmm import csr_sddmm_torch
 from sddmm_tpu_torch.ops.dense import DenseSDDMM
 from sddmm_tpu_torch.ops.tile_dot import STORAGE
 from sddmm_tpu_torch.utils.check import check_values
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 K = 32
 

@@ -13,6 +13,7 @@ from sddmm_tpu.data import generate as jgen
 from sddmm_tpu.reorder import autotune as ja
 from sddmm_tpu_torch.data import generate as tgen
 from sddmm_tpu_torch.reorder import autotune as ta
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 # the JAX package's layout model as shipped around each test (a calibration
 # test earlier in the same worker would leave another)

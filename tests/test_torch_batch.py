@@ -20,6 +20,7 @@ from sddmm_tpu_torch.ops import batch as bt
 from sddmm_tpu_torch.ops import batched_csr_sddmm, batched_transpose
 from sddmm_tpu_torch.ops.csr_sddmm import csr_plan
 from sddmm_tpu_torch.ops.hybrid import HybridSDDMM
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 # "float32" on both sides: JAX's CPU backend takes the exact fp32 dot, the
 # port the six-product bf16 split, within about one fp32 rounding; sums in

@@ -20,6 +20,7 @@ from sddmm_tpu.reorder.autotune import from_params as j_from_params  # noqa
 from sddmm_tpu_torch import bench  # noqa: E402
 from sddmm_tpu_torch.data import generate as tgen  # noqa: E402
 from sddmm_tpu_torch.reorder.autotune import from_params  # noqa: E402
+from torch_native_ready import reference_native_loaded  # noqa: F401,E402
 
 # the JAX package's layout model as shipped around each test
 from test_torch_pack_parity import _shipped_layout_model  # noqa: F401,E402

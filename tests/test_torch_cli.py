@@ -16,7 +16,7 @@ from sddmm_tpu.reorder.bsmr import BSMR as JBSMR
 from sddmm_tpu.utils.logger import parse_log as jparse
 from sddmm_tpu_torch import cli
 from sddmm_tpu_torch.utils.logger import parse_log
-from torch_native_ready import reference_native
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -43,9 +43,6 @@ MATRICES = {
 
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
-    # the JAX package's native library whole, so both CLIs take their
-    # native paths (tests/torch_native_ready.py)
-    reference_native()
     d = tmp_path_factory.mktemp("mats")
     out = {}
     for name, make in MATRICES.items():

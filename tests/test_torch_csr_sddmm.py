@@ -17,6 +17,7 @@ from sddmm_tpu_torch.ops import gather_plan as gp
 from sddmm_tpu_torch.ops import hybrid as hy
 from sddmm_tpu_torch.ops.reference import sddmm_reference
 from sddmm_tpu_torch.utils.check import check_values
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 cs = importlib.import_module("sddmm_tpu_torch.ops.csr_sddmm")
 

@@ -12,6 +12,7 @@ from sddmm_tpu_torch.data.sparse import CSR as TCSR
 from sddmm_tpu_torch.ops import dense as dn
 from sddmm_tpu_torch.ops.reference import sddmm_reference
 from sddmm_tpu_torch.utils.check import check_values
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 K = 64
 MODES = ("tf32", "float32", "mixed", "float16", "bfloat16")

@@ -16,6 +16,7 @@ from sddmm_tpu.reorder.device_cluster import \
 from sddmm_tpu_torch.data.sparse import CSR as TCSR
 from sddmm_tpu_torch.reorder import device_cluster as dc
 from sddmm_tpu_torch.reorder import rows as trows
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():

@@ -20,6 +20,7 @@ from sddmm_tpu_torch.data.sparse import CSR as TCSR
 from sddmm_tpu_torch.models import (FactorizationParams,
                                     SparseFactorizationModel)
 from sddmm_tpu_torch.utils.checkpoint import Checkpointer
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 # the losses of JAX and the port from the same factors: the forward within
 # about one fp32 rounding, the gradients summed in another order, and Adam's

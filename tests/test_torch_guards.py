@@ -1,9 +1,13 @@
 """Guards of the port: it never loads jax, never builds or runs a kernel
-without the CUDA toolchain, and never carries on silently on the CPU."""
+without the CUDA toolchain, never carries on silently on the CPU and never
+reads a file of the JAX package; and every parity test holds the port to
+the JAX package's native path."""
 
+import ast
 import ctypes
 import inspect
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -11,6 +15,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+
+import torch_native_ready
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -91,6 +98,87 @@ def test_no_jax_import_in_sources():
                         or s.startswith("from sddmm_tpu.")
                         or s.startswith("import sddmm_tpu ")
                         or s.startswith("import sddmm_tpu.")), (path, line)
+
+
+def _imports_jax_package(tree) -> bool:
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        if any(n.split(".")[0] == "sddmm_tpu" for n in names):
+            return True
+    return False
+
+
+def test_parity_tests_wait_for_the_jax_library():
+    """Every test file that imports the JAX package requests the fixture
+    that loads its native library first (tests/torch_native_ready.py)."""
+    files = sorted((ROOT / "tests").glob("test_torch_*.py"))
+    checked = []
+    for path in files:
+        tree = ast.parse(path.read_text())
+        if not _imports_jax_package(tree):
+            continue
+        checked.append(path.name)
+        assert any(isinstance(node, ast.ImportFrom)
+                   and node.module == "torch_native_ready"
+                   and "reference_native_loaded" in
+                   [a.name for a in node.names]
+                   for node in tree.body), path.name
+    assert "test_torch_pack_parity.py" in checked
+    assert "test_torch_card.py" not in checked
+    assert len(checked) >= 24
+
+
+def _jax_package_path(node) -> bool:
+    return (isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and (node.value == "sddmm_tpu"
+                 or node.value.startswith("sddmm_tpu/")))
+
+
+#: calls that take a path
+PATH_CALLS = {"Path", "PurePath", "join", "joinpath", "open",
+              "spec_from_file_location"}
+
+
+def test_no_path_into_the_jax_package():
+    """No file of the port joins a path into ``sddmm_tpu/`` (its data
+    under ``results/`` is not the JAX package)."""
+    for path in (list((ROOT / "sddmm_tpu_torch").rglob("*.py"))
+                 + [ROOT / "chip_smoke.py"]
+                 + sorted((ROOT / "scripts").glob("torch_*.py"))):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+                operands = [node.left, node.right]
+            elif isinstance(node, ast.Call):
+                f = node.func
+                name = f.attr if isinstance(f, ast.Attribute) else getattr(
+                    f, "id", "")
+                operands = node.args if name in PATH_CALLS else []
+            else:
+                continue
+            assert not any(map(_jax_package_path, operands)), (
+                path.relative_to(ROOT), node.lineno)
+    for path in sorted((ROOT / "scripts").glob("torch_*.sh")):
+        assert not re.search(r"(?<![\w/])sddmm_tpu/", path.read_text()), path
+
+
+@pytest.mark.parametrize("library", ["there", "missing"])
+def test_reference_native_fails_and_never_skips(library, monkeypatch,
+                                                tmp_path):
+    """Where the JAX package's library never loads, ``reference_native``
+    fails the test with the reason: a parity test never skips for it."""
+    from sddmm_tpu import native as jnative
+    monkeypatch.setattr(jnative, "_load", lambda: None)
+    if library == "missing":
+        monkeypatch.setattr(jnative, "_LIB_PATH", tmp_path / "none.so")
+    with pytest.raises(pytest.fail.Exception) as err:
+        torch_native_ready.reference_native(timeout_s=0.2)
+    assert "sddmm_tpu.native" in str(err.value)
+    assert ("g++ build failed" in str(err.value)) == (library == "missing")
 
 
 def test_kernel_load_raises_without_nvcc():

@@ -25,7 +25,7 @@ from sddmm_tpu.data import generate as jgen
 from sddmm_tpu.data import io as jio
 from sddmm_tpu.utils.logger import parse_log as jparse
 from sddmm_tpu_torch.utils.logger import RunLog as TRunLog
-from torch_native_ready import reference_native
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SCRIPTS = ROOT / "scripts"
@@ -62,10 +62,8 @@ TOOLS = ["csr", "dense", "bsmr", "bsmr_dense_only", "bsmr_residual_only"]
 
 @pytest.fixture(autouse=True, scope="module")
 def _setup():
-    """The JAX package's native library whole (tests/torch_native_ready.py),
-    and one intra-op thread: the tensors here are small, and the test
+    """One intra-op thread: the tensors here are small, and the test
     workers run side by side."""
-    reference_native()
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

@@ -27,6 +27,7 @@ from sddmm_tpu_torch.ops import hybrid as hy
 from sddmm_tpu_torch.ops.gather_plan import gather_plan, plan_entries
 from sddmm_tpu_torch.ops.reference import sddmm_reference
 from sddmm_tpu_torch.utils.check import check_values
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 K = 128
 # Port vs JAX on real slots where both compute the same products (the

@@ -13,6 +13,7 @@ from sddmm_tpu.utils import logger as jlog
 from sddmm_tpu_torch import cli
 from sddmm_tpu_torch.data import generate, io
 from sddmm_tpu_torch.utils import logger as tlog
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
 

@@ -35,6 +35,7 @@ from sddmm_tpu_torch.models import (BlockSparseAttention,
                                     make_attention_mask, segment_softmax)
 from sddmm_tpu_torch.ops.csr_sddmm import csr_sddmm_torch
 from sddmm_tpu_torch.ops.dense import DenseSDDMM
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 # The scores match within about one fp32 rounding (JAX's CPU backend takes

@@ -21,6 +21,7 @@ from sddmm_tpu_torch.data.sparse import CSR as TCSR
 from sddmm_tpu_torch.reorder.autotune import from_params as t_from_params
 from sddmm_tpu_torch.reorder.pack import PackedMatrix
 from sddmm_tpu_torch.reorder.validate import check_pack
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 CONFIGS = json.loads((Path(__file__).resolve().parents[1] / "results"
                       / "tuned_configs.json").read_text())["k128"]

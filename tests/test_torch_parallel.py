@@ -33,6 +33,7 @@ from sddmm_tpu_torch.parallel import launch
 from sddmm_tpu_torch.parallel.dist import _ShardPlan
 from sddmm_tpu_torch.parallel.dryrun import dryrun_multichip
 from sddmm_tpu_torch.utils.check import check_values
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():

@@ -54,7 +54,7 @@ from sddmm_tpu_torch.ops.hybrid import HybridSDDMM  # noqa: E402
 # the JAX package's layout model as shipped around each test (the hub
 # probe prints its score)
 from test_torch_pack_parity import _shipped_layout_model  # noqa: F401,E402
-from torch_native_ready import reference_native  # noqa: E402
+from torch_native_ready import reference_native_loaded  # noqa: F401,E402
 
 CPU = ["--device", "cpu"]
 #: the scripts this slice adds
@@ -109,11 +109,9 @@ def _sha(path):
 
 @pytest.fixture(autouse=True, scope="module")
 def _setup():
-    """The JAX package's native library whole, one intra-op thread (the
-    test workers run side by side), and its Pallas tile dot in interpret
-    mode (the caches cleared around it, as tests/test_torch_hybrid.py
-    does)."""
-    reference_native()
+    """One intra-op thread (the test workers run side by side), and the
+    JAX package's Pallas tile dot in interpret mode (the caches cleared
+    around it, as tests/test_torch_hybrid.py does)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     mp = pytest.MonkeyPatch()

@@ -29,6 +29,7 @@ from sddmm_tpu_torch.interop import packed_from_reference
 from sddmm_tpu_torch.ops import csr_softmax
 from sddmm_tpu_torch.ops import softmax as sm
 from sddmm_tpu_torch.ops.hybrid import HybridSDDMM
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 # both sides take the same fp32 exps; the denominators are summed in

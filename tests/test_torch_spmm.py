@@ -15,6 +15,7 @@ from sddmm_tpu_torch import _kernels
 from sddmm_tpu_torch.data.sparse import CSR as TCSR
 from sddmm_tpu_torch.ops import csr_spmm
 from sddmm_tpu_torch.ops import spmm as sp
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 # both sides sum fp32 products in fp32, in another order (segment_sum's
 # against index_add_'s)

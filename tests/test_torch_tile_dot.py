@@ -12,6 +12,7 @@ from sddmm_tpu.ops import hybrid as jhy
 from sddmm_tpu.ops import pallas_tiles
 from sddmm_tpu_torch import _kernels
 from sddmm_tpu_torch.ops import tile_dot as td
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 # Contract of the reference (abs 1e-5 or rel 1e-3, utils/check.py).
 ABS_TOL, REL_TOL = 1e-5, 1e-3

@@ -24,6 +24,7 @@ from sddmm_tpu_torch.interop import packed_from_reference
 from sddmm_tpu_torch.ops import hybrid as hy
 from sddmm_tpu_torch.ops import tile_dot as td
 from sddmm_tpu_torch.utils.check import check_values
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 K = 32
 # the tile backward against the read-pattern route, or against the kernel's

@@ -28,6 +28,7 @@ from sddmm_tpu_torch.ops import hybrid as hy
 from sddmm_tpu_torch.ops import tile_dot as td
 from sddmm_tpu_torch.ops.reference import sddmm_reference
 from sddmm_tpu_torch.utils.check import check_values
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 K = 32
 # port vs JAX on real slots: the same bf16 planes and products, summed in

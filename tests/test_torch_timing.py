@@ -8,6 +8,7 @@ import torch
 
 from sddmm_tpu.utils import timing as jt
 from sddmm_tpu_torch.utils import timing as tt
+from torch_native_ready import reference_native_loaded  # noqa: F401
 
 
 @pytest.mark.parametrize("nnz, k, ms", [(5000, 128, 2.0), (1, 32, 1e-3),

@@ -9,7 +9,11 @@ in place of the native code for the rest of its life.  A parity test of the
 port against such a worker compares against another code path.
 ``reference_native()`` retries the load, with ``_build_failed`` reset,
 while the library file is there and for up to ``timeout_s``; if it is
-still not loaded the test fails with the reason (it never skips)."""
+still not loaded the test fails with the reason (it never skips).
+
+Every ``tests/test_torch_*.py`` that imports the JAX package imports the
+autouse fixture ``reference_native_loaded`` by name, so the library is
+loaded before its tests and their module fixtures run."""
 
 import time
 
@@ -35,3 +39,12 @@ def reference_native(timeout_s: float = 60.0):
         # another worker may still be writing it: load it again
         native._build_failed = False
         time.sleep(0.5)
+
+
+@pytest.fixture(autouse=True, scope="session")
+def reference_native_loaded():
+    """``reference_native()`` before the importing file's tests.  Set up
+    once a file at session scope, so before the file's module fixtures too
+    (pytest sets up the wider scopes first), which build JAX references as
+    well; once loaded the library stays loaded for the worker's life."""
+    reference_native()
