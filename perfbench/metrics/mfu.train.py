@@ -1,0 +1,8 @@
+"""mfu.train: useful operations of one training step over its wall time
+times the mode's peak, in %. Moves train_step_ms."""
+
+from perfbench import readers
+
+
+def read(records):
+    return readers.mfu(records, "train")
