@@ -2015,7 +2015,7 @@ def run_entry_points(torch, card, kind, cells, passes, goldens):
         # 4. the profiler around one call of a bench cell
         _, runner, ops, _, _ = cells[("banded", 128)]
         with profiling.trace(tmp / "trace") as prof:
-            with profiling.annotate("banded@K128 packed call"):
+            with profiling.span("banded@K128 packed call"):
                 runner.run_padded(*ops)
         traces = list((tmp / "trace").glob("*.pt.trace.json"))
         text = traces[0].read_text() if len(traces) == 1 else ""

@@ -29,7 +29,9 @@ find:
   model's search and the shoot-out timed on the card), and
   ``utils.timing`` (CUDA-event timers, the runners' ``measure_kernel_ms``),
   ``utils.logger`` (the ``[key : value]`` run log), ``utils.profiling``
-  (``torch.profiler`` traces and annotations) and ``utils.util``.
+  (``torch.profiler`` traces; the program's spans and the hand kernels'
+  launch counter, on exactly while a capture of the host runs, recorded
+  into an in-memory table that ``summary()`` reads) and ``utils.util``.
 - ``reorder.device_cluster`` clusters rows on the card
   (``csrc/cluster_round.cu``, ``method="device"``); ``parallel`` shards the
   hybrid SDDMM, the dense class and (``models``) the factorization trainer

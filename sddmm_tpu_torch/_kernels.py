@@ -25,8 +25,11 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional
+
+from sddmm_tpu_torch.utils import profiling
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -188,8 +191,15 @@ def load() -> ctypes.CDLL:
 def launch(name: str, *args) -> None:
     """Call the C entry point ``name`` (one kernel instance) with ``args``
     (ctypes-convertible, stream last); raise if it reports a launch error,
-    else count the launch."""
-    rc = getattr(load(), name)(*args)
+    else count the launch.  While spans are on (``profiling.active()``),
+    the call's host time goes to ``profiling.count_launch``."""
+    fn = getattr(load(), name)
+    if profiling.active():
+        t0 = time.perf_counter_ns()
+        rc = fn(*args)
+        profiling.count_launch(time.perf_counter_ns() - t0)
+    else:
+        rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with "
                            f"cudaError {rc}")

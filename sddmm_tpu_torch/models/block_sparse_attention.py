@@ -42,6 +42,7 @@ from sddmm_tpu_torch.models.graph_attention import CSRAggregation
 from sddmm_tpu_torch.ops.batch import BatchedHybridSDDMM
 from sddmm_tpu_torch.ops.hybrid import HybridSDDMM
 from sddmm_tpu_torch.ops.tile_dot import full_fp32_matmul
+from sddmm_tpu_torch.utils import profiling
 
 
 def make_attention_mask(seq_len: int, window: int = 64,
@@ -157,28 +158,29 @@ class BlockSparseAttention(nn.Module):
         """x (L, F) on the module's device -> (L, F).  ``plain=True`` runs
         every kernel's plain PyTorch version (and its backward the plain
         versions' too)."""
-        H, L, D = self.num_heads, self._len, self.head_dim
-        with full_fp32_matmul():
-            q = torch.einsum("lf,hfd->hld", x, self.w_q)
-            k = torch.einsum("lf,hfd->hld", x, self.w_k)
-            v = torch.einsum("lf,hfd->hld", x, self.w_v)
-        pad = (0, 0, 0, 1)                      # a zero sentinel row
-        q_pad = torch.nn.functional.pad(q, pad)
-        k_pad = torch.nn.functional.pad(k, pad)
-        v = v.reshape(H * L, D).contiguous()
-        scale = 1.0 / np.sqrt(D)
-        if plain:
-            scores = self.batched.run_padded(q_pad, k_pad, order="csr",
-                                             plain=True)   # (H, nnz)
-            heads = self._agg.softmax_spmm_plain(
-                (scores * scale).reshape(-1), v)
-        else:
-            flat = self.batched.run_padded(q_pad, k_pad)   # (H, F)
-            heads = self._agg.softmax_spmm(flat, v, scale,
-                                           self.runner.inv_idx32)
-        cat = heads.view(H, L, D).transpose(0, 1).reshape(L, H * D)
-        with full_fp32_matmul():
-            return cat @ self.w_o               # (L, F)
+        with profiling.span("attention.forward"):
+            H, L, D = self.num_heads, self._len, self.head_dim
+            with profiling.span("attention.project"), full_fp32_matmul():
+                q = torch.einsum("lf,hfd->hld", x, self.w_q)
+                k = torch.einsum("lf,hfd->hld", x, self.w_k)
+                v = torch.einsum("lf,hfd->hld", x, self.w_v)
+                pad = (0, 0, 0, 1)                  # a zero sentinel row
+                q_pad = torch.nn.functional.pad(q, pad)
+                k_pad = torch.nn.functional.pad(k, pad)
+                v = v.reshape(H * L, D).contiguous()
+            scale = 1.0 / np.sqrt(D)
+            if plain:
+                scores = self.batched.run_padded(q_pad, k_pad, order="csr",
+                                                 plain=True)   # (H, nnz)
+                heads = self._agg.softmax_spmm_plain(
+                    (scores * scale).reshape(-1), v)
+            else:
+                flat = self.batched.run_padded(q_pad, k_pad)   # (H, F)
+                heads = self._agg.softmax_spmm(flat, v, scale,
+                                               self.runner.inv_idx32)
+            with profiling.span("attention.out"), full_fp32_matmul():
+                cat = heads.view(H, L, D).transpose(0, 1).reshape(L, H * D)
+                return cat @ self.w_o               # (L, F)
 
 
 def dense_reference_attention(params: BlockSparseAttentionParams, x,

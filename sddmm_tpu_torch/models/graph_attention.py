@@ -40,6 +40,7 @@ from sddmm_tpu_torch.ops.softmax import (segment_softmax,
 from sddmm_tpu_torch.ops.spmm import (GradPattern, csr_spmm_plain,
                                       csr_spmm_torch, spmm_plan)
 from sddmm_tpu_torch.ops.tile_dot import full_fp32_matmul
+from sddmm_tpu_torch.utils import profiling
 
 __all__ = ["CSRAggregation", "GraphAttentionLayer", "GraphAttentionParams",
            "packing_row_order", "segment_softmax", "stacked"]
@@ -104,10 +105,13 @@ class CSRAggregation:
         (nnz,) int32, then ``attn @ v`` (v (H*m, D)): one softmax launch,
         one SpMM launch (a backward: one launch of the softmax's backward,
         one gather-dot, one SpMM)."""
-        attn = segment_softmax_torch(flat, self.head_row_ptr, scale,
-                                     inv_idx, self.softmax_plan).reshape(-1)
-        return csr_spmm_torch(attn, self.rows, self.cols, v, self.num_rows,
-                              row_ptr=self.row_ptr, plan=self.plan)
+        with profiling.span("attention.softmax"):
+            attn = segment_softmax_torch(flat, self.head_row_ptr, scale,
+                                         inv_idx, self.softmax_plan)
+        with profiling.span("attention.spmm"):
+            return csr_spmm_torch(attn.reshape(-1), self.rows, self.cols, v,
+                                  self.num_rows, row_ptr=self.row_ptr,
+                                  plan=self.plan)
 
     def softmax_spmm_plain(self, scores: torch.Tensor,
                            v: torch.Tensor) -> torch.Tensor:

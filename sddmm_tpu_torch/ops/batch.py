@@ -23,6 +23,7 @@ from sddmm_tpu_torch.ops.csr_sddmm import csr_plan, csr_sddmm_torch
 from sddmm_tpu_torch.ops.hybrid import (HybridSDDMM, check_device,
                                         storage_cast)
 from sddmm_tpu_torch.ops.tile_dot import STORAGE
+from sddmm_tpu_torch.utils import profiling
 
 
 def batched_csr_sddmm(a_batch, b_batch, s: CSR, device="cuda"
@@ -73,9 +74,10 @@ class BatchedHybridSDDMM:
                              f"{tuple(bt_pad.shape)}")
         r = self.runner
         adt, bdt = STORAGE[r.compute_dtype]
-        return r.run_heads(storage_cast(a_pad, adt),
-                           r.device_bt(storage_cast(bt_pad, bdt)),
-                           order=order, plain=plain)
+        with profiling.span("hybrid.prepare"):
+            a_pad = storage_cast(a_pad, adt)
+            bt_phys = r.device_bt(storage_cast(bt_pad, bdt))
+        return r.run_heads(a_pad, bt_phys, order=order, plain=plain)
 
     def __call__(self, a_batch, b_batch) -> np.ndarray:
         """numpy A (B, M, K) and B (B, K, N) -> (B, packed_size) numpy in

@@ -75,6 +75,7 @@ from sddmm_tpu_torch.ops.tile_dot import (STORAGE, TileTable, table_blocks,
                                           tile_table_grad_plain)
 from sddmm_tpu_torch.reorder.bsmr import BSMR
 from sddmm_tpu_torch.reorder.pack import GROUP_LANES, PackedMatrix, pack
+from sddmm_tpu_torch.utils import profiling
 
 PANEL_ROWS = config.ROW_PANEL_SIZE  # 16-row panels (pack.py carve unit)
 COMPUTE_DTYPES = tuple(STORAGE)
@@ -442,21 +443,23 @@ class _HybridFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, runner, plain, a_panels, a_pad, bt_phys):
-        adt, bdt = STORAGE[runner.compute_dtype]
-        a_s = a_pad.to(adt).contiguous()
-        b_s = bt_phys.to(bdt).contiguous()
-        if a_panels is not None:
-            a_panels = [x.to(adt) for x in a_panels]
-        ctx.save_for_backward(a_s, b_s)
-        ctx.runner, ctx.plain = runner, plain
-        return runner._flat(a_s, b_s, plain, a_panels)
+        with profiling.span("hybrid.sddmm") as sp:
+            adt, bdt = STORAGE[runner.compute_dtype]
+            a_s = a_pad.to(adt).contiguous()
+            b_s = bt_phys.to(bdt).contiguous()
+            if a_panels is not None:
+                a_panels = [x.to(adt) for x in a_panels]
+            ctx.save_for_backward(a_s, b_s)
+            ctx.runner, ctx.plain, ctx.span = runner, plain, sp.id
+            return runner._flat(a_s, b_s, plain, a_panels)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         a_s, b_s = ctx.saved_tensors
-        da, dbt = ctx.runner.vjp(a_s, b_s, g, ctx.plain,
-                                 *ctx.needs_input_grad[3:5])
+        with profiling.span("hybrid.sddmm.backward", ctx.span):
+            da, dbt = ctx.runner.vjp(a_s, b_s, g, ctx.plain,
+                                     *ctx.needs_input_grad[3:5])
         return None, None, None, da, dbt
 
 
@@ -621,7 +624,7 @@ class HybridSDDMM:
         G = p.group_size
         # kept across calls, so not an inference tensor even when a call
         # under inference_mode makes it
-        with torch.inference_mode(False):
+        with torch.inference_mode(False), profiling.span("plan.build"):
             return gather_plan(
                 p.res_rows, np.asarray(p.res_gids, np.int64) * G
                 + (np.asarray(p.res_member) if G > 1 else 0),
@@ -694,11 +697,12 @@ class HybridSDDMM:
         ``(a_pad, a_panels)`` under ``a_layout="panels"`` (the panels serve
         the per-segment route, ``plain=True``)."""
         adt, bdt = STORAGE[self.compute_dtype]
-        a_pad = storage_cast(a_pad, adt)
-        a_ops = a_pad
-        if self.a_layout == "panels":
-            a_ops = (a_pad, self._a_panels(a_pad))
-        return a_ops, self.device_bt(storage_cast(bt_pad, bdt))
+        with profiling.span("hybrid.prepare"):
+            a_pad = storage_cast(a_pad, adt)
+            a_ops = a_pad
+            if self.a_layout == "panels":
+                a_ops = (a_pad, self._a_panels(a_pad))
+            return a_ops, self.device_bt(storage_cast(bt_pad, bdt))
 
     def prepare_operands(self, a, b=None, bt=None):
         """numpy A (M, K) and B (K, N), or B^T (N, K) as ``bt`` -> the
@@ -1101,7 +1105,8 @@ class HybridSDDMM:
             raise ValueError("light packing (full_metadata=False) has no "
                              "CSR-order metadata; re-pack with full "
                              "metadata")
-        return gather_unique(flat, self._inv_idx)
+        with profiling.span("hybrid.to_csr"):
+            return gather_unique(flat, self._inv_idx)
 
     @staticmethod
     def from_csr(csr: CSR, alpha: float = config.DEFAULT_ALPHA,

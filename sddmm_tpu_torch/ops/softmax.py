@@ -38,6 +38,7 @@ from torch.autograd.function import once_differentiable
 from sddmm_tpu_torch import _kernels
 from sddmm_tpu_torch.data.sparse import CSR
 from sddmm_tpu_torch.ops.hybrid import check_device
+from sddmm_tpu_torch.utils import profiling
 
 #: rows of up to this many entries are a group of 8 lanes in the kernel
 #: (csrc/segment_softmax.cu: 16 entries a lane)
@@ -310,7 +311,8 @@ def segment_softmax_backward(p: torch.Tensor, g: torch.Tensor,
     if p.device.type != "cuda":
         raise ValueError(f"segment_softmax: unsupported device {p.device}")
     if plan is None:
-        plan = softmax_plan(row_ptr.cpu().numpy(), p.device)
+        with profiling.span("plan.build"):
+            plan = softmax_plan(row_ptr.cpu().numpy(), p.device)
     _check_plan(plan, p.device)
     p, g = p.contiguous(), g.contiguous()
     out = (torch.zeros((heads, size), dtype=torch.float32, device=p.device)
@@ -342,14 +344,17 @@ class _SoftmaxFn(torch.autograd.Function):
             ctx.mark_dirty(out)
         ctx.save_for_backward(p, row_ptr, inv_idx)
         ctx.scale, ctx.size, ctx.plan = scale, flat.shape[1], plan
+        ctx.span = profiling.current()
         return p
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         p, row_ptr, inv_idx = ctx.saved_tensors
-        d = segment_softmax_backward(p, g.to(torch.float32), row_ptr,
-                                     ctx.scale, inv_idx, ctx.size, ctx.plan)
+        with profiling.span("softmax.backward", ctx.span):
+            d = segment_softmax_backward(p, g.to(torch.float32), row_ptr,
+                                         ctx.scale, inv_idx, ctx.size,
+                                         ctx.plan)
         return d, None, None, None, None, None
 
 
@@ -423,7 +428,8 @@ def _softmax_forward(flat, row_ptr, scale, inv_idx, plan, out):
     if flat.shape[1] > 1 and flat.stride(1) != 1:
         raise ValueError("segment_softmax: flat's rows must be contiguous")
     if plan is None:
-        plan = softmax_plan(row_ptr.cpu().numpy(), flat.device)
+        with profiling.span("plan.build"):
+            plan = softmax_plan(row_ptr.cpu().numpy(), flat.device)
     _check_plan(plan, flat.device)
     if out is None:
         out = torch.empty((heads, nnz), dtype=torch.float32,

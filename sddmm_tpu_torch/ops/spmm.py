@@ -43,6 +43,7 @@ from sddmm_tpu_torch.ops.gather_plan import (gather_plan, group_items,
                                              occurrences)
 from sddmm_tpu_torch.ops.hybrid import (GATHER_STORAGE, check_device,
                                         residual_gather_dot)
+from sddmm_tpu_torch.utils import profiling
 
 #: rows with more entries than this are split across the warps of a block
 SPMM_LONG_ROW = 1024
@@ -294,8 +295,9 @@ def _spmm_forward(values, rows, cols, dense, num_rows, row_ptr, plan):
     if num_rows == 0:
         return out
     if plan is None:
-        plan = spmm_plan(row_ptr.cpu().numpy(),
-                         cols.cpu().numpy()).to(dense.device)
+        with profiling.span("plan.build"):
+            plan = spmm_plan(row_ptr.cpu().numpy(),
+                             cols.cpu().numpy()).to(dense.device)
     spmm_launch(plan, row_ptr, cols, values.contiguous()[None],
                 dense[None, None], out[None, None])
     return out
@@ -412,7 +414,8 @@ class SpmmPattern:
     def plan(self) -> SpmmPlan:
         """The kernel's plan (``spmm_plan``), built at the first call."""
         if self._plan is None:
-            self._plan = spmm_plan(*self._host).to(self.device)
+            with profiling.span("plan.build"):
+                self._plan = spmm_plan(*self._host).to(self.device)
         return self._plan
 
     def __call__(self, values: torch.Tensor, dense: torch.Tensor,
@@ -460,19 +463,24 @@ class GradPattern:
 
     @functools.cached_property
     def spmm(self) -> SpmmPattern:
-        return SpmmPattern(self.rows, self.cols, self.shape[0], self.device)
+        with profiling.span("plan.build"):
+            return SpmmPattern(self.rows, self.cols, self.shape[0],
+                               self.device)
 
     @functools.cached_property
     def spmm_t(self) -> SpmmPattern:
-        return SpmmPattern(self.cols, self.rows, self.shape[1], self.device)
+        with profiling.span("plan.build"):
+            return SpmmPattern(self.cols, self.rows, self.shape[1],
+                               self.device)
 
     @functools.cached_property
     def gather_index(self):
         """(rows, cols) int32 on the device and the gather-dot's plan."""
         def put(x):
             return torch.as_tensor(x, dtype=torch.int32, device=self.device)
-        plan = gather_plan(self.rows, self.cols, self.row_order)
-        return put(self.rows), put(self.cols), plan.to(self.device)
+        with profiling.span("plan.build"):
+            plan = gather_plan(self.rows, self.cols, self.row_order)
+            return put(self.rows), put(self.cols), plan.to(self.device)
 
     def sddmm(self, a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
         """(H, nnz) fp32 dots ``a[h, rows[e]] . bt[h, cols[e]]`` of a (H, m,
@@ -499,8 +507,9 @@ def pattern_grads(plan, rows: torch.Tensor, cols: torch.Tensor, shape,
         if rows.numel() and bool(((rows < 0) | (rows >= m)).any()):
             raise ValueError(f"backward: a row id is outside [0, {m}); the "
                              "backward needs them in range")
-        grads = GradPattern(rows.cpu().numpy(), cols.cpu().numpy(), shape,
-                            device)
+        with profiling.span("plan.build"):
+            grads = GradPattern(rows.cpu().numpy(), cols.cpu().numpy(),
+                                shape, device)
         if plan is not None:
             plan.grads = grads
     return grads
@@ -513,29 +522,31 @@ class _SpmmFn(torch.autograd.Function):
     def forward(ctx, values, dense, rows, cols, num_rows, row_ptr, plan):
         ctx.save_for_backward(values, dense, rows, cols)
         ctx.num_rows, ctx.plan = num_rows, plan
+        ctx.span = profiling.current()
         return _spmm_forward(values, rows, cols, dense, num_rows, row_ptr,
                              plan)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        values, dense, rows, cols = ctx.saved_tensors
-        m, n = ctx.num_rows, dense.shape[0]
-        grads = pattern_grads(ctx.plan, rows, cols, (m, n), dense.device)
-        heads = m // grads.shape[0]
-        K = dense.shape[1]
-        g = g.contiguous()
-        d_values = d_dense = None
-        if ctx.needs_input_grad[0]:
-            d_values = grads.sddmm(g.view(heads, -1, K),
-                                   dense.view(heads, -1, K)).reshape(-1)
-        if ctx.needs_input_grad[1]:
-            d_dense = torch.empty((n, K), dtype=torch.float32,
-                                  device=dense.device)
-            grads.spmm_t(values.to(torch.float32).view(heads, -1),
-                         g.view(heads, 1, -1, K),
-                         d_dense.view(heads, 1, -1, K))
-        return d_values, d_dense, None, None, None, None, None
+        with profiling.span("spmm.backward", ctx.span):
+            values, dense, rows, cols = ctx.saved_tensors
+            m, n = ctx.num_rows, dense.shape[0]
+            grads = pattern_grads(ctx.plan, rows, cols, (m, n), dense.device)
+            heads = m // grads.shape[0]
+            K = dense.shape[1]
+            g = g.contiguous()
+            d_values = d_dense = None
+            if ctx.needs_input_grad[0]:
+                d_values = grads.sddmm(g.view(heads, -1, K),
+                                       dense.view(heads, -1, K)).reshape(-1)
+            if ctx.needs_input_grad[1]:
+                d_dense = torch.empty((n, K), dtype=torch.float32,
+                                      device=dense.device)
+                grads.spmm_t(values.to(torch.float32).view(heads, -1),
+                             g.view(heads, 1, -1, K),
+                             d_dense.view(heads, 1, -1, K))
+            return d_values, d_dense, None, None, None, None, None
 
 
 def csr_spmm_torch(values: torch.Tensor, rows: torch.Tensor,

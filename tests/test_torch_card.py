@@ -1491,3 +1491,111 @@ def test_dense_arbitration_on_card(cuda_device, tmp_path, monkeypatch,
     h = float(re.search(r"hybrid: nS=\d+ res=\d+ ([\d.]+) ms", out).group(1))
     assert fold.dense_decision(log) == (d < fold.DENSE_MARGIN * h)
     assert fold.Validator(cuda_device).check("dlmc", 64, {"dense": True})
+
+
+def test_spans_on_card_time_the_stages_and_parent_the_backward(
+        cuda_device):
+    """A two-layer attention step under a capture of the device alone
+    records nothing; under one of host and device the outermost spans of
+    each thread (the layer's forward, the backward spans run on autograd's
+    device thread) have a device time and the layer's start a queue wait,
+    the stages nested in a layer's forward none; the backward spans have
+    their forward stage as parent, and the hand-kernel launches are
+    counted."""
+    from sddmm_tpu_torch.utils import profiling
+    mask = make_attention_mask(512, window=32, num_global=1)
+    gen = torch.Generator().manual_seed(0)
+    layers = []
+    for _ in range(2):
+        layer = BlockSparseAttention(mask, feature_dim=64, num_heads=2,
+                                     head_dim=32, compute_dtype="float32",
+                                     device=cuda_device)
+        layer.init(gen)
+        layers.append(layer)
+    x = torch.randn((512, 64), generator=gen).to(cuda_device)
+
+    def step():
+        y = x
+        for layer in layers:
+            y = y + layer(y)
+        (y ** 2).mean().backward()
+
+    step()
+    torch.cuda.synchronize()
+    profiling.clear()
+    # a capture of the device alone: no span, no launch counted
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]):
+        step()
+        torch.cuda.synchronize()
+    assert profiling.summary() == {"spans": {}, "launch": {
+        "count": 0, "host_ms": 0.0}, "dropped": 0}
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        step()
+        torch.cuda.synchronize()
+    recs = {r["id"]: r for r in profiling.records()}
+    spans = profiling.summary()
+    profiling.clear()
+    outermost = ("attention.forward", "hybrid.sddmm.backward",
+                 "softmax.backward", "spmm.backward")
+    nested = ("attention.project", "hybrid.prepare", "hybrid.sddmm",
+              "attention.softmax", "attention.spmm", "attention.out")
+    for name in outermost + nested:
+        s = spans["spans"][name]
+        assert s["count"] == 2, (name, s)
+        assert (s["device_ms"] is not None) == (name in outermost), (name, s)
+    assert "plan.build" not in spans["spans"]
+    assert spans["spans"]["attention.forward"]["queue_ms"] is not None
+    forward_of = {"softmax.backward": "attention.softmax",
+                  "spmm.backward": "attention.spmm",
+                  "hybrid.sddmm.backward": "hybrid.sddmm"}
+    for r in recs.values():
+        if r["name"] in forward_of:
+            up = recs[r["parent"]]
+            assert up["name"] == forward_of[r["name"]], (r, up)
+            assert recs[up["parent"]]["name"] == "attention.forward"
+    # forward: tile, gather-dot, softmax, SpMM; backward: softmax, dP
+    # gather-dot, dV SpMM, tile-grad and its reduction
+    assert spans["launch"]["count"] >= 2 * 9
+    assert spans["launch"]["host_ms"] > 0
+
+
+def test_sddmm_stage_spans_sum_to_the_call(cuda_device):
+    """The benchmark's powerlaw512k cell through ``perfbench/trace.py``:
+    the device times of the runner's stage spans ``hybrid.prepare``,
+    ``hybrid.sddmm`` and ``hybrid.to_csr`` (medians a call, from the
+    sub-window traced with the host, the only one in which spans record)
+    sum to within 3 % of the device-busy time of a call in the same run
+    (from the device-only sub-window)."""
+    import statistics
+    import sys
+    root = Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from perfbench import cells, trace
+    from sddmm_tpu_torch.utils import profiling
+    cell = cells.cell("sddmm.powerlaw512k.k128")
+    system_mod = cells.system(cell.config["system"])
+    pat = system_mod.pattern(cell.config, cell.traffic)
+    system = system_mod.build(cell.config, cell.traffic, pat, cuda_device)
+    loop = cells.loop(cell.traffic["loop"]).Loop(
+        system, pat, cell.config, cell.traffic, cuda_device, 2 ** 31 + 3)
+    profiling.clear()
+    records = trace.Records(kind=loop.kind)
+    trace.profile(loop.traced_call, int(cell.traffic["profile_calls"]),
+                  records)
+    stages = {}
+    for r in profiling.records():
+        stages.setdefault(r["name"], []).append(r["device_ms"])
+    profiling.clear()
+    assert {n: len(v) for n, v in stages.items()} == {
+        n: records.calls
+        for n in ("hybrid.prepare", "hybrid.sddmm", "hybrid.to_csr")}
+    staged = sum(statistics.median(v) for v in stages.values())
+    busy = records.busy_s() / records.calls * 1e3
+    print(f"stages {staged:.4f} ms a call against busy {busy:.4f} ms: "
+          + ", ".join(f"{n} {statistics.median(v):.4f}"
+                      for n, v in stages.items()))
+    assert abs(staged - busy) <= 0.03 * busy
