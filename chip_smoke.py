@@ -77,13 +77,17 @@ its time:
    read just after: each forward launches the tile kernel's "float32"
    instance, the segment softmax and the SpMM kernel exactly once (the
    Longformer's 12 heads together), and the gather-dot once where a
-   packing has a residual.  Each output is checked against an fp64
+   packing has a residual; the Longformer's projections two split and two
+   GEMM launches (``ops.project``).  Each output is checked against an fp64
    reference under the contract and against the same forward with every
    kernel's plain version; both forwards, the SpMM at the models' shapes
    (beside ``torch.sparse.mm`` on a CSR tensor and its bound) and the
    segment softmax at the models' shapes (beside ``torch.sparse.softmax``
    on a COO tensor of the same scaled scores and its bound, and by row
-   class) are timed.
+   class) are timed; so are the Longformer layer's projections forward and
+   backward, beside their plain version and the library path they
+   replaced, with each output and gradient held to fp64 at a limit a
+   three-product control fails.
 
 10. the backward passes at the main path's shapes: the hybrid's (B1: the
    tile-grad kernel over the work table's units and its reduction, one
@@ -910,6 +914,134 @@ def time_softmax(torch, sm, label, model, d, card):
             "library_ms": tl["median_ms"], **bnd}
 
 
+#: the Longformer layer's projections (L, F, H, D), as the train cell runs
+#: them: Q, K, V from x, the output projection, and the backward of both
+#: with x needing its gradient: six products, 58.0 GFLOP
+PROJ_LAYER = (4096, 768, 12, 64)
+#: the projections' outputs and gradients against fp64, max abs err over
+#: max |exact|: on an H100 the kernel reads at most 4.2e-7 here (6.0e-7 in
+#: the card tests, on U[0,2) data), a three-product control ("tf32"'s
+#: split: hi.hi, hi.lo, lo.hi) 4.6-5.3e-6 on the forward's products, so an
+#: arithmetic short of the six fails here
+PROJ_FP64_TOL = 2e-6
+
+
+def time_projections(torch, card):
+    """The Longformer layer's projections (``ops.project``: ``qkv_project``
+    and ``out_project``, forward and backward) at the main path's shapes,
+    against their plain version (the six products on cuBLAS fp32) and the
+    library path they replaced (``library_ms``: einsums, pads, the heads'
+    transpose and ``torch.matmul`` fp32 with TF32 off, through autograd;
+    the port never calls it): each output and gradient checked against
+    the library path in fp64 at PROJ_FP64_TOL, which a three-product
+    control of the forward's products exceeds; the record's numbers."""
+    from sddmm_tpu_torch import _kernels
+    from sddmm_tpu_torch.ops import project as pj
+    from sddmm_tpu_torch.ops.tile_dot import full_fp32_matmul, split_bf16
+    from sddmm_tpu_torch.utils.timing import cuda_time_ms
+    L, F, H, D = PROJ_LAYER
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=DEVICE)
+
+    leaves = [draw(L, F), *(draw(H, F, D) for _ in range(3)),
+              draw(H, L, D), draw(H * D, F)]   # x, w_q, w_k, w_v, heads, w_o
+    for t in leaves:
+        t.requires_grad_()
+    cots = [draw(H, L + 1, D), draw(H, L + 1, D), draw(H * L, D),
+            draw(L, F)]
+    leaves64 = [t.detach().double().requires_grad_() for t in leaves]
+    cots64 = [c.double() for c in cots]
+
+    def kernels(plain=False):
+        x, w_q, w_k, w_v, heads, w_o = leaves
+        outs = [*pj.qkv_project(x, w_q, w_k, w_v, plain=plain),
+                pj.out_project(heads, w_o, plain=plain)]
+        torch.autograd.backward(outs, cots)
+        return outs
+
+    def library(ts=leaves, cs=cots):
+        x, *ws, heads, w_o = ts
+        with full_fp32_matmul():
+            q, k, v = (torch.einsum("lf,hfd->hld", x, w) for w in ws)
+            pad = (0, 0, 0, 1)
+            outs = [torch.nn.functional.pad(q, pad),
+                    torch.nn.functional.pad(k, pad),
+                    v.reshape(H * L, D).contiguous(),
+                    heads.transpose(0, 1).reshape(L, H * D) @ w_o]
+            torch.autograd.backward(outs, cs)
+        return outs
+
+    def run(fn, ts=leaves):
+        for t in ts:
+            t.grad = None
+        outs = fn()
+        torch.cuda.synchronize()
+        return [o.detach() for o in outs] + [t.grad for t in ts]
+
+    got = run(kernels)
+    exact = run(lambda: library(leaves64, cots64), leaves64)
+    names = ["q_pad", "k_pad", "v", "out", "dx", "dw_q", "dw_k", "dw_v",
+             "dheads", "dw_o"]
+    err = rel = 0.0
+    for name, k, e in zip(names, got, exact):
+        d = float((k.double() - e).abs().max())
+        r = d / float(e.abs().max())
+        say(f"[check] projection {name} {tuple(k.shape)}: max abs err / "
+            f"max |exact| {r:.3e}")
+        if not r <= PROJ_FP64_TOL:
+            fail(f"projection {name}: max abs err / max |exact| {r:.3e} > "
+                 f"{PROJ_FP64_TOL}")
+        err, rel = max(err, d), max(rel, r)
+    del got
+
+    def three(a, b):   # a (M, K) . b (N, K)^T on "tf32"'s three products
+        ap, bp = split_bf16(a, 2), split_bf16(b, 2)
+        with full_fp32_matmul():
+            return sum(ap[i].float() @ bp[j].float().T
+                       for i, j in ((0, 0), (0, 1), (1, 0)))
+
+    x, *ws, heads, w_o = (t.detach() for t in leaves)
+    w_rows = torch.cat([w.transpose(1, 2).reshape(H * D, F) for w in ws])
+    h_cat = heads.transpose(0, 1).reshape(L, H * D)
+    for name, a, b in (("qkv", x, w_rows), ("out", h_cat, w_o.T)):
+        e = a.double() @ b.double().T
+        r = float((three(a, b) - e).abs().max() / e.abs().max())
+        say(f"[check] projection {name}, three-product control: max abs "
+            f"err / max |exact| {r:.3e} (limit {PROJ_FP64_TOL})")
+        if not r > PROJ_FP64_TOL:
+            fail(f"projection {name}: the three-product control reads "
+                 f"{r:.3e}, within {PROJ_FP64_TOL}: the limit cannot tell "
+                 f"six products from three")
+    del exact, leaves64, e
+    before = dict(_kernels.launches)
+    run(kernels)
+    launched = {n: _kernels.launches[n] - before.get(n, 0)
+                for n in (_kernels.PROJ_SPLIT_ENTRY, _kernels.PROJ_GEMM_ENTRY)}
+    if launched != {_kernels.PROJ_SPLIT_ENTRY: 4, _kernels.PROJ_GEMM_ENTRY: 6}:
+        fail(f"projections forward and backward: launches {launched}, want "
+             f"4 split (2 forward, 2 backward) and 6 GEMM (2, 4)")
+    tk = cuda_time_ms(kernels, 10)
+    tp = cuda_time_ms(lambda: kernels(True), 3, warmup=1)
+    tl = cuda_time_ms(library, 10)
+    # Q, K, V and the output projection, their dX and dW: 12 widths of
+    # L x F x H*D; each leaf read and its gradient written, each output
+    # written and its cotangent read
+    flops = 2.0 * L * F * H * D * 12
+    nbytes = 4 * 2 * sum(t.numel() for t in leaves + cots)
+    bnd = bound_times(nbytes, flops, BF16_FLOPS / 6)
+    say(f"[time] projections forward and backward, L {L}, F {F}, {H} heads "
+        f"of {D} (launches {launched}; max abs err / max |exact| {rel:.3e})"
+        f": kernels {tk['median_ms']:.4f} ms, plain {tp['median_ms']:.4f} "
+        f"ms, library (einsum, pad, torch.matmul fp32) "
+        f"{tl['median_ms']:.4f} ms, bound {bnd['ops_ms']:.4f} ms "
+        f"(operations at 989/6 TFLOP/s) = "
+        f"{100 * bnd['ops_ms'] / tk['median_ms']:.1f} % of it on {card}")
+    return {"err": err, "ms": tk["median_ms"], "plain_ms": tp["median_ms"],
+            "library_ms": tl["median_ms"], **bnd}
+
+
 def run_models(torch, sp, sm, card, adj):
     """Phase 9 on the clustered16 adjacency ``adj``: returns the launch
     counts of the models' forwards, the records of the SpMM and of the
@@ -974,6 +1106,9 @@ def run_models(torch, sp, sm, card, adj):
                 _kernels.SOFTMAX_ENTRY: 1}
         if model.runner.packed.nnz_res:
             want["sddmm_gather_dot_float32_float32"] = 1
+        if label == "block-sparse attention":   # Q, K, V; the output
+            want.update({_kernels.PROJ_SPLIT_ENTRY: 2,
+                         _kernels.PROJ_GEMM_ENTRY: 2})
         if got != want:
             fail(f"{label}: launches {got}, want {want}")
 
@@ -997,6 +1132,8 @@ def run_models(torch, sp, sm, card, adj):
             torch, sp, label, model._agg, d, card)})
         add_times(rec, {_kernels.SOFTMAX_ENTRY: time_softmax(
             torch, sm, label, model, d, card)})
+    rec[_kernels.PROJ_GEMM_ENTRY] = new_record(0.0)
+    add_times(rec, {_kernels.PROJ_GEMM_ENTRY: time_projections(torch, card)})
     return counts, rec, (graph, x_graph, block, x_block, mask)
 
 
@@ -1719,6 +1856,9 @@ def run_training(torch, sm, card, graph, x_graph, block, x_block, mask,
         for counts in want_by_op.values():
             for name, c in counts.items():
                 want[name] = want.get(name, 0) + c
+        if label == "block-sparse attention":   # x needs no gradient
+            want.update({_kernels.PROJ_SPLIT_ENTRY: 2,
+                         _kernels.PROJ_GEMM_ENTRY: 3})
         say(f"[train] {label} backward launches: {got}; by op: "
             f"{by_op[label]}")
         if got != want or by_op[label] != want_by_op:
@@ -3220,7 +3360,10 @@ def main() -> None:
                                    "attention, entry)", model_launches),
              _kernels.SOFTMAX_ENTRY: ("models (graph attention, "
                                       "Longformer-shaped block-sparse "
-                                      "attention, entry)", model_launches)}
+                                      "attention, entry)", model_launches),
+             _kernels.PROJ_GEMM_ENTRY: ("models (Longformer-shaped "
+                                        "block-sparse attention)",
+                                        model_launches)}
     record = []
     for kname, r in rec.items():
         if kname.startswith("sddmm_tile_dot_"):
@@ -3231,6 +3374,9 @@ def main() -> None:
         elif kname == _kernels.SOFTMAX_ENTRY:
             source, replaces = ("segment_softmax.cu",
                                 "sddmm_tpu/models/graph_attention.py:30")
+        elif kname == _kernels.PROJ_GEMM_ENTRY:
+            source, replaces = ("proj_gemm.cu", "none (XLA's dots in "
+                                "sddmm_tpu/models/block_sparse_attention.py)")
         else:
             source, replaces = "gather_dot.cu", "sddmm_tpu/ops/hybrid.py:306"
         path, counts = paths.get(kname, ("compute modes on banded@K128",

@@ -95,7 +95,7 @@ def _build(out: Path) -> str:
         log = _run([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
                     for src, obj in zip(_sources(), objs)])
         log += _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
-                      *map(str, objs)]])
+                      *map(str, objs), "-ldl"]])
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
@@ -117,6 +117,10 @@ TILE_GRAD_REDUCE_ENTRY = "sddmm_tile_grad_reduce_float32"
 #: (``csrc/cluster_round.cu``): the leaders, then the rows
 CLUSTER_LEADERS_ENTRY = "sddmm_cluster_leaders"
 CLUSTER_ASSIGN_ENTRY = "sddmm_cluster_assign"
+#: C entry points of the attention projections' GEMM
+#: (``csrc/proj_gemm.cu``): the operands' bf16 planes, then the products
+PROJ_SPLIT_ENTRY = "sddmm_proj_split"
+PROJ_GEMM_ENTRY = "sddmm_proj_gemm"
 
 
 def gather_dot_entry(adt, bdt) -> str:
@@ -130,8 +134,8 @@ def _entry_points() -> dict:
     """C entry point name -> ctypes argtypes, for every kernel instance:
     the tile dot per compute mode, the gather-dot per (A, B) storage pair
     of the modes, the CSR SpMM, the segment softmax and its backward, and
-    the tile-grad kernel and its reduction, and the clustering round's two
-    kernels."""
+    the tile-grad kernel and its reduction, the clustering round's two
+    kernels, and the projections' split and GEMM."""
     from sddmm_tpu_torch.ops.tile_dot import MODES, STORAGE
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     tile = [p, i64, i64, p, i64, i64, i64, p, i64, p, p, p, i64, i32, i32,
@@ -160,6 +164,8 @@ def _entry_points() -> dict:
     eps[SOFTMAX_BWD_ENTRY] = softmax_bwd
     eps[CLUSTER_LEADERS_ENTRY] = cluster_leaders
     eps[CLUSTER_ASSIGN_ENTRY] = cluster_assign
+    eps[PROJ_SPLIT_ENTRY] = [p, i32, p]
+    eps[PROJ_GEMM_ENTRY] = [p, p]
     return eps
 
 

@@ -16,13 +16,16 @@ for all heads); one segment softmax launch over all heads' rows, which
 reads the packed scores through ``inv_idx`` and scales them by 1/sqrt(D)
 in its loads; one SpMM launch that aggregates every head's V (a
 block-diagonal CSR of H copies of the mask); then the output
-projection.  The JAX model does softmax and aggregation in
+projection.  The projections run in "float32" on the projection GEMM
+(``ops.project``: Q, K and V in one launch from x, written straight into
+the padded layouts the SDDMM and the aggregation read; the output
+projection reading the heads in place).  The JAX model does softmax and aggregation in
 the packed layout with sentinel segments; on the real slots this is the
 same arithmetic, summed in another order.
 
 The forward is differentiable (the counterpart of ``jax.grad`` of the
-JAX model's loss): the projections and ``w_o`` through torch autograd
-(cuBLAS); the SDDMM, the softmax and the aggregation through their
+JAX model's loss): the projections through their autograd ops, whose
+backward is launches of the projection GEMM; the SDDMM, the softmax and the aggregation through their
 autograd ops, whose backward is one softmax-backward launch, one
 gather-dot launch (the attention's cotangent), one SpMM launch (V's) and
 the SDDMM's dQ and dK (``HybridSDDMM.vjp``: the tile-grad kernel and its
@@ -41,7 +44,7 @@ from sddmm_tpu_torch.data.sparse import COO, CSR
 from sddmm_tpu_torch.models.graph_attention import CSRAggregation
 from sddmm_tpu_torch.ops.batch import BatchedHybridSDDMM
 from sddmm_tpu_torch.ops.hybrid import HybridSDDMM
-from sddmm_tpu_torch.ops.tile_dot import full_fp32_matmul
+from sddmm_tpu_torch.ops.project import out_project, qkv_project
 from sddmm_tpu_torch.utils import profiling
 
 
@@ -160,14 +163,10 @@ class BlockSparseAttention(nn.Module):
         versions' too)."""
         with profiling.span("attention.forward"):
             H, L, D = self.num_heads, self._len, self.head_dim
-            with profiling.span("attention.project"), full_fp32_matmul():
-                q = torch.einsum("lf,hfd->hld", x, self.w_q)
-                k = torch.einsum("lf,hfd->hld", x, self.w_k)
-                v = torch.einsum("lf,hfd->hld", x, self.w_v)
-                pad = (0, 0, 0, 1)                  # a zero sentinel row
-                q_pad = torch.nn.functional.pad(q, pad)
-                k_pad = torch.nn.functional.pad(k, pad)
-                v = v.reshape(H * L, D).contiguous()
+            with profiling.span("attention.project"):
+                # q_pad, k_pad (H, L+1, D) with a zero sentinel row; v (H*L, D)
+                q_pad, k_pad, v = qkv_project(x, self.w_q, self.w_k,
+                                              self.w_v, plain=plain)
             scale = 1.0 / np.sqrt(D)
             if plain:
                 scores = self.batched.run_padded(q_pad, k_pad, order="csr",
@@ -178,9 +177,9 @@ class BlockSparseAttention(nn.Module):
                 flat = self.batched.run_padded(q_pad, k_pad)   # (H, F)
                 heads = self._agg.softmax_spmm(flat, v, scale,
                                                self.runner.inv_idx32)
-            with profiling.span("attention.out"), full_fp32_matmul():
-                cat = heads.view(H, L, D).transpose(0, 1).reshape(L, H * D)
-                return cat @ self.w_o               # (L, F)
+            with profiling.span("attention.out"):
+                return out_project(heads.view(H, L, D), self.w_o,
+                                   plain=plain)    # (L, F)
 
 
 def dense_reference_attention(params: BlockSparseAttentionParams, x,

@@ -65,7 +65,11 @@ from sddmm_tpu_torch import _kernels
 
 _HL = ((0, 0), (0, 1), (1, 0))
 #: mode -> (A storage, B storage, A planes, B planes, (A plane, B plane)
-#: of each product, in the kernel's order)
+#: of each product, in the kernel's order).  The tensor cores truncate each
+#: product's sum toward zero: "float32" on the card comes out short by
+#: about 4e-8 of itself, which the tile kernel leaves and the projection GEMM
+#: (``ops/project.py``) cancels on average, a step the plain versions do
+#: not model
 MODES = {
     "tf32": (torch.float32, torch.float32, 2, 2, _HL),
     "mixed": (torch.float32, torch.bfloat16, 2, 1, ((0, 0), (1, 0))),

@@ -23,6 +23,7 @@ from sddmm_tpu_torch.ops import hybrid as hy
 from sddmm_tpu_torch.ops import softmax as sm
 from sddmm_tpu_torch.ops import spmm as sp
 from sddmm_tpu_torch.ops.gather_plan import gather_plan
+from sddmm_tpu_torch.ops import project as pj
 from sddmm_tpu_torch.ops import tile_dot as td
 from sddmm_tpu_torch.ops.csr_sddmm import (csr_plan, csr_sddmm,
                                           csr_sddmm_torch)
@@ -704,7 +705,8 @@ def test_softmax_empty_rows_write_nothing(cuda_device):
 def test_one_softmax_launch_per_forward(cuda_device):
     """Each forward of the two models: one tile launch, at most one
     gather-dot launch (all heads), one softmax launch and one SpMM
-    launch."""
+    launch; the block-sparse layer's projections two split and two GEMM
+    launches."""
     adj = generate.powerlaw_graph(1500, avg_degree=10, seed=3)
     graph = GraphAttentionLayer(adj, 32, 32, device=cuda_device)
     graph.init(torch.Generator().manual_seed(0))
@@ -727,6 +729,9 @@ def test_one_softmax_launch_per_forward(cuda_device):
                 _kernels.SOFTMAX_ENTRY: 1}
         if model.runner.packed.nnz_res:
             want["sddmm_gather_dot_float32_float32"] = 1
+        if model is block:   # Q, K, V and the output projection
+            want.update({_kernels.PROJ_SPLIT_ENTRY: 2,
+                         _kernels.PROJ_GEMM_ENTRY: 2})
         assert counts == want
         assert ((got - plain).abs().max() / plain.abs().max()).item() \
             <= MODEL_PLAIN
@@ -1002,7 +1007,8 @@ def test_model_backward_launches(cuda_device):
     launch, one gather-dot launch (the attention's cotangent), one SpMM
     launch (V's cotangent) and the SDDMM's backward (the tile-grad kernel,
     its reduction and, with a residual, two SpMM launches), all heads
-    together; its weight gradients match the plain path's."""
+    together, and the block-sparse layer's projections' (two split
+    launches, three GEMMs); its weight gradients match the plain path's."""
     adj = generate.powerlaw_graph(1500, avg_degree=10, seed=3)
     graph = GraphAttentionLayer(adj, 32, 32, device=cuda_device)
     graph.init(torch.Generator().manual_seed(0))
@@ -1026,6 +1032,9 @@ def test_model_backward_launches(cuda_device):
         want[_kernels.SPMM_ENTRY] = want.get(_kernels.SPMM_ENTRY, 0) + 1
         want.update({_kernels.SOFTMAX_BWD_ENTRY: 1,
                      "sddmm_gather_dot_float32_float32": 1})
+        if model is block:   # x needs no gradient: dW of Q, K, V alone
+            want.update({_kernels.PROJ_SPLIT_ENTRY: 2,
+                         _kernels.PROJ_GEMM_ENTRY: 3})
         assert counts == want
         kernel = [w.grad.clone() for w in model.parameters()]
         model.zero_grad()
@@ -1599,3 +1608,182 @@ def test_sddmm_stage_spans_sum_to_the_call(cuda_device):
           + ", ".join(f"{n} {statistics.median(v):.4f}"
                       for n, v in stages.items()))
     assert abs(staged - busy) <= 0.03 * busy
+
+
+# -- the attention projections' GEMM (ops/project.py, csrc/proj_gemm.cu) --
+
+#: the GEMM's max |err| / max |exact| against fp64 over torch.matmul fp32's
+#: (TF32 off) on the same operands: cuBLAS sums K by rounded FFMAs, the
+#: kernel a rounded fp32 add a 32-deep stage; at K = 2304 on U[0,2) data it
+#: reads 1.27x on an H100, elsewhere below 1
+PROJ_VS_MATMUL = 1.5
+#: mean signed error over the mean |exact|: the tensor cores' truncating
+#: accumulation shrinks every product by 4.2-5.1e-8 uncorrected; the
+#: kernel's correction leaves +-3.4e-9, and cuBLAS reads about 1e-10
+PROJ_BIAS = 1.5e-8
+#: the Longformer layer's (L, F, H, D): its projections run six products,
+#: each (M, N, K) = Q, K, V (4096, 2304, 768); the output projection and dX
+#: of it, the heads' cotangent (4096, 768, 768); dX of Q, K, V (4096, 768,
+#: 2304); dW of Q, K, V (768, 2304, 4096); dW of the output (768, 768, 4096)
+PROJ_LAYER = (4096, 768, 12, 64)
+PROJ_PRODUCTS = ["qkv", "out", "dheads", "dx_qkv", "dw_qkv", "dw_out"]
+_proj_readings = {}
+
+
+def _proj_layer_products(kind, device):
+    """The layer's projections forward and backward on the kernel path, on
+    inputs, weights and cotangents of ``kind``: each product's
+    (kernel, fp64, torch.matmul fp32), as C = A . B^T from the operands the
+    layer hands the GEMM."""
+    L, F, H, D = PROJ_LAYER
+    g = torch.Generator(device=device).manual_seed(L + F)
+
+    def draw(*shape):
+        if kind == "normal":
+            return torch.randn(shape, generator=g, device=device)
+        return torch.rand(shape, generator=g, device=device) * 2
+
+    x = draw(L, F).requires_grad_()
+    ws = [draw(H, F, D).requires_grad_() for _ in range(3)]
+    heads = draw(H, L, D).requires_grad_()
+    w_o = draw(H * D, F).requires_grad_()
+    outs = pj.qkv_project(x, *ws)
+    gqkv = [draw(*o.shape) for o in outs]
+    out = pj.out_project(heads, w_o)
+    gout = draw(L, F)
+    torch.autograd.backward([*outs, out], [*gqkv, gout])
+    torch.cuda.synchronize()
+
+    def cols(parts):   # (3, H, R, D) -> (R, 3*H*D), columns (which, h, d)
+        return torch.stack(parts).permute(2, 0, 1, 3).reshape(
+            parts[0].shape[1], -1)
+
+    w_rows = cols([w.detach() for w in ws]).T   # (3*H*D, F)
+    gy = cols([gqkv[0][:, :L], gqkv[1][:, :L], gqkv[2].view(H, L, D)])
+    h_cat = heads.detach().permute(1, 0, 2).reshape(L, H * D)
+    q, k, v = (o.detach() for o in outs)
+    runs = {   # name: (kernel's C, A, B)
+        "qkv": (cols([q[:, :L], k[:, :L], v.view(H, L, D)]), x.detach(),
+                w_rows),
+        "out": (out.detach(), h_cat, w_o.detach().T),
+        "dheads": (heads.grad.permute(1, 0, 2).reshape(L, H * D), gout,
+                   w_o.detach()),
+        "dx_qkv": (x.grad, gy, w_rows.T),
+        "dw_qkv": (cols([w.grad for w in ws]), x.detach().T, gy.T),
+        "dw_out": (w_o.grad, h_cat.T, gout.T),
+    }
+    res = {}
+    for name, (got, a, b) in runs.items():
+        exact = a.double() @ b.double().T
+        with td.full_fp32_matmul():
+            lib = a @ b.T
+        res[name] = (got, exact, lib)
+    return res
+
+
+def _proj_reading(kind, name, device):
+    """max |err| / max |exact| of the kernel and of torch.matmul fp32, and
+    the kernel's mean signed error over the mean |exact|, mean((C - exact)
+    * sign(exact)) / mean |exact|, at product ``name`` (one run a kind)."""
+    if kind not in _proj_readings:
+        read = {}
+        for n, (got, exact, lib) in _proj_layer_products(kind,
+                                                         device).items():
+            err = {who: ((t.double() - exact).abs().max()
+                         / exact.abs().max()).item()
+                   for who, t in (("kernel", got), ("matmul", lib))}
+            bias = (((got.double() - exact) * exact.sign()).mean()
+                    / exact.abs().mean()).item()
+            read[n] = (err, bias)
+        _proj_readings[kind] = read
+    return _proj_readings[kind][name]
+
+
+@pytest.mark.parametrize("kind", ["normal", "u02"])
+@pytest.mark.parametrize("product", PROJ_PRODUCTS)
+def test_projection_gemm_error_within_matmul_fp32(product, kind,
+                                                  cuda_device):
+    """At each of the Longformer layer's six products, as its projections'
+    forward and backward run them, the kernel's error against fp64 is
+    within PROJ_VS_MATMUL of torch.matmul fp32's (TF32 off) on the same
+    operands, and its mean signed error, the bias a norm or a loss reads,
+    within PROJ_BIAS."""
+    err, bias = _proj_reading(kind, product, cuda_device)
+    print(f"{kind} {product}: {err}, bias {bias:+.2e}")
+    assert err["kernel"] <= PROJ_VS_MATMUL * err["matmul"], err
+    assert abs(bias) <= PROJ_BIAS, bias
+
+
+@pytest.mark.parametrize("L,F,H", [(256, 768, 12), (128, 256, 4)],
+                         ids=["256x12x64", "128x4x64"])
+def test_projection_short_sequences(L, F, H, cuda_device):
+    """Short sequences of wide layers, whose Q, K, V product has so few
+    tiles that the split-K cost model would split it: the layer runs
+    forward and backward, q_pad's and k_pad's sentinel rows are zero, and
+    its output and gradients match the plain path's."""
+    mask = make_attention_mask(L, window=32, num_global=1)
+    layer = BlockSparseAttention(mask, F, H, 64, device=cuda_device)
+    layer.init(torch.Generator().manual_seed(4))
+    x = torch.as_tensor(generate.make_dense(L, F, seed=6),
+                        device=cuda_device).requires_grad_()
+    q_pad, k_pad, _ = pj.qkv_project(x, layer.w_q, layer.w_k, layer.w_v)
+    torch.cuda.synchronize()
+    assert not q_pad[:, L].any() and not k_pad[:, L].any()
+    got = {}
+    for plain in (False, True):
+        layer.zero_grad()
+        x.grad = None
+        out = layer(x, plain=plain)
+        out.square().sum().backward()
+        torch.cuda.synchronize()
+        got[plain] = [out.detach(), x.grad.clone(),
+                      *(w.grad.clone() for w in layer.parameters())]
+    for k, p in zip(got[False], got[True]):
+        assert ((k - p).abs().max() / p.abs().max()).item() <= MODEL_PLAIN
+
+
+@pytest.mark.parametrize("need_x", [True, False], ids=["dx", "first_layer"])
+def test_projection_launches_per_layer(need_x, cuda_device):
+    """One block-sparse layer's forward and backward: Q, K, V and the output
+    projection are one split and one GEMM launch each; their backward one
+    split launch each and a GEMM for each gradient, with Q, K, V's dX
+    skipped where x needs no gradient (a first layer)."""
+    mask = make_attention_mask(512, window=32, num_global=1)
+    layer = BlockSparseAttention(mask, 96, 3, 32, device=cuda_device)
+    layer.init(torch.Generator().manual_seed(2))
+    x = torch.as_tensor(generate.make_dense(512, 96, seed=4),
+                        device=cuda_device).requires_grad_(need_x)
+    proj = (_kernels.PROJ_SPLIT_ENTRY, _kernels.PROJ_GEMM_ENTRY)
+    before = dict(_kernels.launches)
+    out = layer(x)
+    torch.cuda.synchronize()
+    fwd = {n: c for n, c in _launched(before).items() if n in proj}
+    before = dict(_kernels.launches)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    bwd = {n: c for n, c in _launched(before).items() if n in proj}
+    assert fwd == {proj[0]: 2, proj[1]: 2}
+    assert bwd == {proj[0]: 2, proj[1]: 4 if need_x else 3}
+    assert (x.grad is not None) == need_x
+
+
+def test_projection_layer_runs_no_library_gemm(cuda_device):
+    """A device trace of one Longformer-wide layer's forward and backward
+    holds the projection GEMM and no cuBLAS or CUTLASS GEMM kernel."""
+    mask = make_attention_mask(1024, window=64, num_global=1)
+    layer = BlockSparseAttention(mask, 768, 12, 64, device=cuda_device)
+    layer.init(torch.Generator().manual_seed(3))
+    x = torch.as_tensor(generate.make_dense(1024, 768, seed=5),
+                        device=cuda_device).requires_grad_()
+    layer(x).square().sum().backward()   # warm: plans, the first backward
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        layer(x).square().sum().backward()
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if getattr(e, "device_time_total", 0) > 0}
+    assert any("proj_gemm_kernel" in n for n in names), names
+    library = [n for n in names if "proj_gemm" not in n and any(
+        w in n.lower() for w in ("gemm", "cutlass", "cublas", "xmma"))]
+    assert not library, library

@@ -214,7 +214,7 @@ def test_library_name_tracks_sources():
     assert p == _kernels.lib_path()
     assert {s.name for s in _kernels._sources()} == {
         "tile_dot.cu", "gather_dot.cu", "spmm.cu", "segment_softmax.cu",
-        "tile_grad.cu", "cluster_round.cu"}
+        "tile_grad.cu", "cluster_round.cu", "proj_gemm.cu"}
 
 
 def test_build_runs_commands_together_and_raises():
@@ -257,6 +257,11 @@ def test_build_runs_commands_together_and_raises():
     assert lead[13] is ctypes.c_double
     rows = eps[_kernels.CLUSTER_ASSIGN_ENTRY]
     assert len(rows) == 13 and rows[11] is ctypes.c_float
+    # the projections' split (the jobs' words, their count, stream) and GEMM
+    # (the descriptor's words, stream)
+    assert eps[_kernels.PROJ_SPLIT_ENTRY] == [ctypes.c_void_p, ctypes.c_int,
+                                              ctypes.c_void_p]
+    assert eps[_kernels.PROJ_GEMM_ENTRY] == [ctypes.c_void_p] * 2
 
 
 def test_cuda_device_raises_without_cuda():
