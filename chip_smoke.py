@@ -33,6 +33,27 @@ its time:
    ``inv_idx`` and from CSR-order scores, two runs bit-equal, and at 12
    heads each row class of the kernel's plan (8-lane groups, warps, split
    rows) timed alone, forward and backward;
+4b. MiMo-V2-Flash's attention layers (``models.HybridAttentionStack``):
+   one full layer (causal, 64 query heads over 4 key/value heads) and one
+   window layer (a causal band of 128 keys with a learned sink, over 8) at
+   the published widths (hidden 4096, q/k heads of 192, v heads of 128,
+   RoPE on 64 dims, V times 0.707) and the benchmark cell's 4096
+   positions, each kind's mask packed once.  Each layer's forward and the
+   backward of mean(out^2), the launch counters zeroed just before each:
+   RoPE, the tile kernel, the softmax and the SpMM once a forward (the
+   residual's gather-dot once where the packing has one); RoPE, the
+   softmax backward, the gather-dot (dP), the SpMM (dV, plus the
+   residual's two) and tile-grad with its reduction once a backward.  The
+   output against the fp64 reference (``models.mimo_reference``) under
+   the contract and against the plain path; the step timed.  Then each
+   new path at the layer's shapes against its plain version: RoPE forward
+   and backward (unrotated dims and the sentinel row untouched), the
+   scores of query head h against key head h >> s read in place and their
+   backward (the group's dK summed), the softmax forward and backward with
+   the sink's gradient (each row's mass under 1 with a sink), the
+   aggregation against V of the group and its backward (dV summing the
+   group), each in norm within 1e-5, and timed forward and backward beside
+   its plain version and its bound;
 5. the main path at full bench scale: every K=128 cell of ``bench.py``'s
    suite (clustered16, clustered128, powerlaw with its hub and hot-row
    slabs, banded, and dlmc through ``DenseSDDMM``) plus clustered16 at K=32
@@ -1135,6 +1156,323 @@ def run_models(torch, sp, sm, card, adj):
     rec[_kernels.PROJ_GEMM_ENTRY] = new_record(0.0)
     add_times(rec, {_kernels.PROJ_GEMM_ENTRY: time_projections(torch, card)})
     return counts, rec, (graph, x_graph, block, x_block, mask)
+
+
+#: the MiMo phase: MiMo-V2-Flash's attention layers
+#: (XiaomiMiMo/MiMo-V2-Flash, config.json) at the published widths and the
+#: benchmark cell's length: 64 query heads over 4 (full: causal) or 8
+#: (window: causal band of 128 with a learned sink) key/value heads, q/k
+#: heads of 192, v heads of 128, RoPE on 64 dims, V scaled by 0.707
+MIMO = dict(seq_len=4096, hidden=4096, heads=64, head_dim=192,
+            v_head_dim=128, rotary=64, value_scale=0.707)
+#: each kind of layer: (name, key/value heads, RoPE base, sink, window)
+MIMO_KINDS = (("full", 4, 5e6, False, None), ("window", 8, 1e4, True, 128))
+#: a grouped-query kernel vs its plain version, |got - want| / |want| in
+#: norm: the same fp32 products summed in another order, K's and V's
+#: gradients over up to G * L = 65,536 terms (the plain version's atomics
+#: in any order), which err by up to about sqrt(65,536) * 2^-24 = 1.5e-5
+#: of their scale: the full layer's dV reads 2.0e-6 on an H100 (the card
+#: tests' 2e-6 is for L = 1024); a key head read from another group, a
+#: sink left out or a group's gradient short of one head is off by 6e-2
+#: to O(1)
+MIMO_NORM_REL = 1e-5
+#: RoPE vs its plain version, max abs err / max |plain|: the same rounded
+#: products and sums
+ROPE_REL = 1e-6
+MIMO_ITERS = 5          # timed kernel calls, after 2 warm-ups
+MIMO_PLAIN_ITERS = 1    # and plain calls (their check warmed them up)
+
+
+def norm_rel(got, want) -> float:
+    want = want.double()
+    return float((got.double() - want).norm() / want.norm())
+
+
+def mimo_launch_want(core, backward):
+    """One MiMo layer's launches of the kernels this phase holds to their
+    plain versions (the projections' are the card tests'): the forward's,
+    or the backward's."""
+    from sddmm_tpu_torch import _kernels
+    res = int(bool(core.runner.packed.nnz_res))
+    gather = "sddmm_gather_dot_float32_float32"
+    if backward:   # dP, dV with the group sum (+ the residual's two), B1
+        return {_kernels.ROPE_ENTRY: 1, _kernels.SOFTMAX_BWD_ENTRY: 1,
+                gather: 1, _kernels.SPMM_ENTRY: 1 + 2 * res,
+                _kernels.TILE_GRAD_ENTRY: 1,
+                _kernels.TILE_GRAD_REDUCE_ENTRY: 1}
+    want = {_kernels.ROPE_ENTRY: 1, "sddmm_tile_dot_float32": 1,
+            _kernels.SOFTMAX_ENTRY: 1, _kernels.SPMM_ENTRY: 1}
+    if res:
+        want[gather] = 1
+    return want
+
+
+def mimo_kernel_times(torch, label, kernel, plain, nbytes, flops, card):
+    """``kernel()`` and ``plain()`` timed (CUDA events) beside the bound of
+    ``nbytes`` and ``flops`` (at the "float32" peak, 989/6 TFLOP/s): the
+    record's numbers, with no library call."""
+    from sddmm_tpu_torch.utils.timing import cuda_time_ms
+    tk = cuda_time_ms(kernel, MIMO_ITERS, warmup=2)
+    tp = cuda_time_ms(plain, MIMO_PLAIN_ITERS, warmup=0)
+    bnd = bound_times(nbytes, flops, BF16_FLOPS / 6)
+    say(f"[time] {label}: kernels {tk['median_ms']:.4f} ms (min "
+        f"{tk['min_ms']:.4f}, max {tk['max_ms']:.4f}, n {tk['n']}), plain "
+        f"{tp['median_ms']:.4f} ms, bound {max(bnd.values()):.4f} ms (by "
+        f"{'bytes' if bnd['bytes_ms'] >= bnd['ops_ms'] else 'operations'}) "
+        f"= {100 * max(bnd.values()) / tk['median_ms']:.1f} % of it on "
+        f"{card}")
+    return {"ms": tk["median_ms"], "plain_ms": tp["median_ms"],
+            "library_ms": None, **bnd}
+
+
+def check_mimo_ops(torch, layer, core, x, card):
+    """A MiMo layer's new kernel paths at its shapes, each against its plain
+    version and timed: the scores of 64 query heads against the key heads
+    h >> s read in place and their backward (tile kernel, residual
+    gather-dot, tile-grad with the group's dK summed); the softmax (with the
+    sink in a window layer) forward and backward, the sinks' gradient
+    included; the aggregation against V of the group and its backward (dP
+    by the gather-dot, dV summing the group); RoPE forward and backward.
+    Returns {part: numbers} for the record."""
+    from sddmm_tpu_torch.models import hybrid_attention as ha
+    from sddmm_tpu_torch.ops import rope as rp
+    from sddmm_tpu_torch.ops import softmax as sm
+    from sddmm_tpu_torch.ops import spmm as sp
+    mm = MIMO
+    L, H, D, Dv = mm["seq_len"], mm["heads"], mm["head_dim"], mm["v_head_dim"]
+    R = mm["rotary"]
+    kind = layer.kind
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    with torch.no_grad():
+        q, k, v = ha.qkv_project(x, layer.w_q, layer.w_k, layer.w_v,
+                                 v_scale=layer.value_scale)
+    hkv, nnz = k.shape[0], core.nnz
+    out = {}
+
+    def grads(fn, leaves, cot, plain):
+        ls = [t.clone().requires_grad_() for t in leaves]
+        res = fn(*ls, plain)
+        torch.autograd.backward(res, cot)
+        torch.cuda.synchronize()
+        return [r.detach() for r in
+                (res if isinstance(res, tuple) else (res,))] + [
+                    t.grad for t in ls]
+
+    def held(part, fn, leaves, cot, names):
+        got, want = (grads(fn, leaves, cot, p) for p in (False, True))
+        errs = {n: norm_rel(a, b) for n, a, b in zip(names, got, want)}
+        say(f"[mimo] {kind} {part} vs plain, |got - want| / |want|: "
+            + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + f" (tol {MIMO_NORM_REL})")
+        if not max(errs.values()) <= MIMO_NORM_REL:
+            fail(f"MiMo {kind} {part}: {errs} vs plain > {MIMO_NORM_REL}")
+        return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+    def timed(part, fn, leaves, cot, nbytes, flops):
+        ls = [t.clone().requires_grad_() for t in leaves]
+
+        def run(plain=False):
+            res = fn(*ls, plain)
+            torch.autograd.grad(res, ls, cot)
+        return mimo_kernel_times(
+            torch, f"MiMo {kind} {part} forward + backward", run,
+            lambda: run(True), nbytes, flops, card)
+
+    # RoPE (in place forward, inverse into new tensors backward)
+    with torch.no_grad():
+        qr, kr = rp.apply_rope(q.clone(), k.clone(), core.table)
+    gq, gk = (torch.randn(t.shape, generator=g, device=DEVICE)
+              for t in (q, k))
+    checks = [(qr, rp.rope_plain(q, core.table)),
+              (kr, rp.rope_plain(k, core.table))]
+    with torch.enable_grad():
+        qq, kk = q.clone().requires_grad_(), k.clone().requires_grad_()
+        torch.autograd.backward(rp.apply_rope(qq * 1, kk * 1, core.table),
+                                (gq, gk))
+    checks += [(qq.grad, rp.rope_plain(gq, core.table, True)),
+               (kk.grad, rp.rope_plain(gk, core.table, True))]
+    rope_rel = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in checks)
+    untouched = (torch.equal(qr[:, :, R:], q[:, :, R:])
+                 and not bool(qr[:, L].any()) and not bool(kr[:, L].any()))
+    say(f"[mimo] {kind} RoPE forward and backward vs plain: max abs err / "
+        f"max |plain| {rope_rel:.3e} (tol {ROPE_REL}); dims {R}.. and the "
+        f"sentinel row untouched: {untouched}")
+    if not rope_rel <= ROPE_REL or not untouched:
+        fail(f"MiMo {kind} RoPE: {rope_rel:.3e} vs plain, or the unrotated "
+             "dims or the sentinel row changed")
+    rope_err = max(float((a - b).abs().max()) for a, b in checks)
+    del checks, qq, kk
+
+    # the two launches alone (forward in place, backward into new tensors)
+    qw, kw = qr.clone(), kr.clone()
+    dq, dk = torch.empty_like(gq), torch.empty_like(gk)
+
+    def rope_kernels():
+        rp._launch((qw, kw), (qw, kw), core.table, False)
+        rp._launch((gq, gk), (dq, dk), core.table, True)
+
+    def rope_plains():
+        for t, inverse in ((qw, False), (kw, False), (gq, True),
+                           (gk, True)):
+            rp.rope_plain(t, core.table, inverse)
+    # the rotated dims read and written once, forward and backward, with
+    # the table (the rest is the identity: the backward's copy of it is
+    # the kernel's own cost)
+    rope_bytes = 2 * (2 * (H + hkv) * L * R * 4 + L * R * 4)
+    out["rope"] = {"err": rope_err, **mimo_kernel_times(
+        torch, f"MiMo {kind} RoPE forward + backward launches",
+        rope_kernels, rope_plains, rope_bytes, 0.0, card)}
+    del qw, kw, dq, dk, gq, gk
+
+    # the scores against the key head of the group, and their backward
+    def scores(a, b, plain):
+        return core.batched.run_padded(a, b, order="csr", plain=plain)
+
+    gs = torch.randn((H, nnz), generator=g, device=DEVICE)
+    err = held("scores (head shift) and tile-grad", scores, [qr, kr], gs,
+               ["scores", "dQ", "dK"])
+    nbytes = 4 * (3 * (H + hkv) * L * D + 2 * H * nnz)
+    out["scores"] = {"err": err, **timed("scores", scores, [qr, kr], gs,
+                                         nbytes, 6.0 * H * nnz * D)}
+    del gs
+
+    # the softmax, with the sink in a window layer
+    flat = torch.randn((H, core.runner.packed.packed_size), generator=g,
+                       device=DEVICE) * 4
+    sink = (torch.randn(H, generator=g, device=DEVICE) * 2
+            if layer.sink is not None else None)
+    gp = torch.randn((H, nnz), generator=g, device=DEVICE)
+    leaves = [flat] + ([sink] if sink is not None else [])
+
+    def softmax(f, *rest):
+        *s, plain = rest
+        return sm.segment_softmax_sink(f, s[0] if s else None, core.row_ptr,
+                                       D ** -0.5, core.runner.inv_idx32,
+                                       core.softmax_plan, plain)
+
+    err = held("softmax" + (" with the sink" if sink is not None else ""),
+               softmax, leaves, gp, ["p", "d scores", "d sink"])
+    with torch.no_grad():
+        p = softmax(flat, *leaves[1:], False)
+    if sink is not None:
+        mass = torch.zeros(H * L, dtype=torch.float64, device=DEVICE)
+        mass.index_add_(0, sm._head_rows(core.row_ptr, H, DEVICE),
+                        p.reshape(-1).double())
+        say(f"[mimo] {kind} softmax: the largest row's mass without its "
+            f"sink {float(mass.max()):.6f} (< 1)")
+        if not float(mass.max()) < 1.0:
+            fail(f"MiMo {kind} softmax: a row's mass without its sink is "
+                 f"{float(mass.max())}")
+    # p and the packed scores read, p written; g, p read and the packed
+    # gradient written; the sinks' row shares
+    nbytes = 4 * H * (2 * core.runner.packed.packed_size + 3 * nnz
+                      + (3 * L if sink is not None else 0))
+    out["softmax"] = {"err": err, **timed("softmax", softmax, leaves, gp,
+                                          nbytes, 0.0)}
+    del flat, gp
+
+    # the aggregation against V of the group, and its backward
+    go = torch.randn((H, L, Dv), generator=g, device=DEVICE)
+    v3 = v.view(hkv, L, Dv)
+
+    def aggregate(pp, vv, plain):
+        return sp.head_spmm(pp, vv, core.agg, plain)
+
+    err = held("aggregation (head shift, dV summing the group)", aggregate,
+               [p, v3], go, ["out", "dP", "dV"])
+    nbytes = 4 * (3 * H * nnz + 3 * hkv * L * Dv + 2 * H * L * Dv)
+    out["aggregate"] = {"err": err, **timed(
+        "aggregation", aggregate, [p, v3], go, nbytes, 6.0 * H * nnz * Dv)}
+    return out
+
+
+def run_mimo(torch, card):
+    """The MiMo phase: one full and one window layer at the published widths
+    and L = 4096 (each kind's mask packed once): each layer's forward and
+    backward with the launch counters zeroed just before (the new kernels'
+    exact launches), its output against the fp64 reference
+    (``models.mimo_reference``) under the contract and against the plain
+    path, then ``check_mimo_ops``.  Returns the launches of the two layers'
+    forward and backward and the record's numbers by kernel."""
+    from sddmm_tpu_torch import _kernels
+    from sddmm_tpu_torch.models import (AttentionKind, HybridAttentionStack,
+                                        mimo_reference)
+    from sddmm_tpu_torch.utils.timing import cuda_time_ms
+    mm = MIMO
+    kinds = [AttentionKind(*k) for k in MIMO_KINDS]
+    t0 = time.perf_counter()
+    stack = HybridAttentionStack(
+        mm["seq_len"], [k.name for k in kinds], kinds, mm["hidden"],
+        mm["heads"], mm["head_dim"], mm["v_head_dim"], mm["rotary"],
+        mm["value_scale"], device=DEVICE)
+    say(f"[pack] MiMo layers: {time.perf_counter() - t0:.1f} s to pack "
+        "both masks")
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    stack.init(gen)
+    x = torch.randn((mm["seq_len"], mm["hidden"]), generator=gen,
+                    device=DEVICE)
+    cfg = {"rotary_dim": mm["rotary"], "value_scale": mm["value_scale"]}
+    launches, parts = {}, {}
+    for layer, kind in zip(stack.layers, kinds):
+        core = stack.cores[kind.name]
+        p = core.runner.packed
+        label = f"MiMo {kind.name} layer"
+        say(f"[pack] {label}: {core.nnz} entries a head, packed "
+            f"{p.packed_size} slots, residual {p.nnz_res}, {kind.kv_heads} "
+            f"key/value heads for {mm['heads']} query heads")
+        xx = x.clone().requires_grad_()
+        torch.cuda.synchronize()
+        _kernels.launches.clear()
+        y = layer(xx)
+        torch.cuda.synchronize()
+        fwd = dict(_kernels.launches)
+        _kernels.launches.clear()
+        y.square().mean().backward()
+        torch.cuda.synchronize()
+        bwd = dict(_kernels.launches)
+        say(f"[mimo] {label} launches: forward {fwd}; backward {bwd}")
+        for got, backward in ((fwd, False), (bwd, True)):
+            want = mimo_launch_want(core, backward)
+            seen = {n: got.get(n, 0) for n in want}
+            if seen != want:
+                fail(f"{label} {'backward' if backward else 'forward'}: "
+                     f"launches {seen}, want {want}")
+            for n, c in got.items():
+                launches[n] = launches.get(n, 0) + c
+        if not all(w.grad is not None and bool(torch.isfinite(w.grad).all())
+                   for w in layer.parameters()):
+            fail(f"{label}: a weight's gradient is missing or not finite")
+        del xx, y
+        layer.zero_grad(set_to_none=True)
+        weights = {n: w.detach().double()
+                   for n, w in layer.named_parameters()}
+        ref_kind = dict(kv_heads=kind.kv_heads, rope_theta=kind.rope_theta,
+                        window=kind.window, sink=kind.sink)
+        check_model(torch, f"{label} (L {mm['seq_len']}, {mm['heads']} "
+                    f"heads over {kind.kv_heads})", layer, x,
+                    lambda: mimo_reference.attention(x.double(), weights,
+                                                     ref_kind, cfg))
+        del weights
+
+        def step():
+            layer(x).square().mean().backward()
+        t = cuda_time_ms(step, 3, warmup=1)
+        layer.zero_grad(set_to_none=True)
+        say(f"[time] {label} forward + backward (weights' gradients): "
+            f"median {t['median_ms']:.3f} ms (n {t['n']}) on {card}")
+        for part, nums in check_mimo_ops(torch, layer, core, x,
+                                         card).items():
+            parts.setdefault(part, []).append(nums)
+        torch.cuda.empty_cache()
+    del stack, x, layer, core
+    torch.cuda.empty_cache()
+    rec = {}
+    for part, nums in parts.items():
+        rec[part] = new_record(0.0)
+        for n in nums:
+            add_times({part: rec[part]}, {part: n})
+    return launches, rec
 
 
 def gather_name(runner):
@@ -3030,6 +3368,10 @@ def main() -> None:
             "bit-equal: max |kernel - plain| / plain "
             f"{rel4:.3e} (tol {SOFTMAX_REL_TOL}), max abs {abs4:.3e}")
 
+    # -- 4b. MiMo-V2-Flash's grouped-query layers --
+    with Phase("MiMo layers"):
+        mimo_launches, mimo_rec = run_mimo(torch, card)
+
     # every kernel instance's record; "launches" is from the named path
     rec = {f"sddmm_tile_dot_{m}": new_record(worst[m][1]) for m in td.MODES}
     for pair in hy.GATHER_STORAGE:
@@ -3425,6 +3767,31 @@ def main() -> None:
         "sddmm_tpu/reorder/device_cluster.py:51",
         cluster_launches[_kernels.CLUSTER_LEADERS_ENTRY],
         "device clustering (probe matrix, 102400 rows)", cluster_rec))
+    # the grouped-query paths of MiMo-V2-Flash's layers (phase 4b)
+    gather = "sddmm_gather_dot_float32_float32"
+    for part, name, sources, replaces, kname in (
+            ("rope", f"{_kernels.ROPE_ENTRY} (RoPE, forward in place and "
+             "backward)", "rope.cu", "none (the JAX package has no RoPE)",
+             _kernels.ROPE_ENTRY),
+            ("scores", f"sddmm_tile_dot_float32 + {gather} + "
+             f"{_kernels.TILE_GRAD_ENTRY} + {_kernels.TILE_GRAD_REDUCE_ENTRY}"
+             " (grouped-query scores, head shift 4 and 3, and their "
+             "backward)", "tile_dot.cu, gather_dot.cu, tile_grad.cu",
+             "none (the JAX package has no grouped-query heads)",
+             "sddmm_tile_dot_float32"),
+            ("softmax", f"{_kernels.SOFTMAX_ENTRY} + "
+             f"{_kernels.SOFTMAX_BWD_ENTRY} (the sink in the window layer, "
+             "forward and backward)", "segment_softmax.cu",
+             "none (the JAX package has no sink)", _kernels.SOFTMAX_ENTRY),
+            ("aggregate", f"{_kernels.SPMM_ENTRY} + {gather} (V of the group"
+             " read in place; dP; dV summing the group)",
+             "spmm.cu, gather_dot.cu",
+             "none (the JAX package has no grouped-query heads)",
+             _kernels.SPMM_ENTRY)):
+        record.append(record_entry(
+            name, f"sddmm_tpu_torch/csrc/{sources}", replaces,
+            mimo_launches.get(kname, 0), "MiMo layers (full and window, "
+            "L=4096, 64 query heads over 4 or 8)", mimo_rec[part]))
     for r in record:
         if not r["launches"]:
             fail(f"{r['name']} was not launched on its path")

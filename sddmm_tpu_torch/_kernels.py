@@ -121,6 +121,7 @@ CLUSTER_ASSIGN_ENTRY = "sddmm_cluster_assign"
 #: (``csrc/proj_gemm.cu``): the operands' bf16 planes, then the products
 PROJ_SPLIT_ENTRY = "sddmm_proj_split"
 PROJ_GEMM_ENTRY = "sddmm_proj_gemm"
+ROPE_ENTRY = "sddmm_rope_float32"
 
 
 def gather_dot_entry(adt, bdt) -> str:
@@ -135,23 +136,23 @@ def _entry_points() -> dict:
     the tile dot per compute mode, the gather-dot per (A, B) storage pair
     of the modes, the CSR SpMM, the segment softmax and its backward, and
     the tile-grad kernel and its reduction, the clustering round's two
-    kernels, and the projections' split and GEMM."""
+    kernels, the projections' split and GEMM, and RoPE."""
     from sddmm_tpu_torch.ops.tile_dot import MODES, STORAGE
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     tile = [p, i64, i64, p, i64, i64, i64, p, i64, p, p, p, i64, i32, i32,
-            i32, i32, i32, p]
+            i32, i32, i32, i32, p]
     gather = [p, i64, i64, p, i64, i64, i64, p, p, p, p, i64, p, p, i32,
-              i32, p, i64, i64, i32, i32, i32, i32, i32, p]
+              i32, p, i64, i64, i32, i32, i32, i32, i32, i32, p]
     spmm = [p, i64, p, p, i32, p, p, p, p, i64, p, i64, i64, i64, p, i64,
-            i64, i64, i32, i32, i32, i32, p]
+            i64, i64, i32, i32, i32, i32, i32, i32, p]
     softmax = [p, i64, p, p, p, i64, i64, i64, ctypes.c_float, p, i64, i32,
-               i32, p]
+               i32, p, p, i64, p]
     softmax_bwd = [p, i64, p, i64, p, p, p, i64, i64, i64, ctypes.c_float, p,
-                   i64, i32, i32, p]
+                   i64, i32, i32, p, p, i64, p]
     tile_grad = [p, i64, i64, p, i64, i64, i64, p, i64, p, p, p, p, i64,
-                 i64, p, p, i64, i32, i32, i32, i32, p]
+                 i64, p, p, i64, i32, i32, i32, i32, i32, p]
     tile_grad_reduce = [p, i64, i32, p, p, i64, i64, p, i64, p, i64, i64,
-                        i32, i32, i32, p]
+                        i32, i32, i32, i32, p]
     cluster_leaders = [p, p, p, p, p, p, p, p, p, i64, i32, ctypes.c_float,
                        i32, ctypes.c_double, i64, p]
     cluster_assign = [p, p, p, p, p, p, p, p, p, i64, i32, ctypes.c_float, p]
@@ -166,6 +167,8 @@ def _entry_points() -> dict:
     eps[CLUSTER_ASSIGN_ENTRY] = cluster_assign
     eps[PROJ_SPLIT_ENTRY] = [p, i32, p]
     eps[PROJ_GEMM_ENTRY] = [p, p]
+    eps[ROPE_ENTRY] = [p, p, i64, i64, i32, p, p, i64, i64, i32, p, i32, i32,
+                       i32, i32, i32, p]
     return eps
 
 

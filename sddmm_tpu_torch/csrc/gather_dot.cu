@@ -214,7 +214,7 @@ gather_dot_plan_kernel(const TA* __restrict__ a, long long lda,
                        const int* __restrict__ groups,
                        const int* __restrict__ items, int G,
                        float* __restrict__ out, long long o_head, int C,
-                       int kc) {
+                       int kc, int kv_shift) {
   constexpr int kRow = kSlab + VEC;  // a staged B^T slice's stride
   extern __shared__ __align__(16) float smem[];
   __shared__ long long b_off[kWarps][32];
@@ -223,7 +223,7 @@ gather_dot_plan_kernel(const TA* __restrict__ a, long long lda,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* b_s = smem + GR * a_row + warp * 32 * kRow;  // 32 x kRow, this warp's
   a += blockIdx.y * a_head;
-  bt += blockIdx.y * b_head;
+  bt += (long long)(blockIdx.y >> kv_shift) * b_head;
   out += blockIdx.y * o_head;
   const int* task = tasks + 3LL * blockIdx.x;
   const int g = task[0], i0 = task[1], i1 = task[2];
@@ -320,10 +320,11 @@ gather_dot_entries_kernel(const TA* __restrict__ a, long long lda,
                           const int* __restrict__ gids,
                           const int* __restrict__ member,
                           float* __restrict__ out, long long o_head,
-                          long long n, int C, int kc, int lpi, int run) {
+                          long long n, int C, int kc, int lpi, int run,
+                          int kv_shift) {
   constexpr bool SPLIT = sizeof(TB) == 4;
   a += blockIdx.y * a_head;
-  bt += blockIdx.y * b_head;
+  bt += (long long)(blockIdx.y >> kv_shift) * b_head;
   out += blockIdx.y * o_head;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int ipw = 32 / lpi, sub = lane / lpi, t = lane % lpi;
@@ -402,7 +403,7 @@ int launch_plan(const TA* a, long long lda, long long a_head, const TB* bt,
                 long long b_chunk, long long ldb, long long b_head,
                 const int* tasks, long long n_tasks, const int* groups,
                 const int* items, int G, float* out, long long o_head,
-                int heads, int C, int kc, cudaStream_t stream) {
+                int heads, int C, int kc, int kv_shift, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)GR * ((size_t)C * kc + kSlab)
                        + (size_t)kWarps * 32 * (kSlab + VEC));
@@ -414,7 +415,7 @@ int launch_plan(const TA* a, long long lda, long long a_head, const TB* bt,
   }
   kernel<<<dim3((unsigned)n_tasks, (unsigned)heads), kWarps * 32, smem,
            stream>>>(a, lda, a_head, bt, b_chunk, ldb, b_head, tasks, groups,
-                     items, G, out, o_head, C, kc);
+                     items, G, out, o_head, C, kc, kv_shift);
   return (int)cudaGetLastError();
 }
 
@@ -423,14 +424,14 @@ int launch_group(int group_rows, const TA* a, long long lda, long long a_head,
                  const TB* bt, long long b_chunk, long long ldb,
                  long long b_head, const int* tasks, long long n_tasks,
                  const int* groups, const int* items, int G, float* out,
-                 long long o_head, int heads, int C, int kc,
+                 long long o_head, int heads, int C, int kc, int kv_shift,
                  cudaStream_t s) {
 #define SDDMM_PLAN_CASE(GR)                                                 \
   case GR:                                                                  \
     return launch_plan<TA, TB, GR, VEC>(a, lda, a_head, bt, b_chunk, ldb,   \
                                         b_head, tasks, n_tasks, groups,     \
                                         items, G, out, o_head, heads, C, kc, \
-                                        s);
+                                        kv_shift, s);
   switch (group_rows) {
     SDDMM_PLAN_CASE(2)
     SDDMM_PLAN_CASE(4)
@@ -448,7 +449,7 @@ int launch_entries(const TA* a, long long lda, long long a_head,
                    long long b_head, const int* rows, const int* gids,
                    const int* member, float* out, long long o_head,
                    long long n, int heads, int C, int kc, int lpi,
-                   cudaStream_t stream) {
+                   int kv_shift, cudaStream_t stream) {
   const long long spread = n / kRunSpread;
   const int run = spread >= kRun ? kRun : spread < 1 ? 1 : (int)spread;
   const long long subs = (n + run - 1) / run;
@@ -458,7 +459,7 @@ int launch_entries(const TA* a, long long lda, long long a_head,
   gather_dot_entries_kernel<TA, TB, EPL>
       <<<dim3((unsigned)blocks, (unsigned)heads), kWarps * 32, 0, stream>>>(
           a, lda, a_head, bt, b_chunk, ldb, b_head, rows, gids, member, out,
-          o_head, n, C, kc, lpi, run);
+          o_head, n, C, kc, lpi, run, kv_shift);
   return (int)cudaGetLastError();
 }
 
@@ -469,13 +470,13 @@ int launch(const void* a_, long long lda, long long a_head, const void* bt_,
            const int* tasks, long long n_tasks, const int* groups,
            const int* items, int group_rows, int G, float* out,
            long long o_head, long long n, int heads, int C, int kc, int vec,
-           int lpi, void* stream) {
+           int lpi, int kv_shift, void* stream) {
   const TA* a = static_cast<const TA*>(a_);
   const TB* bt = static_cast<const TB*>(bt_);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (heads <= 0 || heads > 65535 || (vec != 1 && vec != 8) ||
       (lpi != 8 && lpi != 16 && lpi != 32) || (vec == 1 && lpi != 32) ||
-      G < 1 || C < 1 || kc < 1)
+      G < 1 || C < 1 || kc < 1 || kv_shift < 0 || kv_shift > 16)
     return (int)cudaErrorInvalidValue;
   if (tasks) {
     // 16-byte staging of 4-element parts where the entry walk may take
@@ -486,21 +487,21 @@ int launch(const void* a_, long long lda, long long a_head, const void* bt_,
                ? launch_group<TA, TB, 4>(group_rows, a, lda, a_head, bt,
                                          b_chunk, ldb, b_head, tasks, n_tasks,
                                          groups, items, G, out, o_head, heads,
-                                         C, kc, s)
+                                         C, kc, kv_shift, s)
                : launch_group<TA, TB, 1>(group_rows, a, lda, a_head, bt,
                                          b_chunk, ldb, b_head, tasks, n_tasks,
                                          groups, items, G, out, o_head, heads,
-                                         C, kc, s);
+                                         C, kc, kv_shift, s);
   }
   if (n <= 0) return 0;
   return vec == 8 ? launch_entries<TA, TB, 8>(a, lda, a_head, bt, b_chunk,
                                               ldb, b_head, rows, gids, member,
                                               out, o_head, n, heads, C, kc,
-                                              lpi, s)
+                                              lpi, kv_shift, s)
                   : launch_entries<TA, TB, 1>(a, lda, a_head, bt, b_chunk,
                                               ldb, b_head, rows, gids, member,
                                               out, o_head, n, heads, C, kc,
-                                              lpi, s);
+                                              lpi, kv_shift, s);
 }
 
 }  // namespace
@@ -517,7 +518,8 @@ int launch(const void* a_, long long lda, long long a_head, const void* bt_,
 // or 32; 32 at vec 1; at least group_rows).  The wrapper
 // (ops/hybrid.py::residual_gather_dot) has checked shapes and dtypes; the
 // caller guarantees the index ranges.  Returns the launch's
-// cudaGetLastError() code.
+// cudaGetLastError() code.  Head h reads the B^T of head h >> kv_shift (0:
+// its own; grouped-query attention's query heads share a key head in place).
 #define SDDMM_GATHER_DOT(NAME, TA, TB)                                        \
   extern "C" int sddmm_gather_dot_##NAME(                                     \
       const void* a, long long lda, long long a_head, const void* bt,         \
@@ -525,11 +527,12 @@ int launch(const void* a_, long long lda, long long a_head, const void* bt_,
       const int* gids, const int* member, const int* tasks,                   \
       long long n_tasks, const int* groups, const int* items,                 \
       int group_rows, int G, float* out, long long o_head, long long n,       \
-      int heads, int C, int kc, int vec, int lpi, void* stream) {             \
+      int heads, int C, int kc, int vec, int lpi, int kv_shift,               \
+      void* stream) {                                                         \
     return launch<TA, TB>(a, lda, a_head, bt, b_chunk, ldb, b_head, rows,     \
                           gids, member, tasks, n_tasks, groups, items,        \
                           group_rows, G, out, o_head, n, heads, C, kc, vec,   \
-                          lpi, stream);                                       \
+                          lpi, kv_shift, stream);                             \
   }
 
 SDDMM_GATHER_DOT(float32_float32, float, float)

@@ -18,10 +18,13 @@
 //                      transposed (a 64 x 64 tile through shared memory), up
 //                      to two layouts of one source from one read;
 //   sddmm_proj_gemm    the products over the planes, into C's layout: up to
-//                      three column parts, each cut into chunks of `chunk`
-//                      columns that land `s_h` apart (the heads of q_pad,
-//                      k_pad and v, or of a weight's gradient), with the zero
-//                      sentinel row of q_pad and k_pad written.
+//                      three column parts, each cut into chunks of its
+//                      `chunk` columns that land `s_h` apart, rows `s_r`
+//                      apart, times its `scale` (the heads of q_pad, k_pad
+//                      and v, of any head counts and widths, V's value scale;
+//                      or of a weight's gradient), with the zero sentinel row
+//                      of q_pad and k_pad written.  A split job may scale its
+//                      source first (V's cotangent by the value scale).
 //
 // The split is a pre-pass that writes the planes for TMA to read, rather
 // than a step after an fp32 tile lands in shared memory: splitting in the
@@ -87,6 +90,7 @@
 #include <cuda_bf16.h>
 #include <dlfcn.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -102,15 +106,15 @@ constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kATile = kBM * kBK * 2;                    // bytes a plane
 constexpr int kBTile = kBN * kBK * 2;
 constexpr int kStageBytes = kPlanes * (kATile + kBTile);  // 61440
-constexpr int kSmemBytes =
-    1024 + kStages * kStageBytes + 2 * kStages * 8 + kBN * 8 + 4 + kBN;
+constexpr int kSmemBytes = 1024 + kStages * kStageBytes + 2 * kStages * 8 +
+                           kBN * 8 + 4 + kBN + 3 + kBN * 8;
 constexpr int kAcc = kBN / 2;     // fp32 accumulators a thread (m64n192)
 constexpr int kHalf = kAcc / 2;   // those of one 96-column half (m64n96)
 // 1 + 2^-23: three stages in eight add their fragment scaled by it (see
 // Arithmetic)
 constexpr float kUnbias = 1.00000011920928955078125f;
 constexpr int kMaxSplitJobs = 8;
-constexpr int kJobWords = 22;     // int64 words of a split job
+constexpr int kJobWords = 23;     // int64 words of a split job
 constexpr int kSplitTile = 64;
 
 // (A plane, B plane) of product q of the six, in ops/tile_dot.py MODES order
@@ -121,15 +125,17 @@ __host__ __device__ constexpr int prod_b(int q) {
   return q == 2 ? 2 : (q == 1 || q == 4) ? 1 : 0;
 }
 
-// C's layout: column n lies in part p = n / part_cols, chunk h =
-// (n % part_cols) / chunk, at d = n % chunk; (m, n) is at
-// base[p] + h * s_h[p] + m * s_r + d.
+// C's layout: column n lies in part p, the first with n < end[p], at nn = n
+// - end[p - 1] (0 for p = 0): chunk h = nn / chunk[p], d = nn % chunk[p];
+// (m, n) holds scale[p] * C[m, n] at base[p] + h * s_h[p] + m * s_r[p] + d.
 struct OutMap {
   float* base[3];
   long long s_h[3];
-  long long s_r;
-  int part_cols;
-  int chunk;
+  long long s_r[3];
+  int end[3];
+  int chunk[3];
+  float scale[3];
+  int scaled;         // some part's scale is not 1
   int sentinel_row;   // a row of parts in sentinel_mask written 0, or -1
   int sentinel_mask;
 };
@@ -261,14 +267,18 @@ __device__ __forceinline__ void wgmma_96(float (&d)[kHalf], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// the address of column n of C (row 0), and whether its part has a sentinel
+// the address of column n of C (row 0), its part's row stride and scale,
+// and whether its part has a sentinel
 __device__ __forceinline__ float* column_ptr(const OutMap& o, int n,
-                                             bool* sentinel) {
-  const int p = n / o.part_cols;
-  const int nn = n - p * o.part_cols;
-  const int h = nn / o.chunk;
-  const int d = nn - h * o.chunk;
+                                             bool* sentinel, int* s_r,
+                                             float* scale) {
+  const int p = n < o.end[0] ? 0 : n < o.end[1] ? 1 : 2;
+  const int nn = n - (p ? o.end[p - 1] : 0);
+  const int h = nn / o.chunk[p];
+  const int d = nn - h * o.chunk[p];
   *sentinel = (o.sentinel_mask >> p) & 1;
+  *s_r = static_cast<int>(o.s_r[p]);
+  *scale = o.scale[p];
   return o.base[p] + h * o.s_h[p] + d;
 }
 
@@ -282,6 +292,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   float** col = reinterpret_cast<float**>(empty + kStages);
   int* last = reinterpret_cast<int*>(col + kBN);
   uint8_t* col_sentinel = reinterpret_cast<uint8_t*>(last + 1);
+  int* col_sr = reinterpret_cast<int*>(
+      (reinterpret_cast<uintptr_t>(col_sentinel + kBN) + 3) & ~uintptr_t(3));
+  float* col_scale = reinterpret_cast<float*>(col_sr + kBN);
 
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * kBN;
@@ -301,9 +314,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   if (tid < kBN) {
     bool sent = false;
-    col[tid] = n0 + tid < p.N ? column_ptr(p.out, n0 + tid, &sent)
+    int sr = 0;
+    float sc = 1.0f;
+    col[tid] = n0 + tid < p.N ? column_ptr(p.out, n0 + tid, &sent, &sr, &sc)
                               : nullptr;
     col_sentinel[tid] = sent;
+    col_sr[tid] = sr;
+    col_scale[tid] = sc;
   }
   __syncthreads();
 
@@ -410,7 +427,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       // thread, each added in split order (this CTA's own partial read back
       // from L2 too)
       const int rows = min(kBM, p.M - m0), cols = min(kBN, p.N - n0);
-      const long long s_r = p.out.s_r;
       constexpr int kQuads = kBM * kBN / 4, kStep = kConsumers * 128;
       for (int i0 = tid; i0 < kQuads; i0 += 4 * kStep) {
         float4 sum[4];
@@ -439,41 +455,46 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int i = i0 + u * kStep;
           const int rr = i / (kBN / 4), cc = (i % (kBN / 4)) * 4;
           if (i >= kQuads || rr >= rows || cc >= cols) continue;
-          const long long at = static_cast<long long>(m0 + rr) * s_r;
-          col[cc][at] = sum[u].x;
-          col[cc + 1][at] = sum[u].y;
-          col[cc + 2][at] = sum[u].z;
-          col[cc + 3][at] = sum[u].w;
+          const float v[4] = {sum[u].x, sum[u].y, sum[u].z, sum[u].w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            col[cc + e][static_cast<long long>(m0 + rr) * col_sr[cc + e]] =
+                __fmul_rn(v[e], col_scale[cc + e]);
         }
       }
       return;
     }
-    const long long s_r = p.out.s_r;
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
       const int c = j * 8 + (lane % 4) * 2;
       float* d0 = col[c];
       float* d1 = col[c + 1];
-      const bool pair = d1 == d0 + 1 && d0 != nullptr &&
+      const long long sr0 = col_sr[c], sr1 = col_sr[c + 1];
+      const bool pair = d1 == d0 + 1 && d0 != nullptr && sr0 == sr1 &&
                         (reinterpret_cast<uintptr_t>(d0) & 7) == 0 &&
-                        (s_r & 1) == 0;
+                        (sr0 & 1) == 0;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = r + 8 * half;
-        const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+        float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+        if (p.out.scaled) {
+          v0 = __fmul_rn(v0, col_scale[c]);
+          v1 = __fmul_rn(v1, col_scale[c + 1]);
+        }
         if (row >= p.M) continue;
         if (pair) {
-          *reinterpret_cast<float2*>(d0 + row * s_r) = make_float2(v0, v1);
+          *reinterpret_cast<float2*>(d0 + row * sr0) = make_float2(v0, v1);
         } else {
-          if (d0 != nullptr) d0[row * s_r] = v0;
-          if (d1 != nullptr) d1[row * s_r] = v1;
+          if (d0 != nullptr) d0[row * sr0] = v0;
+          if (d1 != nullptr) d1[row * sr1] = v1;
         }
       }
       if (p.out.sentinel_row >= 0 && m0 == 0 && wg == 0 && warp == 0 &&
           lane < 4) {
-        if (d0 != nullptr && col_sentinel[c]) d0[p.out.sentinel_row * s_r] = 0.0f;
+        if (d0 != nullptr && col_sentinel[c])
+          d0[p.out.sentinel_row * sr0] = 0.0f;
         if (d1 != nullptr && col_sentinel[c + 1])
-          d1[p.out.sentinel_row * s_r] = 0.0f;
+          d1[p.out.sentinel_row * sr1] = 0.0f;
       }
     }
   }
@@ -495,6 +516,7 @@ struct SplitDst {
 struct SplitJob {
   const float* src;
   long long nb, nr, nc, sb, sr;
+  float scale;        // the source is split as scale * x
   SplitDst dst[2];
   int ndst;
   long long tiles_r, tiles_c, tile0;
@@ -574,7 +596,7 @@ __global__ void __launch_bounds__(256)
       }
     }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) tile[rr][cq + e] = v[e];
+    for (int e = 0; e < 4; ++e) tile[rr][cq + e] = __fmul_rn(v[e], jb.scale);
   }
   __syncthreads();
   for (int d = 0; d < jb.ndst; ++d) {
@@ -650,26 +672,37 @@ int make_map(CUtensorMap* map, const long long* d, int box_rows) {
   return r == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(r);
 }
 
-// o: [base0, base1, base2, s_h0, s_h1, s_h2, s_r, part_cols, chunk,
-//     sentinel row, sentinel mask]
+// a float passed as its bits in the low word
+float word_float(long long w) {
+  const uint32_t bits = static_cast<uint32_t>(w);
+  float f;
+  memcpy(&f, &bits, sizeof f);
+  return f;
+}
+
+// o (kOutWords): [base x 3, s_h x 3, s_r x 3, end x 3, chunk x 3, scale x 3
+//                 (float bits), sentinel row, sentinel mask]
+constexpr int kOutWords = 20;
 OutMap out_map(const long long* o) {
   OutMap m;
   for (int i = 0; i < 3; ++i) {
     m.base[i] = reinterpret_cast<float*>(static_cast<uintptr_t>(o[i]));
     m.s_h[i] = o[3 + i];
+    m.s_r[i] = o[6 + i];
+    m.end[i] = static_cast<int>(o[9 + i]);
+    m.chunk[i] = static_cast<int>(o[12 + i]);
+    m.scale[i] = word_float(o[15 + i]);
   }
-  m.s_r = o[6];
-  m.part_cols = static_cast<int>(o[7]);
-  m.chunk = static_cast<int>(o[8]);
-  m.sentinel_row = static_cast<int>(o[9]);
-  m.sentinel_mask = static_cast<int>(o[10]);
+  m.sentinel_row = static_cast<int>(o[18]);
+  m.sentinel_mask = static_cast<int>(o[19]);
+  m.scaled = m.scale[0] != 1.0f || m.scale[1] != 1.0f || m.scale[2] != 1.0f;
   return m;
 }
 
 }  // namespace
 
 // desc: [M, N, K, splits, A (3 words, make_map), B (3 words), C's layout
-// (11 words, out_map), workspace, counters]: K a multiple of 32 that both
+// (kOutWords, out_map), workspace, counters]: K a multiple of 32 that both
 // operands share; with splits > 1 (N a multiple of 4, no sentinel row) the
 // workspace holds splits x M x N fp32 and the counters a zero int a
 // 128 x 192 tile
@@ -680,8 +713,9 @@ extern "C" int sddmm_proj_gemm(const long long* desc, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   if (K < kBK || K % kBK || desc[6] != K || desc[9] != K || splits < 1 ||
       splits > K / kBK ||
-      (splits > 1 && (desc[21] == 0 || desc[22] == 0 || N % 4 ||
-                      desc[19] >= 0)))
+      (splits > 1 && (desc[10 + kOutWords] == 0 ||
+                      desc[11 + kOutWords] == 0 || N % 4 ||
+                      desc[10 + 18] >= 0)))
     return cudaErrorInvalidValue;
   GemmParams p;
   int rc = make_map(&p.ta, desc + 4, kBM);
@@ -689,9 +723,14 @@ extern "C" int sddmm_proj_gemm(const long long* desc, void* stream) {
   rc = make_map(&p.tb, desc + 7, kBN);
   if (rc) return rc;
   p.out = out_map(desc + 10);
-  p.ws = reinterpret_cast<float*>(static_cast<uintptr_t>(desc[21]));
+  for (int i = 0; i < 3; ++i)
+    if (p.out.chunk[i] <= 0 || p.out.s_r[i] > 2147483647LL)
+      return cudaErrorInvalidValue;
+  p.ws = reinterpret_cast<float*>(
+      static_cast<uintptr_t>(desc[10 + kOutWords]));
   p.ws_stride = static_cast<long long>(M) * N;
-  p.counters = reinterpret_cast<int*>(static_cast<uintptr_t>(desc[22]));
+  p.counters = reinterpret_cast<int*>(
+      static_cast<uintptr_t>(desc[11 + kOutWords]));
   p.M = M;
   p.N = N;
   p.nkb = static_cast<int>(K / kBK);
@@ -713,7 +752,8 @@ extern "C" int sddmm_proj_gemm(const long long* desc, void* stream) {
 }
 
 // jobs: njobs x [src, nb, nr, nc, sb, sr, then two destinations of 8 words,
-// ptr, R, row0, k0, row_b, k_b, transposed, plane (ptr 0: none)]
+// ptr, R, row0, k0, row_b, k_b, transposed, plane (ptr 0: none), then the
+// source's scale (float bits)]
 extern "C" int sddmm_proj_split(const long long* jobs, int njobs,
                                 void* stream) {
   if (njobs <= 0) return 0;
@@ -730,6 +770,7 @@ extern "C" int sddmm_proj_split(const long long* jobs, int njobs,
     j.nc = w[3];
     j.sb = w[4];
     j.sr = w[5];
+    j.scale = word_float(w[22]);
     j.ndst = 0;
     for (int d = 0; d < 2; ++d) {
       const long long* x = w + 6 + 8 * d;

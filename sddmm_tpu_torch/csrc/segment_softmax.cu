@@ -60,6 +60,18 @@
 // p * g by the same fixed trees (a cluster for a split row, in two passes),
 // the writes at inv_idx.
 // Bytes: p and g read once, one value written per entry.
+//
+// Sink (both entry points; none where the pointers are null: an instance
+// of its own, so that the plain softmax keeps its registers).  A learned
+// logit b_h a head (MiMo-V2-Flash's sliding-window layers) joins every row
+// of head h as one more entry with no value:
+//   m = max(max_row x, b_h),  Z = sum_row exp(x - m) + exp(b_h - m),
+//   out_e = exp(x_e - m) / Z,  p_sink[h, r] = exp(b_h - m) / Z,
+// the sink's term added after the row's sum.  The forward writes p_sink
+// (heads, m); the backward's entries are unchanged (the sink carries no
+// value, so d x = p * (g - sum_row p * g) still), and it writes each row's
+// share of the sink's gradient, d_rows[h, r] = -p_sink[h, r] * sum_row p *
+// g, which the wrapper sums over the rows in a fixed order.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -109,6 +121,16 @@ struct Plan {
   long long n_sub, n_warp, n_split;
 };
 
+// The rows' sink (null logit: none): the logits (heads,), the forward's
+// p_sink (heads, m) and the backward's d_rows (heads, m), m rows a head
+struct Sink {
+  const float* logit;
+  float* p;          // forward: written; backward: null
+  const float* p_in; // backward: the forward's p_sink
+  float* d_rows;     // backward: written
+  long long m;
+};
+
 // The sum of v over a group of G lanes, by an xor tree.
 template <int G>
 __device__ __forceinline__ float group_sum(float v) {
@@ -122,12 +144,13 @@ __device__ __forceinline__ float group_sum(float v) {
 // lane `lane` takes entries e0 + i * G + lane (i < C), so a warp's loads
 // and stores take consecutive entries; its scores in registers, each read
 // once; the group's max and sum by xor trees.
-template <int G, int C>
+template <int G, int C, bool kSink>
 __device__ void softmax_row(const float* __restrict__ scores,
                             long long s_head, const int* __restrict__ inv_idx,
                             long long e0, long long e1, float scale,
                             float* __restrict__ out, long long o_head,
-                            int h0, int h1, int lane) {
+                            int h0, int h1, int lane, const Sink& sink,
+                            long long r) {
   const int n = (int)(e1 - e0);
   for (int h = h0; h < h1; ++h) {
     const float* sh = scores + h * s_head;
@@ -147,6 +170,11 @@ __device__ void softmax_row(const float* __restrict__ scores,
 #pragma unroll
     for (int o = G / 2; o > 0; o >>= 1)
       mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o, G));
+    float b = -INFINITY;
+    if constexpr (kSink) {
+      b = sink.logit[h];
+      mx = fmaxf(mx, b);
+    }
     float sum = 0.0f;
 #pragma unroll
     for (int i = 0; i < C; ++i) {
@@ -156,12 +184,15 @@ __device__ void softmax_row(const float* __restrict__ scores,
       }
     }
     sum = group_sum<G>(sum);
+    if constexpr (kSink) sum += expf(b - mx);
     const float denom = fmaxf(sum, 1e-30f);
 #pragma unroll
     for (int i = 0; i < C; ++i) {
       const int k = i * G + lane;
       if (i * G < n && k < n) oh[e0 + k] = x[i] / denom;
     }
+    if constexpr (kSink)
+      if (n > 0 && lane == 0) sink.p[h * sink.m + r] = expf(b - mx) / denom;
   }
 }
 
@@ -203,13 +234,14 @@ __device__ __forceinline__ void load_index(const int* __restrict__ inv_idx,
 // i * G + lane of the row's chunks from e0 & ~3 a lane's i-th: p and g in
 // registers, each read once, the row sum of p * g by an xor tree, written
 // at inv_idx.
-template <int G, int C>
+template <int G, int C, bool kSink>
 __device__ void softmax_bwd_row(const float* __restrict__ p, long long p_head,
                                 const float* __restrict__ g, long long g_head,
                                 const int* __restrict__ inv_idx, long long e0,
                                 long long e1, float scale,
                                 float* __restrict__ out, long long o_head,
-                                int h0, int h1, int lane) {
+                                int h0, int h1, int lane, const Sink& sink,
+                                long long r) {
   const long long base = e0 & ~3LL;
   int ix[C][4];
   if (inv_idx) load_index<G, C>(inv_idx, e0, e1, lane, ix);
@@ -247,6 +279,9 @@ __device__ void softmax_bwd_row(const float* __restrict__ p, long long p_head,
       for (int c = 0; c < 4; ++c) dot = fmaf(pv[i][c], gv[i][c], dot);
     }
     dot = group_sum<G>(dot);
+    if constexpr (kSink)
+      if (e1 > e0 && lane == 0)
+        sink.d_rows[h * sink.m + r] = -sink.p_in[h * sink.m + r] * dot;
     const bool vec_out = !inv_idx && aligned16(oh);
 #pragma unroll
     for (int i = 0; i < C; ++i) {
@@ -271,36 +306,38 @@ __device__ void softmax_bwd_row(const float* __restrict__ p, long long p_head,
 // The short rows' and the warp rows' passes of one block: kSubLanes lanes
 // and kSubSlots / kSubLanes entries a lane for a short row, 32 lanes and
 // kWarpSlots / 32 for a warp row.
+template <bool kSink>
 __device__ void forward_rows(const float* __restrict__ scores,
                              long long s_head, const int* __restrict__ inv_idx,
                              const long long* __restrict__ row_ptr,
                              const Plan& plan, long long b,
                              long long sub_blocks, float scale,
                              float* __restrict__ out, long long o_head,
-                             int h0, int h1) {
+                             int h0, int h1, const Sink& sink) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (b < sub_blocks) {  // short rows: a group of 8 lanes each
     const long long k = b * kSubRows + warp * (32 / kSubLanes) +
                         lane / kSubLanes;
-    long long e0 = 0, e1 = 0;
+    long long e0 = 0, e1 = 0, r = 0;
     if (k < plan.n_sub) {
-      const long long r = plan.rows[k];
+      r = plan.rows[k];
       e0 = row_ptr[r];
       e1 = row_ptr[r + 1];
     }
-    softmax_row<kSubLanes, kSubSlots / kSubLanes>(
+    softmax_row<kSubLanes, kSubSlots / kSubLanes, kSink>(
         scores, s_head, inv_idx, e0, e1, scale, out, o_head, h0, h1,
-        lane % kSubLanes);
+        lane % kSubLanes, sink, r);
     return;
   }
   const long long k = (b - sub_blocks) * kWarps + warp;
   if (k >= plan.n_warp) return;  // the whole warp
   const long long r = plan.rows[plan.n_sub + k];
-  softmax_row<32, kWarpSlots / 32>(scores, s_head, inv_idx, row_ptr[r],
-                                   row_ptr[r + 1], scale, out, o_head, h0, h1,
-                                   lane);
+  softmax_row<32, kWarpSlots / 32, kSink>(
+      scores, s_head, inv_idx, row_ptr[r], row_ptr[r + 1], scale, out, o_head,
+      h0, h1, lane, sink, r);
 }
 
+template <bool kSink>
 __device__ void backward_rows(const float* __restrict__ p, long long p_head,
                               const float* __restrict__ g, long long g_head,
                               const int* __restrict__ inv_idx,
@@ -308,44 +345,46 @@ __device__ void backward_rows(const float* __restrict__ p, long long p_head,
                               const Plan& plan, long long b,
                               long long sub_blocks, float scale,
                               float* __restrict__ out, long long o_head,
-                              int h0, int h1) {
+                              int h0, int h1, const Sink& sink) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (b < sub_blocks) {
     const long long k = b * kSubRows + warp * (32 / kSubLanes) +
                         lane / kSubLanes;
-    long long e0 = 0, e1 = 0;
+    long long e0 = 0, e1 = 0, r = 0;
     if (k < plan.n_sub) {
-      const long long r = plan.rows[k];
+      r = plan.rows[k];
       e0 = row_ptr[r];
       e1 = row_ptr[r + 1];
     }
-    softmax_bwd_row<kSubLanes, kSubChunks>(
+    softmax_bwd_row<kSubLanes, kSubChunks, kSink>(
         p, p_head, g, g_head, inv_idx, e0, e1, scale, out, o_head, h0, h1,
-        lane % kSubLanes);
+        lane % kSubLanes, sink, r);
     return;
   }
   const long long k = (b - sub_blocks) * kWarps + warp;
   if (k >= plan.n_warp) return;
   const long long r = plan.rows[plan.n_sub + k];
-  softmax_bwd_row<32, kWarpChunks>(
+  softmax_bwd_row<32, kWarpChunks, kSink>(
       p, p_head, g, g_head, inv_idx, row_ptr[r], row_ptr[r + 1], scale, out,
-      o_head, h0, h1, lane);
+      o_head, h0, h1, lane, sink, r);
 }
 
+template <bool kSink>
 __global__ void __launch_bounds__(kThreads)
 segment_softmax_kernel(const float* __restrict__ scores, long long s_head,
                        const int* __restrict__ inv_idx,
                        const long long* __restrict__ row_ptr, Plan plan,
                        float scale, float* __restrict__ out, long long o_head,
-                       int heads, int head_group) {
+                       int heads, int head_group, Sink sink) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int h0 = blockIdx.y * head_group, h1 = min(heads, h0 + head_group);
   const long long split_blocks = plan.n_split * kCluster;
   const long long sub_blocks = (plan.n_sub + kSubRows - 1) / kSubRows;
   const long long bx = blockIdx.x;
   if (bx >= split_blocks) {
-    forward_rows(scores, s_head, inv_idx, row_ptr, plan, bx - split_blocks,
-                 sub_blocks, scale, out, o_head, h0, h1);
+    forward_rows<kSink>(scores, s_head, inv_idx, row_ptr, plan,
+                        bx - split_blocks, sub_blocks, scale, out, o_head, h0,
+                        h1, sink);
     return;
   }
   // a split row over the cluster
@@ -392,6 +431,12 @@ segment_softmax_kernel(const float* __restrict__ scores, long long s_head,
         const float* rp = cluster.map_shared_rank(&part[h & 1][0], k);
         combine(m_all, s_all, rp[0], rp[1]);
       }
+      if constexpr (kSink) {
+        combine(m_all, s_all, sink.logit[h], 1.0f);
+        if (rank == 0)
+          sink.p[h * sink.m + r] =
+              expf(sink.logit[h] - m_all) / fmaxf(s_all, 1e-30f);
+      }
       total[0] = m_all;
       total[1] = fmaxf(s_all, 1e-30f);
     }
@@ -404,6 +449,7 @@ segment_softmax_kernel(const float* __restrict__ scores, long long s_head,
   cluster.sync();  // no block leaves while another reads its part
 }
 
+template <bool kSink>
 __global__ void __launch_bounds__(kThreads)
 segment_softmax_backward_kernel(const float* __restrict__ p, long long p_head,
                                 const float* __restrict__ g, long long g_head,
@@ -411,15 +457,16 @@ segment_softmax_backward_kernel(const float* __restrict__ p, long long p_head,
                                 const long long* __restrict__ row_ptr,
                                 Plan plan, float scale,
                                 float* __restrict__ out, long long o_head,
-                                int heads, int head_group) {
+                                int heads, int head_group, Sink sink) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int h0 = blockIdx.y * head_group, h1 = min(heads, h0 + head_group);
   const long long split_blocks = plan.n_split * kCluster;
   const long long sub_blocks = (plan.n_sub + kSubRows - 1) / kSubRows;
   const long long bx = blockIdx.x;
   if (bx >= split_blocks) {
-    backward_rows(p, p_head, g, g_head, inv_idx, row_ptr, plan,
-                  bx - split_blocks, sub_blocks, scale, out, o_head, h0, h1);
+    backward_rows<kSink>(p, p_head, g, g_head, inv_idx, row_ptr, plan,
+                         bx - split_blocks, sub_blocks, scale, out, o_head,
+                         h0, h1, sink);
     return;
   }
   cg::cluster_group cluster = cg::this_cluster();
@@ -451,6 +498,9 @@ segment_softmax_backward_kernel(const float* __restrict__ p, long long p_head,
       for (int k = 0; k < kCluster; ++k)
         s += *cluster.map_shared_rank(&part[h & 1], k);
       total = s;
+      if constexpr (kSink)
+        if (rank == 0)
+          sink.d_rows[h * sink.m + r] = -sink.p_in[h * sink.m + r] * s;
     }
     __syncthreads();
     const float s = total;
@@ -517,35 +567,44 @@ int launch_plan(void (*kernel)(Params...), long long n_sub, long long n_warp,
 // plan_rows int64, the plan's short rows (n_sub, 1..128 entries), then the
 // rows of 129..640 entries (n_warp), then the longer rows (n_split), every
 // non-empty row once; out (heads, nnz) fp32 with head stride o_head;
-// head_group the heads a row's group walks (grid.y: their groups).
-// Returns launch_plan's error code.
+// head_group the heads a row's group walks (grid.y: their groups); sink
+// (heads,) fp32 or null, and then p_sink (heads, m) fp32 written (see
+// Sink).  Returns launch_plan's error code.
 extern "C" int sddmm_segment_softmax_float32(
     const float* scores, long long s_head, const int* inv_idx,
     const long long* row_ptr, const long long* plan_rows, long long n_sub,
     long long n_warp, long long n_split, float scale, float* out,
-    long long o_head, int heads, int head_group, void* stream) {
+    long long o_head, int heads, int head_group, const float* sink,
+    float* p_sink, long long m, void* stream) {
   if (heads <= 0 || n_sub + n_warp + n_split <= 0) return 0;
-  return launch_plan(segment_softmax_kernel, n_sub, n_warp, n_split, heads,
+  return launch_plan(sink ? segment_softmax_kernel<true>
+                          : segment_softmax_kernel<false>,
+                     n_sub, n_warp, n_split, heads,
                      head_group, stream, scores, s_head, inv_idx, row_ptr,
                      Plan{plan_rows, n_sub, n_warp, n_split}, scale, out,
-                     o_head, heads, head_group);
+                     o_head, heads, head_group,
+                     Sink{sink, p_sink, nullptr, nullptr, m});
 }
 
 // C interface of the backward (ctypes), checked by the wrapper
 // (ops/softmax.py::segment_softmax_backward): p and g (heads, nnz) fp32 in
 // CSR order with head strides p_head and g_head; inv_idx (nnz,) int32 or
 // null; row_ptr and the plan as in the forward; out fp32 with head stride
-// o_head, (heads, F) and zeroed where inv_idx is given, else (heads, nnz).
-// Returns launch_plan's error code.
+// o_head, (heads, F) and zeroed where inv_idx is given, else (heads, nnz);
+// p_sink (heads, m) the forward's, or null, and then d_rows (heads, m)
+// written.  Returns launch_plan's error code.
 extern "C" int sddmm_segment_softmax_backward_float32(
     const float* p, long long p_head, const float* g, long long g_head,
     const int* inv_idx, const long long* row_ptr, const long long* plan_rows,
     long long n_sub, long long n_warp, long long n_split, float scale,
     float* out, long long o_head, int heads, int head_group,
-    void* stream) {
+    const float* p_sink, float* d_rows, long long m, void* stream) {
   if (heads <= 0 || n_sub + n_warp + n_split <= 0) return 0;
-  return launch_plan(segment_softmax_backward_kernel, n_sub, n_warp, n_split,
+  return launch_plan(d_rows ? segment_softmax_backward_kernel<true>
+                            : segment_softmax_backward_kernel<false>,
+                     n_sub, n_warp, n_split,
                      heads, head_group, stream, p, p_head, g, g_head, inv_idx,
                      row_ptr, Plan{plan_rows, n_sub, n_warp, n_split}, scale,
-                     out, o_head, heads, head_group);
+                     out, o_head, heads, head_group,
+                     Sink{nullptr, nullptr, p_sink, d_rows, m});
 }

@@ -18,6 +18,13 @@
 // (sddmm_tpu/ops/hybrid.py::_hybrid_packed_jit), of csr_sddmm_jax and of
 // csr_spmm_jax are SpMMs over the pattern or its transpose.
 //
+// Heads of grouped-query attention.  Output head o sums S input heads (S
+// = sum_heads, 1 but for grouped gradients): input head i = o * S + r,
+// r = 0..S-1 in that order, reads values + i*vs_h and the dense operand of
+// head i >> kv_shift.  So query heads read their group's V in place
+// (kv_shift = log2 of the group, S = 1), and V's gradient sums the group's
+// query heads (S = the group, kv_shift = 0) with no copy a head.
+//
 // Value index.  With vidx (nnz,) int32 given, entry e's value is
 // values[vidx[e]] (within its head's row): a backward passes the packed
 // cotangent as it is and the pattern's entry -> slot map, so the values
@@ -265,7 +272,9 @@ __device__ __forceinline__ void walk_items(
   }
 }
 
-template <int VEC, int GR>
+// kSum: output heads sum sum_heads input heads (an instance of its own, so
+// that the one-head path keeps its code)
+template <int VEC, int GR, bool kSum>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 csr_spmm_kernel(const long long* __restrict__ tasks,
                 const long long* __restrict__ groups,
@@ -275,14 +284,26 @@ csr_spmm_kernel(const long long* __restrict__ tasks,
                 const int* __restrict__ vidx, long long vs_h,
                 const float* __restrict__ dense, long long ldd, long long ds_h,
                 long long ds_c, float* __restrict__ out, long long ldo,
-                long long os_h, long long os_c, int K, int C) {
+                long long os_h, long long os_c, int K, int C, int sum_heads,
+                int kv_shift) {
   __shared__ float part[kWarpsPerBlock][32 * VEC];
-  {
-    const long long h = blockIdx.z / C, c = blockIdx.z - h * C;
+  // output head h; without kSum its one input head h, whose dense rows are
+  // those of head h >> kv_shift
+  const long long h = blockIdx.z / C, c = blockIdx.z - h * C;
+  if constexpr (kSum) {
+    dense += c * ds_c;
+  } else {
     values += h * vs_h;
-    dense += h * ds_h + c * ds_c;
-    out += h * os_h + c * os_c;
+    dense += (h >> kv_shift) * ds_h + c * ds_c;
   }
+  out += h * os_h + c * os_c;
+  // input head i = h * sum_heads + r of an output head's sum (kSum)
+  auto values_of = [&](int r) {
+    return values + (h * sum_heads + r) * vs_h;
+  };
+  auto dense_of = [&](int r) {
+    return dense + ((h * sum_heads + r) >> kv_shift) * ds_h;
+  };
   const long long first = tasks[2 * (long long)blockIdx.x];
   const long long count = tasks[2 * (long long)blockIdx.x + 1];
   const int warp = threadIdx.x / 32;
@@ -298,7 +319,18 @@ csr_spmm_kernel(const long long* __restrict__ tasks,
     for (int r = 0; r < GR; ++r)
 #pragma unroll
       for (int i = 0; i < VEC; ++i) acc[r][i] = 0.0f;
-    if (g[3] < 0) {
+    if constexpr (kSum) {
+      for (int r = 0; r < sum_heads; ++r) {
+        if (g[3] < 0) {
+          walk_entries<VEC>(row_ptr[g[2]], row_ptr[g[2] + 1], cols,
+                            values_of(r), vidx, dense_of(r), ldd, k, active,
+                            lane, acc[0]);
+        } else {
+          walk_items<VEC, GR>(g[0], g[1], items, values_of(r), vidx,
+                              dense_of(r), ldd, k, active, lane, acc);
+        }
+      }
+    } else if (g[3] < 0) {
       // a group of one row walks its CSR entries: no items
       walk_entries<VEC>(row_ptr[g[2]], row_ptr[g[2] + 1], cols, values,
                         vidx, dense, ldd, k, active, lane, acc[0]);
@@ -321,8 +353,14 @@ csr_spmm_kernel(const long long* __restrict__ tasks,
   const long long e0 = row_ptr[first], e1 = row_ptr[first + 1];
   const long long piece = (e1 - e0 + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const long long p0 = min(e1, e0 + warp * piece);
-  walk_entries<VEC>(p0, min(e1, p0 + piece), cols, values, vidx, dense, ldd,
-                    k, active, lane, acc);
+  if constexpr (kSum) {
+    for (int r = 0; r < sum_heads; ++r)
+      walk_entries<VEC>(p0, min(e1, p0 + piece), cols, values_of(r), vidx,
+                        dense_of(r), ldd, k, active, lane, acc);
+  } else {
+    walk_entries<VEC>(p0, min(e1, p0 + piece), cols, values, vidx, dense,
+                      ldd, k, active, lane, acc);
+  }
 #pragma unroll
   for (int i = 0; i < VEC; ++i) part[warp][lane * VEC + i] = acc[i];
   __syncthreads();
@@ -352,33 +390,33 @@ struct Args {
   long long ldd, ds_h, ds_c;
   float* out;
   long long ldo, os_h, os_c;
-  int K, heads, C;
+  int K, heads, C, sum_heads, kv_shift;
 };
 
-template <int VEC, int GR>
+template <int VEC, int GR, bool kSum>
 int launch(const Args& a, cudaStream_t stream) {
   const long long slices = (a.K + 32 * VEC - 1) / (32 * VEC);
   const long long batches = (long long)a.heads * a.C;
   if (a.n_tasks > 2147483647LL || slices > 65535 || batches > 65535)
     return (int)cudaErrorInvalidValue;
-  csr_spmm_kernel<VEC, GR>
+  csr_spmm_kernel<VEC, GR, kSum>
       <<<dim3((unsigned)a.n_tasks, (unsigned)slices, (unsigned)batches),
          kWarpsPerBlock * 32, 0, stream>>>(
           a.tasks, a.groups, a.items, a.row_ptr, a.cols, a.values, a.vidx,
           a.vs_h, a.dense, a.ldd, a.ds_h, a.ds_c, a.out, a.ldo, a.os_h,
-          a.os_c, a.K, a.C);
+          a.os_c, a.K, a.C, a.sum_heads, a.kv_shift);
   return (int)cudaGetLastError();
 }
 
-template <int GR>
+template <int GR, bool kSum>
 int launch_vec(int vec, const Args& a, cudaStream_t s) {
   switch (vec) {
     case 1:
-      return launch<1, GR>(a, s);
+      return launch<1, GR, kSum>(a, s);
     case 2:
-      return launch<2, GR>(a, s);
+      return launch<2, GR, kSum>(a, s);
     case 4:
-      return launch<4, GR>(a, s);
+      return launch<4, GR, kSum>(a, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -394,7 +432,8 @@ int launch_vec(int vec, const Args& a, cudaStream_t s) {
 // past them; a group of one row has no items]; items (n_items, 1 + GR)
 // int32 [column, entry of each row or -1].  Together they cover every row
 // once.  vidx (nnz,) int32 or null (the value index above).  heads x C
-// batches (the strides above, in elements).  It chose vec
+// batches (the strides above, in elements; heads the output heads, each
+// summing sum_heads input heads, with kv_shift, as above).  It chose vec
 // (1, 2 or 4) with K, every row, head and chunk stride of dense and out,
 // and both pointers multiples of it; the caller guarantees that row_ptr is
 // non-decreasing and the column ids in range.  Returns the launch's
@@ -405,13 +444,19 @@ extern "C" int sddmm_csr_spmm_float32(
     const int* cols, const float* values, const int* vidx, long long vs_h,
     const float* dense, long long ldd, long long ds_h, long long ds_c,
     float* out, long long ldo, long long os_h, long long os_c, int K,
-    int heads, int C, int vec, void* stream) {
+    int heads, int C, int sum_heads, int kv_shift, int vec, void* stream) {
   if (n_tasks <= 0 || K <= 0 || heads <= 0 || C <= 0) return 0;
-  const Args a{tasks, n_tasks, groups, items, row_ptr, cols,  values,
-               vidx,  vs_h,    dense,  ldd,   ds_h,    ds_c,  out,
-               ldo,   os_h,    os_c,   K,     heads,   C};
+  if (sum_heads < 1 || kv_shift < 0 || kv_shift > 16)
+    return (int)cudaErrorInvalidValue;
+  const Args a{tasks, n_tasks, groups, items, row_ptr,   cols,
+               values, vidx,  vs_h,   dense, ldd,       ds_h,
+               ds_c,  out,    ldo,    os_h,  os_c,      K,
+               heads, C,      sum_heads, kv_shift};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (group_rows == 2) return launch_vec<2>(vec, a, s);
-  if (group_rows == 4) return launch_vec<4>(vec, a, s);
+  const bool sum = sum_heads > 1;
+  if (group_rows == 2)
+    return sum ? launch_vec<2, true>(vec, a, s) : launch_vec<2, false>(vec, a, s);
+  if (group_rows == 4)
+    return sum ? launch_vec<4, true>(vec, a, s) : launch_vec<4, false>(vec, a, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,9 +13,12 @@
 //   out[h][out_off + r * out_rs + l] (+)= sum_c dot_c(A row r, B^T lane l)
 // for r < nrows, l < nlanes, where
 //   A row r    = a + h * sa_h + row_ids[row_off + r] * sa_r + c * kc,
-//   B^T lane l = b + h * sb_h + c * sb_c + gids[gid_off + (lane0 + l) / G]
-//                * sb_r + ((lane0 + l) % G) * kc,
-// each kc elements long.  So the kernel reads the rows an entry names
+//   B^T lane l = b + (h >> kv_shift) * sb_h + c * sb_c
+//                + gids[gid_off + (lane0 + l) / G] * sb_r
+//                + ((lane0 + l) % G) * kc,
+// each kc elements long.  kv_shift is 0 where every head has its own B^T;
+// grouped-query attention reads the B^T (keys) of head h >> kv_shift in
+// place, 2^kv_shift query heads a key head.  So the kernel reads the rows an entry names
 // straight from the padded A and the grouped, chunked B^T: the gathers
 // happen in its loads.  Each chunk's dot is summed apart in fp32 and added
 // to the running sum in the order c = 0..C-1, as JAX's acc = acc + dot(c).
@@ -252,7 +255,8 @@ tile_table_kernel(const typename Mode::TA* __restrict__ a, long long sa_h,
                   const long long* __restrict__ table,
                   const int* __restrict__ row_ids,
                   const int* __restrict__ gids, float* __restrict__ out,
-                  long long so_h, int C, int kc, int G, int accumulate) {
+                  long long so_h, int C, int kc, int G, int kv_shift,
+                  int accumulate) {
   using S = Smem<Mode>;
   using TA = typename Mode::TA;
   using TB = typename Mode::TB;
@@ -278,7 +282,7 @@ tile_table_kernel(const typename Mode::TA* __restrict__ a, long long sa_h,
   const long long out_rs = ent[6];
   const long long head = blockIdx.y;
   const TA* a_h = a + head * sa_h;
-  const TB* b_h = b + head * sb_h;
+  const TB* b_h = b + (head >> kv_shift) * sb_h;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -441,10 +445,10 @@ int launch(const void* a, long long sa_h, long long sa_r, const void* b,
            long long sb_h, long long sb_c, long long sb_r,
            const long long* table, long long n_entries, const int* row_ids,
            const int* gids, float* out, long long so_h, int heads, int C,
-           int kc, int G, int accumulate, void* stream) {
+           int kc, int G, int kv_shift, int accumulate, void* stream) {
   if (n_entries <= 0 || heads <= 0 || C <= 0) return 0;
   if (n_entries > 2147483647LL || heads > 65535 || kc <= 0 || kc % 16 ||
-      G <= 0)
+      G <= 0 || kv_shift < 0 || kv_shift > 16)
     return (int)cudaErrorInvalidValue;
   constexpr int bytes = Smem<Mode>::kBytes;
   static bool configured = false;
@@ -460,7 +464,7 @@ int launch(const void* a, long long sa_h, long long sa_r, const void* b,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const typename Mode::TA*>(a), sa_h, sa_r,
       static_cast<const typename Mode::TB*>(b), sb_h, sb_c, sb_r, table,
-      row_ids, gids, out, so_h, C, kc, G, accumulate);
+      row_ids, gids, out, so_h, C, kc, G, kv_shift, accumulate);
   return (int)cudaGetLastError();
 }
 
@@ -477,11 +481,11 @@ int launch(const void* a, long long sa_h, long long sa_r, const void* b,
       const void* a, long long sa_h, long long sa_r, const void* b,           \
       long long sb_h, long long sb_c, long long sb_r, const long long* table, \
       long long n_entries, const int* row_ids, const int* gids, float* out,   \
-      long long so_h, int heads, int C, int kc, int G, int accumulate,        \
-      void* stream) {                                                         \
+      long long so_h, int heads, int C, int kc, int G, int kv_shift,          \
+      int accumulate, void* stream) {                                         \
     return launch<MODE>(a, sa_h, sa_r, b, sb_h, sb_c, sb_r, table,            \
                         n_entries, row_ids, gids, out, so_h, heads, C, kc, G, \
-                        accumulate, stream);                                  \
+                        kv_shift, accumulate, stream);                        \
   }
 
 SDDMM_TILE_DOT(tf32, Tf32)

@@ -269,6 +269,7 @@ struct Args {
   float* ws;
   long long sw_h;
   int K, kc, G;
+  int kv_shift;   // head h reads the B^T of head h >> kv_shift
 };
 
 // dA unit: its entries share their A rows; the block sums, over their
@@ -285,7 +286,7 @@ __device__ void grad_rows(const Args& p, const long long* unit,
   const long long prow = unit[2];
   const long long head = blockIdx.z;
   const float* g_h = p.g + head * p.sg_h;
-  const float* b_h = p.b + head * p.sb_h;
+  const float* b_h = p.b + (head >> p.kv_shift) * p.sb_h;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int nrows = (int)p.table[(long long)p.walk[start] * kEntryWords + 1];
   bf16* planes_o = reinterpret_cast<bf16*>(smem + kStages * S::kStage);
@@ -539,12 +540,17 @@ __global__ void __launch_bounds__(kThreads) tile_grad_kernel(Args p) {
 // A warp per output row t: rows [0, n_a) are A rows (da, K contiguous
 // columns), the others B^T lanes t - n_a (db, column k in chunk k / kc at
 // a chunk stride).  The row's partials (src[tptr[t]..tptr[t+1]), rows of
-// the workspace) are added in that order; 4 columns a lane.
+// the workspace) are added in that order; 4 columns a lane.  With kv_shift
+// > 0 (grouped-query attention) the B^T rows are those of key head h >>
+// kv_shift: the block of the group's first head adds the partials of the
+// group's 2^kv_shift heads, head by head in order, and the others have no
+// B^T row to write.
 __global__ void __launch_bounds__(256) tile_grad_reduce_kernel(
     const float* __restrict__ ws, long long sw_h, int K,
     const long long* __restrict__ tptr, const int* __restrict__ src,
     long long n_a, long long n_targets, float* da, long long sda_h,
-    float* db, long long sdb_h, long long sdb_c, int kc, int accumulate) {
+    float* db, long long sdb_h, long long sdb_c, int kc, int accumulate,
+    int kv_shift) {
   const long long t = (long long)blockIdx.x * 8 + threadIdx.x / 32;
   if (t >= n_targets) return;
   const int lane = threadIdx.x % 32;
@@ -553,23 +559,29 @@ __global__ void __launch_bounds__(256) tile_grad_reduce_kernel(
   const long long e0 = tptr[t], e1 = tptr[t + 1];
   float* out;
   long long cstride;
+  int heads_in = 1;
   if (t < n_a) {
     out = da + head * sda_h + t * K;
     cstride = kc;
   } else {
-    out = db + head * sdb_h + (t - n_a) * kc;
+    if (head & ((1 << kv_shift) - 1)) return;
+    heads_in = 1 << kv_shift;
+    out = db + (head >> kv_shift) * sdb_h + (t - n_a) * kc;
     cstride = sdb_c;
   }
   for (int k = lane * 4; k < K; k += 128) {
     float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int r = 0; r < heads_in; ++r) {
+      const float* wr = w + r * sw_h;
 #pragma unroll 4
-    for (long long e = e0; e < e1; ++e) {
-      const float4 x =
-          *reinterpret_cast<const float4*>(w + (long long)src[e] * K + k);
-      v.x = __fadd_rn(v.x, x.x);
-      v.y = __fadd_rn(v.y, x.y);
-      v.z = __fadd_rn(v.z, x.z);
-      v.w = __fadd_rn(v.w, x.w);
+      for (long long e = e0; e < e1; ++e) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(wr + (long long)src[e] * K + k);
+        v.x = __fadd_rn(v.x, x.x);
+        v.y = __fadd_rn(v.y, x.y);
+        v.z = __fadd_rn(v.z, x.z);
+        v.w = __fadd_rn(v.w, x.w);
+      }
     }
     float4* d = reinterpret_cast<float4*>(out + (k / kc) * cstride + k % kc);
     if (accumulate) {
@@ -617,14 +629,14 @@ extern "C" int sddmm_tile_grad_float32(
     long long sg_h, const long long* table, const int* row_ids,
     const int* gids, const long long* units, long long n_units,
     long long n_units_a, const int* walk, float* ws, long long sw_h,
-    int heads, int K, int kc, int G, void* stream) {
+    int heads, int K, int kc, int G, int kv_shift, void* stream) {
   if (n_units <= 0 || heads <= 0) return 0;
   if (n_units > 2147483647LL || heads > 65535 || kc <= 0 || kc % 16 ||
-      K % kc || G <= 0)
+      K % kc || G <= 0 || kv_shift < 0 || kv_shift > 16)
     return (int)cudaErrorInvalidValue;
   const Args p{a, sa_h, sa_r, b, sb_h, sb_c, sb_r, g, sg_h, table,
                row_ids, gids, units, (int)n_units_a, walk, ws, sw_h,
-               K, kc, G};
+               K, kc, G, kv_shift};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (K % 128 == 0) return launch_grad<64, true>(p, n_units, heads, st);
   if (K % 64 == 0) return launch_grad<64, false>(p, n_units, heads, st);
@@ -636,14 +648,15 @@ extern "C" int sddmm_tile_grad_reduce_float32(
     const float* ws, long long sw_h, int K, const long long* tptr,
     const int* src, long long n_a, long long n_targets, float* da,
     long long sda_h, float* db, long long sdb_h, long long sdb_c, int kc,
-    int heads, int accumulate, void* stream) {
+    int heads, int accumulate, int kv_shift, void* stream) {
   if (n_targets <= 0 || heads <= 0) return 0;
   if (heads > 65535 || kc <= 0 || kc % 4 || K % kc ||
-      (n_targets + 7) / 8 > 2147483647LL)
+      (n_targets + 7) / 8 > 2147483647LL || kv_shift < 0 || kv_shift > 16 ||
+      heads % (1 << kv_shift))
     return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)((n_targets + 7) / 8), (unsigned)heads);
   tile_grad_reduce_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       ws, sw_h, K, tptr, src, n_a, n_targets, da, sda_h, db, sdb_h, sdb_c,
-      kc, accumulate);
+      kc, accumulate, kv_shift);
   return (int)cudaGetLastError();
 }

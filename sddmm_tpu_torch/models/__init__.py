@@ -1,5 +1,6 @@
 """Model families on the port's kernels: the two attention models (serving
-and training) and the factorization trainer."""
+and training), the hybrid sliding-window and full attention stack with
+grouped-query heads (MiMo-V2-Flash's) and the factorization trainer."""
 
 from sddmm_tpu_torch.models.block_sparse_attention import (
     BlockSparseAttention, BlockSparseAttentionParams,
@@ -10,9 +11,14 @@ from sddmm_tpu_torch.models.factorization import (
 from sddmm_tpu_torch.models.graph_attention import (GraphAttentionLayer,
                                                     GraphAttentionParams,
                                                     segment_softmax)
+from sddmm_tpu_torch.models.hybrid_attention import (AttentionKind,
+                                                     HybridAttentionLayer,
+                                                     HybridAttentionStack,
+                                                     causal_mask)
 
 __all__ = ["GraphAttentionLayer", "GraphAttentionParams", "segment_softmax",
            "BlockSparseAttention", "BlockSparseAttentionParams",
            "dense_reference_attention", "make_attention_mask",
            "FactorizationParams", "SparseFactorizationModel",
-           "DistributedSparseFactorizationModel"]
+           "DistributedSparseFactorizationModel", "AttentionKind",
+           "HybridAttentionLayer", "HybridAttentionStack", "causal_mask"]

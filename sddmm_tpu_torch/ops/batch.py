@@ -66,9 +66,11 @@ class BatchedHybridSDDMM:
         -> (B, packed_size), or (B, nnz) with ``order="csr"`` (None: the
         runner's ``default_order``): one tile-kernel launch for the whole
         batch.  ``plain`` as in ``HybridSDDMM.run_padded``; differentiable
-        in both operands."""
+        in both operands.  Grouped-query attention: B^T of fewer heads
+        (Bkv, N+1, K), query head h reading key head ``h >> head_shift(B,
+        Bkv)`` in place (``HybridSDDMM.run_heads``)."""
         if a_pad.dim() != 3 or bt_pad.dim() != 3 or (
-                a_pad.shape[0] != bt_pad.shape[0]):
+                a_pad.shape[0] % bt_pad.shape[0]):
             raise ValueError(f"want a_pad (B, M+1, K) and bt_pad (B, N+1, K),"
                              f" got {tuple(a_pad.shape)} and "
                              f"{tuple(bt_pad.shape)}")

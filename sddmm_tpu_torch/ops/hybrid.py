@@ -69,8 +69,8 @@ from torch.autograd.function import once_differentiable
 from sddmm_tpu_torch import _kernels, config
 from sddmm_tpu_torch.data.sparse import CSR
 from sddmm_tpu_torch.ops.gather_plan import GatherPlan, gather_plan
-from sddmm_tpu_torch.ops.tile_dot import (STORAGE, TileTable, table_blocks,
-                                          tile_dot, tile_table,
+from sddmm_tpu_torch.ops.tile_dot import (STORAGE, TileTable, head_shift,
+                                          table_blocks, tile_dot, tile_table,
                                           tile_table_grad,
                                           tile_table_grad_plain)
 from sddmm_tpu_torch.reorder.bsmr import BSMR
@@ -86,9 +86,11 @@ GATHER_STORAGE = tuple(dict.fromkeys(STORAGE.values()))
 
 def _gather_shape(a_pad, bt_phys, member):
     """(C, G, kc) of a gather-dot call, checked: a_pad (..., M+1, K) and
-    bt_phys (..., C, NG+1, G*kc) with the same leading dimensions."""
+    bt_phys (..., C, NG+1, G*kc) with the same leading dimensions, but for
+    heads: a_pad (H, M+1, K) may take bt_phys (Hkv, ...) of fewer heads
+    (grouped-query attention, ``head_shift``)."""
     if a_pad.dim() < 2 or bt_phys.dim() != a_pad.dim() + 1 or (
-            a_pad.shape[:-2] != bt_phys.shape[:-3]):
+            a_pad.shape[:-3] != bt_phys.shape[:-4]):
         raise ValueError(f"gather_dot: want a_pad ([H,] M+1, K) and bt_phys "
                          f"([H,] C, NG+1, G*kc), got {tuple(a_pad.shape)} "
                          f"and {tuple(bt_phys.shape)}")
@@ -100,6 +102,8 @@ def _gather_shape(a_pad, bt_phys, member):
     G = bt_phys.shape[-1] // kc
     if G > 1 and member is None:
         raise ValueError(f"gather_dot: G={G} needs member")
+    if a_pad.dim() == 3:
+        head_shift(a_pad.shape[0], bt_phys.shape[0])
     return C, G, kc
 
 
@@ -209,7 +213,9 @@ def residual_gather_dot(a_pad: torch.Tensor, bt_phys: torch.Tensor,
     for one head or for H heads at once.
 
     a_pad (M+1, C*kc) or (H, M+1, C*kc), rows contiguous; bt_phys
-    (C, NG+1, G*kc) or (H, C, NG+1, G*kc) contiguous (a 2-D (NG+1, K) is
+    (C, NG+1, G*kc) or (Hkv, C, NG+1, G*kc) contiguous, head h reading
+    head ``h >> head_shift(H, Hkv)`` (Hkv = H but for grouped-query
+    attention) (a 2-D (NG+1, K) is
     one chunk of G = 1); the two stored as one of the ``GATHER_STORAGE``
     pairs (fp32/fp32, fp32/bf16, fp16/fp16, bf16/bf16).  rows, gids and
     member (nR,) int32 and in range (the packing guarantees it); member
@@ -265,10 +271,11 @@ def residual_gather_dot(a_pad: torch.Tensor, bt_phys: torch.Tensor,
                          f"not {n}")
     grouped = planned_walk(plan, k)
     if dev.type == "cpu":
+        s = head_shift(heads, bt_phys.shape[0])
         res = torch.stack([
-            gather_dot_plan_plain(a_pad[h], bt_phys[h], plan) if grouped
-            else residual_gather_dot_plain(a_pad[h], bt_phys[h], rows, gids,
-                                           member)
+            gather_dot_plan_plain(a_pad[h], bt_phys[h >> s], plan) if grouped
+            else residual_gather_dot_plain(a_pad[h], bt_phys[h >> s], rows,
+                                           gids, member)
             for h in range(heads)]) if heads else torch.zeros((0, n))
         res = res if out is None else out.copy_(res)
         return res[0] if one else res
@@ -295,7 +302,7 @@ _GATHER_ENTRY = {pair: _kernels.gather_dot_entry(*pair)
 
 def _gather_launch(a_pad, bt_phys, rows, gids, member, out, plan):
     """One gather-dot launch on checked CUDA operands: a_pad (H, M+1, K),
-    bt_phys (H, C, NG+1, G*kc), out (H, n) (the callers' checks; the
+    bt_phys (Hkv, C, NG+1, G*kc), out (H, n) (the callers' checks; the
     runner's are made once in ``__init__`` and ``_operands``); the walk
     is ``planned_walk``'s choice at this K."""
     heads, n = out.shape
@@ -319,7 +326,7 @@ def _gather_launch(a_pad, bt_phys, rows, gids, member, out, plan):
             plan.items.data_ptr() if grouped else None,
             plan.group_rows if grouped else 1, bt_phys.shape[3] // kc,
             out.data_ptr(), out.stride(0), n, heads, C, kc, vec,
-            _gather_lanes(vec, kc, C),
+            _gather_lanes(vec, kc, C), head_shift(heads, bt_phys.shape[0]),
             torch.cuda.current_stream().cuda_stream)
 
 
@@ -828,13 +835,14 @@ class HybridSDDMM:
             tile_table(a_pad, bt_phys, self.table, self.compute_dtype, flat)
             return
         kc = a_pad.shape[-1] // bt_phys.shape[1]
+        shift = head_shift(a_pad.shape[0], bt_phys.shape[0])
         for h in range(a_pad.shape[0]):
             panels = None
             if self.a_layout == "panels":
                 panels = (a_panels[h] if a_panels is not None
                           else self._a_panels(a_pad[h]))
             for a, b, out, accumulate in self._tile_calls(
-                    a_pad[h], panels, bt_phys[h], kc, flat[h]):
+                    a_pad[h], panels, bt_phys[h >> shift], kc, flat[h]):
                 tile_dot(a, b, self.compute_dtype, out=out,
                          accumulate=accumulate, plain=True)
 
@@ -903,12 +911,16 @@ class HybridSDDMM:
         are one tile-kernel launch with a head stride (the vmapped batch of
         the JAX package), and so is the residual's gather-dot; a backward
         is the same launches for all heads as for one (``vjp``).  ``plain``
-        as in ``run_padded``."""
+        as in ``run_padded``.  Grouped-query attention passes B^T of fewer
+        heads, (Hkv, C, NG+1, G*kc): query head h reads key head ``h >>
+        head_shift(H, Hkv)`` in place, and the backward sums a key head's
+        gradient over its query heads."""
         order = _check_order(order or self.default_order)
-        if a_pad.dim() != 3 or a_pad.shape[0] != bt_phys.shape[0]:
+        if a_pad.dim() != 3 or bt_phys.dim() != 4:
             raise ValueError(f"want a_pad (H, M+1, K) and bt_phys (H, C, "
                              f"NG+1, G*kc), got {tuple(a_pad.shape)} and "
                              f"{tuple(bt_phys.shape)}")
+        head_shift(a_pad.shape[0], bt_phys.shape[0])
         self._check_bt(a_pad, bt_phys)
         flat = _HybridFn.apply(self, plain, None, a_pad, bt_phys)
         return self.to_csr_order(flat) if order == "csr" else flat
@@ -921,10 +933,11 @@ class HybridSDDMM:
                            dtype=torch.float32, device=a_pad.device)
         self._tiles(a_pad, bt_phys, flat, plain, a_panels)
         if plain:
+            shift = head_shift(heads, bt_phys.shape[0])
             for h in range(heads):
                 flat[h, self._res_offset:].copy_(residual_gather_dot_plain(
-                    a_pad[h], bt_phys[h], self._res_rows, self._res_gids,
-                    self._res_member))
+                    a_pad[h], bt_phys[h >> shift], self._res_rows,
+                    self._res_gids, self._res_member))
         elif a_pad.device.type == "cuda":
             # the operands were checked by _operands / run_heads, the
             # residual's index arrays and plan when they were made
@@ -1026,10 +1039,12 @@ class HybridSDDMM:
     def vjp(self, a_pad: torch.Tensor, bt_phys: torch.Tensor,
             g: torch.Tensor, plain: bool = False, need_a: bool = True,
             need_b: bool = True):
-        """The backward of one call (B1): (dA (H, M+1, K), dB^T_phys (H, C,
-        NG+1, G*kc)) fp32 of the packed cotangent g (H, F) at the operands
-        (H, M+1, K) and (H, C, NG+1, G*kc), contiguous, as the forward read
-        them (storage dtypes); None for what is not needed.  The residual's
+        """The backward of one call (B1): (dA (H, M+1, K), dB^T_phys (Hkv,
+        C, NG+1, G*kc)) fp32 of the packed cotangent g (H, F) at the operands
+        (H, M+1, K) and (Hkv, C, NG+1, G*kc) (Hkv = H but for grouped-query
+        attention, whose key head's gradient sums its query heads' in
+        order), contiguous, as the forward read them (storage dtypes); None
+        for what is not needed.  The residual's
         entries first, one SpMM launch each for dA and dB^T on the card
         (none without a residual), then the dense tiles' share added by
         ``tile_table_grad``: two launches, all heads and chunks (chunk c
@@ -1038,8 +1053,8 @@ class HybridSDDMM:
         CPU) takes ``tile_table_grad_plain`` and ``csr_spmm_plain``.  The
         pads' rows (``a_pad`` row m, group row NG) stay 0."""
         _, res = self.grad_state()
-        H, C, ng1, gk = bt_phys.shape
-        m1, K = a_pad.shape[1:]
+        HB, C, ng1, gk = bt_phys.shape
+        H, m1, K = a_pad.shape
         kc = K // C
         lanes = ng1 * (gk // kc)
         g = g.to(torch.float32).contiguous()
@@ -1050,16 +1065,16 @@ class HybridSDDMM:
             da = torch.empty((H, m1, K), dtype=torch.float32,
                              device=g.device)
         if need_b:
-            dbt = torch.empty((H, C, ng1, gk), dtype=torch.float32,
+            dbt = torch.empty((HB, C, ng1, gk), dtype=torch.float32,
                               device=g.device)
         if res is not None:
             pa, pb = res
             if need_a:
-                pa(g, b32.view(H, C, lanes, kc),
+                pa(g, b32.view(HB, C, lanes, kc),
                    da.view(H, m1, C, kc).transpose(1, 2), plain)
             if need_b:
                 pb(g, a32.view(H, m1, C, kc).transpose(1, 2),
-                   dbt.view(H, C, lanes, kc), plain)
+                   dbt.view(HB, C, lanes, kc), plain)
         p = self.packed
         grad = tile_table_grad_plain if plain else tile_table_grad
         grad(a32, b32, g, self.table, da, dbt, accumulate=res is not None,

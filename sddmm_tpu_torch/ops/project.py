@@ -15,11 +15,13 @@ more CTAs, whose partial sums the tile's last CTA adds in a fixed order.
 The GEMM's epilogue writes the layouts the layer
 reads, so no copy surrounds it:
 
-- ``qkv_project(x, w_q, w_k, w_v)`` -> ``q_pad``, ``k_pad`` (H, L+1, D),
-  each with a zero sentinel row L (what ``BatchedHybridSDDMM.run_padded``
-  reads), and ``v`` (H*L, D) (what ``CSRAggregation.softmax_spmm`` reads):
-  x (L, F) is read once, the three (H, F, D) weights through their own
-  pointers;
+- ``qkv_project(x, w_q, w_k, w_v)`` -> ``q_pad`` (H, L+1, D), ``k_pad``
+  (Hkv, L+1, D), each with a zero sentinel row L (what
+  ``BatchedHybridSDDMM.run_padded`` reads), and ``v`` (Hkv*L, Dv) (what
+  ``CSRAggregation.softmax_spmm`` reads), times ``v_scale``: x (L, F) is
+  read once, the weights (H, F, D), (Hkv, F, D) and (Hkv, F, Dv) through
+  their own pointers (Hkv = H and Dv = D but for grouped-query layers such
+  as MiMo-V2-Flash's);
 - ``out_project(heads, w_o)``: heads (H, L, D), the aggregation's output,
   read head by head as the (L, H*D) matrix it stands for, times w_o
   (H*D, F) -> (L, F).
@@ -40,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import struct
 
 import torch
 from torch.nn import functional as tnf
@@ -85,27 +88,42 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # -- the plain version, layer by layer ---------------------------------------
 
 def _w_rows(ws) -> torch.Tensor:
-    """The (H, F, D) weights as one (3*H*D, F) matrix, rows (which, h, d)."""
+    """The (Hp, F, Dp) weights as one (sum Hp*Dp, F) matrix, rows
+    (which, h, d)."""
     return torch.cat([w.transpose(1, 2).reshape(-1, w.shape[1]) for w in ws])
 
 
-def _qkv_plain(x, ws):
-    H, _, D = ws[0].shape
-    L = x.shape[0]
-    y = gemm_plain(x, _w_rows(ws)).reshape(L, 3, H, D).permute(1, 2, 0, 3)
+def _widths(ws):
+    """(heads, width) of each weight, and C's column where each starts."""
+    shapes = [(w.shape[0], w.shape[2]) for w in ws]
+    starts = [0]
+    for h, d in shapes:
+        starts.append(starts[-1] + h * d)
+    return shapes, starts
+
+
+def _qkv_plain(x, ws, v_scale):
+    (shapes, starts), L = _widths(ws), x.shape[0]
+    y = gemm_plain(x, _w_rows(ws))
+    outs = [y[:, a:b].reshape(L, h, d).permute(1, 0, 2)
+            for (h, d), a, b in zip(shapes, starts, starts[1:])]
     pad = (0, 0, 0, 1)
-    return (tnf.pad(y[0], pad), tnf.pad(y[1], pad),
-            y[2].reshape(H * L, D).contiguous())
+    v = outs[2] if v_scale == 1.0 else outs[2] * v_scale
+    return (tnf.pad(outs[0], pad), tnf.pad(outs[1], pad),
+            v.reshape(-1, shapes[2][1]).contiguous())
 
 
 def _qkv_grads_plain(x, ws, gy, need_x, need_w):
-    """gy (L, 3*H*D), columns (which, h, d)."""
-    H, F, D = ws[0].shape
+    """gy (L, sum Hp*Dp), columns (which, h, d), V's already times the
+    value scale."""
+    shapes, starts = _widths(ws)
+    F = ws[0].shape[1]
     dx = gemm_plain(gy, _w_rows(ws).T) if need_x else None
     dws = (None,) * 3
     if need_w:
-        dw = gemm_plain(x.T, gy.T).reshape(F, 3, H, D).permute(1, 2, 0, 3)
-        dws = tuple(dw[i].contiguous() for i in range(3))
+        dw = gemm_plain(x.T, gy.T)
+        dws = tuple(dw[:, a:b].reshape(F, h, d).permute(1, 0, 2).contiguous()
+                    for (h, d), a, b in zip(shapes, starts, starts[1:]))
     return dx, dws
 
 
@@ -188,13 +206,20 @@ def _dst(planes, R: int, K: int, trans: bool, row0=0, k0=0, row_b=0,
     return [_ptr(planes), R, row0, k0, row_b, k_b, int(trans), R * K]
 
 
-def _job(src, nb, nr, nc, sb, sr, *dsts):
+@functools.lru_cache(maxsize=None)
+def _float_word(x: float) -> int:
+    """A float's fp32 bits, as the kernels read a scale from a word."""
+    return struct.unpack("<I", struct.pack("<f", x))[0]
+
+
+def _job(src, nb, nr, nc, sb, sr, *dsts, scale=1.0):
     """One source of a split launch, (nb, nr, nc) fp32 at ``src + b*sb +
-    r*sr + c``, into one or two destinations (``_dst``)."""
+    r*sr + c``, times ``scale``, into one or two destinations (``_dst``)."""
     words = [_ptr(src), nb, nr, nc, sb, sr]
     for d in dsts:
         words += d
-    return words + [0] * (6 + 8 * 2 - len(words))
+    return words + [0] * (6 + 8 * 2 - len(words)) + [
+        _ONE if scale == 1.0 else _float_word(scale)]
 
 
 def _split(jobs, device) -> None:
@@ -206,14 +231,31 @@ def _split(jobs, device) -> None:
                     len(jobs), _stream(device))
 
 
-def _out(bases, s_h, s_r, part_cols, chunk, sentinel_row=-1,
-         sentinel_mask=0):
-    """C's layout: column n in part p = n // part_cols, chunk h, at d; (m, n)
-    at ``bases[p] + h*s_h[p] + m*s_r + d``; row ``sentinel_row`` of the
+def _out(parts, sentinel_row=-1, sentinel_mask=0):
+    """C's layout from up to three column parts ``(base, s_h, s_r, cols,
+    chunk, scale)``, in column order: part p's column n (from the part's
+    first) in chunk h = n // chunk, at d = n % chunk; (m, n) holds scale *
+    C[m, n] at ``base + h*s_h + m*s_r + d``; row ``sentinel_row`` of the
     parts in ``sentinel_mask`` written 0."""
-    ptrs = [_ptr(b) for b in bases] + [0] * (3 - len(bases))
-    s_h = list(s_h) + [0] * (3 - len(s_h))
-    return ptrs + s_h + [s_r, part_cols, chunk, sentinel_row, sentinel_mask]
+    words = [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, _ONE, _ONE, _ONE,
+             sentinel_row, sentinel_mask]
+    n = 0
+    for i, (base, s_h, s_r, cols, chunk, scale) in enumerate(parts):
+        n += cols
+        words[i], words[3 + i], words[6 + i] = _ptr(base), s_h, s_r
+        words[12 + i], words[15 + i] = chunk, _float_word(scale)
+        words[9 + i] = n
+    for i in range(len(parts), 3):
+        words[9 + i] = n
+    return words
+
+
+_ONE = _float_word(1.0)
+
+
+def _one(base, cols, s_r):
+    """C as one row-major part: ``cols`` columns, rows ``s_r`` apart."""
+    return _out([(base, 0, s_r, cols, cols, 1.0)])
 
 
 _counters: dict = {}
@@ -232,7 +274,7 @@ def _tile_counters(device, tiles: int) -> torch.Tensor:
 
 
 #: the word of ``_out``'s list that holds the sentinel row (-1: none)
-_SENTINEL_WORD = 9
+_SENTINEL_WORD = 18
 
 
 def _gemm(M, N, K, a, b, out, device) -> None:
@@ -262,67 +304,76 @@ def _rows_contiguous(name, t, dims):
                          f"{t.dtype} {tuple(t.shape)} strides {t.stride()}")
 
 
-def _qkv_kernel(x, ws):
+def _qkv_kernel(x, ws, v_scale):
     L, F = x.shape
-    H, _, D = ws[0].shape
-    HD, Fp = H * D, _pad(F)
+    (shapes, starts), Fp = _widths(ws), _pad(F)
+    N = starts[-1]
     dev = x.device
     xs = _planes(L * Fp, dev, Fp != F)
-    wt = _planes(3 * HD * Fp, dev, Fp != F)
+    wt = _planes(N * Fp, dev, Fp != F)
     jobs = [_job(x, 1, L, F, 0, x.stride(0), _dst(xs, L, Fp, False))]
-    for i, w in enumerate(ws):   # rows (which, h, d), k f
-        jobs.append(_job(w, H, F, D, w.stride(0), w.stride(1),
-                         _dst(wt, 3 * HD, Fp, True, row0=i * HD, row_b=D)))
+    for w, (h, d), row0 in zip(ws, shapes, starts):  # rows (which, h, d)
+        jobs.append(_job(w, h, F, d, w.stride(0), w.stride(1),
+                         _dst(wt, N, Fp, True, row0=row0, row_b=d)))
     _split(jobs, dev)
+    (H, D), (Hk, _), (_, Dv) = shapes
     q_pad = torch.empty((H, L + 1, D), dtype=torch.float32, device=dev)
-    k_pad = torch.empty((H, L + 1, D), dtype=torch.float32, device=dev)
-    v = torch.empty((H * L, D), dtype=torch.float32, device=dev)
-    _gemm(L, 3 * HD, Fp, (xs, L), (wt, 3 * HD),
-          _out([q_pad, k_pad, v], [(L + 1) * D, (L + 1) * D, L * D], D, HD,
-               D, sentinel_row=L, sentinel_mask=3), dev)
+    k_pad = torch.empty((Hk, L + 1, D), dtype=torch.float32, device=dev)
+    v = torch.empty((Hk * L, Dv), dtype=torch.float32, device=dev)
+    _gemm(L, N, Fp, (xs, L), (wt, N),
+          _out([(q_pad, (L + 1) * D, D, H * D, D, 1.0),
+                (k_pad, (L + 1) * D, D, Hk * D, D, 1.0),
+                (v, L * Dv, Dv, Hk * Dv, Dv, v_scale)],
+               sentinel_row=L, sentinel_mask=3), dev)
     return q_pad, k_pad, v
 
 
-def _qkv_grads_kernel(x, ws, gs, need_x, need_w):
-    """gs: the cotangents as (H, L, D) views (q's and k's without the
-    sentinel row)."""
+def _qkv_grads_kernel(x, ws, gs, need_x, need_w, v_scale):
+    """gs: the cotangents as (Hp, L, Dp) views (q's and k's without the
+    sentinel row); V's is split times the value scale."""
     L, F = x.shape
-    H, _, D = ws[0].shape
-    HD, Dp, Lp = H * D, _pad(D), _pad(L)
-    KX = 3 * H * Dp   # dX's K: (which, h, d), each head padded to Dp
+    (shapes, starts), Lp = _widths(ws), _pad(L)
+    N = starts[-1]
+    # dX's K: (which, h, d), each head padded to the k step
+    koff = [0]
+    for h, d in shapes:
+        koff.append(koff[-1] + h * _pad(d))
+    KX = koff[-1]
     dev = x.device
     jobs = []
+    pads = any(_pad(d) != d for _, d in shapes)
     if need_x:
-        g_same = _planes(L * KX, dev, Dp != D)
-        w_same = _planes(F * KX, dev, Dp != D)
+        g_same = _planes(L * KX, dev, pads)
+        w_same = _planes(F * KX, dev, pads)
     if need_w:
-        g_t = _planes(3 * HD * Lp, dev, Lp != L)
+        g_t = _planes(N * Lp, dev, Lp != L)
         x_t = _planes(F * Lp, dev, Lp != L)
         jobs.append(_job(x, 1, L, F, 0, x.stride(0),
                          _dst(x_t, F, Lp, True)))
-    for i, g in enumerate(gs):
+    for i, (g, (h, d)) in enumerate(zip(gs, shapes)):
         dsts = []
         if need_x:
-            dsts.append(_dst(g_same, L, KX, False, k0=i * H * Dp, k_b=Dp))
+            dsts.append(_dst(g_same, L, KX, False, k0=koff[i], k_b=_pad(d)))
         if need_w:
-            dsts.append(_dst(g_t, 3 * HD, Lp, True, row0=i * HD, row_b=D))
-        jobs.append(_job(g, H, L, D, g.stride(0), g.stride(1), *dsts))
+            dsts.append(_dst(g_t, N, Lp, True, row0=starts[i], row_b=d))
+        jobs.append(_job(g, h, L, d, g.stride(0), g.stride(1), *dsts,
+                         scale=v_scale if i == 2 else 1.0))
     if need_x:
-        for i, w in enumerate(ws):
-            jobs.append(_job(w, H, F, D, w.stride(0), w.stride(1),
-                             _dst(w_same, F, KX, False, k0=i * H * Dp,
-                                  k_b=Dp)))
+        for i, (w, (h, d)) in enumerate(zip(ws, shapes)):
+            jobs.append(_job(w, h, F, d, w.stride(0), w.stride(1),
+                             _dst(w_same, F, KX, False, k0=koff[i],
+                                  k_b=_pad(d))))
     _split(jobs, dev)
     dx, dws = None, (None,) * 3
     if need_x:
         dx = torch.empty((L, F), dtype=torch.float32, device=dev)
-        _gemm(L, F, KX, (g_same, L), (w_same, F), _out([dx], [0], F, F, F),
-              dev)
+        _gemm(L, F, KX, (g_same, L), (w_same, F), _one(dx, F, F), dev)
     if need_w:
-        dws = tuple(torch.empty((H, F, D), dtype=torch.float32, device=dev)
-                    for _ in range(3))
-        _gemm(F, 3 * HD, Lp, (x_t, F), (g_t, 3 * HD),
-              _out(dws, [F * D] * 3, D, HD, D), dev)
+        dws = tuple(torch.empty((h, F, d), dtype=torch.float32, device=dev)
+                    for h, d in shapes)
+        _gemm(F, N, Lp, (x_t, F), (g_t, N),
+              _out([(dw, F * d, d, h * d, d, 1.0)
+                    for dw, (h, d) in zip(dws, shapes)]), dev)
     return dx, dws
 
 
@@ -340,7 +391,7 @@ def _out_kernel(heads, w_o):
             _job(w_o, H, D, F, D * w_o.stride(0), w_o.stride(0),
                  _dst(wt, F, K, True, k_b=Dp))], dev)
     out = torch.empty((L, F), dtype=torch.float32, device=dev)
-    _gemm(L, F, K, (hs, L), (wt, F), _out([out], [0], F, F, F), dev)
+    _gemm(L, F, K, (hs, L), (wt, F), _one(out, F, F), dev)
     return out
 
 
@@ -369,10 +420,10 @@ def _out_grads_kernel(heads, w_o, g, need_h, need_w):
     if need_h:
         dh = torch.empty((H * L, D), dtype=torch.float32, device=dev)
         _gemm(L, HD, Fp, (g_same, L), (w_same, HD),
-              _out([dh], [L * D], D, HD, D), dev)
+              _out([(dh, L * D, D, HD, D, 1.0)]), dev)
     if need_w:
         dw = torch.empty((HD, F), dtype=torch.float32, device=dev)
-        _gemm(HD, F, Lp, (h_t, HD), (g_t, F), _out([dw], [0], F, F, F), dev)
+        _gemm(HD, F, Lp, (h_t, HD), (g_t, F), _one(dw, F, F), dev)
     return dh, dw
 
 
@@ -388,38 +439,41 @@ def _kernel_path(t: torch.Tensor, plain: bool) -> bool:
 
 class _QKVFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w_q, w_k, w_v, plain):
+    def forward(ctx, x, w_q, w_k, w_v, plain, v_scale):
         ws = (w_q, w_k, w_v)
         ctx.save_for_backward(x, *ws)
-        ctx.plain = plain
+        ctx.plain, ctx.v_scale = plain, v_scale
         if _kernel_path(x, plain):
             with _card(x.device):
-                return _qkv_kernel(x, ws)
-        return _qkv_plain(x, ws)
+                return _qkv_kernel(x, ws, v_scale)
+        return _qkv_plain(x, ws, v_scale)
 
     @staticmethod
     def backward(ctx, gq, gk, gv):
         x, *ws = ctx.saved_tensors
-        H, _, D = ws[0].shape
+        (H, D), (Hk, _), (_, Dv) = _widths(ws)[0]
         L = x.shape[0]
         need_x = ctx.needs_input_grad[0]
         need_w = any(ctx.needs_input_grad[1:4])
         zero = functools.partial(torch.zeros, dtype=torch.float32,
                                  device=x.device)
         gq = zero((H, L + 1, D)) if gq is None else gq
-        gk = zero((H, L + 1, D)) if gk is None else gk
-        gv = zero((H * L, D)) if gv is None else gv
+        gk = zero((Hk, L + 1, D)) if gk is None else gk
+        gv = zero((Hk * L, Dv)) if gv is None else gv
         gs = tuple(g if g.stride(-1) == 1 else g.contiguous()
-                   for g in (gq[:, :L], gk[:, :L], gv.view(H, L, D)))
+                   for g in (gq[:, :L], gk[:, :L], gv.view(Hk, L, Dv)))
         if _kernel_path(x, ctx.plain):
             with _card(x.device):
-                dx, dws = _qkv_grads_kernel(x, ws, gs, need_x, need_w)
+                dx, dws = _qkv_grads_kernel(x, ws, gs, need_x, need_w,
+                                            ctx.v_scale)
         else:
-            gy = torch.stack(gs, 1).permute(2, 1, 0, 3).reshape(L, 3 * H * D)
+            gv = gs[2] if ctx.v_scale == 1.0 else gs[2] * ctx.v_scale
+            gy = torch.cat([g.permute(1, 0, 2).reshape(L, -1)
+                            for g in (gs[0], gs[1], gv)], dim=1)
             dx, dws = _qkv_grads_plain(x, ws, gy, need_x, need_w)
         return (dx, *(dw if need else None
                       for dw, need in zip(dws, ctx.needs_input_grad[1:4])),
-                None)
+                None, None)
 
 
 class _OutFn(torch.autograd.Function):
@@ -449,20 +503,25 @@ class _OutFn(torch.autograd.Function):
 
 
 def qkv_project(x: torch.Tensor, w_q: torch.Tensor, w_k: torch.Tensor,
-                w_v: torch.Tensor, plain: bool = False):
-    """x (L, F) times the (H, F, D) weights -> (q_pad, k_pad, v): q_pad and
-    k_pad (H, L+1, D) with row L zero, v (H*L, D)."""
+                w_v: torch.Tensor, plain: bool = False,
+                v_scale: float = 1.0):
+    """x (L, F) times the weights w_q (H, F, D), w_k (Hkv, F, D) and w_v
+    (Hkv, F, Dv) -> (q_pad, k_pad, v): q_pad (H, L+1, D) and k_pad (Hkv,
+    L+1, D) with row L zero, v (Hkv*L, Dv) times ``v_scale``."""
     _rows_contiguous("x", x, 2)
-    for name, w in (("w_q", w_q), ("w_k", w_k), ("w_v", w_v)):
+    H, F, D = w_q.shape
+    Hk, Dv = w_k.shape[0], w_v.shape[2]
+    for name, w, shape in (("w_q", w_q, (H, F, D)), ("w_k", w_k, (Hk, F, D)),
+                           ("w_v", w_v, (Hk, F, Dv))):
         _rows_contiguous(name, w, 3)
-        if w.shape != w_q.shape or w.shape[1] != x.shape[1]:
+        if w.shape != shape or w.shape[1] != x.shape[1]:
             raise ValueError(f"qkv_project: {name} {tuple(w.shape)} does "
                              f"not fit x {tuple(x.shape)} and w_q "
                              f"{tuple(w_q.shape)}")
         if w.device != x.device:
             raise ValueError(f"qkv_project: {name} is on {w.device}, x on "
                              f"{x.device}")
-    return _QKVFn.apply(x, w_q, w_k, w_v, plain)
+    return _QKVFn.apply(x, w_q, w_k, w_v, plain, float(v_scale))
 
 
 def out_project(heads: torch.Tensor, w_o: torch.Tensor,

@@ -16,6 +16,12 @@ into CSR order and the scale are fused into its loads), on CPU tensors its
 plain version ``segment_softmax_plain`` (the gather, the scale and
 ``segment_softmax``).
 
+``segment_softmax_sink`` is the same softmax with a learned sink logit
+per head (MiMo-V2-Flash's sliding-window layers): ``b_h`` joins each row's
+max and denominator as one more entry with no value, and its gradient is
+``-sum_rows p_sink * sum_row p * g``; the kernel's entry points take the
+sink as an optional pointer (null: the plain softmax, as above).
+
 ``segment_softmax_torch`` is an autograd op (B2, the VJP of
 ``segment_softmax`` as the models apply it): from the saved probabilities
 p and the cotangent g, both (H, nnz) in CSR order,
@@ -284,18 +290,44 @@ def segment_softmax_backward_plain(p: torch.Tensor, g: torch.Tensor,
     return out
 
 
+def segment_softmax_sink_plain(flat: torch.Tensor, row_ptr: torch.Tensor,
+                               scale: float, inv_idx: Optional[torch.Tensor],
+                               sink: torch.Tensor):
+    """Plain PyTorch version of the softmax with a sink: (p (H, nnz) in
+    CSR order, p_sink (H, m)), the sink ``sink[h]`` one more entry of each
+    of head h's rows (in its max and, last, in its fp64 denominator)."""
+    x = _csr_scores(flat, inv_idx) * scale
+    heads, nnz = x.shape
+    m = row_ptr.shape[0] - 1
+    rows = _head_rows(row_ptr, heads, x.device)
+    b = sink.detach().to(x.dtype).repeat_interleave(m)
+    row_max = b.scatter_reduce(0, rows, x.detach().reshape(-1), "amax")
+    e = torch.exp(x.reshape(-1) - row_max[rows])
+    e_sink = torch.exp(sink.to(x.dtype).repeat_interleave(m) - row_max)
+    denom = torch.zeros(heads * m, dtype=torch.float64,
+                        device=x.device).index_add_(0, rows, e.double())
+    denom = (denom + e_sink.double()).clamp_min(1e-30).to(x.dtype)
+    return ((e / denom[rows]).view(heads, nnz),
+            (e_sink / denom).view(heads, m))
+
+
 def segment_softmax_backward(p: torch.Tensor, g: torch.Tensor,
                              row_ptr: torch.Tensor, scale: float = 1.0,
                              inv_idx: Optional[torch.Tensor] = None,
                              size: Optional[int] = None,
-                             plan: Optional[SoftmaxPlan] = None
-                             ) -> torch.Tensor:
+                             plan: Optional[SoftmaxPlan] = None,
+                             p_sink: Optional[torch.Tensor] = None,
+                             plain: bool = False):
     """The scores' cotangent of ``segment_softmax_torch`` from its output
     ``p`` and that output's cotangent ``g``, both (H, nnz) fp32 in CSR
     order: (H, ``size``) with ``inv_idx`` (the packed slots; the others
     0), else (H, nnz).  CUDA tensors go through the kernel's backward entry
     (one launch, or raise) over ``plan`` (``softmax_plan(row_ptr)``, found
-    here if None), CPU tensors through ``segment_softmax_backward_plain``."""
+    here if None), CPU tensors (and ``plain``) through
+    ``segment_softmax_backward_plain``.  With ``p_sink`` (H, m), the
+    forward's sink probabilities: (that cotangent, the sinks' (H,)
+    gradient), each row's share ``-p_sink * sum_row p * g`` summed over the
+    rows in order."""
     heads, nnz = p.shape
     if g.shape != p.shape or p.dtype != torch.float32 or (
             g.dtype != torch.float32):
@@ -305,9 +337,18 @@ def segment_softmax_backward(p: torch.Tensor, g: torch.Tensor,
     if inv_idx is not None and (size is None or inv_idx.shape != (nnz,)):
         raise ValueError("segment_softmax backward: inv_idx needs the "
                          "packed size and one slot per entry")
-    if p.device.type == "cpu":
-        return segment_softmax_backward_plain(p, g, row_ptr, scale, inv_idx,
-                                              size)
+    m = row_ptr.shape[0] - 1
+    if plain or p.device.type == "cpu":
+        d = segment_softmax_backward_plain(p, g, row_ptr, scale, inv_idx,
+                                           size)
+        if p_sink is None:
+            return d
+        dot = torch.zeros(heads * m, dtype=torch.float64,
+                          device=p.device).index_add_(
+                              0, _head_rows(row_ptr, heads, p.device),
+                              (p * g).reshape(-1).double())
+        d_rows = -p_sink * dot.to(p.dtype).view(heads, m)
+        return d, d_rows.sum(dim=1)
     if p.device.type != "cuda":
         raise ValueError(f"segment_softmax: unsupported device {p.device}")
     if plan is None:
@@ -317,9 +358,13 @@ def segment_softmax_backward(p: torch.Tensor, g: torch.Tensor,
     p, g = p.contiguous(), g.contiguous()
     out = (torch.zeros((heads, size), dtype=torch.float32, device=p.device)
            if inv_idx is not None else torch.empty_like(p))
-    m = row_ptr.shape[0] - 1
+    d_rows = None
+    if p_sink is not None:
+        p_sink = p_sink.contiguous()
+        d_rows = torch.zeros((heads, m), dtype=torch.float32,
+                             device=p.device)
     if heads == 0 or m == 0 or nnz == 0:
-        return out
+        return out if d_rows is None else (out, d_rows.sum(dim=1))
     row_ptr = row_ptr.contiguous()
     inv_idx = inv_idx.contiguous() if inv_idx is not None else None
     with torch.cuda.device(p.device):
@@ -330,32 +375,39 @@ def segment_softmax_backward(p: torch.Tensor, g: torch.Tensor,
                         plan.n_warp, plan.n_split, float(scale),
                         out.data_ptr(), out.stride(0), heads,
                         head_group(heads, backward=True),
+                        None if p_sink is None else p_sink.data_ptr(),
+                        None if d_rows is None else d_rows.data_ptr(), m,
                         torch.cuda.current_stream().cuda_stream)
-    return out
+    return out if d_rows is None else (out, d_rows.sum(dim=1))
 
 
 class _SoftmaxFn(torch.autograd.Function):
-    """segment_softmax_torch on (H, F) scores as an autograd op (B2)."""
+    """segment_softmax_torch and segment_softmax_sink on (H, F) scores as
+    one autograd op (B2): the kernel's two entry points, with the sink or
+    without one (its null pointers), or the plain versions."""
 
     @staticmethod
-    def forward(ctx, flat, row_ptr, scale, inv_idx, plan, out):
-        p, plan = _softmax_forward(flat, row_ptr, scale, inv_idx, plan, out)
+    def forward(ctx, flat, sink, row_ptr, scale, inv_idx, plan, out, plain):
+        p, plan, *p_sink = _softmax_forward(flat, row_ptr, scale, inv_idx,
+                                            plan, out, sink, plain)
         if out is not None:
             ctx.mark_dirty(out)
-        ctx.save_for_backward(p, row_ptr, inv_idx)
+        p_sink = p_sink[0] if p_sink else None
+        ctx.save_for_backward(p, p_sink, row_ptr, inv_idx)
         ctx.scale, ctx.size, ctx.plan = scale, flat.shape[1], plan
-        ctx.span = profiling.current()
+        ctx.plain, ctx.span = plain, profiling.current()
         return p
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        p, row_ptr, inv_idx = ctx.saved_tensors
+        p, p_sink, row_ptr, inv_idx = ctx.saved_tensors
         with profiling.span("softmax.backward", ctx.span):
-            d = segment_softmax_backward(p, g.to(torch.float32), row_ptr,
-                                         ctx.scale, inv_idx, ctx.size,
-                                         ctx.plan)
-        return d, None, None, None, None, None
+            d = segment_softmax_backward(
+                p, g.to(torch.float32), row_ptr, ctx.scale, inv_idx,
+                ctx.size, ctx.plan, p_sink, ctx.plain)
+        d, d_sink = d if p_sink is not None else (d, None)
+        return d, d_sink, None, None, None, None, None, None
 
 
 def segment_softmax_torch(flat: torch.Tensor, row_ptr: torch.Tensor,
@@ -382,7 +434,24 @@ def segment_softmax_torch(flat: torch.Tensor, row_ptr: torch.Tensor,
         return segment_softmax_torch(
             flat[None], row_ptr, scale, inv_idx, plan,
             None if out is None else out[None])[0]
-    return _SoftmaxFn.apply(flat, row_ptr, scale, inv_idx, plan, out)
+    return _SoftmaxFn.apply(flat, None, row_ptr, scale, inv_idx, plan, out,
+                            False)
+
+
+def segment_softmax_sink(flat: torch.Tensor, sink: Optional[torch.Tensor],
+                         row_ptr: torch.Tensor, scale: float,
+                         inv_idx: Optional[torch.Tensor] = None,
+                         plan: Optional[SoftmaxPlan] = None,
+                         plain: bool = False) -> torch.Tensor:
+    """``segment_softmax_torch`` with a learned sink logit a head: ``flat``
+    (H, F) (or (H, nnz) without ``inv_idx``), ``sink`` (H,) fp32 ->
+    (H, nnz) in CSR order, each row's probabilities summing to 1 less its
+    sink's share (``sink`` None: the plain softmax).  Differentiable in
+    ``flat`` and ``sink``; one launch of the kernel's forward and one of
+    its backward on the card, the plain versions on the CPU or with
+    ``plain``."""
+    return _SoftmaxFn.apply(flat, sink, row_ptr, scale, inv_idx, plan, None,
+                            plain)
 
 
 def _check_plan(plan, device):
@@ -394,9 +463,11 @@ def _check_plan(plan, device):
                          f"{plan.rows.device}, the scores on {device}")
 
 
-def _softmax_forward(flat, row_ptr, scale, inv_idx, plan, out):
+def _softmax_forward(flat, row_ptr, scale, inv_idx, plan, out, sink=None,
+                     plain=False):
     """segment_softmax_torch's forward on a 2-D ``flat``, checked: (the
-    probabilities, the plan the kernel took or None)."""
+    probabilities, the plan the kernel took or None), or with a ``sink``
+    (H,) fp32 (the probabilities, the plan, p_sink (H, m))."""
     if flat.dim() != 2 or flat.dtype != torch.float32:
         raise ValueError(f"segment_softmax: want flat (H, F) float32, got "
                          f"{tuple(flat.shape)} {flat.dtype}")
@@ -420,7 +491,17 @@ def _softmax_forward(flat, row_ptr, scale, inv_idx, plan, out):
         raise ValueError(f"segment_softmax: out {tuple(out.shape)} "
                          f"{out.dtype} on {out.device}, want ({heads}, "
                          f"{nnz}) float32 rows on {flat.device}")
-    if flat.device.type == "cpu":
+    if sink is not None and (sink.shape != (heads,) or sink.dtype
+                             != torch.float32 or sink.device != flat.device):
+        raise ValueError(f"segment_softmax: sink {tuple(sink.shape)} "
+                         f"{sink.dtype} on {sink.device}, want ({heads},) "
+                         f"float32 on {flat.device}")
+    m = row_ptr.shape[0] - 1
+    if plain or flat.device.type == "cpu":
+        if sink is not None:
+            res, p_sink = segment_softmax_sink_plain(flat, row_ptr, scale,
+                                                     inv_idx, sink)
+            return (res if out is None else out.copy_(res)), plan, p_sink
         res = segment_softmax_plain(flat, row_ptr, scale, inv_idx)
         return (res if out is None else out.copy_(res)), plan
     if flat.device.type != "cuda":
@@ -434,9 +515,15 @@ def _softmax_forward(flat, row_ptr, scale, inv_idx, plan, out):
     if out is None:
         out = torch.empty((heads, nnz), dtype=torch.float32,
                           device=flat.device)
-    m = row_ptr.shape[0] - 1
+    p_sink = None
+    if sink is not None:
+        sink = sink.contiguous()
+        # an empty row's mass is all the sink's
+        p_sink = torch.ones((heads, m), dtype=torch.float32,
+                            device=flat.device)
+    done = (out, plan) if sink is None else (out, plan, p_sink)
     if heads == 0 or m == 0 or nnz == 0:
-        return out, plan
+        return done
     row_ptr = row_ptr.contiguous()
     inv_idx = inv_idx.contiguous() if inv_idx is not None else None
     with torch.cuda.device(flat.device):
@@ -447,8 +534,11 @@ def _softmax_forward(flat, row_ptr, scale, inv_idx, plan, out):
                         row_ptr.data_ptr(), plan.rows.data_ptr(), plan.n_sub,
                         plan.n_warp, plan.n_split, float(scale),
                         out.data_ptr(), out.stride(0), heads,
-                        head_group(heads, backward=False), stream)
-    return out, plan
+                        head_group(heads, backward=False),
+                        None if sink is None else sink.data_ptr(),
+                        None if p_sink is None else p_sink.data_ptr(), m,
+                        stream)
+    return done
 
 
 def csr_softmax(s: CSR, scores, scale: float = 1.0,

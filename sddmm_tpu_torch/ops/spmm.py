@@ -42,7 +42,9 @@ from sddmm_tpu_torch.data.sparse import CSR
 from sddmm_tpu_torch.ops.gather_plan import (gather_plan, group_items,
                                              occurrences)
 from sddmm_tpu_torch.ops.hybrid import (GATHER_STORAGE, check_device,
-                                        residual_gather_dot)
+                                        residual_gather_dot,
+                                        residual_gather_dot_plain)
+from sddmm_tpu_torch.ops.tile_dot import head_shift
 from sddmm_tpu_torch.utils import profiling
 
 #: rows with more entries than this are split across the warps of a block
@@ -314,12 +316,20 @@ def spmm_launch(plan: SpmmPlan, row_ptr: torch.Tensor, cols: torch.Tensor,
     value being ``values[h, vidx[e]]`` (in range: the caller's
     guarantee); dense (H, C, N, K) and out (H, C, m, K) fp32 views whose
     last dimension is contiguous, any other strides (a chunk of out may be
-    K columns of a wider row).  CUDA tensors only."""
-    H, C, m, K = out.shape
+    K columns of a wider row).  CUDA tensors only.
+
+    Grouped-query attention's heads: values of ``Hin`` heads, dense of
+    ``Hin >> s`` (input head i reads dense head ``i >> s``, ``s =
+    head_shift``: the query heads reading their group's V) and out of
+    ``Hin / S`` heads (out head o sums input heads ``o*S .. o*S + S-1`` in
+    order: V's gradient summed over the group)."""
+    Ho, C, m, K = out.shape
     dev = out.device
     nnz = cols.shape[0]
-    if (dense.dim() != 4 or dense.shape[:2] != (H, C) or dense.shape[3] != K
-            or values.dim() != 2 or values.shape[0] != H
+    H = values.shape[0] if values.dim() == 2 else -1
+    sum_heads = H // Ho if Ho else 0
+    if (dense.dim() != 4 or dense.shape[1] != C or dense.shape[3] != K
+            or values.dim() != 2 or sum_heads * Ho != H or sum_heads < 1
             or row_ptr.shape != (m + 1,)
             or (vidx is None and values.shape[1] != nnz)
             or (vidx is not None and vidx.shape != (nnz,))):
@@ -349,6 +359,7 @@ def spmm_launch(plan: SpmmPlan, row_ptr: torch.Tensor, cols: torch.Tensor,
                 or not t.is_contiguous()):
             raise ValueError(f"csr_spmm: plan.{name} must be spmm_plan's, "
                              "contiguous, on dense's device (SpmmPlan.to)")
+    kv_shift = head_shift(H, dense.shape[0])
     if m == 0 or H == 0 or C == 0 or K == 0:
         return
     # columns per lane: float4 or float2 loads where K, the strides and the
@@ -368,8 +379,9 @@ def spmm_launch(plan: SpmmPlan, row_ptr: torch.Tensor, cols: torch.Tensor,
                         None if vidx is None else vidx.data_ptr(),
                         values.stride(0), dense.data_ptr(), dense.stride(2),
                         dense.stride(0), dense.stride(1), out.data_ptr(),
-                        out.stride(2), out.stride(0), out.stride(1), K, H, C,
-                        vec, torch.cuda.current_stream().cuda_stream)
+                        out.stride(2), out.stride(0), out.stride(1), K, Ho, C,
+                        sum_heads, kv_shift, vec,
+                        torch.cuda.current_stream().cuda_stream)
 
 
 class SpmmPattern:
@@ -425,14 +437,24 @@ class SpmmPattern:
         contiguous last dimension: ``out[h, c] = S(values[h]) .
         dense[h, c]``, written.  On the card one kernel launch for all H x C
         that reads the values through ``vidx`` (``plain`` takes
-        ``csr_spmm_plain`` per product), on the CPU the plain version."""
+        ``csr_spmm_plain`` per product), on the CPU the plain version.
+        Grouped heads as ``spmm_launch``: dense of fewer heads, read by
+        ``head_shift``; out of fewer heads, each the sum of its group's
+        products in head order."""
         if plain or out.device.type == "cpu":
             v = (values[:, :self.n_entries] if self.vidx is None
                  else values.index_select(1, self.vidx))
-            for h in range(out.shape[0]):
+            H, Ho = v.shape[0], out.shape[0]
+            shift, per = head_shift(H, dense.shape[0]), H // Ho
+            for o in range(Ho):
                 for c in range(out.shape[1]):
-                    out[h, c] = csr_spmm_plain(v[h], self.rows, self.cols,
-                                               dense[h, c], self.num_rows)
+                    acc = None
+                    for i in range(o * per, (o + 1) * per):
+                        part = csr_spmm_plain(v[i], self.rows, self.cols,
+                                              dense[i >> shift, c],
+                                              self.num_rows)
+                        acc = part if acc is None else acc + part
+                    out[o, c] = acc
             return out
         v = values.to(torch.float32)
         if self.vidx is None:
@@ -574,6 +596,97 @@ def csr_spmm_torch(values: torch.Tensor, rows: torch.Tensor,
     ``plan`` (``pattern_grads``); without a plan it is built for each
     backward, as the forward then builds its plan for each call."""
     return _SpmmFn.apply(values, dense, rows, cols, num_rows, row_ptr, plan)
+
+
+class HeadAggregation:
+    """One pattern's aggregation for the H query heads of a grouped-query
+    layer over the Hkv heads of V: ``out[h] = S(values[h]) . V[h >> s]``
+    (``head_shift``), one SpMM launch over the pattern with a head stride,
+    so no block-diagonal copy of the pattern a head and no copy of V a
+    query head.  Built once per pattern: its CSR on the device, the
+    kernel's plan (rows grouped in ``row_order``) and the backward's
+    ``GradPattern``, whose pieces are built at the first backward."""
+
+    def __init__(self, csr: CSR, device, row_order=None):
+        self.device = torch.device(device)
+        self.shape = csr.shape
+        rows = csr.row_indices()
+        self.rows = torch.as_tensor(rows, dtype=torch.int64,
+                                    device=self.device)
+        self.row_ptr = torch.as_tensor(csr.row_ptr, dtype=torch.int64,
+                                       device=self.device)
+        self.cols = torch.as_tensor(csr.col_idx, dtype=torch.int32,
+                                    device=self.device)
+        self.plan = spmm_plan(csr.row_ptr, csr.col_idx, row_order).to(
+            self.device)
+        self.grads = GradPattern(rows, csr.col_idx, csr.shape, self.device,
+                                 row_order)
+
+
+def _head_spmm_plain(agg, values, dense):
+    shift = head_shift(values.shape[0], dense.shape[0])
+    return torch.stack([csr_spmm_plain(values[h], agg.rows, agg.cols,
+                                       dense[h >> shift], agg.shape[0])
+                        for h in range(values.shape[0])])
+
+
+class _HeadSpmmFn(torch.autograd.Function):
+    """head_spmm as an autograd op: the values' cotangent is the gather-dot
+    at the pattern (query head h against V of head h >> s), V's the SpMM on
+    the transpose summing each group's query heads in order."""
+
+    @staticmethod
+    def forward(ctx, values, dense, agg, plain):
+        ctx.save_for_backward(values, dense)
+        ctx.agg, ctx.plain, ctx.span = agg, plain, profiling.current()
+        if plain or dense.device.type == "cpu":
+            return _head_spmm_plain(agg, values, dense)
+        H, (m, _), K = values.shape[0], agg.shape, dense.shape[2]
+        out = torch.empty((H, m, K), dtype=torch.float32,
+                          device=dense.device)
+        spmm_launch(agg.plan, agg.row_ptr, agg.cols, values.contiguous(),
+                    dense[:, None], out[:, None])
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        values, dense = ctx.saved_tensors
+        agg, plain = ctx.agg, ctx.plain
+        with profiling.span("spmm.backward", ctx.span):
+            g = g.contiguous()
+            d_values = d_dense = None
+            if ctx.needs_input_grad[0]:
+                if plain or g.device.type == "cpu":
+                    rows, cols = agg.rows.to(torch.int32), agg.cols
+                    s = head_shift(g.shape[0], dense.shape[0])
+                    d_values = torch.stack([residual_gather_dot_plain(
+                        g[h], dense[h >> s], rows, cols)
+                        for h in range(g.shape[0])])
+                else:
+                    d_values = agg.grads.sddmm(g, dense)
+            if ctx.needs_input_grad[1]:
+                d_dense = torch.empty_like(dense)
+                agg.grads.spmm_t(values.to(torch.float32), g[:, None],
+                                 d_dense[:, None], plain)
+            return d_values, d_dense, None, None
+
+
+def head_spmm(values: torch.Tensor, dense: torch.Tensor,
+              agg: HeadAggregation, plain: bool = False) -> torch.Tensor:
+    """values (H, nnz) fp32 in the pattern's CSR order, dense (Hkv, n, K)
+    fp32 -> (H, m, K): ``S(values[h]) . dense[h >> head_shift(H, Hkv)]``.
+    Differentiable in both; the kernels on the card (one launch forward,
+    one gather-dot and one SpMM backward), the plain versions on the CPU or
+    with ``plain``."""
+    if (values.dim() != 2 or dense.dim() != 3
+            or values.shape[1] != agg.cols.shape[0]
+            or dense.shape[1] != agg.shape[1]):
+        raise ValueError(f"head_spmm: values {tuple(values.shape)} and dense "
+                         f"{tuple(dense.shape)} do not fit the pattern "
+                         f"{agg.shape} of {agg.cols.shape[0]} entries")
+    head_shift(values.shape[0], dense.shape[0])
+    return _HeadSpmmFn.apply(values, dense.contiguous(), agg, plain)
 
 
 def csr_spmm(s: CSR, dense, values=None, device="cuda") -> np.ndarray:

@@ -381,6 +381,17 @@ class TileTable:
         return self.entries.shape[0]
 
 
+def head_shift(heads: int, kv_heads: int) -> int:
+    """log2 of the query heads a key head serves (grouped-query attention:
+    query head h reads key head ``h >> shift``); 0 where every head has its
+    own.  ``heads`` must be a power-of-two multiple of ``kv_heads``."""
+    group = heads // kv_heads if kv_heads else 0
+    if kv_heads < 1 or group * kv_heads != heads or group & (group - 1):
+        raise ValueError(f"{heads} query heads over {kv_heads} key heads: "
+                         "want a power-of-two group")
+    return group.bit_length() - 1
+
+
 def tile_table_plain(a: torch.Tensor, b: torch.Tensor, table: TileTable,
                      mode: str, out: torch.Tensor, accumulate: bool = False,
                      batch: int = 64) -> torch.Tensor:
@@ -388,8 +399,10 @@ def tile_table_plain(a: torch.Tensor, b: torch.Tensor, table: TileTable,
     entries at a time, gather each entry's A rows and B^T lanes through the
     table, take ``tile_dot_plain`` per chunk, sum the chunks in the order
     c = 0..C-1, and write (or add) the cells inside each entry's
-    (nrows, nlanes) to its place in ``out``."""
-    H, C = b.shape[0], b.shape[1]
+    (nrows, nlanes) to its place in ``out``.  Head h reads the B^T of head
+    ``h >> head_shift``."""
+    H, C = a.shape[0], b.shape[1]
+    shift = head_shift(H, b.shape[0])
     G = table.group_size
     kc = b.shape[3] // G
     dev = a.device
@@ -413,7 +426,8 @@ def tile_table_plain(a: torch.Tensor, b: torch.Tensor, table: TileTable,
             tot = torch.zeros((e.shape[0], ROW_WINDOW, LANE_WINDOW),
                               dtype=torch.float32, device=dev)
             for c in range(C):
-                b_blk = b[h, c][grp].reshape(e.shape[0], LANE_WINDOW, G, kc)
+                b_blk = b[h >> shift, c][grp].reshape(e.shape[0],
+                                                      LANE_WINDOW, G, kc)
                 b_blk = torch.take_along_dim(b_blk, member, dim=2)[:, :, 0]
                 tot = tot + tile_dot_plain(
                     a_blk[:, :, c * kc:(c + 1) * kc], b_blk, mode)
@@ -432,14 +446,16 @@ def _check_table(a, b, table, mode, out):
         raise ValueError(f"tile_table: want a (H, M, C*kc), b (H, C, NB, "
                          f"G*kc) and out (H, F), got {tuple(a.shape)}, "
                          f"{tuple(b.shape)} and {tuple(out.shape)}")
-    H, C, nb, gk = b.shape
+    _, C, nb, gk = b.shape
+    H = a.shape[0]
     G = table.group_size
     kc = gk // G if G else 0
-    if (a.shape[0] != H or out.shape[0] != H or C < 1 or kc < 1
+    if (out.shape[0] != H or C < 1 or kc < 1
             or kc * G != gk or a.shape[2] != C * kc):
         raise ValueError(f"tile_table: a {tuple(a.shape)}, b "
                          f"{tuple(b.shape)} and out {tuple(out.shape)} "
                          f"disagree on heads, C or kc (G={G})")
+    head_shift(H, b.shape[0])
     if table.max_row >= a.shape[1] or table.max_gid >= nb:
         raise ValueError(f"tile_table: the table indexes row {table.max_row}"
                          f" of {a.shape[1]} and group row {table.max_gid} "
@@ -468,10 +484,11 @@ def tile_table(a: torch.Tensor, b: torch.Tensor, table: TileTable,
     """Every entry of ``table`` in compute mode ``mode``, for every head:
     ``out[h, slot] (+)= sum_c dot(A row, B^T lane)`` over the chunks.
 
-    a (H, M, C*kc) padded A rows in the mode's A storage, b (H, C, NB,
+    a (H, M, C*kc) padded A rows in the mode's A storage, b (Hkv, C, NB,
     G*kc) the grouped, chunked B^T in its B storage (G = the table's group
-    size), out (H, F) fp32 with contiguous rows; a and b contiguous, on one
-    device.  CUDA tensors go through one launch of the mode's kernel
+    size; head h reads b's head ``h >> head_shift(H, Hkv)``, Hkv = H but
+    for grouped-query attention), out (H, F) fp32 with contiguous rows;
+    a and b contiguous, on one device.  CUDA tensors go through one launch of the mode's kernel
     instance (``csrc/tile_dot.cu``) or raise; CPU tensors through
     ``tile_table_plain``.  A kc off ``K_STEP`` is zero-padded (a copy of
     each operand) before the launch."""
@@ -493,19 +510,21 @@ def tile_table(a: torch.Tensor, b: torch.Tensor, table: TileTable,
         kc = b.shape[3] // G
     _launch(mode, a.data_ptr(), a.stride(0), a.stride(1),
             b.data_ptr(), b.stride(0), b.stride(1), b.stride(2), table,
-            out, out.stride(0), H, C, kc, accumulate)
+            out, out.stride(0), H, C, kc, accumulate,
+            head_shift(H, b.shape[0]))
     return out
 
 
 def _launch(mode, a_ptr, sa_h, sa_r, b_ptr, sb_h, sb_c, sb_r, table, out,
-            so_h, heads, C, kc, accumulate):
+            so_h, heads, C, kc, accumulate, kv_shift=0):
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
         _kernels.launch(f"sddmm_tile_dot_{mode}", a_ptr, sa_h, sa_r,
                         b_ptr, sb_h, sb_c, sb_r, table.entries.data_ptr(),
                         table.n_entries, table.row_ids.data_ptr(),
                         table.gids.data_ptr(), out.data_ptr(), so_h, heads,
-                        C, kc, table.group_size, int(accumulate), stream)
+                        C, kc, table.group_size, kv_shift, int(accumulate),
+                        stream)
 
 
 def tile_table_grad_plain(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
@@ -518,8 +537,11 @@ def tile_table_grad_plain(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
     side, as A's columns), take the fp32 products dO . B^T lanes and dO^T
     . A rows, and add them into the rows and lanes with ``index_add_``,
     entry by entry (a fixed order on the CPU).  Rows at or past
-    ``real_rows`` and lanes at or past ``real_lanes`` get nothing."""
-    H, C, nb = b.shape[:3]
+    ``real_rows`` and lanes at or past ``real_lanes`` get nothing.  Head h
+    reads, and adds its lanes' gradient to, key head ``h >> head_shift``."""
+    H = a.shape[0]
+    shift = head_shift(H, b.shape[0])
+    C, nb = b.shape[1:3]
     G = table.group_size
     kc = b.shape[3] // G
     dev = a.device
@@ -528,7 +550,7 @@ def tile_table_grad_plain(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
     for out in (da, dbt):
         if out is not None and not accumulate:
             out.zero_()
-    dbt_l = None if dbt is None else dbt.view(H, C, nb * G, kc)
+    dbt_l = None if dbt is None else dbt.view(-1, C, nb * G, kc)
     ent = table.entries.to(dev)
     row_ids, gids = table.row_ids.to(dev).long(), table.gids.to(dev).long()
     rr = torch.arange(ROW_WINDOW, device=dev)
@@ -552,7 +574,7 @@ def tile_table_grad_plain(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
         for h in range(H):
             d = torch.where(keep, g[h][pos].to(torch.float32), 0.0)
             b_blk = torch.cat([torch.take_along_dim(
-                b[h, c][grp].reshape(n, LANE_WINDOW, G, kc), member,
+                b[h >> shift, c][grp].reshape(n, LANE_WINDOW, G, kc), member,
                 dim=2)[:, :, 0] for c in range(C)], dim=-1).to(torch.float32)
             with full_fp32_matmul():
                 if da is not None:
@@ -563,8 +585,8 @@ def tile_table_grad_plain(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
                     pb = torch.bmm(d.transpose(1, 2), a_blk)
                     pb = pb[to_b]                          # (lanes, K)
                     for c in range(C):
-                        dbt_l[h, c].index_add_(0, tgt_lane[to_b],
-                                               pb[:, c * kc:(c + 1) * kc])
+                        dbt_l[h >> shift, c].index_add_(
+                            0, tgt_lane[to_b], pb[:, c * kc:(c + 1) * kc])
     return da, dbt
 
 
@@ -573,14 +595,16 @@ def _check_grad(a, b, g, table, da, dbt):
         raise ValueError(f"tile_table_grad: want a (H, M, C*kc), b (H, C, "
                          f"NB, G*kc) and g (H, F), got {tuple(a.shape)}, "
                          f"{tuple(b.shape)} and {tuple(g.shape)}")
-    H, C, nb, gk = b.shape
+    _, C, nb, gk = b.shape
+    H = a.shape[0]
     G = table.group_size
     kc = gk // G if G else 0
-    if (a.shape[0] != H or g.shape[0] != H or C < 1 or kc < 1
+    if (g.shape[0] != H or C < 1 or kc < 1
             or kc * G != gk or a.shape[2] != C * kc):
         raise ValueError(f"tile_table_grad: a {tuple(a.shape)}, b "
                          f"{tuple(b.shape)} and g {tuple(g.shape)} disagree "
                          f"on heads, C or kc (G={G})")
+    head_shift(H, b.shape[0])
     if table.max_row >= a.shape[1] or table.max_gid >= nb:
         raise ValueError(f"tile_table_grad: the table indexes row "
                          f"{table.max_row} of {a.shape[1]} and group row "
@@ -614,7 +638,9 @@ def tile_table_grad(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
     ``da[h, row] (+)= sum over entries of dO . B^T lanes`` and
     ``dbt[h, c, lane] (+)= dO^T . A rows`` (chunk c's columns), written
     (or added to with ``accumulate``) into ``da`` (H, M, C*kc) and ``dbt``
-    (H, C, NB, G*kc), either of them None when not wanted.  a, b, da and
+    (Hkv, C, NB, G*kc) (b's heads: query head h adds into key head ``h >>
+    head_shift``, the group's heads in order), either of them None when not
+    wanted.  a, b, da and
     dbt contiguous fp32, g fp32 with contiguous rows, on one device.  Rows
     at or past ``real_rows`` and lanes at or past ``real_lanes`` (the pads)
     get nothing: written as zeros, or left as they are.
@@ -639,15 +665,16 @@ def tile_table_grad(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
     if da is None and dbt is None:
         return da, dbt
     M, nb, G = a.shape[1], b.shape[2], table.group_size
+    HB, shift = b.shape[0], head_shift(H, b.shape[0])
     idx = table.grad_index(M, nb * G, real_rows, real_lanes)
     da_k, dbt_k = da, dbt
     if kc % K_STEP:
         a = pad_k(a, C)
-        b = pad_k(b.reshape(H, C, nb, G, kc)).reshape(H, C, nb, -1)
+        b = pad_k(b.reshape(HB, C, nb, G, kc)).reshape(HB, C, nb, -1)
         if da is not None:
             da_k = pad_k(da, C) if accumulate else torch.empty_like(a)
         if dbt is not None:
-            dbt_k = (pad_k(dbt.reshape(H, C, nb, G, kc)).reshape(b.shape)
+            dbt_k = (pad_k(dbt.reshape(HB, C, nb, G, kc)).reshape(b.shape)
                      if accumulate else torch.empty_like(b))
     if a.data_ptr() % _ALIGN or b.data_ptr() % _ALIGN:
         raise ValueError(f"tile_table_grad: a and b must start "
@@ -671,7 +698,8 @@ def tile_table_grad(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
                         table.entries.data_ptr(), table.row_ids.data_ptr(),
                         table.gids.data_ptr(), units.data_ptr(),
                         units.shape[0], n_a, idx.walk.data_ptr(),
-                        ws.data_ptr(), ws.stride(0), H, K, kp, G, stream)
+                        ws.data_ptr(), ws.stride(0), H, K, kp, G, shift,
+                        stream)
         _kernels.launch(_kernels.TILE_GRAD_REDUCE_ENTRY, ws.data_ptr(),
                         ws.stride(0), K, tptr.data_ptr(), idx.src.data_ptr(),
                         rows_a, n_targets,
@@ -680,11 +708,11 @@ def tile_table_grad(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
                         None if dbt_k is None else dbt_k.data_ptr(),
                         0 if dbt_k is None else dbt_k.stride(0),
                         0 if dbt_k is None else dbt_k.stride(1), kp, H,
-                        int(accumulate), stream)
+                        int(accumulate), shift, stream)
     if da_k is not da:
         da.copy_(da_k.view(H, M, C, kp)[..., :kc].reshape(da.shape))
     if dbt_k is not dbt:
-        dbt.copy_(dbt_k.view(H, C, nb, G, kp)[..., :kc].reshape(dbt.shape))
+        dbt.copy_(dbt_k.view(HB, C, nb, G, kp)[..., :kc].reshape(dbt.shape))
     return da, dbt
 
 

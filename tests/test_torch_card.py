@@ -672,7 +672,7 @@ def test_softmax_refused_launch_raises(cuda_device):
         _kernels.launch(_kernels.SOFTMAX_ENTRY, flat.data_ptr(),
                         flat.stride(0), inv.data_ptr(), row_ptr.data_ptr(),
                         plan.rows.data_ptr(), 0, 0, 2 ** 31, 1.0,
-                        out.data_ptr(), out.stride(0), 1, 1,
+                        out.data_ptr(), out.stride(0), 1, 1, None, None, 0,
                         torch.cuda.current_stream().cuda_stream)
     assert _kernels.launches[_kernels.SOFTMAX_ENTRY] == n
     with pytest.raises(TypeError, match="SoftmaxPlan"):

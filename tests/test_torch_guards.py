@@ -214,7 +214,7 @@ def test_library_name_tracks_sources():
     assert p == _kernels.lib_path()
     assert {s.name for s in _kernels._sources()} == {
         "tile_dot.cu", "gather_dot.cu", "spmm.cu", "segment_softmax.cu",
-        "tile_grad.cu", "cluster_round.cu", "proj_gemm.cu"}
+        "tile_grad.cu", "cluster_round.cu", "proj_gemm.cu", "rope.cu"}
 
 
 def test_build_runs_commands_together_and_raises():
@@ -236,19 +236,23 @@ def test_build_runs_commands_together_and_raises():
     # the segment softmax and its backward bind too, so a build or bind
     # failure raises
     assert _kernels.SOFTMAX_ENTRY in eps
-    # (14 and 16 arguments since they take the plan of rows by class: its
-    # rows and three counts, and the heads a group walks; stream last)
-    assert len(eps[_kernels.SOFTMAX_ENTRY]) == 14
-    assert len(eps[_kernels.SOFTMAX_BWD_ENTRY]) == 16
+    # (17 and 19 arguments since they take the plan of rows by class: its
+    # rows and three counts, the heads a group walks, and a sink: its
+    # logits and p_sink, or p_sink and the rows' gradient, and the rows;
+    # stream last)
+    assert len(eps[_kernels.SOFTMAX_ENTRY]) == 17
+    assert len(eps[_kernels.SOFTMAX_BWD_ENTRY]) == 19
     assert eps[_kernels.SOFTMAX_ENTRY][8] is ctypes.c_float
     assert eps[_kernels.SOFTMAX_BWD_ENTRY][10] is ctypes.c_float
-    # the SpMM takes a value index and head and chunk strides (23
-    # arguments, stream last)
-    assert len(eps[_kernels.SPMM_ENTRY]) == 23
-    # the hybrid's backward: the tile-grad kernel and its reduction (23 and
-    # 16 arguments, stream last)
-    assert len(eps[_kernels.TILE_GRAD_ENTRY]) == 23
-    assert len(eps[_kernels.TILE_GRAD_REDUCE_ENTRY]) == 16
+    # the SpMM takes a value index, head and chunk strides, and grouped
+    # heads (the input heads an output head sums, the head shift of the
+    # dense operand) (25 arguments, stream last)
+    assert len(eps[_kernels.SPMM_ENTRY]) == 25
+    # the hybrid's backward: the tile-grad kernel and its reduction, each
+    # with the head shift of grouped-query attention (24 and 17 arguments,
+    # stream last)
+    assert len(eps[_kernels.TILE_GRAD_ENTRY]) == 24
+    assert len(eps[_kernels.TILE_GRAD_REDUCE_ENTRY]) == 17
     # the clustering round's two kernels, alpha a float: the leaders take
     # the clusters-a-round array and the host loop's bail_after, bail_yield
     # (a double) and max_rounds (16 arguments), the rows the live lists (13)

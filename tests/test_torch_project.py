@@ -11,6 +11,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import struct
 
 import numpy as np
 import pytest
@@ -165,25 +166,38 @@ def _operand(ptr, rows, K):
     return [v[p].permute(1, 0, 2).reshape(rows, K) for p in range(3)]
 
 
+def _word_float(w):
+    return struct.unpack("<f", struct.pack("<I", w & 0xffffffff))[0]
+
+
 def _write(out, c):
-    """C (M, N) into the layout ``out`` (11 words)."""
-    bases, s_h = out[0:3], out[3:6]
-    s_r, part_cols, chunk, sent_row, sent_mask = out[6:11]
+    """C (M, N) into the layout ``out`` (20 words: per part its base,
+    head stride, row stride, end column, chunk and scale, then the
+    sentinel row and mask)."""
+    bases, s_h, s_r = out[0:3], out[3:6], out[6:9]
+    ends, chunks = out[9:12], out[12:15]
+    scales = [_word_float(w) for w in out[15:18]]
+    sent_row, sent_mask = out[18:20]
     M, N = c.shape
     n = torch.arange(N)
-    p, nn = n // part_cols, n % part_cols
+    p = torch.bucketize(n, torch.tensor(ends), right=True)
+    start = torch.tensor([0] + ends[:2])[p]
+    nn = n - start
+    chunk = torch.tensor(chunks)[p]
     col = (nn // chunk) * torch.tensor(s_h)[p] + nn % chunk
     for part in range(3):
         cols = (p == part).nonzero().flatten()
         if cols.numel() == 0:
             continue
-        rows = [(torch.arange(M), c[:, cols])]
+        vals = c[:, cols] * scales[part] if scales[part] != 1.0 else \
+            c[:, cols]
+        rows = [(torch.arange(M), vals)]
         if sent_row >= 0 and sent_mask >> part & 1:
             rows.append((torch.tensor([sent_row]), torch.zeros(1, len(cols))))
-        for r, vals in rows:
-            off = r[:, None] * s_r + col[cols][None]
+        for r, v in rows:
+            off = r[:, None] * s_r[part] + col[cols][None]
             mem = _mem(bases[part], int(off.max()) + 1, torch.float32)
-            mem[off.flatten()] = vals.flatten()
+            mem[off.flatten()] = v.flatten()
 
 
 class Emulator:
@@ -204,9 +218,12 @@ class Emulator:
     def split(self, ptr, njobs, stream):
         assert 0 < njobs <= pj.MAX_SPLIT_JOBS
         for j in range(njobs):
-            w = self._words(ptr + 8 * 22 * j, 22)
+            w = self._words(ptr + 8 * 23 * j, 23)
             nb, nr, nc = w[1:4]
             src = _view(w[0], torch.float32, (nb, nr, nc), (w[4], w[5], 1))
+            scale = _word_float(w[22])
+            if scale != 1.0:
+                src = src * scale
             planes = torch.stack(td.split_bf16(src, 3))
             b, r, c = torch.meshgrid(torch.arange(nb), torch.arange(nr),
                                      torch.arange(nc), indexing="ij")
@@ -225,13 +242,13 @@ class Emulator:
                     mem[q * plane + off.flatten()] = planes[q].flatten()
 
     def gemm(self, ptr, stream):
-        desc = self._words(ptr, 23)
+        desc = self._words(ptr, 32)
         M, N, K, S = desc[:4]
         assert desc[6] == desc[9] == K and K % pj.BK == 0
         a, b = _operand(*desc[4:7]), _operand(*desc[7:10])
-        out = desc[10:21]
-        assert (S > 1) == (desc[21] != 0) == (desc[22] != 0)
-        assert S == 1 or (N % 4 == 0 and desc[19] < 0)
+        out = desc[10:30]
+        assert (S > 1) == (desc[30] != 0) == (desc[31] != 0)
+        assert S == 1 or (N % 4 == 0 and desc[28] < 0)
         self.splits.append(S)
         nkb = K // pj.BK
         c = None
