@@ -6,14 +6,18 @@ products and sums.  The JAX package gathers the dense rows, scales them and
 segment-sums them into rows; here a CUDA tensor goes through the hand
 kernel ``csrc/spmm.cu``, and a CPU tensor through ``csr_spmm_plain``
 (``index_add_``).  The kernel walks a plan built once on the host from the
-pattern (``spmm_plan``): groups of 2 or 4 rows that share
+pattern (``spmm_plan``): panels of ``SPMM_PANEL_ROWS`` rows that share
+most of their columns (a band, a causal triangle), a block each, which
+stage each distinct column's dense row once in shared memory for every
+row of the panel; the other rows in groups of 2 or 4 rows that share
 columns, a warp each, reading each dense row their rows share once; and
-each row longer than ``SPMM_LONG_ROW`` entries split into 8 pieces across
-the warps of one block, whose partial sums are added in a fixed order
-(``spmm_pieces`` lists what each row adds, in the kernel's order;
-``csr_spmm_split_plain`` is that order in PyTorch ops).  No atomics: the
-result is deterministic.  Row ids outside ``[0, num_rows)`` are dropped on
-both paths, as ``jax.ops.segment_sum`` drops them.
+each row longer than ``SPMM_LONG_ROW`` entries outside a panel split into
+8 pieces across the warps of one block, whose partial sums are added in a
+fixed order (``spmm_pieces`` lists what each row adds, in the kernel's
+order; ``csr_spmm_split_plain`` is that order in PyTorch ops, bit for
+bit).  No atomics: the result is deterministic.  Row ids outside ``[0,
+num_rows)`` are dropped on both paths, as ``jax.ops.segment_sum`` drops
+them.
 
 One launch runs a batch of H x C products over one pattern
 (``spmm_launch``: head and chunk strides on values, dense and out, and a
@@ -60,47 +64,93 @@ SPMM_SAMPLE_ROWS = 8192
 #: a group is kept where its distinct columns are at most this share of its
 #: entries; otherwise its rows become groups of one row
 SPMM_SHARE = 0.75
+#: rows of a panel and distinct columns of one of its chunks (csrc/spmm.cu
+#: kPanelRows, kChunkCols)
+SPMM_PANEL_ROWS = 64
+SPMM_PANEL_COLS = 32
+#: a panel's rows take the panel path where its entries are at least this
+#: many times its distinct columns (the dense rows it reads): the
+#: break-even against the row groups on an NVIDIA H100 80GB HBM3 at 700 W,
+#: 12-13 at K = 64 and 17-18 at K = 128, on banded rows that keep a share
+#: of a 512-column band, 12 heads a launch (``scripts/spmm_panel_sweep.py
+#: --sweep``); a panel costs about its rows x distinct columns, whatever
+#: share of them holds an entry
+SPMM_PANEL_REUSE = 18.0
 
 
 @dataclasses.dataclass
 class SpmmPlan:
-    """The SpMM kernel's plan of one pattern (``spmm_plan``) for groups of
-    up to ``group_rows`` (GR) rows: ``tasks`` (T, 2) int64, a block each,
-    ``[first group, count 1..8]`` or ``[row, 0]`` for one long row;
-    ``groups`` (G, 2 + GR) int64 ``[first item, end item, its 1..GR rows,
-    -1 past them]``; ``items`` (I, 1 + GR) int32, each a distinct column
-    of its group and the entry of each of the group's rows there (-1 where
-    the row has none), ascending by column within a group.  A group of one
-    row has no items: it walks its CSR entries.  numpy arrays, or tensors
-    after ``to``.  ``grads``: the pattern's backward state
-    (``pattern_grads``)."""
+    """The SpMM kernel's plan of one pattern (``spmm_plan``).
+
+    Panels: ``panels`` (NP, 2) int64 ``[first chunk, end chunk]``, the
+    heaviest first; ``panel_rows`` (NP, SPMM_PANEL_ROWS) int64, its rows
+    (-1 past them); per chunk of ``SPMM_PANEL_COLS`` of a panel's distinct
+    columns (ascending): ``chunk_cols`` (NCH, SPMM_PANEL_COLS) int32 the
+    columns (-1 past them), ``chunk_masks`` (NCH, SPMM_PANEL_ROWS) int32
+    bit j set where the panel's row holds column j of the chunk, and
+    ``chunk_before`` (NCH, SPMM_PANEL_ROWS) int32 the row's entries in the
+    panel's earlier chunks.  ``panel_entries``: the entries in panels.
+
+    The other rows, in groups of up to ``group_rows`` (GR) rows: ``tasks``
+    (T, 2) int64, a block each, ``[first group, count 1..8]`` or ``[row,
+    0]`` for one long row; ``groups`` (G, 2 + GR) int64 ``[first item, end
+    item, its 1..GR rows, -1 past them]``; ``items`` (I, 1 + GR) int32,
+    each a distinct column of its group and the entry of each of the
+    group's rows there (-1 where the row has none), ascending by column
+    within a group.  A group of one row has no items: it walks its CSR
+    entries.
+
+    numpy arrays, or tensors after ``to``.  ``grads``: the pattern's
+    backward state (``pattern_grads``)."""
     tasks: object
     groups: object
     items: object
     group_rows: int
+    panels: object
+    panel_rows: object
+    chunk_cols: object
+    chunk_masks: object
+    chunk_before: object
+    panel_entries: int
     grads: Optional["GradPattern"] = None
 
     def to(self, device) -> "SpmmPlan":
-        return SpmmPlan(*(torch.as_tensor(x, device=device).contiguous()
-                          for x in (self.tasks, self.groups, self.items)),
-                        self.group_rows)
+        return dataclasses.replace(self, grads=None, **{
+            name: torch.as_tensor(getattr(self, name), device=device)
+            .contiguous() for name in _PLAN_ARRAYS})
+
+
+#: SpmmPlan's arrays: name -> (dtype, width; None: 2 + GR for groups, 1 + GR
+#: for items)
+_PLAN_ARRAYS = {"tasks": (torch.int64, 2), "groups": (torch.int64, None),
+                "items": (torch.int32, None),
+                "panels": (torch.int64, 2),
+                "panel_rows": (torch.int64, SPMM_PANEL_ROWS),
+                "chunk_cols": (torch.int32, SPMM_PANEL_COLS),
+                "chunk_masks": (torch.int32, SPMM_PANEL_ROWS),
+                "chunk_before": (torch.int32, SPMM_PANEL_ROWS)}
 
 
 def spmm_plan(row_ptr, cols, row_order=None, group_rows=None) -> SpmmPlan:
-    """The plan of the CSR pattern ``(row_ptr, cols)``, in numpy.  Every
+    """The plan of the CSR pattern ``(row_ptr, cols)``, in numpy.  The rows,
+    taken in ``row_order`` (a permutation of the rows; default 0..m-1), are
+    cut into panels of ``SPMM_PANEL_ROWS`` consecutive rows; a panel whose
+    rows each hold their columns once and in ascending order, and whose
+    entries are at least ``SPMM_PANEL_REUSE`` times its distinct columns,
+    goes to the panel path (``_plan_panels``).  Of the other rows, every
     row longer than ``SPMM_LONG_ROW`` entries is a task of its own (first,
-    so that they start early).  The other rows, taken in ``row_order`` (a
-    permutation of the rows; default 0..m-1), go in groups of
+    so that they start early), and the rest, in the order, go in groups of
     ``group_rows`` consecutive rows; a group whose distinct columns are
     more than ``SPMM_SHARE`` of its entries is split into groups of one
     row.  8 groups a task.  A column that a row holds twice gets an item
     per occurrence.
 
     ``group_rows`` None picks one of ``SPMM_GROUPS`` from what the pattern
-    shows: the plan of its first ``SPMM_SAMPLE_ROWS`` short rows (in the
-    order) at each size, costed as items x (2 + GR), since a warp's work
-    per item grows with the rows it carries (on the card, GR = 4 took 1.3x
-    GR = 2's time on the graph model's aggregation for 0.75x its items)."""
+    shows: the plan of its first ``SPMM_SAMPLE_ROWS`` short rows outside
+    panels (in the order) at each size, costed as items x (2 + GR), since
+    a warp's work per item grows with the rows it carries (on the card,
+    GR = 4 took 1.3x GR = 2's time on the graph model's aggregation for
+    0.75x its items)."""
     row_ptr = np.asarray(row_ptr, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
     m = len(row_ptr) - 1
@@ -109,9 +159,13 @@ def spmm_plan(row_ptr, cols, row_order=None, group_rows=None) -> SpmmPlan:
     if not np.array_equal(np.sort(order), np.arange(m)):
         raise ValueError("spmm_plan: row_order is not a permutation of the "
                          f"{m} rows")
+    if group_rows is not None and group_rows not in SPMM_GROUPS:
+        raise ValueError(f"spmm_plan: group_rows={group_rows}, want one of "
+                         f"{SPMM_GROUPS}")
+    panels, in_panel = _plan_panels(row_ptr, cols, order)
     lengths = np.diff(row_ptr)
     is_long = lengths > SPMM_LONG_ROW
-    short = order[~is_long[order]]
+    short = order[~(is_long | in_panel)[order]]
     sampled = {}
     if group_rows is None:
         head = short[:SPMM_SAMPLE_ROWS]
@@ -121,19 +175,84 @@ def spmm_plan(row_ptr, cols, row_order=None, group_rows=None) -> SpmmPlan:
             sampled[gr][1]) * (2 + gr))
         if len(head) < len(short):
             sampled = {}
-    if group_rows not in SPMM_GROUPS:
-        raise ValueError(f"spmm_plan: group_rows={group_rows}, want one of "
-                         f"{SPMM_GROUPS}")
     # a sample that held every short row is the plan itself
     groups, items = sampled.get(group_rows) or _plan_groups(
         row_ptr, cols, short, group_rows)
-    long_rows = np.flatnonzero(is_long)
+    long_rows = np.flatnonzero(is_long & ~in_panel)
     t0 = np.arange(0, len(groups), SPMM_WARPS)
     tasks = np.concatenate([
         np.stack([long_rows, np.zeros_like(long_rows)], axis=1),
         np.stack([t0, np.minimum(SPMM_WARPS, len(groups) - t0)], axis=1)
     ]).astype(np.int64).reshape(-1, 2)
-    return SpmmPlan(tasks, groups, items, group_rows)
+    return SpmmPlan(tasks, groups, items, group_rows, **panels)
+
+
+def _plan_panels(row_ptr, cols, order):
+    """The panel path's part of ``spmm_plan``: (its ``SpmmPlan`` fields,
+    (m,) bool the rows it takes).  Candidates are ``SPMM_PANEL_ROWS``
+    consecutive rows of ``order``; one is taken where its rows' columns
+    strictly ascend and its entries are at least ``SPMM_PANEL_REUSE`` times
+    its distinct columns.  Vectorised: one stable sort of the entries by
+    (candidate, column)."""
+    P, CH = SPMM_PANEL_ROWS, SPMM_PANEL_COLS
+    m = len(row_ptr) - 1
+    lengths = np.diff(row_ptr)
+    rank = np.empty(m, dtype=np.int64)
+    rank[order] = np.arange(m)
+    cand_of_row, slot_of_row = rank // P, rank % P
+    n_cand = -(-m // P)
+    row_of = np.repeat(np.arange(m), lengths)
+    e_cand = cand_of_row[row_of]
+    # a candidate with a row whose columns do not strictly ascend is out
+    out_of_order = (row_of[1:] == row_of[:-1]) & (cols[1:] <= cols[:-1])
+    ok = np.bincount(e_cand[1:][out_of_order], minlength=n_cand) == 0
+    width = int(cols.max()) + 1 if len(cols) else 1
+    by_key = np.argsort(e_cand * width + cols, kind="stable")
+    c_s, k_s = e_cand[by_key], cols[by_key]
+    new = np.r_[True, (c_s[1:] != c_s[:-1]) | (k_s[1:] != k_s[:-1])] \
+        if len(by_key) else np.zeros(0, dtype=bool)
+    distinct = np.bincount(c_s[new], minlength=n_cand)
+    entries = np.bincount(e_cand, minlength=n_cand)
+    ok &= (entries > 0) & (entries >= SPMM_PANEL_REUSE * distinct)
+    # the taken panels, the most chunks first, and their chunks in turn
+    n_chunks = -(-distinct // CH)
+    taken = np.flatnonzero(ok)
+    taken = taken[np.argsort(-n_chunks[taken], kind="stable")]
+    panel_of = np.full(n_cand, -1, dtype=np.int64)
+    panel_of[taken] = np.arange(len(taken))
+    chunk0 = np.zeros(n_cand, dtype=np.int64)
+    chunk0[taken] = np.cumsum(n_chunks[taken]) - n_chunks[taken]
+    n_ch = int(n_chunks[taken].sum())
+    # each entry's position among its panel's distinct columns
+    uniq_of = np.cumsum(new) - 1
+    first_uniq = np.searchsorted(c_s[new], np.arange(n_cand))
+    pos = np.empty(len(cols), dtype=np.int64)
+    pos[by_key] = uniq_of - first_uniq[c_s]
+    sel = np.flatnonzero(ok[e_cand])
+    s_cand, s_pos = e_cand[sel], pos[sel]
+    s_chunk = chunk0[s_cand] + s_pos // CH
+    s_cell = s_chunk * P + slot_of_row[row_of[sel]]
+    chunk_cols = np.full((n_ch, CH), -1, dtype=np.int32)
+    chunk_cols.reshape(-1)[s_chunk * CH + s_pos % CH] = cols[sel]
+    chunk_masks = np.bincount(
+        s_cell, weights=np.ldexp(1.0, s_pos % CH), minlength=n_ch * P
+    ).astype(np.int64).astype(np.uint32).view(np.int32).reshape(n_ch, P)
+    # a row's entries before each chunk: its first entry there, less the
+    # row's start (the entries are in CSR order, so ascending by column)
+    first_in = np.r_[True, s_cell[1:] != s_cell[:-1]] if len(sel) \
+        else np.zeros(0, dtype=bool)
+    chunk_before = np.zeros(n_ch * P, dtype=np.int32)
+    chunk_before[s_cell[first_in]] = (
+        sel[first_in] - row_ptr[row_of[sel[first_in]]])
+    panel_rows = np.full((len(taken), P), -1, dtype=np.int64)
+    rows_in = np.flatnonzero(ok[cand_of_row])
+    panel_rows[panel_of[cand_of_row[rows_in]], slot_of_row[rows_in]] = rows_in
+    panels = np.stack([chunk0[taken], chunk0[taken] + n_chunks[taken]],
+                      axis=1).reshape(-1, 2)
+    return dict(panels=panels, panel_rows=panel_rows, chunk_cols=chunk_cols,
+                chunk_masks=chunk_masks,
+                chunk_before=chunk_before.reshape(n_ch, P),
+                panel_entries=int(len(sel))), ok[cand_of_row]
 
 
 def _plan_groups(row_ptr, cols, short, gr):
@@ -177,14 +296,16 @@ def _plan_groups(row_ptr, cols, short, gr):
 
 def spmm_pieces(plan: SpmmPlan, row_ptr) -> list:
     """``[(row, entry ids)]``: what each row adds, piece by piece, in the
-    kernel's order (a group row's entries in item order, a lone row's in
-    CSR order; a long row's 8
-    pieces of ``ceil(n / SPMM_WARPS)`` entries, the last ones shorter or
-    empty)."""
+    kernel's order (a panel row's entries and a lone row's in CSR order,
+    which ascends by column in a panel; a group row's in item order; a long
+    row's 8 pieces of ``ceil(n / SPMM_WARPS)`` entries, the last ones
+    shorter or empty).  A row's pieces are consecutive."""
     row_ptr = np.asarray(row_ptr, dtype=np.int64)
-    groups, items = np.asarray(plan.groups), np.asarray(plan.items)
-    out = []
-    for first, count in np.asarray(plan.tasks):
+    groups, items = _host(plan.groups), _host(plan.items)
+    panel_rows = _host(plan.panel_rows)
+    out = [(row, np.arange(row_ptr[row], row_ptr[row + 1]))
+           for row in panel_rows[panel_rows >= 0]]
+    for first, count in _host(plan.tasks):
         if count == 0:
             e0, e1 = row_ptr[first], row_ptr[first + 1]
             piece = -(-(e1 - e0) // SPMM_WARPS)
@@ -204,22 +325,67 @@ def spmm_pieces(plan: SpmmPlan, row_ptr) -> list:
     return out
 
 
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def csr_spmm_split_plain(values: torch.Tensor, cols: torch.Tensor,
-                         dense: torch.Tensor, row_ptr,
-                         plan: SpmmPlan) -> torch.Tensor:
-    """The kernel's plan in PyTorch ops: each piece of ``spmm_pieces``
-    summed apart, a row's pieces added in order; fp32 products and sums.
-    (m, K) for the (m+1,) ``row_ptr``."""
-    m = len(row_ptr) - 1
-    out = torch.zeros((m, dense.shape[1]), dtype=torch.float32,
-                      device=dense.device)
+                         dense: torch.Tensor, row_ptr, plan: SpmmPlan,
+                         vidx: Optional[torch.Tensor] = None,
+                         out_heads: Optional[int] = None) -> torch.Tensor:
+    """The kernel's sums in PyTorch ops, bit for bit: each piece of
+    ``spmm_pieces`` summed entry by entry from 0 (each product rounded to
+    fp32, then added in fp32), a row's pieces added in order to its first.
+    values (nnz,) and dense (N, K) -> (m, K) for the (m+1,) ``row_ptr``.
+    Or heads, as ``spmm_launch`` takes them: values (H, n), entry e's
+    value at ``vidx[e]`` where given; dense (Hd, N, K), input head i
+    reading dense head ``i >> head_shift(H, Hd)``; -> (out_heads, m, K),
+    output head o summing input heads o*S .. o*S + S-1 (S = H //
+    out_heads) in order, each piece's sum running on through them."""
+    one = values.dim() == 1
+    if one:
+        values, dense = values[None], dense[None]
+    H, dev, K = values.shape[0], dense.device, dense.shape[-1]
+    Ho = H if out_heads is None else out_heads
+    per, shift = H // Ho, head_shift(H, dense.shape[0])
     vals = values.to(torch.float32)
-    for row, e in spmm_pieces(plan, row_ptr):
-        e = torch.as_tensor(e, device=dense.device)
-        part = (dense[cols[e].long()].to(torch.float32)
-                * vals[e, None]).sum(dim=0)
-        out[row] = out[row] + part
-    return out
+    if vidx is not None:
+        vals = vals.index_select(1, vidx.long())
+    cols = cols.long()
+    pieces = spmm_pieces(plan, row_ptr)
+    # the pieces longest first, so that step j adds to a prefix of them
+    lens = np.array([len(e) for _, e in pieces], dtype=np.int64)
+    by_len = np.argsort(-lens, kind="stable")
+    flat = torch.as_tensor(np.concatenate(
+        [pieces[p][1] for p in by_len] + [np.zeros(0, np.int64)]),
+        device=dev)
+    starts = torch.as_tensor(np.cumsum(lens[by_len]) - lens[by_len],
+                             device=dev)
+    live = [int((lens > j).sum()) for j in range(int(lens.max(initial=0)))]
+    # a piece's rank among its row's pieces, and the rows of each rank
+    rows = np.array([row for row, _ in pieces], dtype=np.int64)
+    run = np.r_[True, rows[1:] != rows[:-1]] if len(rows) else rows > 0
+    idx = np.arange(len(rows))
+    rank = idx - np.maximum.accumulate(np.where(run, idx, 0))
+    place = np.empty(len(rows), dtype=np.int64)
+    place[by_len] = np.arange(len(rows))
+    # every output head at once: its input head o*S + s at turn s
+    acc = torch.zeros((Ho, len(rows), K), dtype=torch.float32, device=dev)
+    for s in range(per):
+        heads = torch.arange(Ho, device=dev) * per + s
+        d = dense[heads >> shift].to(torch.float32)
+        v = vals[heads]
+        for j, n in enumerate(live):
+            e = flat[starts[:n] + j]
+            acc[:, :n] = acc[:, :n] + v[:, e, None] * d[:, cols[e]]
+    out = torch.zeros((Ho, len(row_ptr) - 1, K), dtype=torch.float32,
+                      device=dev)
+    for k in range(int(rank.max(initial=-1)) + 1):
+        sel = np.flatnonzero(rank == k)
+        r = torch.as_tensor(rows[sel], device=dev)
+        part = acc[:, torch.as_tensor(place[sel], device=dev)]
+        out[:, r] = part if k == 0 else out[:, r] + part
+    return out[0] if one else out
 
 
 def csr_spmm_plain(values: torch.Tensor, rows: torch.Tensor,
@@ -322,7 +488,12 @@ def spmm_launch(plan: SpmmPlan, row_ptr: torch.Tensor, cols: torch.Tensor,
     ``Hin >> s`` (input head i reads dense head ``i >> s``, ``s =
     head_shift``: the query heads reading their group's V) and out of
     ``Hin / S`` heads (out head o sums input heads ``o*S .. o*S + S-1`` in
-    order: V's gradient summed over the group)."""
+    order: V's gradient summed over the group).
+
+    One kernel: the panels' (its grid running the plan's row groups too)
+    where the plan has panels, else the row groups'.  While spans are on,
+    the entries it sends down the panel path and all its entries, times
+    its batches, go to ``profiling.count_spmm``."""
     Ho, C, m, K = out.shape
     dev = out.device
     nnz = cols.shape[0]
@@ -350,38 +521,63 @@ def spmm_launch(plan: SpmmPlan, row_ptr: torch.Tensor, cols: torch.Tensor,
         if t.numel() > 1 and t.stride(-1) != 1:
             raise ValueError(f"spmm_launch: {name}'s last dimension must be "
                              "contiguous")
-    gr = plan.group_rows
-    for name, t, dt, w in (("tasks", plan.tasks, torch.int64, 2),
-                           ("groups", plan.groups, torch.int64, 2 + gr),
-                           ("items", plan.items, torch.int32, 1 + gr)):
-        if (not isinstance(t, torch.Tensor) or t.dim() != 2
-                or t.shape[1] != w or t.dtype != dt or t.device != dev
-                or not t.is_contiguous()):
-            raise ValueError(f"csr_spmm: plan.{name} must be spmm_plan's, "
-                             "contiguous, on dense's device (SpmmPlan.to)")
+    group_args, panel_args = _plan_args(plan, dev)
     kv_shift = head_shift(H, dense.shape[0])
+    if panel_args[1] and values.shape[1] >= 2 ** 31:
+        raise ValueError("spmm_launch: the panel path takes below 2^31 "
+                         "values a head")
     if m == 0 or H == 0 or C == 0 or K == 0:
         return
-    # columns per lane: float4 or float2 loads where K, the strides and the
-    # pointers allow them
-    strides = (dense.stride(0), dense.stride(1), dense.stride(2),
-               out.stride(0), out.stride(1), out.stride(2))
-    vec = 4 if K > 64 else 2 if K > 32 else 1
-    while vec > 1 and (K % vec or any(st % vec for st in strides)
-                       or dense.data_ptr() % (4 * vec)
-                       or out.data_ptr() % (4 * vec)):
+    if profiling.active():
+        profiling.count_spmm(plan.panel_entries * H * C, nnz * H * C)
+    # floats a copy or store: 4 or 2 where K, the strides and the pointers
+    # allow them; the row groups' lanes take no more than K needs
+    vec = 4
+    while vec > 1 and (K % vec or dense.data_ptr() % (4 * vec)
+                       or out.data_ptr() % (4 * vec)
+                       or any(st % vec for st in (
+                           dense.stride(0), dense.stride(1), dense.stride(2),
+                           out.stride(0), out.stride(1), out.stride(2)))):
         vec //= 2
     with torch.cuda.device(dev):
-        _kernels.launch(_kernels.SPMM_ENTRY, plan.tasks.data_ptr(),
-                        plan.tasks.shape[0], plan.groups.data_ptr(),
-                        plan.items.data_ptr(), gr, row_ptr.data_ptr(),
+        _kernels.launch(_kernels.SPMM_ENTRY, *group_args, row_ptr.data_ptr(),
                         cols.data_ptr(), values.data_ptr(),
                         None if vidx is None else vidx.data_ptr(),
                         values.stride(0), dense.data_ptr(), dense.stride(2),
                         dense.stride(0), dense.stride(1), out.data_ptr(),
                         out.stride(2), out.stride(0), out.stride(1), K, Ho, C,
-                        sum_heads, kv_shift, vec,
+                        sum_heads, kv_shift,
+                        min(vec, 4 if K > 64 else 2 if K > 32 else 1),
+                        *panel_args, vec,
                         torch.cuda.current_stream().cuda_stream)
+
+
+def _plan_args(plan: SpmmPlan, dev) -> tuple:
+    """The plan's arrays as the kernel's arguments: (tasks, their count,
+    groups, items, the group size) and (panels, their count, panel_rows,
+    chunk_cols, chunk_masks, chunk_before).  Raises unless the arrays are
+    ``spmm_plan``'s on ``dev`` (``SpmmPlan.to``); checked and kept once for
+    the arrays a plan holds."""
+    arrays = tuple(getattr(plan, name) for name in _PLAN_ARRAYS)
+    seen = plan.__dict__.get("_args")
+    if (seen is not None and seen[0] == dev
+            and all(a is b for a, b in zip(seen[1], arrays))):
+        return seen[2]
+    gr = plan.group_rows
+    for (name, (dt, w)), t in zip(_PLAN_ARRAYS.items(), arrays):
+        w = w or (2 + gr if name == "groups" else 1 + gr)
+        if (not isinstance(t, torch.Tensor) or t.dim() != 2
+                or t.shape[1] != w or t.dtype != dt or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"csr_spmm: plan.{name} must be spmm_plan's, "
+                             "contiguous, on dense's device (SpmmPlan.to)")
+    tasks, groups, items, panels, *chunks = arrays
+    args = ((tasks.data_ptr(), tasks.shape[0], groups.data_ptr(),
+             items.data_ptr(), gr),
+            (panels.data_ptr(), panels.shape[0],
+             *(t.data_ptr() for t in chunks)))
+    plan.__dict__["_args"] = (dev, arrays, args)
+    return args
 
 
 class SpmmPattern:

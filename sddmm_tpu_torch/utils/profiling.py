@@ -28,6 +28,10 @@ spans and the hand kernels' launch counter.  The port's counterpart of
 - The launch counter: while spans are on, ``_kernels.launch`` adds the
   host time of each hand-kernel launch call (``count_launch``).  It sees
   the hand kernels alone, not torch's own launches.
+- The SpMM counter: while spans are on, ``ops.spmm.spmm_launch`` adds the
+  entries each launch sends down the kernel's panel path and all the
+  entries it sums, over its heads and chunks (``count_spmm``): how often
+  the panel path engages.
 - ``records()``, ``summary()``, ``clear()``: the table resolved span by
   span, summed by name, and emptied.  The table holds what every capture
   since the last ``clear`` recorded; it keeps at most ``MAX_RECORDS``
@@ -170,6 +174,7 @@ class _Table:
             self.anchors = {}
             self.launches = 0
             self.launch_ns = 0
+            self.spmm = [0, 0, 0]
 
     def stack(self) -> list:
         try:
@@ -216,6 +221,12 @@ class _Table:
         with self.lock:
             self.launches += 1
             self.launch_ns += ns
+
+    def count_spmm(self, panel_entries: int, entries: int) -> None:
+        with self.lock:
+            self.spmm[0] += 1
+            self.spmm[1] += panel_entries
+            self.spmm[2] += entries
 
 
 _TABLE = _Table()
@@ -283,8 +294,14 @@ def count_launch(ns: int) -> None:
     _TABLE.count_launch(ns)
 
 
+def count_spmm(panel_entries: int, entries: int) -> None:
+    """Add one SpMM launch that sums ``entries`` entries, ``panel_entries``
+    of them on the panel path."""
+    _TABLE.count_spmm(panel_entries, entries)
+
+
 def clear() -> None:
-    """Empty the table and the launch counter."""
+    """Empty the table and the counters."""
     _TABLE.clear()
 
 
@@ -328,9 +345,11 @@ def summary() -> dict:
     (total), ``self_ms`` (total less the host time of the spans nested in
     it on its thread), ``device_ms`` and ``queue_ms`` (medians, None where
     none was measured), ``parents`` {parent name: count}}}, ``launch``
-    {``count``, ``host_ms``} (the hand-kernel launch calls) and
-    ``dropped`` (spans past ``MAX_RECORDS``).  Pooled over every capture
-    since the last ``clear``."""
+    {``count``, ``host_ms``} (the hand-kernel launch calls), ``spmm``
+    {``launches``, ``panel_entries``, ``entries``, ``panel_share`` (None
+    before any entry)} (the SpMM launches) and ``dropped`` (spans past
+    ``MAX_RECORDS``).  Pooled over every capture since the last
+    ``clear``."""
     recs = records()
     by_id = {r["id"]: r for r in recs}
     nested_ns = collections.Counter()
@@ -361,5 +380,9 @@ def summary() -> dict:
     with _TABLE.lock:
         launch = {"count": _TABLE.launches,
                   "host_ms": _TABLE.launch_ns / 1e6}
+        n, panel, entries = _TABLE.spmm
         dropped = _TABLE.dropped
-    return {"spans": spans, "launch": launch, "dropped": dropped}
+    spmm = {"launches": n, "panel_entries": panel, "entries": entries,
+            "panel_share": panel / entries if entries else None}
+    return {"spans": spans, "launch": launch, "spmm": spmm,
+            "dropped": dropped}

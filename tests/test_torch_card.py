@@ -444,6 +444,109 @@ def test_spmm_long_row_split_matches_plain(K, cuda_device):
     assert not got[torch.tensor(deg == 0, device=cuda_device)].any()
 
 
+def _panel_pattern(kind, L=1280):
+    """(row_ptr, cols) of a Longformer-shaped band (window 128 a side and a
+    global token, whose row and column hold every position) or of a causal
+    mask, full or over a window of 128 keys; L = 1280 puts rows past
+    SPMM_LONG_ROW in the full mask and the global row."""
+    if kind == "band":
+        mask = make_attention_mask(L, window=128, num_global=1)
+        return mask.row_ptr.astype(np.int64), mask.col_idx.astype(np.int64)
+    lo = np.maximum(np.arange(L) - (L if kind == "causal" else 127), 0)
+    lengths = np.arange(L) + 1 - lo
+    row_ptr = np.r_[0, np.cumsum(lengths)]
+    return row_ptr, (np.arange(row_ptr[-1])
+                     - np.repeat(row_ptr[:-1] - lo, lengths))
+
+
+#: (input heads, dense heads, output heads, through the transpose): query
+#: heads reading a group's V (kv_shift 2 and 4), and V's gradient summing
+#: groups of 8 and 16 query heads, its values read through vidx
+PANEL_HEADS = {"shift2": (16, 4, 16, False), "shift4": (16, 1, 16, False),
+               "sum8": (16, 16, 2, True), "sum16": (16, 16, 1, True)}
+
+
+@pytest.mark.parametrize("heads", sorted(PANEL_HEADS))
+@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("kind", ["band", "causal", "window"])
+def test_spmm_panel_kernel_matches_split_plain(kind, K, heads, cuda_device):
+    """The panel path on a band with a global token and on causal masks
+    (or their transposes, read through vidx): at least 95 % of the entries
+    in panels, the launch bit-equal to ``csr_spmm_split_plain`` in the
+    plan's order and on a second run, and within SPMM_REL of the plain
+    version (rows that were long now sum in one pass)."""
+    H, Hd, Ho, through_t = PANEL_HEADS[heads]
+    row_ptr, cols = _panel_pattern(kind)
+    L = len(row_ptr) - 1
+    rows = np.repeat(np.arange(L), np.diff(row_ptr))
+    vidx = None
+    if through_t:
+        pat = sp.SpmmPattern(cols, rows, L, cuda_device)
+        (row_ptr, cols), vidx = pat._host, pat.vidx
+        rows = np.repeat(np.arange(L), np.diff(row_ptr))
+    plan = sp.spmm_plan(row_ptr, cols)
+    assert plan.panel_entries >= 0.95 * len(cols)
+    rng = np.random.default_rng(K + len(heads))
+    v = torch.tensor(rng.standard_normal((H, len(cols))), dtype=torch.float32,
+                     device=cuda_device)
+    d = torch.tensor(rng.standard_normal((Hd, L, K)), dtype=torch.float32,
+                     device=cuda_device)
+    rp = torch.tensor(row_ptr, device=cuda_device)
+    c = torch.tensor(cols, dtype=torch.int32, device=cuda_device)
+    plan_t = plan.to(cuda_device)
+    got, again = (torch.empty((Ho, 1, L, K), device=cuda_device)
+                  for _ in range(2))
+    n = _kernels.launches[_kernels.SPMM_ENTRY]
+    sp.spmm_launch(plan_t, rp, c, v, d[:, None], got, vidx)
+    sp.spmm_launch(plan_t, rp, c, v, d[:, None], again, vidx)
+    assert _kernels.launches[_kernels.SPMM_ENTRY] == n + 2
+    want = sp.csr_spmm_split_plain(v, c, d, row_ptr, plan, vidx, Ho)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got[:, 0], want)
+    # the plain version, each output head's group summed
+    vals = v if vidx is None else v[:, vidx.long()]
+    r = torch.tensor(rows, device=cuda_device)
+    shift, per = sp.head_shift(H, Hd), H // Ho
+    for o in range(Ho):
+        plain = scale = 0
+        for i in range(o * per, (o + 1) * per):
+            plain = plain + sp.csr_spmm_plain(vals[i], r, c, d[i >> shift], L)
+            scale = scale + sp.csr_spmm_plain(vals[i].abs(), r, c,
+                                              d[i >> shift].abs(), L)
+        assert ((got[o, 0] - plain).abs() / scale.clamp_min(1e-30)).max() \
+            <= SPMM_REL
+
+
+@pytest.mark.parametrize("kind", ["band", "causal", "window"])
+def test_spmm_panel_skips_columns_outside_a_row(kind, cuda_device):
+    """A NaN in a dense row reaches exactly the rows that hold its column,
+    though the panel stages that dense row for all 64 of its rows."""
+    row_ptr, cols = _panel_pattern(kind)
+    L = len(row_ptr) - 1
+    plan = sp.spmm_plan(row_ptr, cols)
+    assert plan.panel_entries >= 0.95 * len(cols)
+    rng = np.random.default_rng(7)
+    d = torch.tensor(rng.standard_normal((L, 64)), dtype=torch.float32,
+                     device=cuda_device)
+    bad = [300, 301, 1100]
+    d[bad] = float("nan")
+    v = torch.tensor(rng.standard_normal(len(cols)), dtype=torch.float32,
+                     device=cuda_device)
+    rows = torch.tensor(np.repeat(np.arange(L), np.diff(row_ptr)),
+                        device=cuda_device)
+    c = torch.tensor(cols, dtype=torch.int32, device=cuda_device)
+    got = sp.csr_spmm_torch(v, rows, c, d, L,
+                            row_ptr=torch.tensor(row_ptr, device=cuda_device),
+                            plan=plan.to(cuda_device))
+    holds = np.zeros(L, dtype=bool)
+    holds[np.repeat(np.arange(L), np.diff(row_ptr))[np.isin(cols, bad)]] = True
+    assert holds.any() and not holds.all()
+    nan_rows = got.isnan().any(dim=1).cpu().numpy()
+    assert np.array_equal(nan_rows, holds)
+    assert got[torch.tensor(~holds, device=cuda_device)].isfinite().all()
+
+
 def _shared_entries(rng, m, n_keys, order):
     """(rows, keys) int32 of clustered rows: groups of 8 rows draw 70 % of
     a common set of 40 keys; every 7th row is empty; rows shuffled, and the
@@ -1538,7 +1641,9 @@ def test_spans_on_card_time_the_stages_and_parent_the_backward(
         step()
         torch.cuda.synchronize()
     assert profiling.summary() == {"spans": {}, "launch": {
-        "count": 0, "host_ms": 0.0}, "dropped": 0}
+        "count": 0, "host_ms": 0.0}, "spmm": {
+        "launches": 0, "panel_entries": 0, "entries": 0,
+        "panel_share": None}, "dropped": 0}
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]):

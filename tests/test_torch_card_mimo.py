@@ -104,6 +104,15 @@ def test_grouped_aggregation_and_its_backward(kind, cuda_device):
     for a, b in zip(*res):
         assert a.shape == b.shape
         assert _rel(a, b) < NORM_REL
+    # both SpMMs run every entry on the panel path, bit-equal to the
+    # plan's order of sums
+    agg, pat = core.agg, core.agg.grads.spmm_t
+    assert agg.plan.panel_entries == pat.plan().panel_entries == core.nnz
+    out, _, dv = res[0]
+    assert torch.equal(out, sp.csr_spmm_split_plain(
+        p, agg.cols, v, agg.row_ptr.cpu(), agg.plan))
+    assert torch.equal(dv, sp.csr_spmm_split_plain(
+        p, pat.cols, g, pat._host[0], pat.plan(), pat.vidx, kv))
 
 
 @pytest.mark.parametrize("kind", ["full", "window"])

@@ -244,10 +244,11 @@ def test_build_runs_commands_together_and_raises():
     assert len(eps[_kernels.SOFTMAX_BWD_ENTRY]) == 19
     assert eps[_kernels.SOFTMAX_ENTRY][8] is ctypes.c_float
     assert eps[_kernels.SOFTMAX_BWD_ENTRY][10] is ctypes.c_float
-    # the SpMM takes a value index, head and chunk strides, and grouped
-    # heads (the input heads an output head sums, the head shift of the
-    # dense operand) (25 arguments, stream last)
-    assert len(eps[_kernels.SPMM_ENTRY]) == 25
+    # the SpMM takes a value index, head and chunk strides, grouped heads
+    # (the input heads an output head sums, the head shift of the dense
+    # operand) and the plan's panels (five arrays, their count and the
+    # panels' copy width) (32 arguments, stream last)
+    assert len(eps[_kernels.SPMM_ENTRY]) == 32
     # the hybrid's backward: the tile-grad kernel and its reduction, each
     # with the head shift of grouped-query attention (24 and 17 arguments,
     # stream last)

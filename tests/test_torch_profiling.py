@@ -8,6 +8,7 @@ threads share safely."""
 import itertools
 import sys
 import threading
+from contextlib import nullcontext
 
 import numpy as np
 import pytest
@@ -91,7 +92,9 @@ def test_off_records_nothing_and_opens_no_record_function(monkeypatch):
     with profiling.span("bare") as sp:
         assert sp.id is None and profiling.current() is None
     assert profiling.summary() == {"spans": {}, "launch": {
-        "count": 0, "host_ms": 0.0}, "dropped": 0}
+        "count": 0, "host_ms": 0.0}, "spmm": {
+        "launches": 0, "panel_entries": 0, "entries": 0,
+        "panel_share": None}, "dropped": 0}
     assert profiling.records() == []
 
 
@@ -273,6 +276,52 @@ def test_launch_counter_counts_only_inside_a_capture(monkeypatch):
     assert launch["count"] == 2 and launch["host_ms"] > 0
     assert _kernels.launches["sddmm_fake"] == before + 3
     del _kernels.launches["sddmm_fake"]
+
+
+def test_spmm_counter_reports_the_panel_share(monkeypatch):
+    """Each SpMM launch adds the entries it sends down the panel path and
+    all its entries (times its heads), inside a capture only: at least
+    95 % on Longformer-base's mask over 2 heads, none on a power-law
+    graph.  The launch itself is a stand-in here (no card)."""
+    from sddmm_tpu_torch.ops import spmm as sp
+
+    class Lib:
+        @staticmethod
+        def sddmm_csr_spmm_float32(*args):
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(_kernels, "load", lambda: Lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream)
+
+    def launch(csr, heads=2, K=8):
+        plan = sp.spmm_plan(csr.row_ptr, csr.col_idx).to("cpu")
+        m, nnz = len(csr.row_ptr) - 1, len(csr.col_idx)
+        sp.spmm_launch(plan, torch.as_tensor(csr.row_ptr, dtype=torch.int64),
+                       torch.as_tensor(csr.col_idx, dtype=torch.int32),
+                       torch.ones((heads, nnz)),
+                       torch.ones((heads, 1, csr.shape[1], K)),
+                       torch.empty((heads, 1, m, K)))
+        return plan.panel_entries * heads, nnz * heads
+
+    mask = make_attention_mask(4096, window=256, num_global=1)
+    graph = generate.powerlaw_graph(5000, avg_degree=10, seed=1)
+    launch(mask)
+    assert profiling.summary()["spmm"]["launches"] == 0
+    with _capture():
+        panel, entries = launch(mask)
+    spmm = profiling.summary()["spmm"]
+    assert spmm == {"launches": 1, "panel_entries": panel,
+                    "entries": entries, "panel_share": panel / entries}
+    assert spmm["panel_share"] >= 0.95
+    profiling.clear()
+    with _capture():
+        launch(graph)
+    spmm = profiling.summary()["spmm"]
+    assert spmm["launches"] == 1 and spmm["panel_share"] == 0
 
 
 def test_table_is_capped_and_counts_what_it_drops(monkeypatch):

@@ -13,6 +13,7 @@ from sddmm_tpu.ops.spmm import csr_spmm as j_csr_spmm
 from sddmm_tpu.ops.spmm import csr_spmm_jax
 from sddmm_tpu_torch import _kernels
 from sddmm_tpu_torch.data.sparse import CSR as TCSR
+from sddmm_tpu_torch.models.block_sparse_attention import make_attention_mask
 from sddmm_tpu_torch.ops import csr_spmm
 from sddmm_tpu_torch.ops import spmm as sp
 from torch_native_ready import reference_native_loaded  # noqa: F401
@@ -196,20 +197,72 @@ def _plan_pattern(seed):
     return row_ptr, np.concatenate(rows).astype(np.int64), n
 
 
+def _mask(kind, L):
+    """(row_ptr, cols) int64 of an attention mask: a Longformer-shaped band
+    (window L/16 a side) with a global token, causal, causal over a window
+    of 128 keys, or the transpose of one of them ("...-t")."""
+    base = kind.removesuffix("-t")
+    if base == "band":
+        m = make_attention_mask(L, window=L // 16, num_global=1)
+        row_ptr, cols = m.row_ptr.astype(np.int64), m.col_idx.astype(np.int64)
+    else:
+        lo = np.maximum(np.arange(L) - (L if base == "causal" else 127), 0)
+        lengths = np.arange(L) + 1 - lo
+        row_ptr = np.r_[0, np.cumsum(lengths)]
+        cols = np.arange(row_ptr[-1]) - np.repeat(row_ptr[:-1] - lo, lengths)
+    if kind.endswith("-t"):
+        pat = sp.SpmmPattern(cols, np.repeat(np.arange(L), np.diff(row_ptr)),
+                             L, "cpu")
+        row_ptr, cols = pat._host
+    return row_ptr, cols
+
+
+def _panel_walk(plan, row_ptr, cols):
+    """{row: its entries} of the panel rows, read from the plan's arrays as
+    the kernel reads them: chunk by chunk, a row's entries in a chunk from
+    its mask and the entries before the chunk, each checked against the
+    chunk's column."""
+    walked = {}
+    for p, (c0, c1) in enumerate(plan.panels):
+        for slot, row in enumerate(plan.panel_rows[p]):
+            seq = []
+            for ch in range(c0, c1):
+                mask = int(plan.chunk_masks[ch, slot]) & 0xffffffff
+                for j in range(sp.SPMM_PANEL_COLS):
+                    if mask >> j & 1:
+                        e = (row_ptr[row] + plan.chunk_before[ch, slot]
+                             + bin(mask & ((1 << j) - 1)).count("1"))
+                        assert cols[e] == plan.chunk_cols[ch, j]
+                        seq.append(e)
+            if row >= 0:
+                walked[int(row)] = seq
+            else:
+                assert not seq
+    return walked
+
+
 @pytest.mark.parametrize("group_rows", [None, 2, 4])
 @pytest.mark.parametrize("order", ["natural", "permuted"])
-def test_spmm_plan_covers_every_entry_once(order, group_rows):
+@pytest.mark.parametrize("pattern", ["mixed", "band", "causal", "window-t"])
+def test_spmm_plan_covers_every_entry_once(pattern, order, group_rows):
     """The kernel's plan: every entry is summed exactly once, into its own
     row, and (columns sorted) each row's pieces run through its entries in
-    CSR order; long rows are their own tasks; groups share columns."""
-    row_ptr, cols, _ = _plan_pattern(0)
+    CSR order, across panels, groups and long rows; long rows outside
+    panels are their own tasks; groups share columns; a panel row's
+    entries, read from the panel's chunks as the kernel reads them, are
+    its CSR entries in order."""
+    if pattern == "mixed":
+        row_ptr, cols, _ = _plan_pattern(0)
+    else:
+        row_ptr, cols = _mask(pattern, 1280)
     m = len(row_ptr) - 1
     ro = (np.random.default_rng(1).permutation(m) if order == "permuted"
           else None)
     plan = sp.spmm_plan(row_ptr, cols, ro, group_rows)
     assert plan.group_rows in sp.SPMM_GROUPS
     long = plan.tasks[plan.tasks[:, 1] == 0, 0]
-    assert sorted(long) == [3, 150]
+    if pattern == "mixed":
+        assert sorted(long) == [3, 150]
     per_row = {}
     for row, e in sp.spmm_pieces(plan, row_ptr):
         per_row.setdefault(int(row), []).append(e)
@@ -217,11 +270,23 @@ def test_spmm_plan_covers_every_entry_once(order, group_rows):
     for r in range(m):
         assert np.array_equal(np.concatenate(per_row[r]),
                               np.arange(row_ptr[r], row_ptr[r + 1]))
-    if order == "natural":
+    walked = _panel_walk(plan, row_ptr, cols)
+    in_panels = plan.panel_rows[plan.panel_rows >= 0]
+    assert sorted(walked) == sorted(in_panels)
+    assert len(set(in_panels)) == len(in_panels)
+    assert not set(in_panels) & set(long) & set(plan.groups[:, 2:].ravel())
+    for r, seq in walked.items():
+        assert seq == list(range(row_ptr[r], row_ptr[r + 1]))
+    assert plan.panel_entries == sum(map(len, walked.values()))
+    # the heaviest panels first
+    assert (np.diff(plan.panels[:, 1] - plan.panels[:, 0]) <= 0).all()
+    if order == "natural" and pattern == "mixed":
         # the window rows share: their groups read fewer columns than
         # they have entries
         multi = plan.groups[plan.groups[:, 3] >= 0]
         assert len(multi) and len(plan.items) < row_ptr[100]
+    if order == "natural" and pattern != "mixed":
+        assert plan.panel_entries >= 0.95 * len(cols)
 
 
 @pytest.mark.parametrize("group_rows", [None, 2, 4])
@@ -246,6 +311,79 @@ def test_spmm_split_matches_jax(group_rows):
     assert (np.abs(got.numpy() - want) / np.maximum(scale, 1e-30)).max() \
         <= 1e-5
     assert not got[[10, 11, 120, 199]].any()
+
+
+@pytest.mark.parametrize("kind", ["band", "band-t", "causal", "causal-t",
+                                  "window", "window-t"])
+def test_spmm_plan_takes_panels_on_attention_masks(kind):
+    """Longformer-base's mask (4096 positions, 256 a side, a global token)
+    and MiMo-V2-Flash's causal masks, full and window-128 (2048 positions:
+    rows past SPMM_LONG_ROW), and their transposes (V's gradient): at
+    least 95 % of the entries in panels, every one on the causal masks.
+    The band's first panel, which the global row makes 4096 columns wide,
+    stays with the row groups."""
+    row_ptr, cols = _mask(kind, 4096 if kind.startswith("band") else 2048)
+    plan = sp.spmm_plan(row_ptr, cols)
+    share = plan.panel_entries / len(cols)
+    if kind.startswith("band"):
+        assert 0.95 <= share < 1
+        assert 0 in plan.tasks[plan.tasks[:, 1] == 0, 0]
+    else:
+        assert share == 1 and len(plan.tasks) == 0
+
+
+def test_spmm_plan_takes_no_panel_on_a_graph():
+    """A power-law graph's rows share few columns: no panel, the plan as
+    before (row groups and long rows)."""
+    csr = jgen.powerlaw_graph(20000, avg_degree=20, seed=3)
+    plan = sp.spmm_plan(csr.row_ptr, csr.col_idx)
+    assert plan.panel_entries == 0 and len(plan.panels) == 0
+    assert len(plan.chunk_cols) == 0 and len(plan.tasks)
+
+
+@pytest.mark.parametrize("heads", [(1, 1, 1), (4, 2, 4), (4, 4, 2),
+                                   (4, 4, 1)])
+@pytest.mark.parametrize("pattern", ["mixed", "causal", "band-t"])
+def test_spmm_split_plain_sums_in_the_plan_order(pattern, heads):
+    """``csr_spmm_split_plain`` sums each row bit for bit as the kernel
+    does: a panel or group row's products one by one from 0, a long row's
+    8 pieces apart and then in order, an output head's input heads one
+    after another (grouped heads read dense head i >> shift; vidx picks
+    the values)."""
+    H, Hd, Ho = heads
+    if pattern == "mixed":
+        row_ptr, cols, n = _plan_pattern(4)
+    else:
+        # band-t: the global row past SPMM_LONG_ROW
+        row_ptr, cols = _mask(pattern, 1100 if pattern == "band-t" else 300)
+        n = len(row_ptr) - 1
+    plan = sp.spmm_plan(row_ptr, cols)
+    # panels on the masks (beside the global row's long task on "band-t"),
+    # row groups and long rows alone on "mixed"
+    assert (plan.panel_entries > 0) == (pattern != "mixed")
+    rng = np.random.default_rng(sum(heads))
+    nnz, K = len(cols), 3
+    vidx = torch.as_tensor(rng.permutation(nnz + 5)[:nnz], dtype=torch.int32)
+    v = torch.tensor(rng.standard_normal((H, nnz + 5)), dtype=torch.float32)
+    d = torch.tensor(rng.standard_normal((Hd, n, K)), dtype=torch.float32)
+    got = sp.csr_spmm_split_plain(v, torch.from_numpy(cols), d, row_ptr,
+                                  plan, vidx, Ho)
+    shift, per = sp.head_shift(H, Hd), H // Ho
+    vals = v[:, vidx.long()].numpy()
+    dn = d.numpy()
+    f32 = np.float32
+    pieces = sp.spmm_pieces(plan, row_ptr)
+    for o in range(Ho):
+        want = np.zeros((len(row_ptr) - 1, K), dtype=f32)
+        seen = set()
+        for row, e in pieces:
+            acc = np.zeros(K, dtype=f32)
+            for i in range(o * per, (o + 1) * per):
+                for x in e:
+                    acc = acc + f32(vals[i, x]) * dn[i >> shift, cols[x]]
+            want[row] = acc if row not in seen else want[row] + acc
+            seen.add(row)
+        assert np.array_equal(got[o].numpy(), want)
 
 
 def test_spmm_plan_adapts_to_sharing():
