@@ -826,111 +826,131 @@ def class_times(label, run, plan, card):
     return times
 
 
-def time_spmm(torch, sp, label, agg, d, card):
+def head_csrs(torch, agg, values):
+    """The (H, nnz) ``values`` of H heads at an aggregation's pattern as H
+    sparse CSR matrices, one a head: what the libraries take."""
+    return [torch.sparse_csr_tensor(agg.row_ptr, agg.cols.long(), v,
+                                    size=agg.shape) for v in values]
+
+
+def time_spmm(torch, sp, label, agg, heads, d, card):
     """The SpMM kernel against its plain version at one model's shapes
-    (its aggregation's CSR and plan, random positive weights, V of width
-    ``d``), beside ``torch.sparse.mm`` on a CSR tensor: the record's
-    numbers."""
+    (its aggregation's pattern and plan, ``heads`` heads of random
+    positive weights in one launch, V of width ``d``), beside
+    ``torch.sparse.mm`` on a CSR tensor a head: the record's numbers."""
     from sddmm_tpu_torch import _kernels
     from sddmm_tpu_torch.utils.timing import cuda_time_ms
     g = torch.Generator(device=DEVICE).manual_seed(0)
-    nnz = agg.cols.shape[0]
-    w = torch.rand(nnz, generator=g, device=DEVICE)
-    v = torch.rand((agg.num_rows, d), generator=g, device=DEVICE)
+    (m, n), nnz = agg.shape, agg.cols.shape[0]
+    w = torch.rand((heads, nnz), generator=g, device=DEVICE)
+    v = torch.rand((heads, n, d), generator=g, device=DEVICE)
 
     def kernel():
-        return sp.csr_spmm_torch(w, agg.rows, agg.cols, v, agg.num_rows,
-                                 row_ptr=agg.row_ptr, plan=agg.plan)
+        return sp.head_spmm(w, v, agg)
 
     def plain():
-        return sp.csr_spmm_plain(w, agg.rows, agg.cols, v, agg.num_rows)
+        return sp.head_spmm(w, v, agg, plain=True)
 
-    s_csr = torch.sparse_csr_tensor(agg.row_ptr, agg.cols.long(), w,
-                                    size=(agg.num_rows, agg.num_rows))
+    s_csr = head_csrs(torch, agg, w)
+
+    def library():
+        return torch.stack([torch.sparse.mm(s, v[h])
+                            for h, s in enumerate(s_csr)])
+
     got, want = kernel(), plain()
-    lib = torch.sparse.mm(s_csr, v)
+    lib = library()
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     rel = max_rel(got[want > 0], want[want > 0])  # = err / sum |terms|
     if not rel <= SPMM_REL_TOL:
-        fail(f"{label} csr_spmm at the model's shapes: max rel {rel:.3e} "
+        fail(f"{label} head_spmm at the model's shapes: max rel {rel:.3e} "
              "vs plain")
     if not max_rel(lib[want > 0], want[want > 0]) <= SPMM_REL_TOL:
         fail(f"{label}: torch.sparse.mm does not compute the same function")
     del got, want, lib
     tk = cuda_time_ms(kernel, 20)
     tp = cuda_time_ms(plain, 5)
-    tl = cuda_time_ms(lambda: torch.sparse.mm(s_csr, v), 20)
+    tl = cuda_time_ms(library, 20)
     used = int(torch.unique(agg.cols).numel())
-    nbytes = (8 * (agg.num_rows + 1) + 8 * nnz + 4 * used * d
-              + 4 * agg.num_rows * d)
-    bnd = bound_times(nbytes, 2.0 * nnz * d, FP32_FLOPS)
-    gathered = 4.0 * nnz * d
-    say(f"[time] {label} {_kernels.SPMM_ENTRY} ({nnz} entries, K={d}, max "
-        f"rel vs plain {rel:.3e}): kernel {tk['median_ms']:.4f} ms, plain "
-        f"{tp['median_ms']:.4f} ms, torch.sparse.mm {tl['median_ms']:.4f} "
-        f"ms, bound {max(bnd.values()):.4f} ms ({nbytes / 1e6:.1f} MB read "
-        f"once + written once); gathered V rows {gathered / 1e9:.2f} GB = "
+    # the pattern read once for all heads, each head's weights, the V rows
+    # it uses and its output
+    nbytes = (8 * (m + 1) + 4 * nnz + 4 * heads * nnz + 4 * heads * used * d
+              + 4 * heads * m * d)
+    bnd = bound_times(nbytes, 2.0 * heads * nnz * d, FP32_FLOPS)
+    gathered = 4.0 * heads * nnz * d
+    say(f"[time] {label} {_kernels.SPMM_ENTRY} ({heads} head(s) x {nnz} "
+        f"entries, K={d}, max rel vs plain {rel:.3e}): kernel "
+        f"{tk['median_ms']:.4f} ms, plain {tp['median_ms']:.4f} ms, "
+        f"torch.sparse.mm (a call a head) {tl['median_ms']:.4f} ms, bound "
+        f"{max(bnd.values()):.4f} ms ({nbytes / 1e6:.1f} MB read once + "
+        f"written once); gathered V rows {gathered / 1e9:.2f} GB = "
         f"{gathered / tk['median_ms'] / 1e9:.2f} TB/s of L2/L1 reads on "
         f"{card}")
     return {"err": err, "ms": tk["median_ms"], "plain_ms": tp["median_ms"],
             "library_ms": tl["median_ms"], **bnd}
 
 
-def time_softmax(torch, sm, label, model, d, card):
+def head_coos(torch, agg, values):
+    """The (H, nnz) ``values`` of H heads at an aggregation's pattern as H
+    coalesced sparse COO matrices, one a head (their values in CSR
+    order)."""
+    idx = torch.stack([agg.rows, agg.cols.long()])
+    return [torch.sparse_coo_tensor(idx, v, size=agg.shape).coalesce()
+            for v in values]
+
+
+def time_softmax(torch, sm, label, model, heads, d, card):
     """The segment softmax kernel against its plain version at one model's
     shapes (its heads, pattern and packing; N(0, 16) packed scores, scale
-    1/sqrt(d)), beside ``torch.sparse.softmax`` on a COO tensor of the same
-    scaled scores (the heads' block-diagonal pattern): the record's
-    numbers."""
+    1/sqrt(d)), beside ``torch.sparse.softmax`` on a COO tensor a head of
+    the same scaled scores: the record's numbers."""
     from sddmm_tpu_torch import _kernels
     from sddmm_tpu_torch.utils.timing import cuda_time_ms
-    agg, runner = model._agg, model.runner
-    heads = agg.heads
+    core = model.core
+    runner = core.runner
     g = torch.Generator(device=DEVICE).manual_seed(0)
     flat = torch.randn((heads, runner.packed.packed_size), generator=g,
                        device=DEVICE) * 4
     inv, scale = runner.inv_idx32, 1.0 / d ** 0.5
 
-    def kernel(plan=agg.softmax_plan):
-        return sm.segment_softmax_torch(flat, agg.head_row_ptr, scale, inv,
-                                        plan)
+    def kernel(plan=core.softmax_plan):
+        return sm.segment_softmax_torch(flat, core.row_ptr, scale, inv, plan)
 
     def plain():
-        return sm.segment_softmax_plain(flat, agg.head_row_ptr, scale, inv)
+        return sm.segment_softmax_plain(flat, core.row_ptr, scale, inv)
+
+    coos = head_coos(torch, core.agg, flat[:, inv.long()] * scale)
+
+    def library():
+        return [torch.sparse.softmax(c, dim=1) for c in coos]
 
     got, want = kernel(), plain()
-    vals = (flat[:, inv.long()] * scale).reshape(-1)
-    coo = torch.sparse_coo_tensor(
-        torch.stack([agg.rows, agg.cols.long()]), vals,
-        size=(agg.num_rows, agg.num_rows)).coalesce()
-    lib = torch.sparse.softmax(coo, dim=1)
+    lib = torch.stack([c.values() for c in library()])
     torch.cuda.synchronize()
     rel = float(((got - want).abs() / want).max())
     if not rel <= SOFTMAX_REL_TOL:
         fail(f"{label} segment softmax at the model's shapes: max rel "
              f"{rel:.3e} vs plain")
-    if not float(((lib.values() - want.reshape(-1)).abs()
-                  / want.reshape(-1)).max()) <= SOFTMAX_REL_TOL:
+    if not float(((lib - want).abs() / want).max()) <= SOFTMAX_REL_TOL:
         fail(f"{label}: torch.sparse.softmax does not compute the same "
              "function")
     err = float((got - want).abs().max())
     del got, want, lib
     tk = cuda_time_ms(kernel, 20)
     tp = cuda_time_ms(plain, 5)
-    tl = cuda_time_ms(lambda: torch.sparse.softmax(coo, dim=1), 20)
+    tl = cuda_time_ms(library, 20)
     nnz = inv.numel()
-    nbytes = 8 * heads * nnz + 4 * nnz + 8 * agg.head_row_ptr.numel()
+    nbytes = 8 * heads * nnz + 4 * nnz + 8 * core.row_ptr.numel()
     bnd = bound_times(nbytes, 5.0 * heads * nnz, FP32_FLOPS)
     say(f"[time] {label} {_kernels.SOFTMAX_ENTRY} ({heads} heads x {nnz} "
         f"entries, max rel vs plain {rel:.3e}): kernel "
         f"{tk['median_ms']:.4f} ms, plain {tp['median_ms']:.4f} ms, "
-        f"torch.sparse.softmax {tl['median_ms']:.4f} ms, bound "
-        f"{max(bnd.values()):.4f} ms ({nbytes / 1e6:.1f} MB read once + "
-        f"written once) = {100 * max(bnd.values()) / tk['median_ms']:.1f} % "
-        f"of it on {card}")
+        f"torch.sparse.softmax (a call a head) {tl['median_ms']:.4f} ms, "
+        f"bound {max(bnd.values()):.4f} ms ({nbytes / 1e6:.1f} MB read once "
+        f"+ written once) = {100 * max(bnd.values()) / tk['median_ms']:.1f} "
+        f"% of it on {card}")
     class_times(f"{label} {_kernels.SOFTMAX_ENTRY}", kernel,
-                agg.softmax_plan, card)
+                core.softmax_plan, card)
     return {"err": err, "ms": tk["median_ms"], "plain_ms": tp["median_ms"],
             "library_ms": tl["median_ms"], **bnd}
 
@@ -1146,13 +1166,13 @@ def run_models(torch, sp, sm, card, adj):
     time_model(torch, "block-sparse attention", block, x_block, card)
     rec = {_kernels.SPMM_ENTRY: new_record(0.0),
            _kernels.SOFTMAX_ENTRY: new_record(0.0)}
-    for label, model, d in (("graph attention", graph, GRAPH_WIDTH),
-                            ("block-sparse attention", block,
-                             lf["head_dim"])):
+    for label, model, heads, d in (
+            ("graph attention", graph, 1, GRAPH_WIDTH),
+            ("block-sparse attention", block, lf["heads"], lf["head_dim"])):
         add_times(rec, {_kernels.SPMM_ENTRY: time_spmm(
-            torch, sp, label, model._agg, d, card)})
+            torch, sp, label, model.core.agg, heads, d, card)})
         add_times(rec, {_kernels.SOFTMAX_ENTRY: time_softmax(
-            torch, sm, label, model, d, card)})
+            torch, sm, label, model, heads, d, card)})
     rec[_kernels.PROJ_GEMM_ENTRY] = new_record(0.0)
     add_times(rec, {_kernels.PROJ_GEMM_ENTRY: time_projections(torch, card)})
     return counts, rec, (graph, x_graph, block, x_block, mask)
@@ -1592,24 +1612,31 @@ def kernel_pass(torch, td, runner, ops, timing_iters, label, card):
 def sampled_addmm_ms(torch, a, bt, rows, cols, iters):
     """Median ms of ``torch.sparse.sampled_addmm`` in fp32 at the entries
     (rows[i], cols[i]) of a x bt^T (the CSR built, and checked against
-    the fp64 dots of a few entries, beforehand)."""
+    the fp64 dots of a few entries, beforehand); a (H, m, K) and bt (H, n,
+    K): H heads at the one pattern, a call a head."""
     from sddmm_tpu_torch.utils.timing import cuda_time_ms
-    order = torch.argsort(rows.long() * bt.shape[0] + cols.long())
+    if a.dim() == 2:
+        a, bt = a[None], bt[None]
+    order = torch.argsort(rows.long() * bt.shape[1] + cols.long())
     r, c = rows.long()[order], cols.long()[order]
-    crow = torch.searchsorted(r, torch.arange(a.shape[0] + 1,
+    crow = torch.searchsorted(r, torch.arange(a.shape[1] + 1,
                                               device=r.device))
     s = torch.sparse_csr_tensor(crow, c, torch.zeros(r.numel(),
                                                      device=r.device),
-                                size=(a.shape[0], bt.shape[0]))
-    mat2 = bt.T
-    got = torch.sparse.sampled_addmm(s, a, mat2, beta=0.0)
+                                size=(a.shape[1], bt.shape[1]))
+    mat2 = bt.transpose(1, 2)
+
+    def run():
+        return [torch.sparse.sampled_addmm(s, a[h], mat2[h], beta=0.0)
+                for h in range(a.shape[0])]
+
+    got = run()[-1]
     k = min(1000, r.numel())
-    want = (a[r[:k]].double() * bt[c[:k]].double()).sum(dim=1)
+    want = (a[-1, r[:k]].double() * bt[-1, c[:k]].double()).sum(dim=1)
     if not float(((got.values()[:k].double() - want).abs()
                   / want.abs().clamp_min(1e-30)).max()) <= 1e-3:
         fail("torch.sparse.sampled_addmm does not compute the same function")
-    return cuda_time_ms(lambda: torch.sparse.sampled_addmm(
-        s, a, mat2, beta=0.0), iters)["median_ms"]
+    return cuda_time_ms(run, iters)["median_ms"]
 
 
 def add_times(rec, times, with_ms=True):
@@ -1921,20 +1948,19 @@ def time_csr_backward(torch, label, csr, a, bt, plan, card):
                     "library_ms": tl["median_ms"], **bnd}
 
 
-def time_aggregation_backward(torch, label, model, d, card):
+def time_aggregation_backward(torch, label, model, heads, d, card):
     """B3's two records at one model's shapes, all heads in one launch
     each: the attention's cotangent (the gather-dot at the pattern, beside
-    ``sampled_addmm`` on the heads' block-diagonal CSR) and V's (the SpMM
-    on the transpose, beside ``torch.sparse.mm``), each beside its plain
+    ``sampled_addmm``, a call a head) and V's (the SpMM on the transpose,
+    beside ``torch.sparse.mm``, a call a head), each beside its plain
     version and its bound."""
     from sddmm_tpu_torch.ops import hybrid as hy
     from sddmm_tpu_torch.utils.timing import cuda_time_ms
-    agg = model._agg
-    grads = agg.plan.grads
-    H = agg.heads
+    agg = model.core.agg
+    grads, H = agg.grads, heads
     m, n = grads.shape
     gen = torch.Generator(device=DEVICE).manual_seed(3)
-    nnz = agg.cols.shape[0] // H
+    nnz = agg.cols.shape[0]
     attn = torch.rand((H, nnz), generator=gen, device=DEVICE)
     v = torch.rand((H, n, d), generator=gen, device=DEVICE)
     dout = torch.rand((H, m, d), generator=gen, device=DEVICE)
@@ -1957,8 +1983,7 @@ def time_aggregation_backward(torch, label, model, d, card):
     rel = rel_nonzero(got, want)
     if not rel <= BACKWARD_REL:
         fail(f"{label} B3 d values: max rel {rel:.3e} vs plain")
-    lib = sampled_addmm_ms(torch, dout.reshape(H * m, d), v.reshape(H * n, d),
-                           agg.rows, agg.cols, 10)
+    lib = sampled_addmm_ms(torch, dout, v, agg.rows, agg.cols, 10)
     nbytes = 4 * H * nnz + 4 * H * d * (m + n) + 8 * nnz
     bnd = bound_times(nbytes, 2.0 * H * nnz * d, FP32_FLOPS)
     out["B3 values"] = {"err": float((got - want).abs().max()),
@@ -1972,12 +1997,15 @@ def time_aggregation_backward(torch, label, model, d, card):
     rel2 = rel_nonzero(got, want)
     if not rel2 <= BACKWARD_REL:
         fail(f"{label} B3 d dense: max rel {rel2:.3e} vs plain")
-    st = torch.sparse_csr_tensor(
-        agg.row_ptr, agg.cols.long(), attn.reshape(-1),
-        size=(agg.num_rows, H * n)).to_sparse_coo().t().to_sparse_csr()
-    flat_dout = dout.reshape(H * m, d)
-    lib = torch.sparse.mm(st, flat_dout)
-    if not rel_nonzero(got.reshape(H * n, d), lib) <= BACKWARD_REL:
+    st = [s.to_sparse_coo().t().to_sparse_csr()
+          for s in head_csrs(torch, agg, attn)]
+
+    def library():
+        return torch.stack([torch.sparse.mm(s, dout[h])
+                            for h, s in enumerate(st)])
+
+    lib = library()
+    if not rel_nonzero(got[:, 0], lib) <= BACKWARD_REL:
         fail(f"{label}: torch.sparse.mm of S^T does not compute the same "
              "function")
     # as d values': the heads' attention and dOut read, dV written, the
@@ -1988,8 +2016,8 @@ def time_aggregation_backward(torch, label, model, d, card):
                        "ms": cuda_time_ms(d_dense, 10)["median_ms"],
                        "plain_ms": cuda_time_ms(lambda: d_dense(True), 3,
                                                 warmup=1)["median_ms"],
-                       "library_ms": cuda_time_ms(lambda: torch.sparse.mm(
-                           st, flat_dout), 10)["median_ms"], **bnd}
+                       "library_ms": cuda_time_ms(library, 10)["median_ms"],
+                       **bnd}
     for key, what, lname in (("B3 values", "gather-dot, d values",
                               "sampled_addmm"),
                              ("B3 dense", "SpMM on S^T, d V",
@@ -2003,51 +2031,48 @@ def time_aggregation_backward(torch, label, model, d, card):
     return out
 
 
-def time_softmax_backward(torch, sm, label, model, d, card):
+def time_softmax_backward(torch, sm, label, model, heads, d, card):
     """B2's record at one model's shapes: the softmax backward kernel
     (one launch, written at inv_idx into the zeroed packed gradient)
     beside its plain version and ``torch._sparse_softmax_backward_data``
     on COO tensors of the same p and g (the op behind torch.sparse.softmax's
-    backward; the heads' block-diagonal pattern, the scale applied outside
-    the timed call, as K10's yardstick does)."""
+    backward; a call a head, the scale applied outside the timed call, as
+    K10's yardstick does)."""
     from sddmm_tpu_torch.utils.timing import cuda_time_ms
-    agg, runner = model._agg, model.runner
-    H = agg.heads
+    core = model.core
+    runner, H = core.runner, heads
     gen = torch.Generator(device=DEVICE).manual_seed(4)
     F = runner.packed.packed_size
     flat = torch.randn((H, F), generator=gen, device=DEVICE) * 4
     inv, scale = runner.inv_idx32, 1.0 / d ** 0.5
-    p = sm.segment_softmax_torch(flat, agg.head_row_ptr, scale, inv,
-                                 agg.softmax_plan)
+    p = sm.segment_softmax_torch(flat, core.row_ptr, scale, inv,
+                                 core.softmax_plan)
     g = torch.randn(p.shape, generator=gen, device=DEVICE)
 
-    def kernel(plan=agg.softmax_plan):
-        return sm.segment_softmax_backward(p, g, agg.head_row_ptr, scale,
-                                           inv, F, plan)
+    def kernel(plan=core.softmax_plan):
+        return sm.segment_softmax_backward(p, g, core.row_ptr, scale, inv,
+                                           F, plan)
 
     def plain():
-        return sm.segment_softmax_backward_plain(p, g, agg.head_row_ptr,
-                                                 scale, inv, F)
+        return sm.segment_softmax_backward_plain(p, g, core.row_ptr, scale,
+                                                 inv, F)
 
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    rel = backward_rel(sm, got, want, p, g, agg.head_row_ptr, scale, inv)
+    rel = backward_rel(sm, got, want, p, g, core.row_ptr, scale, inv)
     if not rel <= SOFTMAX_REL_TOL:
         fail(f"{label} softmax backward: |kernel - plain| over its terms "
              f"{rel:.3e} at the worst entry")
     err = float((got - want).abs().max())
 
-    def coo(x):
-        return torch.sparse_coo_tensor(
-            torch.stack([agg.rows, agg.cols.long()]), x.reshape(-1),
-            size=(agg.num_rows, agg.num_rows)).coalesce()
-
-    p_c, g_c, x_c = coo(p), coo(g), coo(flat[:, inv.long()] * scale)
+    p_c, g_c, x_c = (head_coos(torch, core.agg, x)
+                     for x in (p, g, flat[:, inv.long()] * scale))
 
     def library():
-        return torch._sparse_softmax_backward_data(g_c, p_c, 1, x_c)
+        return [torch._sparse_softmax_backward_data(gc, pc, 1, xc)
+                for gc, pc, xc in zip(g_c, p_c, x_c)]
 
-    lib = library().values().reshape(p.shape) * scale
+    lib = torch.stack([c.values() for c in library()]) * scale
     at_inv = got[:, inv.long()]
     lib_rel = float((lib - at_inv).abs().max() / at_inv.abs().max())
     if not lib_rel <= BACKWARD_REL:
@@ -2060,23 +2085,24 @@ def time_softmax_backward(torch, sm, label, model, d, card):
     nnz = inv.numel()
     # p and g read once, inv_idx and the row pointers once, every packed
     # slot written once (the zeroed gradient)
-    nbytes = 8 * H * nnz + 4 * nnz + 8 * agg.head_row_ptr.numel() + 4 * H * F
+    nbytes = 8 * H * nnz + 4 * nnz + 8 * core.row_ptr.numel() + 4 * H * F
     bnd = bound_times(nbytes, 4.0 * H * nnz, FP32_FLOPS)
     say(f"[time] {label} sddmm_segment_softmax_backward_float32 ({H} "
         f"head(s) x {nnz} entries into {F} slots, |kernel - plain| over "
         f"its terms {rel:.3e} at the worst entry): kernel {tk['median_ms']:.4f} ms, plain "
-        f"{tp['median_ms']:.4f} ms, torch._sparse_softmax_backward_data "
+        f"{tp['median_ms']:.4f} ms, torch._sparse_softmax_backward_data (a "
+        "call a head) "
         f"{tl['median_ms']:.4f} ms (max |diff| / max |kernel| "
         f"{lib_rel:.3e}), bound {max(bnd.values()):.4f} ms = "
         f"{100 * max(bnd.values()) / tk['median_ms']:.1f} % of it on {card}")
     class_times(f"{label} sddmm_segment_softmax_backward_float32",
-                kernel, agg.softmax_plan, card)
+                kernel, core.softmax_plan, card)
     return {"err": err, "ms": tk["median_ms"], "plain_ms": tp["median_ms"],
             "library_ms": tl["median_ms"], **bnd}
 
 
 def op_launches(torch, loss, ops=("_HybridFnBackward", "_SoftmaxFnBackward",
-                                  "_SpmmFnBackward")):
+                                  "_HeadSpmmFnBackward")):
     """``{op: {kernel: launches}}``, filled while ``loss.backward()`` runs:
     hooks on the nodes of ``loss``'s graph of the port's autograd ops
     ``ops`` read the launch counts just before and just after each node's
@@ -2189,7 +2215,8 @@ def run_training(torch, sm, card, graph, x_graph, block, x_block, mask,
         b1 = b1_launches(runners[label])
         want_by_op = {"_HybridFnBackward": b1,
                       "_SoftmaxFnBackward": {_kernels.SOFTMAX_BWD_ENTRY: 1},
-                      "_SpmmFnBackward": {gather: 1, _kernels.SPMM_ENTRY: 1}}
+                      "_HeadSpmmFnBackward": {gather: 1,
+                                              _kernels.SPMM_ENTRY: 1}}
         want = {}
         for counts in want_by_op.values():
             for name, c in counts.items():
@@ -2235,13 +2262,14 @@ def run_training(torch, sm, card, graph, x_graph, block, x_block, mask,
     check_model_grads(torch, "block-sparse attention (Longformer-base shape)",
                       block, x_block, grads["block-sparse attention"],
                       block_golden)
-    for label, model, d in (("graph attention", graph, GRAPH_WIDTH),
-                            ("block-sparse attention", block,
-                             LONGFORMER["head_dim"])):
+    for label, model, heads, d in (
+            ("graph attention", graph, 1, GRAPH_WIDTH),
+            ("block-sparse attention", block, LONGFORMER["heads"],
+             LONGFORMER["head_dim"])):
         add_times(rec, {"B2": time_softmax_backward(torch, sm, label, model,
-                                                    d, card),
-                        **time_aggregation_backward(torch, label, model, d,
-                                                    card)})
+                                                    heads, d, card),
+                        **time_aggregation_backward(torch, label, model,
+                                                    heads, d, card)})
 
     # B1 at the Longformer's 12 heads, on U[0,2) operands and cotangent
     gen = torch.Generator(device=DEVICE).manual_seed(6)
@@ -3747,12 +3775,12 @@ def main() -> None:
             # B3's counts: those read while the aggregation's backward ran
             ("B3 values", "sddmm_gather_dot_float32_float32 (SpMM backward "
              "B3, d values)", "gather_dot.cu", "sddmm_tpu/ops/spmm.py:23",
-             model_bwd["_SpmmFnBackward"].get(
+             model_bwd["_HeadSpmmFnBackward"].get(
                  "sddmm_gather_dot_float32_float32", 0),
              "models' backward (graph attention, Longformer shape)"),
             ("B3 dense", f"{_kernels.SPMM_ENTRY} (SpMM backward B3, d dense)",
              "spmm.cu", "sddmm_tpu/ops/spmm.py:23",
-             model_bwd["_SpmmFnBackward"].get(_kernels.SPMM_ENTRY, 0),
+             model_bwd["_HeadSpmmFnBackward"].get(_kernels.SPMM_ENTRY, 0),
              "models' backward (graph attention, Longformer shape)"),
             ("B4", f"{_kernels.SPMM_ENTRY} (CSR SDDMM backward B4)",
              "spmm.cu", "sddmm_tpu/ops/csr_sddmm.py:25",

@@ -4,13 +4,15 @@ Times one launch (CUDA events over many) of ``ops/spmm.py::spmm_launch``
 under the pattern's plan with panels and with the panel path off
 (``SPMM_PANEL_REUSE`` infinite: the row groups and long rows alone), on:
 
-- the benchmark cells' SpMMs: Longformer-base's aggregation (12 heads
-  stacked block-diagonally, K = 64) and V's gradient (the transpose read
-  through ``vidx``, 12 heads a launch), MiMo-V2-Flash's full (causal) and
-  window-128 layers' aggregation (64 query heads over 4 or 8 V heads,
-  K = 128) and V's gradient (the group's query heads summed);
+- the benchmark cells' SpMMs: Longformer-base's aggregation (12 heads a
+  launch with a head stride over one copy of the mask, K = 64) and V's
+  gradient (the transpose read through ``vidx``, 12 heads a launch),
+  MiMo-V2-Flash's full (causal) and window-128 layers' aggregation (64
+  query heads over 4 or 8 V heads, K = 128) and V's gradient (the
+  group's query heads summed);
 - a sweep of banded patterns whose rows keep a share of a 512-column band
-  at random (K = 64 and 128, 12 heads), from which the break-even reuse
+  at random (K = 64 and 128, 12 heads a launch with a head stride over
+  one copy of the pattern), from which the break-even reuse
   (entries over distinct columns a panel) of ``SPMM_PANEL_REUSE`` is read.
 
 Prints one JSON line per case and the card's name and power limit.  Run on
@@ -34,7 +36,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from sddmm_tpu_torch.models.block_sparse_attention import \
     make_attention_mask  # noqa: E402
-from sddmm_tpu_torch.models.graph_attention import stacked  # noqa: E402
 from sddmm_tpu_torch.ops import spmm as sp  # noqa: E402
 
 
@@ -149,9 +150,8 @@ def plan_of_parts(plan, panels=True, tasks=True):
 
 def cells(reps):
     mask = make_attention_mask(4096, window=256, num_global=1)
-    st = stacked(mask, 12)
-    case("longformer.forward", st.row_ptr, st.col_idx, st.n, 1, 1, 1, 64,
-         reps)
+    case("longformer.forward", mask.row_ptr, mask.col_idx, mask.n, 12, 12,
+         12, 64, reps)
     t = sp.SpmmPattern(*transpose(mask.row_ptr, mask.col_idx, mask.n),
                        "cpu")
     vidx = None if t.vidx is None else t.vidx.numpy()

@@ -8,10 +8,11 @@ Imports ``sddmm_tpu_torch`` from the checkout at DIR (default: the one this
 script is in), so that one run on one card can measure two checkouts
 in turns, e.g. a parent commit unpacked with ``git archive`` into the
 git-ignored ``_checkout/``: parent, change, change, parent.  It uses only
-entry points both have: ``batched_cluster_device`` (its ``record``),
+entry points both must have: ``batched_cluster_device`` (its ``record``),
 ``segment_softmax_torch`` and ``segment_softmax_backward`` with the
-models' own per-pattern argument (``softmax_plan``, or ``long_rows``
-before it), the two attention models and ``utils.timing.cuda_time_ms``.
+models' attention core's row pointers and plan (``core.row_ptr``,
+``core.softmax_plan``), the two attention models and
+``utils.timing.cuda_time_ms``.
 The shapes (the probe matrix, alpha, the Longformer shape), the probe's
 row order and the per-launch timing come from this script's own
 ``chip_smoke.py``; the host enqueue time from ``b1_profile.py`` beside it.
@@ -169,30 +170,28 @@ def clustering(torch, pkg, cs):
     return best
 
 
-def softmax(torch, sm, kern, model, d):
+def softmax(torch, sm, kern, model, heads, d):
     from sddmm_tpu_torch.utils.timing import cuda_time_ms
-    agg, runner = model._agg, model.runner
-    plan = getattr(agg, "softmax_plan", None)
-    if plan is None:
-        plan = agg.long_rows
+    core = model.core
+    plan, runner = core.softmax_plan, core.runner
     g0 = torch.Generator(device="cuda").manual_seed(0)
     F = runner.packed.packed_size
-    flat = torch.randn((agg.heads, F), generator=g0, device="cuda") * 4
+    flat = torch.randn((heads, F), generator=g0, device="cuda") * 4
     inv, scale = runner.inv_idx32, 1.0 / d ** 0.5
-    out = torch.empty((agg.heads, inv.numel()), device="cuda")
+    out = torch.empty((heads, inv.numel()), device="cuda")
 
     def fwd(pl=plan):
-        return sm.segment_softmax_torch(flat, agg.head_row_ptr, scale, inv,
-                                        pl, out=out)
+        return sm.segment_softmax_torch(flat, core.row_ptr, scale, inv, pl,
+                                        out=out)
 
     p = fwd().clone()
     g = torch.randn(p.shape, generator=g0, device="cuda")
 
     def bwd(pl=plan):
-        return sm.segment_softmax_backward(p, g, agg.head_row_ptr, scale,
-                                           inv, F, pl)
+        return sm.segment_softmax_backward(p, g, core.row_ptr, scale, inv,
+                                           F, pl)
 
-    res = {"heads": agg.heads, "nnz": int(inv.numel()),
+    res = {"heads": heads, "nnz": int(inv.numel()),
            "forward_ms": cuda_time_ms(fwd, ITERS)["median_ms"],
            "backward_ms": cuda_time_ms(bwd, ITERS)["median_ms"],
            "forward_enqueue_ms": enqueue_ms(torch, fwd, ENQUEUE_CALLS),
@@ -204,11 +203,11 @@ def softmax(torch, sm, kern, model, d):
                                          bwd)
     if hasattr(sm, "head_group"):
         rule = sm.head_group
-        res["head_group"] = [rule(agg.heads, backward=b)
+        res["head_group"] = [rule(heads, backward=b)
                              for b in (False, True)]
         try:
-            for hg in sorted({1, 2, 3, 4, 6, agg.heads}):
-                if hg <= agg.heads:
+            for hg in sorted({1, 2, 3, 4, 6, heads}):
+                if hg <= heads:
                     sm.head_group = lambda heads, backward, hg=hg: hg
                     res[f"hg{hg}_forward_device_ms"] = device_ms(torch, fwd)
                     res[f"hg{hg}_backward_device_ms"] = device_ms(torch,
@@ -257,10 +256,10 @@ def main() -> None:
                                       num_global=lf["num_global"])
     block = models.BlockSparseAttention(mask, lf["hidden"], lf["heads"],
                                         lf["head_dim"], device="cuda")
-    out["softmax_graph"] = softmax(torch, sm, pkg._kernels, graph,
+    out["softmax_graph"] = softmax(torch, sm, pkg._kernels, graph, 1,
                                    cs.GRAPH_WIDTH)
     out["softmax_longformer"] = softmax(torch, sm, pkg._kernels, block,
-                                        lf["head_dim"])
+                                        lf["heads"], lf["head_dim"])
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps(out), flush=True)
 

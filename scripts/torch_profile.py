@@ -278,17 +278,16 @@ def main() -> None:
                 torch, lambda: graph(x_graph), args.calls))
             emit("Longformer forward", profile(
                 torch, lambda: block(x_block), args.calls))
-        for name, agg, d in () if args.training_only else (
-                ("graph", graph._agg, smoke.GRAPH_WIDTH),
-                ("Longformer", block._agg, lf["head_dim"])):
+        for name, agg, heads, d in () if args.training_only else (
+                ("graph", graph.core.agg, 1, smoke.GRAPH_WIDTH),
+                ("Longformer", block.core.agg, lf["heads"], lf["head_dim"])):
             g = torch.Generator(device="cuda").manual_seed(0)
-            w = torch.rand(agg.cols.shape[0], generator=g, device="cuda")
-            v = torch.rand((agg.num_rows, d), generator=g, device="cuda")
-            kw = {"plan": agg.plan} if hasattr(agg, "plan") else {}
+            w = torch.rand((heads, agg.cols.shape[0]), generator=g,
+                           device="cuda")
+            v = torch.rand((heads, agg.shape[1], d), generator=g,
+                           device="cuda")
             emit(f"SpMM at the {name} shape", profile(
-                torch, lambda: sp.csr_spmm_torch(
-                    w, agg.rows, agg.cols, v, agg.num_rows,
-                    row_ptr=agg.row_ptr, **kw), args.calls))
+                torch, lambda: sp.head_spmm(w, v, agg), args.calls))
     if importlib.util.find_spec("sddmm_tpu_torch.models.factorization"):
         training(torch, smoke, emit, csrs, graph, x_graph, block, x_block,
                  args.calls)

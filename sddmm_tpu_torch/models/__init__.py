@@ -1,6 +1,7 @@
 """Model families on the port's kernels: the two attention models (serving
 and training), the hybrid sliding-window and full attention stack with
-grouped-query heads (MiMo-V2-Flash's) and the factorization trainer."""
+grouped-query heads (MiMo-V2-Flash's), all three on one attention core
+(``hybrid_attention.AttentionCore``), and the factorization trainer."""
 
 from sddmm_tpu_torch.models.block_sparse_attention import (
     BlockSparseAttention, BlockSparseAttentionParams,

@@ -10,26 +10,30 @@ Longformer/BigBird pattern class).  The mask is packed once (BSMR + hybrid
 packing) and every head reuses the packing: the window packs into banded
 tiles, the global columns and rows into dense tiles or the residual.
 
-Forward pass: the heads' packed scores ``SDDMM(Q_h, K_h)`` through
+The layer runs the port's attention core (``models.hybrid_attention``:
+``AttentionCore``, ``attend``), as MiMo-V2-Flash's layers do, with K/V
+heads = H, no RoPE, no sink and V unscaled: the projections in "float32"
+on the projection GEMM (Q, K and V in one launch from x, written straight
+into the padded layouts the SDDMM and the aggregation read; the output
+projection reading the heads in place); the heads' packed scores through
 ``BatchedHybridSDDMM`` (one tile-kernel launch and one gather-dot launch
 for all heads); one segment softmax launch over all heads' rows, which
 reads the packed scores through ``inv_idx`` and scales them by 1/sqrt(D)
-in its loads; one SpMM launch that aggregates every head's V (a
-block-diagonal CSR of H copies of the mask); then the output
-projection.  The projections run in "float32" on the projection GEMM
-(``ops.project``: Q, K and V in one launch from x, written straight into
-the padded layouts the SDDMM and the aggregation read; the output
-projection reading the heads in place).  The JAX model does softmax and aggregation in
-the packed layout with sentinel segments; on the real slots this is the
-same arithmetic, summed in another order.
+in its loads; one SpMM launch that aggregates every head's V over the one
+copy of the mask with a head stride (``ops.spmm.head_spmm``).  The JAX
+model does softmax and aggregation in the packed layout with sentinel
+segments; on the real slots this is the same arithmetic, summed in
+another order.  ``make_attention_mask`` lives beside the core and is
+re-exported here under the JAX package's name.
 
 The forward is differentiable (the counterpart of ``jax.grad`` of the
 JAX model's loss): the projections through their autograd ops, whose
-backward is launches of the projection GEMM; the SDDMM, the softmax and the aggregation through their
-autograd ops, whose backward is one softmax-backward launch, one
-gather-dot launch (the attention's cotangent), one SpMM launch (V's) and
-the SDDMM's dQ and dK (``HybridSDDMM.vjp``: the tile-grad kernel and its
-reduction, and two SpMM launches for the residual), each for all heads.
+backward is launches of the projection GEMM; the SDDMM, the softmax and
+the aggregation through their autograd ops, whose backward is one
+softmax-backward launch, one gather-dot launch (the attention's
+cotangent), one SpMM launch (V's) and the SDDMM's dQ and dK
+(``HybridSDDMM.vjp``: the tile-grad kernel and its reduction, and two
+SpMM launches for the residual), each for all heads.
 """
 
 from __future__ import annotations
@@ -40,57 +44,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from sddmm_tpu_torch.data.sparse import COO, CSR
-from sddmm_tpu_torch.models.graph_attention import CSRAggregation
-from sddmm_tpu_torch.ops.batch import BatchedHybridSDDMM
+from sddmm_tpu_torch.data.sparse import CSR
+from sddmm_tpu_torch.models.hybrid_attention import (AttentionCore, attend,
+                                                     make_attention_mask)
 from sddmm_tpu_torch.ops.hybrid import HybridSDDMM
-from sddmm_tpu_torch.ops.project import out_project, qkv_project
 from sddmm_tpu_torch.utils import profiling
 
-
-def make_attention_mask(seq_len: int, window: int = 64,
-                        num_global: int = 0,
-                        causal: bool = False) -> CSR:
-    """Sliding-window (+ global-token) attention mask as a CSR pattern.
-
-    Row i attends to columns within ``window`` of i (one-sided when
-    ``causal``), to the first ``num_global`` columns, and the first
-    ``num_global`` rows attend to every column.
-    """
-    rows_l = []
-    cols_l = []
-    i = np.arange(seq_len, dtype=np.int64)
-    lo = np.maximum(i - window, 0)
-    hi = i + 1 if causal else np.minimum(i + window + 1, seq_len)
-    counts = np.maximum(hi - lo, 0)
-    rows_w = np.repeat(i, counts)
-    cols_w = (np.arange(int(counts.sum()), dtype=np.int64)
-              - np.repeat(np.cumsum(counts) - counts, counts)
-              + np.repeat(lo, counts))
-    rows_l.append(rows_w)
-    cols_l.append(cols_w)
-    if num_global:
-        g = np.arange(num_global, dtype=np.int64)
-        # every row -> global columns (clipped to the past when causal)
-        rg = np.repeat(i, num_global)
-        cg = np.tile(g, seq_len)
-        if causal:
-            keep = cg <= rg
-            rg, cg = rg[keep], cg[keep]
-        rows_l.append(rg)
-        cols_l.append(cg)
-        # global rows -> every (non-future) column
-        for gi in range(num_global):
-            reach = gi + 1 if causal else seq_len
-            rows_l.append(np.full(reach, gi, dtype=np.int64))
-            cols_l.append(np.arange(reach, dtype=np.int64))
-    rows = np.concatenate(rows_l)
-    cols = np.concatenate(cols_l)
-    keys = np.unique(rows * seq_len + cols)
-    rows = keys // seq_len
-    cols = keys % seq_len
-    return COO((seq_len, seq_len), rows, cols,
-               np.ones(len(rows), dtype=np.float32)).to_csr()
+__all__ = ["BlockSparseAttention", "BlockSparseAttentionParams",
+           "dense_reference_attention", "make_attention_mask"]
 
 
 class BlockSparseAttentionParams(NamedTuple):
@@ -116,17 +77,15 @@ class BlockSparseAttention(nn.Module):
         self.feature_dim = feature_dim
         self.num_heads = num_heads
         self.head_dim = head_dim
-        self.runner = HybridSDDMM.from_csr(mask, alpha, delta,
-                                           compute_dtype=compute_dtype,
-                                           device=device)
-        if a_layout != "rows":
-            self.runner = HybridSDDMM(self.runner.packed,
+        runner = HybridSDDMM.from_csr(mask, alpha, delta,
                                       compute_dtype=compute_dtype,
-                                      a_layout=a_layout, device=device)
-        self.device = self.runner.device
-        self.batched = BatchedHybridSDDMM(self.runner)
-        self._len = mask.m
-        self._agg = CSRAggregation(mask, self.device, heads=num_heads)
+                                      device=device)
+        if a_layout != "rows":
+            runner = HybridSDDMM(runner.packed, compute_dtype=compute_dtype,
+                                 a_layout=a_layout, device=device)
+        self.core = AttentionCore(mask, runner)
+        self.runner = runner
+        self.device = runner.device
         shape = (num_heads, feature_dim, head_dim)
         self.w_q = nn.Parameter(torch.zeros(shape, device=self.device))
         self.w_k = nn.Parameter(torch.zeros(shape, device=self.device))
@@ -162,24 +121,8 @@ class BlockSparseAttention(nn.Module):
         every kernel's plain PyTorch version (and its backward the plain
         versions' too)."""
         with profiling.span("attention.forward"):
-            H, L, D = self.num_heads, self._len, self.head_dim
-            with profiling.span("attention.project"):
-                # q_pad, k_pad (H, L+1, D) with a zero sentinel row; v (H*L, D)
-                q_pad, k_pad, v = qkv_project(x, self.w_q, self.w_k,
-                                              self.w_v, plain=plain)
-            scale = 1.0 / np.sqrt(D)
-            if plain:
-                scores = self.batched.run_padded(q_pad, k_pad, order="csr",
-                                                 plain=True)   # (H, nnz)
-                heads = self._agg.softmax_spmm_plain(
-                    (scores * scale).reshape(-1), v)
-            else:
-                flat = self.batched.run_padded(q_pad, k_pad)   # (H, F)
-                heads = self._agg.softmax_spmm(flat, v, scale,
-                                               self.runner.inv_idx32)
-            with profiling.span("attention.out"):
-                return out_project(heads.view(H, L, D), self.w_o,
-                                   plain=plain)    # (L, F)
+            return attend(self.core, x, self.w_q, self.w_k, self.w_v,
+                          self.w_o, plain=plain)
 
 
 def dense_reference_attention(params: BlockSparseAttentionParams, x,

@@ -18,7 +18,7 @@ reads, so no copy surrounds it:
 - ``qkv_project(x, w_q, w_k, w_v)`` -> ``q_pad`` (H, L+1, D), ``k_pad``
   (Hkv, L+1, D), each with a zero sentinel row L (what
   ``BatchedHybridSDDMM.run_padded`` reads), and ``v`` (Hkv*L, Dv) (what
-  ``CSRAggregation.softmax_spmm`` reads), times ``v_scale``: x (L, F) is
+  ``head_spmm`` reads), times ``v_scale``: x (L, F) is
   read once, the weights (H, F, D), (Hkv, F, D) and (Hkv, F, Dv) through
   their own pointers (Hkv = H and Dv = D but for grouped-query layers such
   as MiMo-V2-Flash's);

@@ -21,7 +21,8 @@ them.
 
 One launch runs a batch of H x C products over one pattern
 (``spmm_launch``: head and chunk strides on values, dense and out, and a
-row stride on out), which the backward passes use.  ``csr_spmm_torch`` is
+row stride on out), which the attention layers' aggregation
+(``head_spmm``) and the backward passes use.  ``csr_spmm_torch`` is
 an autograd op (B3, the VJP of ``csr_spmm_jax``): the values' cotangent is
 the gather-dot at the pattern and the dense operand's the SpMM on the
 transposed pattern.  What a pattern's backward needs (``SpmmPattern``, the
@@ -72,9 +73,9 @@ SPMM_PANEL_COLS = 32
 #: many times its distinct columns (the dense rows it reads): the
 #: break-even against the row groups on an NVIDIA H100 80GB HBM3 at 700 W,
 #: 12-13 at K = 64 and 17-18 at K = 128, on banded rows that keep a share
-#: of a 512-column band, 12 heads a launch (``scripts/spmm_panel_sweep.py
-#: --sweep``); a panel costs about its rows x distinct columns, whatever
-#: share of them holds an entry
+#: of a 512-column band, 12 heads a launch with a head stride over one copy
+#: of the pattern (``scripts/spmm_panel_sweep.py --sweep``); a panel costs
+#: about its rows x distinct columns, whatever share of them holds an entry
 SPMM_PANEL_REUSE = 18.0
 
 
@@ -662,9 +663,8 @@ class SpmmPattern:
 
 class GradPattern:
     """One pattern's backward passes, for H heads that share it (a batch
-    laid out head by head, as ``stacked`` lays out the heads' CSR).  From
-    the entries (rows[e], cols[e]) of an (m, n) pattern (any order), each
-    built at first use and then kept:
+    laid out head by head).  From the entries (rows[e], cols[e]) of an (m,
+    n) pattern (any order), each built at first use and then kept:
 
     - ``spmm``: the SpMM over the pattern (an SDDMM's dA = (g ⊙ S)·B);
     - ``spmm_t``: over its transpose (an SDDMM's dB^T, an SpMM's d dense
@@ -716,9 +716,7 @@ def pattern_grads(plan, rows: torch.Tensor, cols: torch.Tensor, shape,
     whose forward plan (``SpmmPlan`` or ``GatherPlan``) is ``plan``: kept
     on the plan as ``plan.grads``, built at its first backward from the
     index read back to the host; built for the one call where the caller
-    keeps no plan.  A caller whose entries are H heads' block-diagonal
-    copies of one pattern (``stacked``) sets ``plan.grads`` to that one
-    head's ``GradPattern`` beforehand, so the heads share it."""
+    keeps no plan."""
     grads = None if plan is None else plan.grads
     if grads is None:
         m = shape[0]
@@ -751,19 +749,15 @@ class _SpmmFn(torch.autograd.Function):
             values, dense, rows, cols = ctx.saved_tensors
             m, n = ctx.num_rows, dense.shape[0]
             grads = pattern_grads(ctx.plan, rows, cols, (m, n), dense.device)
-            heads = m // grads.shape[0]
-            K = dense.shape[1]
             g = g.contiguous()
             d_values = d_dense = None
             if ctx.needs_input_grad[0]:
-                d_values = grads.sddmm(g.view(heads, -1, K),
-                                       dense.view(heads, -1, K)).reshape(-1)
+                d_values = grads.sddmm(g[None], dense[None])[0]
             if ctx.needs_input_grad[1]:
-                d_dense = torch.empty((n, K), dtype=torch.float32,
+                d_dense = torch.empty((n, dense.shape[1]), dtype=torch.float32,
                                       device=dense.device)
-                grads.spmm_t(values.to(torch.float32).view(heads, -1),
-                             g.view(heads, 1, -1, K),
-                             d_dense.view(heads, 1, -1, K))
+                grads.spmm_t(values.to(torch.float32)[None], g[None, None],
+                             d_dense[None, None])
             return d_values, d_dense, None, None, None, None, None
 
 
@@ -795,13 +789,14 @@ def csr_spmm_torch(values: torch.Tensor, rows: torch.Tensor,
 
 
 class HeadAggregation:
-    """One pattern's aggregation for the H query heads of a grouped-query
-    layer over the Hkv heads of V: ``out[h] = S(values[h]) . V[h >> s]``
-    (``head_shift``), one SpMM launch over the pattern with a head stride,
-    so no block-diagonal copy of the pattern a head and no copy of V a
-    query head.  Built once per pattern: its CSR on the device, the
-    kernel's plan (rows grouped in ``row_order``) and the backward's
-    ``GradPattern``, whose pieces are built at the first backward."""
+    """One pattern's aggregation for the H query heads of an attention
+    layer over the Hkv heads of V (Hkv = H but in a grouped-query layer):
+    ``out[h] = S(values[h]) . V[h >> s]`` (``head_shift``), one SpMM launch
+    over the pattern with a head stride, so no copy of the pattern a head
+    and no copy of V a query head.  Built once per pattern: its CSR on the
+    device, the kernel's plan (rows grouped in ``row_order``) and the
+    backward's ``GradPattern``, whose pieces are built at the first
+    backward."""
 
     def __init__(self, csr: CSR, device, row_order=None):
         self.device = torch.device(device)

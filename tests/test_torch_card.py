@@ -1105,6 +1105,33 @@ def test_csr_sddmm_and_spmm_backward_on_card(cuda_device):
         assert res.passed and res.num_errors == 0, str(res)
 
 
+def test_longformer_layer_aggregates_in_one_launch(cuda_device):
+    """A Longformer-base-shaped layer (4096 positions, window 256, 1 global
+    token, 12 heads of 64): its forward is one SpMM launch for all heads
+    over the one copy of the mask, and that head-strided launch's output
+    equals 12 one-head launches of the same plan, bit for bit."""
+    mask = make_attention_mask(4096, window=256, num_global=1)
+    block = BlockSparseAttention(mask, 768, 12, 64, device=cuda_device)
+    block.init(torch.Generator().manual_seed(2))
+    x = torch.randn((4096, 768), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(3))
+    before = dict(_kernels.launches)
+    with torch.inference_mode():
+        block(x)
+    torch.cuda.synchronize()
+    assert _launched(before)[_kernels.SPMM_ENTRY] == 1
+    agg = block.core.agg
+    assert agg.cols.shape == (mask.nnz,)
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    p = torch.rand((12, mask.nnz), device=cuda_device, generator=gen)
+    v = torch.randn((12, 4096, 64), device=cuda_device, generator=gen)
+    with torch.inference_mode():
+        got = sp.head_spmm(p, v, agg)
+        one = torch.stack([sp.head_spmm(p[h:h + 1], v[h:h + 1], agg)[0]
+                           for h in range(12)])
+    assert torch.equal(got, one)
+
+
 def test_model_backward_launches(cuda_device):
     """A backward of each model after its forward: one softmax-backward
     launch, one gather-dot launch (the attention's cotangent), one SpMM

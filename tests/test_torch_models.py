@@ -35,6 +35,7 @@ from sddmm_tpu_torch.models import (BlockSparseAttention,
                                     make_attention_mask, segment_softmax)
 from sddmm_tpu_torch.ops.csr_sddmm import csr_sddmm_torch
 from sddmm_tpu_torch.ops.dense import DenseSDDMM
+from sddmm_tpu_torch.ops.spmm import HeadAggregation
 from torch_native_ready import reference_native_loaded  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -199,6 +200,23 @@ def test_block_sparse_attention_panels_layout():
     np.testing.assert_allclose(got.numpy(), np.asarray(jm(params, x)),
                                rtol=RTOL, atol=ATOL)
     assert torch.equal(got, plain)
+
+
+def test_attention_layers_hold_one_copy_of_the_mask():
+    """The block-sparse layer of 2 heads and the graph layer aggregate
+    through their attention core's ``HeadAggregation``, one copy of the
+    mask for all heads: as many column ids as the mask has entries, not
+    heads times that."""
+    mask, _, _, _, model = _block_case(False)
+    adj, F, D, _, _ = _graph_case("powerlaw200")
+    layer = GraphAttentionLayer(_tcsr(adj), feature_dim=F, head_dim=D,
+                                device="cpu")
+    assert model.num_heads == 2
+    for m, pattern in ((model, mask), (layer, adj)):
+        agg = m.core.agg
+        assert isinstance(agg, HeadAggregation)
+        assert agg.shape == pattern.shape
+        assert agg.cols.shape == (pattern.nnz,)
 
 
 def test_interop_rejects_wrong_shapes():

@@ -151,7 +151,7 @@ def test_csr_spmm_gradient_guard():
     """Once a guard that raised; now csr_spmm_torch is an autograd op: the
     values' cotangent is dOut[row] . dense[col], dense's is S^T . dOut
     (the same backward with or without a plan, which keeps the pattern's
-    GradPattern, or one set for a block-diagonal pattern's head); without
+    GradPattern, or one the caller set beforehand); without
     grad mode nothing is recorded, and a backward over an out-of-range row
     id raises."""
     v, r, c = torch.ones(4), torch.tensor([0, 0, 1, 1]), torch.tensor(
