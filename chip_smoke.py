@@ -26,13 +26,14 @@ its time:
    a plan and without; the CSR SpMM kernel against its plain version on
    random patterns with empty rows and one very long row, at K in (8, 64,
    128); the segment softmax kernel and its backward against their plain
-   versions (the split rows also against the split-row combine's plain
-   counterpart; the backward entry by entry, each to the size of its
-   terms, and 0 in the padding slots) on random patterns (every 7th row empty, one row of
-   200,000 entries) at H in (1, 12), from packed scores through an
-   ``inv_idx`` and from CSR-order scores, two runs bit-equal, and at 12
-   heads each row class of the kernel's plan (8-lane groups, warps, split
-   rows) timed alone, forward and backward;
+   versions (the long rows also against their plain counterpart in the
+   kernel's order of sums; the backward entry by entry, each to the size
+   of its terms, and 0 in the padding slots) on random patterns (every
+   7th row empty, one row of 200,000 entries) at H in (1, 12), from
+   packed scores through an ``inv_idx`` and from CSR-order scores, two
+   runs bit-equal, and at 12
+   heads each row class of the kernel's plan (8-lane groups, warps, block
+   rows, split rows) timed alone, forward and backward;
 4b. MiMo-V2-Flash's attention layers (``models.HybridAttentionStack``):
    one full layer (causal, 64 query heads over 4 key/value heads) and one
    window layer (a causal band of 128 keys with a learned sink, over 8) at
@@ -627,11 +628,11 @@ def softmax_case(torch, rng, heads):
 
 def check_softmax(torch, sm, rng, card):
     """The segment softmax kernel and its backward against their plain
-    versions (the split rows also against the split-row combine's plain
-    counterpart), from packed scores through inv_idx and from CSR-order
-    scores, at SOFTMAX_HEADS; a second run bit-equal; at 12 heads each row
-    class timed alone, forward and backward.  Returns (max |kernel -
-    plain| / plain, max abs)."""
+    versions (the long rows also against their plain counterpart in the
+    kernel's order of sums), from packed scores through inv_idx and from
+    CSR-order scores, at SOFTMAX_HEADS; a second run bit-equal; at 12
+    heads each row class timed alone, forward and backward.  Returns
+    (max |kernel - plain| / plain, max abs)."""
     worst_rel = worst_abs = 0.0
     for heads in SOFTMAX_HEADS:
         row_ptr, inv, flat = softmax_case(torch, rng, heads)

@@ -146,10 +146,10 @@ def _entry_points() -> dict:
     spmm = [p, i64, p, p, i32, p, p, p, p, i64, p, i64, i64, i64, p, i64,
             i64, i64, i32, i32, i32, i32, i32, i32, p, i64, p, p, p, p, i32,
             p]
-    softmax = [p, i64, p, p, p, i64, i64, i64, ctypes.c_float, p, i64, i32,
-               i32, p, p, i64, p]
-    softmax_bwd = [p, i64, p, i64, p, p, p, i64, i64, i64, ctypes.c_float, p,
-                   i64, i32, i32, p, p, i64, p]
+    softmax = [p, i64, p, p, p, i64, i64, i64, i64, ctypes.c_float, p, i64,
+               i32, i32, i32, p, p, i64, p]
+    softmax_bwd = [p, i64, p, i64, p, p, p, i64, i64, i64, i64,
+                   ctypes.c_float, p, i64, i32, i32, i32, p, p, i64, p]
     tile_grad = [p, i64, i64, p, i64, i64, i64, p, i64, p, p, p, p, i64,
                  i64, p, p, i64, i32, i32, i32, i32, i32, p]
     tile_grad_reduce = [p, i64, i32, p, p, i64, i64, p, i64, p, i64, i64,

@@ -25,21 +25,34 @@
 //   short rows (<= 128 entries, the graph's 86 on average): a group of 8
 //     lanes, four rows a warp;
 //   rows up to 640 entries: a warp;
-//   longer rows (a global token's 4096, a graph hub's 200,000): split over
-//     a thread block cluster of 8 blocks, one piece each; each block's
-//     (max, sum) is combined with the others' through distributed shared
-//     memory, every block taking the 8 in rank order, so no block walks a
-//     hub row alone and no second launch is needed.  Only a plan with
-//     split rows is launched as clusters (cudaLaunchKernelEx with a cluster
-//     dimension); the others take a plain launch, their grid not rounded
-//     to whole clusters.
+//   rows up to 4096 entries (a causal mask's rows, a global token's): a
+//     thread block, 16 entries a thread in registers, each read once;
+//     its max and sum by the warps' xor trees and then the 8 warps in
+//     order, two barriers a head.  A block takes a row for a group of
+//     `block_heads` heads of its grid.y group (ops/softmax.py::
+//     block_head_group), so a long row's heads spread over several
+//     blocks; the plan puts the longest rows first;
+//   longer rows (a graph hub's 200,000): split over a thread block
+//     cluster of 8 blocks, one piece each; each block's (max, sum) is
+//     combined with the others' through distributed shared memory, every
+//     block taking the 8 in rank order, so no block walks a hub row alone
+//     and no second launch is needed.  Only a plan with split rows is
+//     launched as clusters (cudaLaunchKernelEx with a cluster dimension);
+//     the others take a plain launch, their grid not rounded to whole
+//     clusters.
+// A cluster walks its row's heads with two cluster barriers and a second
+// read of the scores a head: at 641-4096 entries (MiMo's full causal
+// layer) that ran at 10 % of the byte bound, where the block's one read
+// into registers needs neither (PERF.md §6).
 // The forward's lane holds its entries' scores in registers, each read
 // once; a warp's lanes take consecutive entries, so its loads of inv_idx
 // and its stores are whole 128-byte lines and the gathers through inv_idx
 // stay as coalesced as the packing allows; it reads inv_idx again for each
 // head (holding it, or taking 16-byte chunks of 4 entries a lane, made the
 // Longformer forward 1.4-2.5x slower on the card: 120-208 registers, and
-// gathers 4x less coalesced; PERF.md §6).  The backward's lane takes
+// gathers 4x less coalesced; a block row's 16 a thread held took the
+// kernel from 48 to 80 registers, its warp rows 26 % and its block rows
+// 6 % slower; PERF.md §6).  The backward's lane takes
 // 16-byte chunks: p and g load as float4, and its entries' inv_idx (int4)
 // stay in registers for every head of its group.  A forward's group walks
 // every head, a backward's half of them (ops/softmax.py::head_group, the
@@ -47,6 +60,8 @@
 // Every sum is taken in a fixed order (a lane's entries in order, an xor
 // tree, a block's warps in order, a cluster's blocks in rank order), with
 // no atomics: the result is deterministic.  An empty row writes nothing.
+// The block rows' order in PyTorch ops: ops/softmax.py::block_softmax_plain
+// and block_softmax_backward_plain.
 //
 // Backward (a second entry point, sddmm_segment_softmax_backward_float32).
 // Replaces the VJP that jax.value_and_grad builds of segment_softmax as the
@@ -57,8 +72,8 @@
 // zeroed, at inv_idx (the transpose of the forward's fused gather: the
 // padding slots keep 0), or at e without inv_idx.  The same plan and the
 // same shape as the forward: a lane's p and g in registers, the row sum of
-// p * g by the same fixed trees (a cluster for a split row, in two passes),
-// the writes at inv_idx.
+// p * g by the same fixed trees (a block row's in one pass, a cluster for
+// a split row in two), the writes at inv_idx.
 // Bytes: p and g read once, one value written per entry.
 //
 // Sink (both entry points; none where the pointers are null: an instance
@@ -93,6 +108,9 @@ constexpr int kWarpSlots = 640;  // entries a warp takes
 constexpr int kSubChunks = (kSubSlots + 3 + 4 * kSubLanes - 1) /
                            (4 * kSubLanes);
 constexpr int kWarpChunks = (kWarpSlots + 3 + 4 * 32 - 1) / (4 * 32);
+constexpr int kBlockSlots = kThreads * 16;  // entries a block row takes
+constexpr int kBlockChunks = (kBlockSlots + 3 + 4 * kThreads - 1) /
+                             (4 * kThreads);
 constexpr int kCluster = 8;      // blocks a split row
 constexpr int kSubRows = kWarps * (32 / kSubLanes);  // short rows a block
 
@@ -118,8 +136,15 @@ __device__ __forceinline__ void piece(long long e0, long long e1, int rank,
 // block finds its work.
 struct Plan {
   const long long* rows;
-  long long n_sub, n_warp, n_split;
+  long long n_sub, n_warp, n_block, n_split;
 };
+
+// blocks a block row takes in a grid.y group of head_group heads: one for
+// each block_heads of them
+__host__ __device__ __forceinline__ int block_groups(int head_group,
+                                                    int block_heads) {
+  return (head_group + block_heads - 1) / block_heads;
+}
 
 // The rows' sink (null logit: none): the logits (heads,), the forward's
 // p_sink (heads, m) and the backward's d_rows (heads, m), m rows a head
@@ -139,11 +164,48 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
+// The max and the sum over a row's G lanes: an xor tree for a group of a
+// warp or less; for a block (G = kThreads), each warp's tree, then every
+// thread reads the warps' results in order, after a barrier.  Each head
+// uses one of two buffers by its parity: the buffer a head writes was
+// last read before the previous head's barrier.
+template <int G>
+__device__ __forceinline__ float row_max(float v, int parity) {
+  constexpr int W = G < 32 ? G : 32;
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(kFull, v, o, W));
+  if constexpr (G > 32) {
+    __shared__ float part[2][kWarps];
+    if (threadIdx.x % 32 == 0) part[parity][threadIdx.x / 32] = v;
+    __syncthreads();
+    v = part[parity][0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) v = fmaxf(v, part[parity][w]);
+  }
+  return v;
+}
+
+template <int G>
+__device__ __forceinline__ float row_sum(float v, int parity) {
+  v = group_sum<G < 32 ? G : 32>(v);
+  if constexpr (G > 32) {
+    __shared__ float part[2][kWarps];
+    if (threadIdx.x % 32 == 0) part[parity][threadIdx.x / 32] = v;
+    __syncthreads();
+    v = part[parity][0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) v += part[parity][w];
+  }
+  return v;
+}
+
 // The forward of one row for heads [h0, h1), by a group of G lanes (the
-// whole warp calls it together; an empty row [e0, e0) writes nothing):
-// lane `lane` takes entries e0 + i * G + lane (i < C), so a warp's loads
-// and stores take consecutive entries; its scores in registers, each read
-// once; the group's max and sum by xor trees.
+// whole warp, or for G = kThreads the whole block, calls it together; an
+// empty row [e0, e0) writes nothing): lane `lane` takes entries e0 + i * G
+// + lane (i < C), so a warp's loads and stores take consecutive entries;
+// its scores in registers, each read once; the group's max and sum by
+// row_max and row_sum.
 template <int G, int C, bool kSink>
 __device__ void softmax_row(const float* __restrict__ scores,
                             long long s_head, const int* __restrict__ inv_idx,
@@ -167,9 +229,7 @@ __device__ void softmax_row(const float* __restrict__ scores,
       }
       mx = fmaxf(mx, x[i]);
     }
-#pragma unroll
-    for (int o = G / 2; o > 0; o >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o, G));
+    mx = row_max<G>(mx, h & 1);
     float b = -INFINITY;
     if constexpr (kSink) {
       b = sink.logit[h];
@@ -183,7 +243,7 @@ __device__ void softmax_row(const float* __restrict__ scores,
         sum += x[i];
       }
     }
-    sum = group_sum<G>(sum);
+    sum = row_sum<G>(sum, h & 1);
     if constexpr (kSink) sum += expf(b - mx);
     const float denom = fmaxf(sum, 1e-30f);
 #pragma unroll
@@ -230,10 +290,10 @@ __device__ __forceinline__ void load_index(const int* __restrict__ inv_idx,
   }
 }
 
-// The backward of one row for heads [h0, h1), by a group of G lanes, chunk
-// i * G + lane of the row's chunks from e0 & ~3 a lane's i-th: p and g in
-// registers, each read once, the row sum of p * g by an xor tree, written
-// at inv_idx.
+// The backward of one row for heads [h0, h1), by a group of G lanes (a
+// block for G = kThreads), chunk i * G + lane of the row's chunks from
+// e0 & ~3 a lane's i-th: p and g in registers, each read once, the row sum
+// of p * g by row_sum, written at inv_idx.
 template <int G, int C, bool kSink>
 __device__ void softmax_bwd_row(const float* __restrict__ p, long long p_head,
                                 const float* __restrict__ g, long long g_head,
@@ -278,7 +338,7 @@ __device__ void softmax_bwd_row(const float* __restrict__ p, long long p_head,
 #pragma unroll
       for (int c = 0; c < 4; ++c) dot = fmaf(pv[i][c], gv[i][c], dot);
     }
-    dot = group_sum<G>(dot);
+    dot = row_sum<G>(dot, h & 1);
     if constexpr (kSink)
       if (e1 > e0 && lane == 0)
         sink.d_rows[h * sink.m + r] = -sink.p_in[h * sink.m + r] * dot;
@@ -369,22 +429,51 @@ __device__ void backward_rows(const float* __restrict__ p, long long p_head,
       o_head, h0, h1, lane, sink, r);
 }
 
+// A block row's block: the k-th of the plan's block rows for heads [g0,
+// g1) of its grid.y group [h0, h1), from b, its index among the block
+// rows' blocks (block_groups of them a row).
+struct BlockTask {
+  long long r;
+  int g0, g1;
+};
+
+__device__ __forceinline__ BlockTask block_task(const Plan& plan, long long b,
+                                                int h0, int h1,
+                                                int head_group,
+                                                int block_heads) {
+  const int per_row = block_groups(head_group, block_heads);
+  const int g0 = h0 + (int)(b % per_row) * block_heads;
+  return {plan.rows[plan.n_sub + plan.n_warp + b / per_row], g0,
+          min(h1, g0 + block_heads)};
+}
+
 template <bool kSink>
 __global__ void __launch_bounds__(kThreads)
 segment_softmax_kernel(const float* __restrict__ scores, long long s_head,
                        const int* __restrict__ inv_idx,
                        const long long* __restrict__ row_ptr, Plan plan,
                        float scale, float* __restrict__ out, long long o_head,
-                       int heads, int head_group, Sink sink) {
+                       int heads, int head_group, int block_heads,
+                       Sink sink) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int h0 = blockIdx.y * head_group, h1 = min(heads, h0 + head_group);
   const long long split_blocks = plan.n_split * kCluster;
+  const long long block_blocks =
+      plan.n_block * block_groups(head_group, block_heads);
   const long long sub_blocks = (plan.n_sub + kSubRows - 1) / kSubRows;
   const long long bx = blockIdx.x;
-  if (bx >= split_blocks) {
+  if (bx >= split_blocks + block_blocks) {
     forward_rows<kSink>(scores, s_head, inv_idx, row_ptr, plan,
-                        bx - split_blocks, sub_blocks, scale, out, o_head, h0,
-                        h1, sink);
+                        bx - split_blocks - block_blocks, sub_blocks, scale,
+                        out, o_head, h0, h1, sink);
+    return;
+  }
+  if (bx >= split_blocks) {  // a block row
+    const BlockTask t = block_task(plan, bx - split_blocks, h0, h1,
+                                   head_group, block_heads);
+    softmax_row<kThreads, kBlockSlots / kThreads, kSink>(
+        scores, s_head, inv_idx, row_ptr[t.r], row_ptr[t.r + 1], scale, out,
+        o_head, t.g0, t.g1, threadIdx.x, sink, t.r);
     return;
   }
   // a split row over the cluster
@@ -392,7 +481,8 @@ segment_softmax_kernel(const float* __restrict__ scores, long long s_head,
   __shared__ float part[2][2];  // this block's (max, sum), by head parity
   __shared__ float wm[kWarps], ws[kWarps], total[2];
   const int rank = (int)cluster.block_rank();
-  const long long r = plan.rows[plan.n_sub + plan.n_warp + bx / kCluster];
+  const long long r =
+      plan.rows[plan.n_sub + plan.n_warp + plan.n_block + bx / kCluster];
   long long a, b;
   piece(row_ptr[r], row_ptr[r + 1], rank, a, b);
   for (int h = h0; h < h1; ++h) {
@@ -457,16 +547,27 @@ segment_softmax_backward_kernel(const float* __restrict__ p, long long p_head,
                                 const long long* __restrict__ row_ptr,
                                 Plan plan, float scale,
                                 float* __restrict__ out, long long o_head,
-                                int heads, int head_group, Sink sink) {
+                                int heads, int head_group, int block_heads,
+                                Sink sink) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int h0 = blockIdx.y * head_group, h1 = min(heads, h0 + head_group);
   const long long split_blocks = plan.n_split * kCluster;
+  const long long block_blocks =
+      plan.n_block * block_groups(head_group, block_heads);
   const long long sub_blocks = (plan.n_sub + kSubRows - 1) / kSubRows;
   const long long bx = blockIdx.x;
-  if (bx >= split_blocks) {
+  if (bx >= split_blocks + block_blocks) {
     backward_rows<kSink>(p, p_head, g, g_head, inv_idx, row_ptr, plan,
-                         bx - split_blocks, sub_blocks, scale, out, o_head,
-                         h0, h1, sink);
+                         bx - split_blocks - block_blocks, sub_blocks, scale,
+                         out, o_head, h0, h1, sink);
+    return;
+  }
+  if (bx >= split_blocks) {  // a block row
+    const BlockTask t = block_task(plan, bx - split_blocks, h0, h1,
+                                   head_group, block_heads);
+    softmax_bwd_row<kThreads, kBlockChunks, kSink>(
+        p, p_head, g, g_head, inv_idx, row_ptr[t.r], row_ptr[t.r + 1], scale,
+        out, o_head, t.g0, t.g1, threadIdx.x, sink, t.r);
     return;
   }
   cg::cluster_group cluster = cg::this_cluster();
@@ -474,7 +575,8 @@ segment_softmax_backward_kernel(const float* __restrict__ p, long long p_head,
   __shared__ float wsum[kWarps];
   __shared__ float total;
   const int rank = (int)cluster.block_rank();
-  const long long r = plan.rows[plan.n_sub + plan.n_warp + bx / kCluster];
+  const long long r =
+      plan.rows[plan.n_sub + plan.n_warp + plan.n_block + bx / kCluster];
   long long a, b;
   piece(row_ptr[r], row_ptr[r + 1], rank, a, b);
   for (int h = h0; h < h1; ++h) {
@@ -510,35 +612,40 @@ segment_softmax_backward_kernel(const float* __restrict__ p, long long p_head,
   cluster.sync();
 }
 
-// blocks of a launch over the plan: a cluster a split row, then the short
-// rows' and the other rows' blocks, rounded up to whole clusters where
-// there are split rows; -1 if the grid is too large
-long long plan_blocks(long long n_sub, long long n_warp, long long n_split) {
-  const long long blocks = n_split * kCluster +
-                           (n_sub + kSubRows - 1) / kSubRows +
-                           (n_warp + kWarps - 1) / kWarps;
-  const long long whole =
-      n_split ? (blocks + kCluster - 1) / kCluster * kCluster : blocks;
+// blocks of a launch over the plan: a cluster a split row, block_groups
+// blocks a block row, then the short rows' and the other rows' blocks,
+// rounded up to whole clusters where there are split rows; -1 if the grid
+// is too large
+long long plan_blocks(const Plan& plan, int head_group, int block_heads) {
+  const long long blocks =
+      plan.n_split * kCluster +
+      plan.n_block * block_groups(head_group, block_heads) +
+      (plan.n_sub + kSubRows - 1) / kSubRows +
+      (plan.n_warp + kWarps - 1) / kWarps;
+  const long long whole = plan.n_split
+                              ? (blocks + kCluster - 1) / kCluster * kCluster
+                              : blocks;
   return whole > 2147483647LL ? -1 : whole;
 }
 
 // Launches `kernel` over the plan's grid: as clusters of kCluster blocks
 // where the plan has split rows, else a plain launch.  Returns the
 // launch's error code (cudaErrorInvalidValue for a grid over 2^31 - 1
-// blocks or over 65535 groups of heads), the error state cleared.
+// blocks or over 65535 groups of heads, or a count or a group below 1),
+// the error state cleared.
 template <typename... Params, typename... Args>
-int launch_plan(void (*kernel)(Params...), long long n_sub, long long n_warp,
-                long long n_split, int heads, int head_group, void* stream,
+int launch_plan(void (*kernel)(Params...), const Plan& plan, int heads,
+                int head_group, int block_heads, void* stream,
                 Args... args) {
-  const long long blocks = plan_blocks(n_sub, n_warp, n_split);
-  const int groups = head_group > 0 ? (heads + head_group - 1) / head_group
-                                    : 0;
-  if (blocks < 0 || n_sub < 0 || n_warp < 0 || n_split < 0 || groups < 1 ||
-      groups > 65535)
+  if (plan.n_sub < 0 || plan.n_warp < 0 || plan.n_block < 0 ||
+      plan.n_split < 0 || head_group < 1 || block_heads < 1)
     return (int)cudaErrorInvalidValue;
+  const long long blocks = plan_blocks(plan, head_group, block_heads);
+  const int groups = (heads + head_group - 1) / head_group;
+  if (blocks < 0 || groups > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks, (unsigned)groups);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!n_split) {
+  if (!plan.n_split) {
     kernel<<<grid, kThreads, 0, st>>>(args...);
     return (int)cudaGetLastError();
   }
@@ -560,51 +667,53 @@ int launch_plan(void (*kernel)(Params...), long long n_sub, long long n_warp,
 
 }  // namespace
 
-// C interface (ctypes).  The wrapper (ops/softmax.py::segment_softmax_torch)
-// has checked shapes, dtypes and devices: scores (heads, *) fp32 with head
+// C interface (ctypes).  The wrapper (ops/softmax.py::softmax_launch) has
+// checked shapes, dtypes and devices: scores (heads, *) fp32 with head
 // stride s_head and, where inv_idx is null, the entries in CSR order;
 // inv_idx (nnz,) int32 or null; row_ptr (m+1,) int64, non-decreasing;
 // plan_rows int64, the plan's short rows (n_sub, 1..128 entries), then the
-// rows of 129..640 entries (n_warp), then the longer rows (n_split), every
-// non-empty row once; out (heads, nnz) fp32 with head stride o_head;
-// head_group the heads a row's group walks (grid.y: their groups); sink
-// (heads,) fp32 or null, and then p_sink (heads, m) fp32 written (see
-// Sink).  Returns launch_plan's error code.
+// rows of 129..640 entries (n_warp), then those of 641..4096 (n_block),
+// then the longer rows (n_split), every non-empty row once; out (heads,
+// nnz) fp32 with head stride o_head; head_group the heads a row's group
+// walks (grid.y: their groups), block_heads the heads of its group a block
+// row's block takes; sink (heads,) fp32 or null, and then p_sink (heads,
+// m) fp32 written (see Sink).  Returns launch_plan's error code.
 extern "C" int sddmm_segment_softmax_float32(
     const float* scores, long long s_head, const int* inv_idx,
     const long long* row_ptr, const long long* plan_rows, long long n_sub,
-    long long n_warp, long long n_split, float scale, float* out,
-    long long o_head, int heads, int head_group, const float* sink,
-    float* p_sink, long long m, void* stream) {
-  if (heads <= 0 || n_sub + n_warp + n_split <= 0) return 0;
+    long long n_warp, long long n_block, long long n_split, float scale,
+    float* out, long long o_head, int heads, int head_group, int block_heads,
+    const float* sink, float* p_sink, long long m, void* stream) {
+  if (heads <= 0 || n_sub + n_warp + n_block + n_split <= 0) return 0;
+  const Plan plan{plan_rows, n_sub, n_warp, n_block, n_split};
   return launch_plan(sink ? segment_softmax_kernel<true>
                           : segment_softmax_kernel<false>,
-                     n_sub, n_warp, n_split, heads,
-                     head_group, stream, scores, s_head, inv_idx, row_ptr,
-                     Plan{plan_rows, n_sub, n_warp, n_split}, scale, out,
-                     o_head, heads, head_group,
+                     plan, heads, head_group, block_heads, stream, scores,
+                     s_head, inv_idx, row_ptr, plan, scale, out, o_head,
+                     heads, head_group, block_heads,
                      Sink{sink, p_sink, nullptr, nullptr, m});
 }
 
 // C interface of the backward (ctypes), checked by the wrapper
-// (ops/softmax.py::segment_softmax_backward): p and g (heads, nnz) fp32 in
-// CSR order with head strides p_head and g_head; inv_idx (nnz,) int32 or
-// null; row_ptr and the plan as in the forward; out fp32 with head stride
+// (ops/softmax.py::softmax_launch): p and g (heads, nnz) fp32 in CSR order
+// with head strides p_head and g_head; inv_idx (nnz,) int32 or null;
+// row_ptr and the plan as in the forward; out fp32 with head stride
 // o_head, (heads, F) and zeroed where inv_idx is given, else (heads, nnz);
 // p_sink (heads, m) the forward's, or null, and then d_rows (heads, m)
 // written.  Returns launch_plan's error code.
 extern "C" int sddmm_segment_softmax_backward_float32(
     const float* p, long long p_head, const float* g, long long g_head,
     const int* inv_idx, const long long* row_ptr, const long long* plan_rows,
-    long long n_sub, long long n_warp, long long n_split, float scale,
-    float* out, long long o_head, int heads, int head_group,
-    const float* p_sink, float* d_rows, long long m, void* stream) {
-  if (heads <= 0 || n_sub + n_warp + n_split <= 0) return 0;
+    long long n_sub, long long n_warp, long long n_block, long long n_split,
+    float scale, float* out, long long o_head, int heads, int head_group,
+    int block_heads, const float* p_sink, float* d_rows, long long m,
+    void* stream) {
+  if (heads <= 0 || n_sub + n_warp + n_block + n_split <= 0) return 0;
+  const Plan plan{plan_rows, n_sub, n_warp, n_block, n_split};
   return launch_plan(d_rows ? segment_softmax_backward_kernel<true>
                             : segment_softmax_backward_kernel<false>,
-                     n_sub, n_warp, n_split,
-                     heads, head_group, stream, p, p_head, g, g_head, inv_idx,
-                     row_ptr, Plan{plan_rows, n_sub, n_warp, n_split}, scale,
-                     out, o_head, heads, head_group,
+                     plan, heads, head_group, block_heads, stream, p, p_head,
+                     g, g_head, inv_idx, row_ptr, plan, scale, out, o_head,
+                     heads, head_group, block_heads,
                      Sink{nullptr, nullptr, p_sink, d_rows, m});
 }

@@ -22,6 +22,13 @@ max and denominator as one more entry with no value, and its gradient is
 ``-sum_rows p_sink * sum_row p * g``; the kernel's entry points take the
 sink as an optional pointer (null: the plain softmax, as above).
 
+The kernel takes a row by its length (``softmax_plan``): a group of 8
+lanes, a warp, a thread block (the rows of a causal mask, 641 to 4096
+entries) or a cluster of 8 blocks (a graph hub); the block and cluster
+rows' plain counterparts in the kernel's order of sums are
+``block_softmax_plain`` and ``split_softmax_plain`` (and their
+backward).
+
 ``segment_softmax_torch`` is an autograd op (B2, the VJP of
 ``segment_softmax`` as the models apply it): from the saved probabilities
 p and the cotangent g, both (H, nnz) in CSR order,
@@ -49,9 +56,17 @@ from sddmm_tpu_torch.utils import profiling
 #: rows of up to this many entries are a group of 8 lanes in the kernel
 #: (csrc/segment_softmax.cu: 16 entries a lane)
 SOFTMAX_SUB_ROW = 128
-#: rows with more entries than this are split over a cluster of blocks
-#: (the others are a warp each: 20 entries a lane)
+#: rows with more entries than this are long: a thread block each, or
+#: split over a cluster of blocks (the others are a warp each: 20 entries
+#: a lane)
 SOFTMAX_LONG_ROW = 640
+#: threads of the kernel's block; a block row's thread takes entries t,
+#: t + 256, ... (16 at most), a block row's backward 4-entry chunks
+SOFTMAX_BLOCK_THREADS = 256
+#: long rows of up to this many entries are a thread block each, their
+#: entries in registers (16 a thread: the kernel's most); longer ones are
+#: split over a cluster
+SOFTMAX_BLOCK_ROW = 4096
 #: blocks a split row's cluster takes, one piece each
 SOFTMAX_SPLIT = 8
 
@@ -79,9 +94,13 @@ def segment_softmax(scores: torch.Tensor, rows: torch.Tensor,
 
 def find_long_rows(row_ptr) -> np.ndarray:
     """(n,) int64: the rows longer than ``SOFTMAX_LONG_ROW`` entries (the
-    kernel's split rows)."""
+    kernel's block and split rows)."""
     return np.flatnonzero(np.diff(np.asarray(row_ptr, dtype=np.int64))
                           > SOFTMAX_LONG_ROW).astype(np.int64)
+
+
+#: the plan's row classes, in the order of its rows
+CLASSES = ("short", "warp", "block", "split")
 
 
 @dataclasses.dataclass
@@ -89,26 +108,32 @@ class SoftmaxPlan:
     """The kernel's rows by class, built once per pattern
     (``softmax_plan``): ``rows`` int64 on the device, the short rows (1 to
     ``SOFTMAX_SUB_ROW`` entries, ``n_sub``), then those up to
-    ``SOFTMAX_LONG_ROW`` (``n_warp``), then the longer ones (``n_split``);
-    empty rows are in none."""
+    ``SOFTMAX_LONG_ROW`` (``n_warp``), then those up to
+    ``SOFTMAX_BLOCK_ROW`` (``n_block``, the longest first), then the
+    longer ones (``n_split``); empty rows are in none.  ``entries``: the
+    entries of each class's rows, in that order."""
     rows: torch.Tensor
     n_sub: int
     n_warp: int
+    n_block: int
     n_split: int
+    entries: tuple
+
+    def counts(self) -> tuple:
+        """The rows of each class: (n_sub, n_warp, n_block, n_split)."""
+        return self.n_sub, self.n_warp, self.n_block, self.n_split
 
     def by_class(self) -> dict:
         """The plan cut into its row classes, each a plan of that class's
-        rows alone: {"short": .., "warp": .., "split": ..} (a class with no
-        rows left out)."""
+        rows alone: {"short": .., "warp": .., "block": .., "split": ..}
+        (a class with no rows left out)."""
         parts, o = {}, 0
-        for i, (name, n) in enumerate((("short", self.n_sub),
-                                       ("warp", self.n_warp),
-                                       ("split", self.n_split))):
+        for i, (name, n) in enumerate(zip(CLASSES, self.counts())):
             if n:
-                counts = [0, 0, 0]
-                counts[i] = n
+                counts, entries = [0] * 4, [0] * 4
+                counts[i], entries[i] = n, self.entries[i]
                 parts[name] = SoftmaxPlan(self.rows[o:o + n].contiguous(),
-                                          *counts)
+                                          *counts, tuple(entries))
             o += n
         return parts
 
@@ -122,17 +147,37 @@ def head_group(heads: int, backward: bool) -> int:
     return max(1, -(-heads // 2) if backward else heads)
 
 
+#: the heads of its grid.y group a block row's block takes, forward and
+#: backward (``scripts/softmax_class_sweep.py``; PERF.md §6)
+SOFTMAX_BLOCK_HEADS = (16, 32)
+
+
+def block_head_group(heads: int, backward: bool) -> int:
+    """The heads a block row's block takes in the kernel, of its grid.y
+    group of ``head_group`` heads (the group's other heads go to more
+    blocks of the same row)."""
+    return max(1, min(heads, SOFTMAX_BLOCK_HEADS[backward]))
+
+
 def softmax_plan(row_ptr, device) -> SoftmaxPlan:
     """The kernel's plan of the pattern ``row_ptr`` (m+1,) on ``device``
     (its rows contiguous int64, as the kernel reads them)."""
+    if not SOFTMAX_LONG_ROW <= SOFTMAX_BLOCK_ROW <= 16 * SOFTMAX_BLOCK_THREADS:
+        raise ValueError(f"softmax_plan: a block row takes "
+                         f"{SOFTMAX_LONG_ROW + 1} to "
+                         f"{16 * SOFTMAX_BLOCK_THREADS} entries, not "
+                         f"{SOFTMAX_BLOCK_ROW}")
     lens = np.diff(np.asarray(row_ptr, dtype=np.int64))
-    sub = np.flatnonzero((lens > 0) & (lens <= SOFTMAX_SUB_ROW))
-    warp = np.flatnonzero((lens > SOFTMAX_SUB_ROW)
-                          & (lens <= SOFTMAX_LONG_ROW))
-    split = find_long_rows(row_ptr)
-    rows = np.concatenate([sub, warp, split]).astype(np.int64)
-    return SoftmaxPlan(torch.as_tensor(rows, device=device), len(sub),
-                       len(warp), len(split))
+    edges = (0, SOFTMAX_SUB_ROW, SOFTMAX_LONG_ROW, SOFTMAX_BLOCK_ROW)
+    parts = [np.flatnonzero((lens > lo) & (lens <= hi))
+             for lo, hi in zip(edges, edges[1:])]
+    parts.append(np.flatnonzero(lens > SOFTMAX_BLOCK_ROW))
+    # the longest block rows first, so that the grid ends on short ones
+    parts[2] = parts[2][np.argsort(-lens[parts[2]], kind="stable")]
+    rows = np.concatenate(parts).astype(np.int64)
+    return SoftmaxPlan(torch.as_tensor(rows, device=device),
+                       *(len(p) for p in parts),
+                       tuple(int(lens[p].sum()) for p in parts))
 
 
 def _pieces(n: int):
@@ -174,19 +219,79 @@ def split_softmax_backward_plain(p: torch.Tensor, g: torch.Tensor,
     return scale * (p * (g - dot[:, None]))
 
 
+def _block_sum(v: torch.Tensor) -> torch.Tensor:
+    """The kernel's block sum of v (H, 256), a value a thread: each
+    warp's xor tree (lane l adds lane l ^ o's value, o = 16, 8, .., 1),
+    then the 8 warps' sums in order."""
+    lane = torch.arange(32, device=v.device)
+    w = v.reshape(v.shape[0], -1, 32)
+    for o in (16, 8, 4, 2, 1):
+        w = w + w[..., lane ^ o]
+    total = w[:, 0, 0]
+    for k in range(1, w.shape[1]):
+        total = total + w[:, k, 0]
+    return total
+
+
+def block_softmax_plain(x: torch.Tensor) -> torch.Tensor:
+    """The block rows' softmax of ``x`` (H, n), one row of H heads (n up
+    to ``SOFTMAX_BLOCK_ROW``), as the kernel's block takes it: thread t's
+    sum of exp(x - max) over entries t, t + 256, .. in order, then the
+    block sum (``_block_sum``), ``exp(x - max) / max(sum, 1e-30)``."""
+    T = SOFTMAX_BLOCK_THREADS
+    heads, n = x.shape
+    e = torch.exp(x - x.amax(dim=1, keepdim=True))
+    slots = torch.zeros((heads, -(-n // T) * T), dtype=x.dtype,
+                        device=x.device)
+    slots[:, :n] = e
+    slots = slots.view(heads, -1, T)
+    part = slots[:, 0]
+    for i in range(1, slots.shape[1]):
+        part = part + slots[:, i]
+    return e / _block_sum(part).clamp_min(1e-30)[:, None]
+
+
+def block_softmax_backward_plain(p: torch.Tensor, g: torch.Tensor,
+                                 scale: float, start: int) -> torch.Tensor:
+    """The block rows' backward of one row (H, n) that starts at entry
+    ``start`` of the CSR order, as the kernel's block takes it: the row's
+    4-entry chunks from ``start & ~3``, thread t's chunks t, t + 256, ..,
+    its sum of p * g over them in order, each term fused into the sum
+    (float64 products, exact, rounded to fp32 once a term), then the block
+    sum (``_block_sum``), ``scale * p * (g - sum)``."""
+    T = SOFTMAX_BLOCK_THREADS
+    heads, n = p.shape
+    off = start % 4
+    width = -(-(off + n) // (4 * T)) * 4 * T
+    pp = torch.zeros((heads, width), dtype=torch.float64, device=p.device)
+    gg = torch.zeros_like(pp)
+    pp[:, off:off + n], gg[:, off:off + n] = p, g
+    terms = (pp * gg).view(heads, -1, T, 4)
+    part = torch.zeros((heads, T), dtype=p.dtype, device=p.device)
+    for i in range(terms.shape[1]):
+        for c in range(4):
+            part = (part.double() + terms[:, i, :, c]).to(p.dtype)
+    dot = _block_sum(part)
+    return scale * (p * (g - dot[:, None]))
+
+
 def segment_softmax_split_plain(flat: torch.Tensor, row_ptr: torch.Tensor,
                                 scale: float = 1.0,
                                 inv_idx: Optional[torch.Tensor] = None
                                 ) -> torch.Tensor:
-    """``segment_softmax_plain`` with the split rows (longer than
-    ``SOFTMAX_LONG_ROW``) taken piece by piece as the kernel's cluster
-    combines them (``split_softmax_plain``): the plain counterpart of the
-    split-row combine."""
+    """``segment_softmax_plain`` with the long rows (longer than
+    ``SOFTMAX_LONG_ROW``) taken as the kernel takes them: a block row in
+    the block's order (``block_softmax_plain``), a split row piece by
+    piece as the kernel's cluster combines them (``split_softmax_plain``):
+    the plain counterpart of the long rows' sums."""
     out = segment_softmax_plain(flat, row_ptr, scale, inv_idx)
     x = _csr_scores(flat, inv_idx) * scale
     rp = row_ptr.tolist()
     for r in find_long_rows(rp).tolist():
-        out[:, rp[r]:rp[r + 1]] = split_softmax_plain(x[:, rp[r]:rp[r + 1]])
+        a, b = rp[r], rp[r + 1]
+        take = (block_softmax_plain if b - a <= SOFTMAX_BLOCK_ROW
+                else split_softmax_plain)
+        out[:, a:b] = take(x[:, a:b])
     return out
 
 
@@ -197,13 +302,20 @@ def segment_softmax_backward_split_plain(p: torch.Tensor, g: torch.Tensor,
                                          = None,
                                          size: Optional[int] = None
                                          ) -> torch.Tensor:
-    """``segment_softmax_backward_plain`` with the split rows' sums taken
-    piece by piece in rank order (``split_softmax_backward_plain``)."""
+    """``segment_softmax_backward_plain`` with the long rows' sums taken
+    as the kernel takes them: a block row's in the block's order
+    (``block_softmax_backward_plain``), a split row's piece by piece in
+    rank order (``split_softmax_backward_plain``)."""
     d = segment_softmax_backward_plain(p, g, row_ptr, scale)
     rp = row_ptr.tolist()
     for r in find_long_rows(rp).tolist():
         a, b = rp[r], rp[r + 1]
-        d[:, a:b] = split_softmax_backward_plain(p[:, a:b], g[:, a:b], scale)
+        if b - a <= SOFTMAX_BLOCK_ROW:
+            d[:, a:b] = block_softmax_backward_plain(p[:, a:b], g[:, a:b],
+                                                     scale, a)
+        else:
+            d[:, a:b] = split_softmax_backward_plain(p[:, a:b], g[:, a:b],
+                                                     scale)
     if inv_idx is None:
         return d
     out = torch.zeros((p.shape[0], size), dtype=d.dtype, device=d.device)
@@ -367,18 +479,40 @@ def segment_softmax_backward(p: torch.Tensor, g: torch.Tensor,
         return out if d_rows is None else (out, d_rows.sum(dim=1))
     row_ptr = row_ptr.contiguous()
     inv_idx = inv_idx.contiguous() if inv_idx is not None else None
-    with torch.cuda.device(p.device):
-        _kernels.launch(_kernels.SOFTMAX_BWD_ENTRY, p.data_ptr(),
-                        p.stride(0), g.data_ptr(), g.stride(0),
-                        inv_idx.data_ptr() if inv_idx is not None else None,
-                        row_ptr.data_ptr(), plan.rows.data_ptr(), plan.n_sub,
-                        plan.n_warp, plan.n_split, float(scale),
-                        out.data_ptr(), out.stride(0), heads,
-                        head_group(heads, backward=True),
-                        None if p_sink is None else p_sink.data_ptr(),
-                        None if d_rows is None else d_rows.data_ptr(), m,
-                        torch.cuda.current_stream().cuda_stream)
+    softmax_launch(plan, (p, g), row_ptr, scale, out, inv_idx, p_sink,
+                   d_rows)
     return out if d_rows is None else (out, d_rows.sum(dim=1))
+
+
+def softmax_launch(plan: SoftmaxPlan, ins: tuple, row_ptr: torch.Tensor,
+                   scale: float, out: torch.Tensor,
+                   inv_idx: Optional[torch.Tensor] = None,
+                   sink: Optional[torch.Tensor] = None,
+                   sink_out: Optional[torch.Tensor] = None) -> None:
+    """One launch of the kernel over ``plan``, its arguments checked by
+    the caller: the forward with ``ins`` = (scores,), ``sink`` the logits
+    and ``sink_out`` p_sink, or the backward with ``ins`` = (p, g),
+    ``sink`` p_sink and ``sink_out`` the rows' gradient (each pair None
+    without a sink); the heads are ``out``'s.  While spans are on, the
+    plan's entries by class, times the heads, go to
+    ``profiling.count_softmax``."""
+    backward = len(ins) == 2
+    heads = out.shape[0]
+    if profiling.active():
+        profiling.count_softmax(heads * sum(plan.entries),
+                                heads * plan.entries[2],
+                                heads * plan.entries[3])
+    with torch.cuda.device(out.device):
+        _kernels.launch(
+            _kernels.SOFTMAX_BWD_ENTRY if backward else _kernels.SOFTMAX_ENTRY,
+            *(a for t in ins for a in (t.data_ptr(), t.stride(0))),
+            None if inv_idx is None else inv_idx.data_ptr(),
+            row_ptr.data_ptr(), plan.rows.data_ptr(), *plan.counts(),
+            float(scale), out.data_ptr(), out.stride(0), heads,
+            head_group(heads, backward), block_head_group(heads, backward),
+            None if sink is None else sink.data_ptr(),
+            None if sink_out is None else sink_out.data_ptr(),
+            row_ptr.shape[0] - 1, torch.cuda.current_stream().cuda_stream)
 
 
 class _SoftmaxFn(torch.autograd.Function):
@@ -526,18 +660,7 @@ def _softmax_forward(flat, row_ptr, scale, inv_idx, plan, out, sink=None,
         return done
     row_ptr = row_ptr.contiguous()
     inv_idx = inv_idx.contiguous() if inv_idx is not None else None
-    with torch.cuda.device(flat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _kernels.launch(_kernels.SOFTMAX_ENTRY, flat.data_ptr(),
-                        flat.stride(0),
-                        inv_idx.data_ptr() if inv_idx is not None else None,
-                        row_ptr.data_ptr(), plan.rows.data_ptr(), plan.n_sub,
-                        plan.n_warp, plan.n_split, float(scale),
-                        out.data_ptr(), out.stride(0), heads,
-                        head_group(heads, backward=False),
-                        None if sink is None else sink.data_ptr(),
-                        None if p_sink is None else p_sink.data_ptr(), m,
-                        stream)
+    softmax_launch(plan, (flat,), row_ptr, scale, out, inv_idx, sink, p_sink)
     return done
 
 

@@ -32,6 +32,10 @@ spans and the hand kernels' launch counter.  The port's counterpart of
   entries each launch sends down the kernel's panel path and all the
   entries it sums, over its heads and chunks (``count_spmm``): how often
   the panel path engages.
+- The softmax counter: while spans are on, ``ops.softmax.softmax_launch``
+  adds the entries each launch (forward or backward) takes, over its
+  heads, all and those of its block rows and of its split rows
+  (``count_softmax``): how often the block rows engage.
 - ``records()``, ``summary()``, ``clear()``: the table resolved span by
   span, summed by name, and emptied.  The table holds what every capture
   since the last ``clear`` recorded; it keeps at most ``MAX_RECORDS``
@@ -175,6 +179,7 @@ class _Table:
             self.launches = 0
             self.launch_ns = 0
             self.spmm = [0, 0, 0]
+            self.softmax = [0, 0, 0, 0]
 
     def stack(self) -> list:
         try:
@@ -227,6 +232,13 @@ class _Table:
             self.spmm[0] += 1
             self.spmm[1] += panel_entries
             self.spmm[2] += entries
+
+    def count_softmax(self, entries: int, block: int, split: int) -> None:
+        with self.lock:
+            self.softmax[0] += 1
+            self.softmax[1] += entries
+            self.softmax[2] += block
+            self.softmax[3] += split
 
 
 _TABLE = _Table()
@@ -300,6 +312,12 @@ def count_spmm(panel_entries: int, entries: int) -> None:
     _TABLE.count_spmm(panel_entries, entries)
 
 
+def count_softmax(entries: int, block: int, split: int) -> None:
+    """Add one softmax launch that takes ``entries`` entries, ``block`` of
+    them in block rows and ``split`` in split rows."""
+    _TABLE.count_softmax(entries, block, split)
+
+
 def clear() -> None:
     """Empty the table and the counters."""
     _TABLE.clear()
@@ -347,9 +365,11 @@ def summary() -> dict:
     none was measured), ``parents`` {parent name: count}}}, ``launch``
     {``count``, ``host_ms``} (the hand-kernel launch calls), ``spmm``
     {``launches``, ``panel_entries``, ``entries``, ``panel_share`` (None
-    before any entry)} (the SpMM launches) and ``dropped`` (spans past
-    ``MAX_RECORDS``).  Pooled over every capture since the last
-    ``clear``."""
+    before any entry)} (the SpMM launches), ``softmax`` {``launches``,
+    ``entries``, ``block_entries``, ``split_entries``, ``block_share``
+    (None before any entry)} (the softmax launches, forward and backward)
+    and ``dropped`` (spans past ``MAX_RECORDS``).  Pooled over every
+    capture since the last ``clear``."""
     recs = records()
     by_id = {r["id"]: r for r in recs}
     nested_ns = collections.Counter()
@@ -381,8 +401,12 @@ def summary() -> dict:
         launch = {"count": _TABLE.launches,
                   "host_ms": _TABLE.launch_ns / 1e6}
         n, panel, entries = _TABLE.spmm
+        sm_n, sm_entries, sm_block, sm_split = _TABLE.softmax
         dropped = _TABLE.dropped
     spmm = {"launches": n, "panel_entries": panel, "entries": entries,
             "panel_share": panel / entries if entries else None}
+    softmax = {"launches": sm_n, "entries": sm_entries,
+               "block_entries": sm_block, "split_entries": sm_split,
+               "block_share": sm_block / sm_entries if sm_entries else None}
     return {"spans": spans, "launch": launch, "spmm": spmm,
-            "dropped": dropped}
+            "softmax": softmax, "dropped": dropped}

@@ -689,11 +689,12 @@ def test_softmax_kernel_matches_plain(packed, heads, cuda_device):
 
 def _boundary_case(rng, heads, device):
     """Rows about the kernel's class boundaries (8-lane groups up to 128
-    entries, a warp up to 640, a cluster of 8 blocks above), each after
-    0 to 3 empty rows, and one 200,000-entry row:
+    entries, a warp up to 640, a block up to 4096, a cluster of 8 blocks
+    above), each after 0 to 3 empty rows, and one 200,000-entry row:
     (row_ptr, inv_idx, packed scores, lengths)."""
     lens = []
-    for n in (1, 3, 4, 5, 127, 128, 129, 130, 639, 640, 641, 642, 4096):
+    for n in (1, 3, 4, 5, 127, 128, 129, 130, 639, 640, 641, 642, 4095,
+              4096, 4097, 4098):
         for pad in range(4):
             lens += [pad, n]
     lens += [200000, 7]
@@ -722,7 +723,9 @@ def test_softmax_class_boundaries_match_plain(packed, heads, cuda_device,
     if not packed:
         flat, inv = flat[:, inv.long()].contiguous(), None
     plan = sm.softmax_plan(row_ptr.cpu().numpy(), cuda_device)
-    assert plan.n_split == int((deg > sm.SOFTMAX_LONG_ROW).sum())
+    assert plan.n_split == int((deg > sm.SOFTMAX_BLOCK_ROW).sum())
+    assert plan.n_block == int(((deg > sm.SOFTMAX_LONG_ROW)
+                                & (deg <= sm.SOFTMAX_BLOCK_ROW)).sum())
     assert plan.n_sub == int(((deg > 0)
                               & (deg <= sm.SOFTMAX_SUB_ROW)).sum())
     n = dict(_kernels.launches)
@@ -742,10 +745,13 @@ def test_softmax_class_boundaries_match_plain(packed, heads, cuda_device,
                                                flat.shape[1])
     torch.cuda.synchronize()
     assert torch.equal(got, again) and torch.equal(d, d2)
-    # any grouping of the heads computes each head alike, bit for bit
-    for hg in (2, 5, heads):
+    # any grouping of the heads computes each head alike, bit for bit,
+    # the block rows' blocks taking any number of a group's heads
+    for hg, bh in ((2, 1), (5, 2), (heads, 3), (heads, heads)):
         monkeypatch.setattr(sm, "head_group",
                             lambda heads, backward, hg=hg: min(hg, heads))
+        monkeypatch.setattr(sm, "block_head_group",
+                            lambda heads, backward, bh=bh: min(bh, heads))
         assert torch.equal(sm.segment_softmax_torch(flat, row_ptr, 0.125,
                                                     inv, plan), got)
         assert torch.equal(sm.segment_softmax_backward(
@@ -763,6 +769,99 @@ def test_softmax_class_boundaries_match_plain(packed, heads, cuda_device,
         assert not d.any()
 
 
+def _block_case(rng, heads, device):
+    """Block rows (641 to 4096 entries: the edges and lengths at random)
+    after 0 to 2 empty rows each, a few warp and short rows, and a
+    5000-entry hub past the block rows in the same plan: (row_ptr,
+    inv_idx into packed scores with spare slots, packed scores,
+    lengths)."""
+    lens = [641, 642, 4095, 4096, 5000, 300, 7]
+    lens += rng.integers(641, 4097, 24).tolist()
+    deg = []
+    for i, n in enumerate(lens):
+        deg += [0] * (i % 3) + [n]
+    deg = np.array(deg)
+    row_ptr = np.r_[0, np.cumsum(deg)]
+    nnz = int(row_ptr[-1])
+    inv = rng.permutation(nnz + 1000)[:nnz]
+    flat = torch.tensor(rng.standard_normal((heads, nnz + 1000)) * 4,
+                        dtype=torch.float32, device=device)
+    return (torch.tensor(row_ptr, device=device),
+            torch.tensor(inv, dtype=torch.int32, device=device), flat, deg)
+
+
+@pytest.mark.parametrize("sink", [False, True], ids=["plain", "sink"])
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "csr"])
+def test_softmax_block_rows_match_plain(packed, sink, cuda_device):
+    """The block rows (641 to 4096 entries) against the plain versions,
+    forward and backward, with and without inv_idx and the sink, 40 heads
+    (the block rows' blocks take 16, 16 and 8 of the forward's 40 and 16
+    and 4 of each backward group's 20): within SOFTMAX_REL of the plain
+    softmax and of the block's order of sums (``block_softmax_plain`` and
+    its backward), bit-equal on a second run, one launch each; the output
+    written exactly on its entries, the packed gradient 0 in the padding
+    slots; the sink's p_sink and gradient against the plain route's."""
+    heads, scale = 40, 0.125
+    rng = np.random.default_rng(50 + 2 * packed + sink)
+    row_ptr, inv, flat, deg = _block_case(rng, heads, cuda_device)
+    if not packed:
+        flat, inv = flat[:, inv.long()].contiguous(), None
+    plan = sm.softmax_plan(row_ptr.cpu().numpy(), cuda_device)
+    assert (plan.n_block, plan.n_split) == (int(((deg > 640)
+                                                 & (deg <= 4096)).sum()), 1)
+    nnz = int(deg.sum())
+    logits = (torch.randn(heads, device=cuda_device,
+                          generator=torch.Generator(cuda_device).manual_seed(
+                              5)) * 2 if sink else None)
+    g = torch.randn((heads, nnz), generator=torch.Generator(
+        device=cuda_device).manual_seed(6), device=cuda_device)
+    runs, n = [], dict(_kernels.launches)
+    for _ in range(2):
+        x = flat.clone().requires_grad_()
+        s = None if logits is None else logits.clone().requires_grad_()
+        p = sm.segment_softmax_sink(x, s, row_ptr, scale, inv, plan)
+        p.backward(g)
+        runs.append((p.detach(), x.grad, None if s is None else s.grad))
+    assert _launched(n) == {_kernels.SOFTMAX_ENTRY: 2,
+                            _kernels.SOFTMAX_BWD_ENTRY: 2}
+    for a, b in zip(*runs):
+        assert a is None or torch.equal(a, b)
+    p, d, d_sink = runs[0]
+    x = flat.clone().requires_grad_()
+    s = None if logits is None else logits.clone().requires_grad_()
+    want = sm.segment_softmax_sink(x, s, row_ptr, scale, inv, plan,
+                                   plain=True)
+    want.backward(g)
+    torch.cuda.synchronize()
+    assert ((p - want).abs() / want).max().item() <= SOFTMAX_REL
+    size = flat.shape[1]
+    slots = (inv.long() if inv is not None
+             else torch.arange(nnz, device=cuda_device))
+    assert sm.backward_rel_err(d[:, slots], x.grad[:, slots], p, g, row_ptr,
+                               scale) <= SOFTMAX_REL
+    if inv is not None:
+        pad = torch.ones(size, dtype=torch.bool, device=cuda_device)
+        pad[slots] = False
+        assert pad.any() and not d[:, pad].any()
+    if sink:
+        assert float((d_sink - s.grad).norm() / s.grad.norm()) \
+            <= SOFTMAX_REL
+        return
+    order = sm.segment_softmax_split_plain(flat, row_ptr, scale, inv)
+    assert ((p - order).abs() / order).max().item() <= SOFTMAX_REL
+    order_d = sm.segment_softmax_backward_split_plain(p, g, row_ptr, scale,
+                                                      inv, size)
+    assert sm.backward_rel_err(d[:, slots], order_d[:, slots], p, g,
+                               row_ptr, scale) <= SOFTMAX_REL
+    # the forward writes exactly its entries
+    buf = torch.full((heads, nnz + 7), -7.0, device=cuda_device)
+    sm.segment_softmax_torch(flat, row_ptr, scale, inv, plan,
+                             out=buf[:, 3:3 + nnz])
+    torch.cuda.synchronize()
+    assert (buf[:, :3] == -7.0).all() and (buf[:, 3 + nnz:] == -7.0).all()
+    assert torch.equal(buf[:, 3:3 + nnz], p)
+
+
 def test_softmax_refused_launch_raises(cuda_device):
     """A plan whose grid the card cannot take (over 2^31 - 1 blocks): the
     C entry refuses the launch, the wrapper raises and counts nothing."""
@@ -774,9 +873,16 @@ def test_softmax_refused_launch_raises(cuda_device):
     with pytest.raises(RuntimeError, match="cudaError"):
         _kernels.launch(_kernels.SOFTMAX_ENTRY, flat.data_ptr(),
                         flat.stride(0), inv.data_ptr(), row_ptr.data_ptr(),
-                        plan.rows.data_ptr(), 0, 0, 2 ** 31, 1.0,
-                        out.data_ptr(), out.stride(0), 1, 1, None, None, 0,
-                        torch.cuda.current_stream().cuda_stream)
+                        plan.rows.data_ptr(), 0, 0, 0, 2 ** 31, 1.0,
+                        out.data_ptr(), out.stride(0), 1, 1, 1, None, None,
+                        0, torch.cuda.current_stream().cuda_stream)
+    # and a block row's 2^31 blocks
+    with pytest.raises(RuntimeError, match="cudaError"):
+        _kernels.launch(_kernels.SOFTMAX_ENTRY, flat.data_ptr(),
+                        flat.stride(0), inv.data_ptr(), row_ptr.data_ptr(),
+                        plan.rows.data_ptr(), 0, 0, 2 ** 30, 0, 1.0,
+                        out.data_ptr(), out.stride(0), 2, 2, 1, None, None,
+                        0, torch.cuda.current_stream().cuda_stream)
     assert _kernels.launches[_kernels.SOFTMAX_ENTRY] == n
     with pytest.raises(TypeError, match="SoftmaxPlan"):
         sm.segment_softmax_torch(flat, row_ptr, 1.0, inv,
@@ -1670,7 +1776,9 @@ def test_spans_on_card_time_the_stages_and_parent_the_backward(
     assert profiling.summary() == {"spans": {}, "launch": {
         "count": 0, "host_ms": 0.0}, "spmm": {
         "launches": 0, "panel_entries": 0, "entries": 0,
-        "panel_share": None}, "dropped": 0}
+        "panel_share": None}, "softmax": {
+        "launches": 0, "entries": 0, "block_entries": 0,
+        "split_entries": 0, "block_share": None}, "dropped": 0}
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]):

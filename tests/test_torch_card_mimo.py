@@ -147,6 +147,40 @@ def test_sink_softmax_forward_and_backward(kind, cuda_device):
         assert float(rows.max()) < 1.0
 
 
+def test_full_layer_softmax_at_4096_against_fp64(cuda_device):
+    """The full layer's softmax at the cell's L = 4096, forward and
+    backward through the kernel, against the plain route in float64: the
+    causal rows of 641 to 4096 entries (97.6 % of the entries) take the
+    block rows, every head of them."""
+    n_pos, scale = 4096, D ** -0.5
+    st = HybridAttentionStack(n_pos, ["full"], [KINDS["full"]], F, H, D, DV,
+                              R, 0.707, device=cuda_device)
+    core = st.cores["full"]
+    plan = core.softmax_plan
+    assert plan.counts() == (128, 512, 3456, 0)
+    assert plan.entries[2] / sum(plan.entries) > 0.975
+    gen = torch.Generator(cuda_device).manual_seed(11)
+    flat = torch.randn((H, core.runner.packed.packed_size),
+                       device=cuda_device, generator=gen) * 4
+    g = torch.randn((H, core.nnz), device=cuda_device, generator=gen)
+    inv = core.runner.inv_idx32
+    x = flat.clone().requires_grad_()
+    p = sm.segment_softmax_sink(x, None, core.row_ptr, scale, inv, plan)
+    p.backward(g)
+    p, d = p.detach(), x.grad[:, inv.long()]
+    worst, err, norm = 0.0, 0.0, 0.0
+    for h0 in range(0, H, 8):
+        p64 = sm.segment_softmax_plain(flat[h0:h0 + 8].double(),
+                                       core.row_ptr, scale, inv)
+        d64 = sm.segment_softmax_backward_plain(
+            p64, g[h0:h0 + 8].double(), core.row_ptr, scale)
+        worst = max(worst, float(((p[h0:h0 + 8] - p64).abs() / p64).max()))
+        err += float((d[h0:h0 + 8].double() - d64).norm()) ** 2
+        norm += float(d64.norm()) ** 2
+    assert worst < SOFTMAX_REL
+    assert (err / norm) ** 0.5 < NORM_REL
+
+
 def test_rope_forward_and_backward(cuda_device):
     """RoPE in place on q_pad and k_pad and its inverse into new tensors,
     against the plain version (the same rounded products and sums), the

@@ -236,14 +236,14 @@ def test_build_runs_commands_together_and_raises():
     # the segment softmax and its backward bind too, so a build or bind
     # failure raises
     assert _kernels.SOFTMAX_ENTRY in eps
-    # (17 and 19 arguments since they take the plan of rows by class: its
-    # rows and three counts, the heads a group walks, and a sink: its
-    # logits and p_sink, or p_sink and the rows' gradient, and the rows;
-    # stream last)
-    assert len(eps[_kernels.SOFTMAX_ENTRY]) == 17
-    assert len(eps[_kernels.SOFTMAX_BWD_ENTRY]) == 19
-    assert eps[_kernels.SOFTMAX_ENTRY][8] is ctypes.c_float
-    assert eps[_kernels.SOFTMAX_BWD_ENTRY][10] is ctypes.c_float
+    # (19 and 21 arguments since they take the plan of rows by class: its
+    # rows and four counts, the heads a group walks and those a block
+    # row's block takes, and a sink: its logits and p_sink, or p_sink and
+    # the rows' gradient, and the rows; stream last)
+    assert len(eps[_kernels.SOFTMAX_ENTRY]) == 19
+    assert len(eps[_kernels.SOFTMAX_BWD_ENTRY]) == 21
+    assert eps[_kernels.SOFTMAX_ENTRY][9] is ctypes.c_float
+    assert eps[_kernels.SOFTMAX_BWD_ENTRY][11] is ctypes.c_float
     # the SpMM takes a value index, head and chunk strides, grouped heads
     # (the input heads an output head sums, the head shift of the dense
     # operand) and the plan's panels (five arrays, their count and the

@@ -94,7 +94,9 @@ def test_off_records_nothing_and_opens_no_record_function(monkeypatch):
     assert profiling.summary() == {"spans": {}, "launch": {
         "count": 0, "host_ms": 0.0}, "spmm": {
         "launches": 0, "panel_entries": 0, "entries": 0,
-        "panel_share": None}, "dropped": 0}
+        "panel_share": None}, "softmax": {
+        "launches": 0, "entries": 0, "block_entries": 0,
+        "split_entries": 0, "block_share": None}, "dropped": 0}
     assert profiling.records() == []
 
 
@@ -322,6 +324,62 @@ def test_spmm_counter_reports_the_panel_share(monkeypatch):
         launch(graph)
     spmm = profiling.summary()["spmm"]
     assert spmm["launches"] == 1 and spmm["panel_share"] == 0
+
+
+def test_softmax_counter_reports_the_block_share(monkeypatch):
+    """Each softmax launch, forward and backward, adds its entries by
+    class (times its heads), inside a capture only: about 0.976 of a
+    4,096-row causal mask's entries in block rows, none on Longformer's
+    window without a global token; a graph hub past the block rows
+    counts as split.  The launch itself is a stand-in here (no card)."""
+    from sddmm_tpu_torch.ops import softmax as sm
+
+    class Lib:
+        @staticmethod
+        def sddmm_segment_softmax_float32(*args):
+            return 0
+
+        @staticmethod
+        def sddmm_segment_softmax_backward_float32(*args):
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(_kernels, "load", lambda: Lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream)
+
+    def launch(row_ptr, heads=2):
+        plan = sm.softmax_plan(row_ptr, "cpu")
+        rp = torch.as_tensor(row_ptr, dtype=torch.int64)
+        x, out = torch.ones((heads, 4)), torch.empty((heads, 4))
+        sm.softmax_launch(plan, (x,), rp, 1.0, out)
+        sm.softmax_launch(plan, (x, x), rp, 1.0, out)
+        return plan
+
+    causal = np.r_[0, np.cumsum(np.arange(1, 4097))]
+    window = make_attention_mask(4096, window=256, num_global=0).row_ptr
+    launch(causal)
+    assert profiling.summary()["softmax"]["launches"] == 0
+    with _capture():
+        plan = launch(causal)
+    got = profiling.summary()["softmax"]
+    assert got == {"launches": 2, "entries": 4 * 8390656,
+                   "block_entries": 4 * 8185536, "split_entries": 0,
+                   "block_share": 8185536 / 8390656}
+    assert plan.entries[2] == 8185536 and 0.975 < got["block_share"] < 0.977
+    profiling.clear()
+    with _capture():
+        launch(window, heads=12)
+    got = profiling.summary()["softmax"]
+    assert got["launches"] == 2 and got["block_share"] == 0
+    assert got["entries"] == 2 * 12 * int(window[-1])
+    profiling.clear()
+    with _capture():
+        launch(np.array([0, 5000, 5100]), heads=1)
+    got = profiling.summary()["softmax"]
+    assert (got["split_entries"], got["block_entries"]) == (10000, 0)
 
 
 def test_table_is_capped_and_counts_what_it_drops(monkeypatch):

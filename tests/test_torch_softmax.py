@@ -175,7 +175,8 @@ def test_find_long_rows_and_rejects():
 
 
 # row lengths about the kernel's classes: empty, one entry, the graph's
-# average, the last warp row, the first split row, and a hub
+# average, the last warp row, the first block row, and a hub past the
+# block rows (a split row)
 SPLIT_CASE_LENGTHS = (0, 1, 86, 640, 641, 5000)
 
 
@@ -195,10 +196,11 @@ def _split_case(heads, seed):
 
 @pytest.mark.parametrize("heads", [1, 3])
 def test_split_row_combine_matches_jax(heads):
-    """The split rows' plain counterpart (each of the cluster's pieces'
-    (max, sum) combined in rank order; the backward's sums of p * g by
-    piece) against JAX's segment_softmax and its jax.vjp, head by head, on
-    rows of 0, 1, 86, 640, 641 and 5000 entries."""
+    """The long rows' plain counterpart (a block row's sums in the
+    block's order; a split row's pieces' (max, sum) combined in rank
+    order, the backward's sums of p * g by piece) against JAX's
+    segment_softmax and its jax.vjp, head by head, on rows of 0, 1, 86,
+    640, 641 (block) and 5000 (split) entries."""
     row_ptr, inv, flat, g = _split_case(heads, seed=heads)
     scale = 0.125
     m = len(row_ptr) - 1
@@ -219,8 +221,10 @@ def test_split_row_combine_matches_jax(heads):
         (want_d,) = vjp(jnp.asarray(g[h]))
         np.testing.assert_allclose(d[h].numpy(), np.asarray(want_d),
                                    rtol=RTOL, atol=ATOL)
-    # the split rows alone, piece by piece, against the one-piece softmax
-    for r in (4, 5):
+    # the split rows alone (past the block rows' limit), piece by piece,
+    # against the one-piece softmax
+    assert (np.diff(row_ptr)[[5, 6]] > sm.SOFTMAX_BLOCK_ROW).all()
+    for r in (5, 6):
         x = torch.from_numpy(flat[:, inv[row_ptr[r]:row_ptr[r + 1]]]) * scale
         np.testing.assert_allclose(sm.split_softmax_plain(x).numpy(),
                                    torch.softmax(x, dim=1).numpy(),
@@ -230,18 +234,32 @@ def test_split_row_combine_matches_jax(heads):
 def test_softmax_plan_classes():
     """The kernel's plan: every non-empty row once, by class (8-lane
     groups up to SOFTMAX_SUB_ROW entries, a warp up to SOFTMAX_LONG_ROW,
-    a cluster above), and the pieces of a split row cover it in order."""
+    a block up to SOFTMAX_BLOCK_ROW, the longest first, a cluster above),
+    each class's entries, and the pieces of a split row cover it in
+    order."""
     row_ptr, _, _, _ = _split_case(1, seed=0)
     plan = sm.softmax_plan(row_ptr, "cpu")
     lens = np.diff(row_ptr)
-    assert (plan.n_sub, plan.n_warp, plan.n_split) == (4, 2, 4)
+    assert plan.counts() == (4, 2, 2, 2)
+    assert plan.entries == (2 * 87, 2 * 640, 2 * 641, 2 * 5000)
     rows = plan.rows.numpy()
     assert sorted(rows.tolist()) == np.flatnonzero(lens).tolist()
     assert (lens[rows[:plan.n_sub]] <= sm.SOFTMAX_SUB_ROW).all()
-    warp = lens[rows[plan.n_sub:plan.n_sub + plan.n_warp]]
+    o = plan.n_sub
+    warp = lens[rows[o:o + plan.n_warp]]
     assert ((warp > sm.SOFTMAX_SUB_ROW) & (warp <= sm.SOFTMAX_LONG_ROW)).all()
-    assert (lens[rows[plan.n_sub + plan.n_warp:]]
-            > sm.SOFTMAX_LONG_ROW).all()
+    o += plan.n_warp
+    block = lens[rows[o:o + plan.n_block]]
+    assert ((block > sm.SOFTMAX_LONG_ROW)
+            & (block <= sm.SOFTMAX_BLOCK_ROW)).all()
+    assert (lens[rows[o + plan.n_block:]] > sm.SOFTMAX_BLOCK_ROW).all()
+    # a causal mask's block rows, the longest first
+    causal = np.r_[0, np.cumsum(np.arange(1, 4097))]
+    plan = sm.softmax_plan(causal, "cpu")
+    assert plan.counts() == (128, 512, 3456, 0)
+    assert plan.entries[2] == 8185536 and sum(plan.entries) == 8390656
+    block = plan.rows[640:].numpy()
+    assert block.tolist() == list(range(4095, 639, -1))
     for n in (641, 5000, 8, 9):
         pieces = sm._pieces(n)
         assert len(pieces) == sm.SOFTMAX_SPLIT
@@ -249,21 +267,117 @@ def test_softmax_plan_classes():
         assert all(a == b0 for (_, a), (b0, _) in zip(pieces, pieces[1:]))
 
 
+# each class's edge: its longest row and the next class's shortest
+CLASS_EDGES = {"short/warp": (128, 129), "warp/block": (640, 641),
+               "block/split": (4096, 4097)}
+
+
+@pytest.mark.parametrize("edge", list(CLASS_EDGES))
+def test_softmax_plan_class_edges(edge):
+    """A row of each class's longest length and one entry longer fall
+    in two classes, next to each other in the plan's order; the limits
+    are the kernel's (16 entries a lane of a short row's 8, 20 a lane of
+    a warp, 16 a thread of a block)."""
+    assert (sm.SOFTMAX_SUB_ROW, sm.SOFTMAX_LONG_ROW, sm.SOFTMAX_BLOCK_ROW) \
+        == (16 * 8, 20 * 32, 16 * sm.SOFTMAX_BLOCK_THREADS)
+    lo, hi = CLASS_EDGES[edge]
+    plan = sm.softmax_plan(np.r_[0, np.cumsum([hi, 0, lo, hi])], "cpu")
+    i = list(CLASS_EDGES).index(edge)
+    want = [0, 0, 0, 0]
+    want[i], want[i + 1] = 1, 2
+    assert list(plan.counts()) == want
+    assert plan.rows.tolist() == [2, 0, 3]
+    entries = [0, 0, 0, 0]
+    entries[i], entries[i + 1] = lo, 2 * hi
+    assert list(plan.entries) == entries
+
+
 def test_softmax_plan_by_class():
-    """The plan cut by class: each part holds that class's rows alone, in
-    the plan's order, and a class with no rows is left out."""
+    """The plan cut by class: each part holds that class's rows and
+    entries alone, in the plan's order, and a class with no rows is left
+    out."""
     row_ptr, _, _, _ = _split_case(1, seed=0)
     plan = sm.softmax_plan(row_ptr, "cpu")
     parts = plan.by_class()
-    assert list(parts) == ["short", "warp", "split"]
+    assert list(parts) == ["short", "warp", "block", "split"]
     assert torch.equal(torch.cat([p.rows for p in parts.values()]),
                        plan.rows)
-    for name, i in (("short", 0), ("warp", 1), ("split", 2)):
-        counts = [parts[name].n_sub, parts[name].n_warp, parts[name].n_split]
+    for i, name in enumerate(sm.CLASSES):
+        counts = parts[name].counts()
         assert counts[i] == parts[name].rows.numel()
         assert sum(counts) == counts[i]
+        assert parts[name].entries[i] == plan.entries[i]
+        assert sum(parts[name].entries) == plan.entries[i]
     short = sm.softmax_plan(np.array([0, 3, 3, 10]), "cpu").by_class()
     assert list(short) == ["short"]
+    causal = np.r_[0, np.cumsum(np.arange(1, 1001))]
+    assert list(sm.softmax_plan(causal, "cpu").by_class()) == [
+        "short", "warp", "block"]
+
+
+# block rows: the first, a partial last slot round, one round short of
+# the limit, the limit
+BLOCK_LENGTHS = (641, 1000, 3839, 4096)
+
+
+@pytest.mark.parametrize("heads", [1, 3])
+def test_block_row_order_matches_jax(heads):
+    """The block rows' plain counterpart (a thread's entries t, t + 256,
+    .. summed in order, each warp's xor tree, the warps in order; the
+    backward's 4-entry chunks from the row's aligned start) against JAX's
+    segment_softmax and its jax.vjp, head by head, at each start of a row
+    modulo 4 and the one-piece softmax; the forward's order of sums
+    against a thread-by-thread loop."""
+    rng = np.random.default_rng(20 + heads)
+    lens = np.array([1, *BLOCK_LENGTHS, 3, *BLOCK_LENGTHS[::-1], 2])
+    row_ptr = np.r_[0, np.cumsum(lens)].astype(np.int64)
+    m, nnz = len(lens), int(row_ptr[-1])
+    inv = rng.permutation(nnz + 100)[:nnz].astype(np.int32)
+    flat = (rng.standard_normal((heads, nnz + 100)) * 4).astype(np.float32)
+    g = rng.standard_normal((heads, nnz)).astype(np.float32)
+    scale = 0.125
+    rp, idx = torch.from_numpy(row_ptr), torch.from_numpy(inv)
+    plan = sm.softmax_plan(row_ptr, "cpu")
+    assert plan.n_block == 2 * len(BLOCK_LENGTHS)
+    assert sorted(row_ptr[plan.rows[plan.n_sub:].numpy()] % 4) == [
+        0, 0, 1, 1, 2, 2, 3, 3]
+    got = sm.segment_softmax_split_plain(torch.from_numpy(flat), rp, scale,
+                                         idx)
+    d = sm.segment_softmax_backward_split_plain(
+        got, torch.from_numpy(g), rp, scale, idx, flat.shape[1])
+    rows = jnp.asarray(np.repeat(np.arange(m), lens))
+    for h in range(heads):
+        def f(s):
+            return j_segment_softmax(jnp.take(s, jnp.asarray(inv)) * scale,
+                                     rows, m)
+        want, vjp = jax.vjp(f, jnp.asarray(flat[h]))
+        np.testing.assert_allclose(got[h].numpy(), np.asarray(want),
+                                   rtol=RTOL, atol=ATOL)
+        (want_d,) = vjp(jnp.asarray(g[h]))
+        np.testing.assert_allclose(d[h].numpy(), np.asarray(want_d),
+                                   rtol=RTOL, atol=ATOL)
+    x = torch.from_numpy(flat[:, inv]) * scale
+    for r in range(1, m - 1):
+        a, b = int(row_ptr[r]), int(row_ptr[r + 1])
+        one = torch.softmax(x[:, a:b], dim=1)
+        np.testing.assert_allclose(got[:, a:b].numpy(), one.numpy(),
+                                   rtol=RTOL, atol=ATOL)
+        # the forward's sums, thread by thread as the kernel adds them
+        e = torch.exp(x[:, a:b] - x[:, a:b].amax(dim=1, keepdim=True))
+        T = sm.SOFTMAX_BLOCK_THREADS
+        for hh in range(heads):
+            ev = e[hh].numpy()
+            part = np.zeros(T, np.float32)
+            for t in range(T):
+                for k in range(t, b - a, T):
+                    part[t] = np.float32(part[t] + ev[k])
+            for o in (16, 8, 4, 2, 1):
+                part = (part + part[np.arange(T) ^ o]).astype(np.float32)
+            total = np.float32(0)
+            for w in range(T // 32):
+                total = part[32 * w] if w == 0 else np.float32(
+                    total + part[32 * w])
+            assert torch.equal(got[hh, a:b], e[hh] / float(total))
 
 
 @pytest.mark.parametrize("heads", [1, 3])
